@@ -1,0 +1,75 @@
+"""Parameters from the JAX reference, as numpy arrays, into the port's state.
+
+A parameter tree is nested dicts of numpy arrays: ``{"l{i}": {"w", "b",
+"aq"}}``. A compressed weight arrives as a dict ``{values, indices[,
+scales], bz, nnz, group, shape}`` (``scales`` makes it a
+:class:`QuantDBBWeight`); ``group`` is None, ``'matrix'`` or an int, or the
+strings ``'none'`` / ``'<int>'`` as an ``.npz`` file stores them.
+
+``flatten`` / ``unflatten`` map a tree to and from the ``'/'``-joined keys of
+an ``.npz`` archive. Nothing here imports JAX.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.core.quant import QuantDBBWeight
+from repro_torch.core.vdbb import DBBFormat, DBBWeight
+
+
+def _group(v):
+    if v is None:
+        return None
+    v = np.asarray(v).item() if not isinstance(v, (str, int)) else v
+    if isinstance(v, str):
+        if v.lower() == "none":
+            return None
+        return v if v == "matrix" else int(v)
+    return int(v)
+
+
+def _leaf(v, device):
+    if isinstance(v, dict) and "values" in v:
+        fmt = DBBFormat(int(np.asarray(v["bz"])), int(np.asarray(v["nnz"])), _group(v.get("group")))
+        shape = tuple(int(s) for s in np.asarray(v["shape"]).reshape(-1))
+        values = torch.from_numpy(np.array(v["values"])).to(device)
+        indices = torch.from_numpy(np.array(v["indices"], np.int8)).to(device)
+        if "scales" in v:
+            scales = torch.from_numpy(np.array(v["scales"], np.float32)).to(device)
+            return QuantDBBWeight(values, indices, scales, fmt, shape)
+        return DBBWeight(values, indices, fmt, shape)
+    if isinstance(v, dict):
+        return {k: _leaf(x, device) for k, x in v.items()}
+    return torch.from_numpy(np.array(v)).to(device)
+
+
+def params_from_numpy(tree: dict, device) -> dict:
+    """The port's state (``SparseCNN.load_state``'s argument) on ``device``."""
+    return {k: _leaf(v, torch.device(device)) for k, v in tree.items()}
+
+
+def flatten(tree: dict, prefix: str = "") -> dict:
+    """Nested dicts -> ``{'a/b/c': array}``; ``group`` is stored as a string."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}{k}"
+        if isinstance(v, dict):
+            out.update(flatten(v, key + "/"))
+        elif k == "group":
+            out[key] = np.asarray("none" if v is None else str(v))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def unflatten(flat) -> dict:
+    """``{'a/b/c': array}`` (or an opened ``.npz``) -> nested dicts."""
+    tree: dict = {}
+    for key in flat.keys():
+        node = tree
+        *parents, leaf = key.split("/")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = np.asarray(flat[key])
+    return tree

@@ -1,0 +1,121 @@
+"""Shared pieces of the kernel layer (port of ``repro/kernels/core.py``):
+conv geometry, the accumulator dtype rule and the fused flush-epilogue plan.
+
+The TPU kernels carry an output-stationary accumulator across a sequential
+K grid axis (``os_accumulate``). On the card each thread block owns an output
+tile and loops over K itself; that loop and the flush epilogue live in
+``csrc/os_gemm.cuh`` and ``csrc/epilogue.cuh``. What stays here is what the
+host resolves before a launch.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+QMAX = 127  # symmetric int8 clip range of the requantize epilogue
+
+
+def _pair(v):
+    if isinstance(v, int):
+        return (v, v)
+    a, b = v
+    return (int(a), int(b))
+
+
+def conv_geometry(h: int, w: int, kh: int, kw: int, stride, padding):
+    """Resolve stride / padding / output size for a 2-D conv.
+
+    ``padding``: 'SAME' | 'VALID' | ((top, bottom), (left, right)). Returns
+    ``((sh, sw), ((pt, pb), (pl, pr)), (ho, wo))`` with XLA's SAME convention:
+    the extra pad row or column goes at the end.
+    """
+    sh, sw = _pair(stride)
+
+    def one(dim, k, s, pad):
+        if pad == "SAME":
+            o = -(-dim // s)
+            total = max((o - 1) * s + k - dim, 0)
+            return (total // 2, total - total // 2), o
+        if pad == "VALID":
+            if dim < k:
+                raise ValueError(f"VALID conv: dim {dim} < kernel {k}")
+            return (0, 0), (dim - k) // s + 1
+        lo, hi = pad
+        return (int(lo), int(hi)), (dim + lo + hi - k) // s + 1
+
+    if isinstance(padding, str):
+        padding = padding.upper()
+        if padding not in ("SAME", "VALID"):
+            raise ValueError(f"padding must be 'SAME', 'VALID', or explicit pairs; got {padding!r}")
+        (ph, ho), (pw, wo) = one(h, kh, sh, padding), one(w, kw, sw, padding)
+    else:
+        (ph, ho), (pw, wo) = one(h, kh, sh, padding[0]), one(w, kw, sw, padding[1])
+    if ho < 1 or wo < 1:
+        raise ValueError(f"empty conv output {(ho, wo)}")
+    return (sh, sw), (ph, pw), (ho, wo)
+
+
+def check_indices(indices: torch.Tensor, nb: int, nnz: int, n: int) -> None:
+    """Positions of a compressed weight: (nb, nnz) shared across N, or
+    (nb, nnz, N) per column. The kernels index through them unchecked."""
+    shapes = ((nb, nnz), (nb, nnz, n))
+    if tuple(indices.shape) not in shapes:
+        raise ValueError(f"indices {tuple(indices.shape)}: expected {shapes[0]} or {shapes[1]}")
+
+
+def acc_dtype_for(operand_dtype: torch.dtype) -> torch.dtype:
+    """Exact int32 for integer (int8) operands, fp32 otherwise."""
+    return torch.float32 if operand_dtype.is_floating_point else torch.int32
+
+
+@dataclasses.dataclass(frozen=True)
+class Epilogue:
+    """The fused accumulator-flush epilogue, resolved on the host: (N,) fp32
+    rows for the dequant ``scale``, the ``bias`` and the requantize
+    ``out_scale`` (each None when absent), the ReLU flag, and the output
+    dtype."""
+
+    scale: torch.Tensor | None
+    bias: torch.Tensor | None
+    out_scale: torch.Tensor | None
+    relu: bool
+    out_dtype: torch.dtype
+
+
+def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
+                  out_scale=None, acc_dtype) -> Epilogue:
+    """Rows broadcast to (n,) fp32 on ``device`` (a scalar ``out_scale``
+    broadcasts across N), and the output dtype: int8 when requantizing, fp32
+    when a scale or bias touches the accumulator, else the raw accumulator
+    dtype."""
+
+    def row(v):
+        if v is None:
+            return None
+        v = torch.as_tensor(v, dtype=torch.float32, device=device).reshape(-1)
+        return v.expand(n).contiguous()
+
+    if out_scale is not None:
+        out_dtype = torch.int8
+    elif scales is not None or bias is not None:
+        out_dtype = torch.float32
+    else:
+        out_dtype = acc_dtype
+    return Epilogue(row(scales), row(bias), row(out_scale), bool(relu), out_dtype)
+
+
+def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
+    """The plain flush, in the kernels' order: dequantize, add the bias,
+    ReLU, requantize (round half to even, clip to ±QMAX). One separate op
+    per step, so each rounds once, as the reference does."""
+    y = acc
+    if ep.scale is not None:
+        y = y.float() * ep.scale
+    if ep.bias is not None:
+        y = y.float() + ep.bias
+    if ep.relu:
+        y = torch.clamp_min(y, 0)
+    if ep.out_scale is not None:
+        y = torch.round(y.float() / ep.out_scale).clamp(-QMAX, QMAX)
+    return y.to(ep.out_dtype)

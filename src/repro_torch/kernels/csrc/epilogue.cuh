@@ -1,0 +1,48 @@
+// Accumulator-flush epilogue shared by every kernel of the port.
+//
+// Replaces the flush of repro/kernels/core.py:os_accumulate (the `_store`
+// branch): dequantize, add the bias, ReLU, requantize to int8. It runs once
+// per output element, after the K loop, in the reference's order, and each
+// step rounds once as it does there. The explicit `_rn` intrinsics are never
+// contracted into a fused multiply-add: nvcc would otherwise turn
+// `acc * scale + bias` into one FMA (its default --fmad=true), and the
+// single rounding would move int8 codes by one against the reference.
+#pragma once
+
+#include <cstdint>
+#include <type_traits>
+
+#include <cuda_runtime.h>
+
+struct EpilogueArgs {
+  const float* scale;      // (N,) dequantization scale, or nullptr
+  const float* bias;       // (N,) bias, or nullptr
+  const float* out_scale;  // (N,) requantization scale, or nullptr
+  int relu;                // clamp at zero
+};
+
+__device__ __forceinline__ float acc_to_float(int32_t v) { return __int2float_rn(v); }
+__device__ __forceinline__ float acc_to_float(float v) { return v; }
+
+// Out is int32_t only for the raw integer accumulator (ReLU at most), float
+// when a scale or bias moves the tile to fp32, int8_t when requantizing.
+template <typename Acc, typename Out>
+__device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs& ep) {
+  if constexpr (std::is_same<Out, int32_t>::value) {
+    static_assert(std::is_same<Acc, int32_t>::value, "int32 output needs an int32 accumulator");
+    return (ep.relu && acc < 0) ? 0 : acc;
+  } else {
+    float y = acc_to_float(acc);
+    if (ep.scale != nullptr) y = __fmul_rn(y, ep.scale[n]);
+    if (ep.bias != nullptr) y = __fadd_rn(y, ep.bias[n]);
+    if (ep.relu) y = fmaxf(y, 0.0f);
+    if constexpr (std::is_same<Out, int8_t>::value) {
+      // round half to even (rintf), as jnp.round does; IEEE division
+      float q = rintf(__fdiv_rn(y, ep.out_scale[n]));
+      q = fminf(fmaxf(q, -127.0f), 127.0f);
+      return static_cast<int8_t>(q);
+    } else {
+      return y;
+    }
+  }
+}

@@ -1,0 +1,72 @@
+"""Public entry points of the kernel layer (port of ``repro/kernels/ops.py``).
+
+The same entry points take fp32 or int8 operands. Integer operands run the
+exact int32 datapath and return the raw accumulator; the quantized entry
+points (:func:`quant_matmul`, :func:`quant_conv`) quantize an fp input per
+tensor, or take the previous layer's int8 codes with their scale, and fuse
+the dequantization into the flush. Every entry point takes ``bias=``,
+``relu=`` and ``out_scale=`` (requantize to int8 at the next layer's scale).
+
+Dispatch follows the weight's pattern sharing: a pattern shared across N
+runs the tc kernel; per-column or grouped patterns run the bw plain version
+on the CPU and raise ``NotImplementedError`` on CUDA.
+"""
+from __future__ import annotations
+
+from repro_torch.core.quant import QuantDBBWeight, resolve_quant_input
+from repro_torch.core.vdbb import DBBWeight
+from repro_torch.kernels import im2col_conv as _im2col
+from repro_torch.kernels import vdbb_im2col_conv as _vconv
+from repro_torch.kernels import vdbb_matmul as _vm
+
+
+def _matmul_dispatch(a, w: DBBWeight, scales, *, bias=None, relu=False, out_scale=None):
+    n = w.shape[1]
+    g = w.fmt.group_size(n)
+    kw = dict(scales=scales, bias=bias, relu=relu, out_scale=out_scale)
+    if g == n:
+        return _vm.vdbb_matmul_tc(a, w.values, w.indices[:, :, 0].contiguous(), w.fmt, **kw)
+    if a.device.type != "cpu":
+        raise NotImplementedError(_vm.BW_TODO)
+    idx = w.indices.repeat_interleave(g, dim=2) if g > 1 else w.indices
+    return _vm.vdbb_matmul_bw_plain(a, w.values, idx, w.fmt, **kw)
+
+
+def vdbb_matmul(a, w: DBBWeight, *, bias=None, relu=False, out_scale=None):
+    """A (M, K) @ compressed W (K, N) -> (M, N); int8 operands return the raw
+    int32 accumulator unless an epilogue is given."""
+    return _matmul_dispatch(a, w, None, bias=bias, relu=relu, out_scale=out_scale)
+
+
+def quant_matmul(x, qw: QuantDBBWeight, act_scale=None, *, bias=None, relu=False,
+                 out_scale=None):
+    """X (M, K) × int8 compressed W -> fp32 (M, N), or int8 with
+    ``out_scale``. ``x`` is fp (quantized at ``act_scale``, or dynamically)
+    or int8 codes with their ``act_scale``."""
+    xq, s_a = resolve_quant_input(x, act_scale)
+    return _matmul_dispatch(xq, qw.as_dbb(), s_a * qw.scales, bias=bias,
+                            relu=relu, out_scale=out_scale)
+
+
+def fused_im2col_conv(x, w, *, bias=None, relu=False, out_scale=None, stride=1,
+                      padding="SAME"):
+    """Fused im2col conv (NHWC / HWIO), dense weights, optional epilogue."""
+    return _im2col.im2col_conv(x, w, bias=bias, relu=relu, out_scale=out_scale,
+                               stride=stride, padding=padding)
+
+
+def sparse_conv(x, w: DBBWeight, kh: int, kw: int, *, bias=None, relu=False,
+                out_scale=None, stride=1, padding="SAME"):
+    """Fused IM2COL × VDBB conv over a compressed conv weight."""
+    return _vconv.vdbb_im2col_conv(x, w, kh, kw, bias=bias, relu=relu,
+                                   out_scale=out_scale, stride=stride, padding=padding)
+
+
+def quant_conv(x, qw: QuantDBBWeight, kh: int, kw: int, act_scale=None, *,
+               bias=None, relu=False, out_scale=None, stride=1, padding="SAME"):
+    """NHWC × int8 compressed conv weight -> fp32 NHWC, or int8 with
+    ``out_scale``; the conv twin of :func:`quant_matmul`."""
+    xq, s_a = resolve_quant_input(x, act_scale)
+    return _vconv.vdbb_im2col_conv(xq, qw.as_dbb(), kh, kw, scales=s_a * qw.scales,
+                                   bias=bias, relu=relu, out_scale=out_scale,
+                                   stride=stride, padding=padding)

@@ -1,0 +1,125 @@
+"""Fused IM2COL × VDBB sparse convolution (port of
+``repro/kernels/vdbb_im2col_conv.py``): the CUDA kernel
+``csrc/vdbb_conv_tc.cu`` for patterns shared across F (tc mode) and its
+plain PyTorch version.
+
+The conv weight (kh, kw, C, F) is compressed along K = kh·kw·C with
+C % bz == 0, so every block lies inside one tap; block ``b = t·cb + c//bz``.
+Per-column or grouped patterns (the TPU's bw kernel) have no CUDA kernel
+yet: on CUDA they raise, on the CPU their plain version runs.
+"""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.vdbb import DBBFormat, DBBWeight, gather_compressed
+from repro_torch.kernels import build
+from repro_torch.kernels.build import I, P
+from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices,
+                                      conv_geometry, epilogue_plan)
+from repro_torch.kernels.ref import acc_matmul, decode_values, im2col_explicit
+
+KERNEL = build.CudaKernel(
+    "vdbb_conv_tc", "vdbb_conv_tc.cu",
+    [P, P, P, P, P, P, I, P, I, I] + [I] * 15 + [P],
+    replaces="src/repro/kernels/vdbb_im2col_conv.py:60 _vdbb_conv_tc_kernel",
+)
+
+BW_TODO = ("per-column and grouped VDBB patterns (the bw conv kernel) have no "
+           "CUDA kernel yet: ROADMAP.md queue 2 item 6")
+
+
+def _conv_weight_geometry(k: int, fmt: DBBFormat, kh: int, kw: int) -> int:
+    """C of a compressed conv weight with K = kh·kw·C, checking C % bz == 0."""
+    if k % (kh * kw) != 0:
+        raise ValueError(f"K={k} not divisible by kh*kw={kh * kw}")
+    c = k // (kh * kw)
+    if c % fmt.bz != 0:
+        raise ValueError(
+            f"C={c} not divisible by bz={fmt.bz}: a DBB block would straddle "
+            "kernel taps, which the fused conv kernel does not support"
+        )
+    return c
+
+
+def _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale):
+    nb, nnz, f = values.shape
+    if nnz != fmt.nnz:
+        raise ValueError(f"values nnz={nnz} != fmt.nnz={fmt.nnz}")
+    check_indices(indices, nb, nnz, f)
+    c = _conv_weight_geometry(nb * fmt.bz, fmt, kh, kw)
+    if x.shape[-1] != c:
+        raise ValueError(f"x has C={x.shape[-1]} but weight encodes C={c}")
+    geom = conv_geometry(x.shape[1], x.shape[2], kh, kw, stride, padding)
+    ep = epilogue_plan(f, x.device, scales=scales, bias=bias, relu=relu,
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(x.dtype))
+    return geom, ep
+
+
+def vdbb_im2col_conv_tc_plain(x, values, indices, fmt, kh, kw, *, scales=None,
+                              bias=None, relu=False, out_scale=None, stride=1,
+                              padding="SAME"):
+    """Plain version: explicit im2col, the activation mux through the shared
+    pattern, one product over the compressed K, the plain flush."""
+    (_, _, (ho, wo)), ep = _plan(x, values, indices, fmt, kh, kw, stride, padding,
+                                 scales, bias, relu, out_scale)
+    nb, nnz, f = values.shape
+    cols = im2col_explicit(x, kh, kw, stride=stride, padding=padding)
+    ac = gather_compressed(cols.reshape(-1, nb * fmt.bz), indices, fmt.bz)
+    acc = acc_matmul(ac, values.reshape(nb * nnz, f))
+    return apply_epilogue(acc, ep).reshape(x.shape[0], ho, wo, f)
+
+
+def vdbb_im2col_conv_tc(x, values, indices, fmt, kh, kw, *, scales=None,
+                        bias=None, relu=False, out_scale=None, stride=1,
+                        padding="SAME"):
+    """Fused sparse conv, one pattern shared across F. x: (N, H, W, C) int8
+    or fp32; values: (nb, nnz, F) of the same dtype; indices: (nb, nnz) int8
+    with nb = kh·kw·C/bz. int8 accumulates exactly in int32. CPU tensors take
+    the plain version; CUDA tensors launch the kernel."""
+    if x.device.type == "cpu":
+        return vdbb_im2col_conv_tc_plain(
+            x, values, indices, fmt, kh, kw, scales=scales, bias=bias, relu=relu,
+            out_scale=out_scale, stride=stride, padding=padding)
+    ((sh, sw), (ph, pw), (ho, wo)), ep = _plan(
+        x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale)
+    if values.dtype != x.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
+        raise TypeError("vdbb_conv_tc: values must match x's dtype, indices be (nb, nnz) int8")
+    in_kind = build.check_operands("vdbb_conv_tc", x, values, indices, dtype=x.dtype)
+    n, h, w, c = x.shape
+    f = values.shape[-1]
+    out = torch.empty((n, ho, wo, f), dtype=ep.out_dtype, device=x.device)
+    KERNEL.launch(
+        x.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
+        build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu),
+        out.data_ptr(), in_kind, build.out_kind(ep.out_dtype), n, h, w, c, f,
+        ho, wo, kh, kw, sh, sw, ph[0], pw[0], fmt.bz, fmt.nnz, build.stream_of(x),
+    )
+    return out
+
+
+def vdbb_im2col_conv_bw_plain(x, values, indices, fmt, kh, kw, *, scales=None,
+                              bias=None, relu=False, out_scale=None, stride=1,
+                              padding="SAME"):
+    """Plain version of the per-column (bw) conv: indices (nb, nnz, F)."""
+    (_, _, (ho, wo)), ep = _plan(x, values, indices, fmt, kh, kw, stride, padding,
+                                 scales, bias, relu, out_scale)
+    nb, nnz, f = values.shape
+    cols = im2col_explicit(x, kh, kw, stride=stride, padding=padding)
+    acc = acc_matmul(cols.reshape(-1, nb * fmt.bz), decode_values(values, indices, fmt))
+    return apply_epilogue(acc, ep).reshape(x.shape[0], ho, wo, f)
+
+
+def vdbb_im2col_conv(x, dw: DBBWeight, kh: int, kw: int, **kw_args):
+    """Fused sparse conv over a compressed DBBWeight, dispatching on its
+    pattern-sharing mode: shared across F runs the tc kernel; per-column or
+    grouped patterns run the bw plain version on the CPU and raise on CUDA."""
+    f = dw.shape[1]
+    g = dw.fmt.group_size(f)
+    if g == f:
+        return vdbb_im2col_conv_tc(x, dw.values, dw.indices[:, :, 0].contiguous(),
+                                   dw.fmt, kh, kw, **kw_args)
+    if x.device.type != "cpu":
+        raise NotImplementedError(BW_TODO)
+    idx = dw.indices.repeat_interleave(g, dim=2) if g > 1 else dw.indices
+    return vdbb_im2col_conv_bw_plain(x, dw.values, idx, dw.fmt, kh, kw, **kw_args)

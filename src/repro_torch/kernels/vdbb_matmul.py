@@ -1,0 +1,76 @@
+"""VDBB sparse matmul (port of ``repro/kernels/vdbb_matmul.py``): the CUDA
+kernel ``csrc/vdbb_matmul_tc.cu`` for a pattern shared across N (tc mode)
+and its plain PyTorch version. Per-column patterns (the TPU's bw kernel)
+have no CUDA kernel yet: their plain version serves CPU tensors."""
+from __future__ import annotations
+
+import torch
+
+from repro_torch.core.vdbb import gather_compressed
+from repro_torch.kernels import build
+from repro_torch.kernels.build import I, P
+from repro_torch.kernels.core import acc_dtype_for, apply_epilogue, check_indices, epilogue_plan
+from repro_torch.kernels.ref import acc_matmul, decode_values
+
+KERNEL = build.CudaKernel(
+    "vdbb_matmul_tc", "vdbb_matmul_tc.cu",
+    [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P],
+    replaces="src/repro/kernels/vdbb_matmul.py:65 _vdbb_tc_kernel",
+)
+
+BW_TODO = ("per-column and grouped VDBB patterns (the bw matmul kernel) have no "
+           "CUDA kernel yet: ROADMAP.md queue 2 item 5")
+
+
+def _plan(a, values, indices, fmt, scales, bias, relu, out_scale):
+    m, k = a.shape
+    nb, nnz, n = values.shape
+    if nb * fmt.bz != k:
+        raise ValueError(f"K={k} != nb*bz = {nb}*{fmt.bz}")
+    if nnz != fmt.nnz:
+        raise ValueError(f"values nnz={nnz} != fmt.nnz={fmt.nnz}")
+    check_indices(indices, nb, nnz, n)
+    return epilogue_plan(n, a.device, scales=scales, bias=bias, relu=relu,
+                         out_scale=out_scale, acc_dtype=acc_dtype_for(a.dtype))
+
+
+def vdbb_matmul_tc_plain(a, values, indices, fmt, *, scales=None, bias=None,
+                         relu=False, out_scale=None):
+    """Plain version: the activation mux, one product over the compressed K,
+    the plain flush."""
+    ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
+    nb, nnz, n = values.shape
+    acc = acc_matmul(gather_compressed(a, indices, fmt.bz), values.reshape(nb * nnz, n))
+    return apply_epilogue(acc, ep)
+
+
+def vdbb_matmul_tc(a, values, indices, fmt, *, scales=None, bias=None,
+                   relu=False, out_scale=None):
+    """A (M, K) × compressed W -> (M, N). values: (nb, nnz, N) of A's dtype
+    (int8 or fp32); indices: (nb, nnz) int8, shared across N. Any M; ragged
+    edges are masked in the kernel. CPU tensors take the plain version; CUDA
+    tensors launch the kernel."""
+    if a.device.type == "cpu":
+        return vdbb_matmul_tc_plain(a, values, indices, fmt, scales=scales,
+                                    bias=bias, relu=relu, out_scale=out_scale)
+    ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
+    if values.dtype != a.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
+        raise TypeError("vdbb_matmul_tc: values must match a's dtype, indices be (nb, nnz) int8")
+    in_kind = build.check_operands("vdbb_matmul_tc", a, values, indices, dtype=a.dtype)
+    m, k = a.shape
+    n = values.shape[-1]
+    out = torch.empty((m, n), dtype=ep.out_dtype, device=a.device)
+    KERNEL.launch(
+        a.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
+        build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu),
+        out.data_ptr(), in_kind, build.out_kind(ep.out_dtype), m, k, n, fmt.bz,
+        fmt.nnz, build.stream_of(a),
+    )
+    return out
+
+
+def vdbb_matmul_bw_plain(a, values, indices, fmt, *, scales=None, bias=None,
+                         relu=False, out_scale=None):
+    """Plain version of the per-column (bw) matmul: indices (nb, nnz, N)."""
+    ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
+    return apply_epilogue(acc_matmul(a, decode_values(values, indices, fmt)), ep)

@@ -1,0 +1,194 @@
+"""SparseCNN — sparse CNN inference on the VDBB datapath (port of
+``repro/models/cnn.py``).
+
+A VGG-style stack of :class:`DBBConv2d` stages (stride 2 at the first conv
+of every stage after the first), global average pooling and a
+:class:`DBBLinear` head. The module's children are ``l0 … lN``, the
+reference's parameter keys; :meth:`compress`, :meth:`quantize` and
+:meth:`constrain` convert their state in place.
+
+Calibrated quantized state takes the int8-resident chain: the fp32 stem is
+one dense kernel whose epilogue requantizes to int8, every compressed conv
+one IM2COL × VDBB kernel from int8 codes to the next layer's int8 codes, the
+last conv flushes fp32 into global average pooling, and the quantized head
+is one GEMM kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from repro_torch.core.act_sparsity import measure_activation
+from repro_torch.core.quant import QuantDBBWeight, act_scale_from_stats
+from repro_torch.core.sparse_conv import DBBConv2d
+from repro_torch.core.sparse_linear import DBBLinear
+from repro_torch.core.vdbb import DBBFormat, DENSE
+
+
+@dataclasses.dataclass(frozen=True)
+class CNNConfig:
+    """stage_channels: output channels per stage; stage i > 0 downsamples 2×.
+    convs_per_stage: conv layers per stage (the first carries the stride)."""
+
+    name: str = "sparse-cnn"
+    in_channels: int = 3
+    image_size: int = 32
+    stage_channels: Sequence[int] = (32, 64, 128)
+    convs_per_stage: int = 2
+    kernel_size: int = 3
+    num_classes: int = 10
+    dbb: Optional[DBBFormat] = None
+
+    @property
+    def fmt(self) -> DBBFormat:
+        return self.dbb or DENSE
+
+    def param_count(self) -> int:
+        total = 0
+        for m in SparseCNN(self).layers():
+            if isinstance(m, DBBConv2d):
+                total += m.kh * m.kw * m.in_channels * m.out_channels
+            else:
+                total += m.in_features * m.out_features
+        return total
+
+
+class SparseCNN(nn.Module):
+    def __init__(self, cfg: CNNConfig):
+        super().__init__()
+        self.cfg = cfg
+        c = cfg
+        mods = []
+        prev = c.in_channels
+        for si, ch in enumerate(c.stage_channels):
+            for li in range(c.convs_per_stage):
+                stride = 2 if (si > 0 and li == 0) else 1
+                # the C=3 stem is not bz-blockable and stays dense
+                fmt = c.fmt if prev % c.fmt.bz == 0 else DENSE
+                mods.append(DBBConv2d(prev, ch, kernel_size=c.kernel_size, stride=stride,
+                                      padding="SAME", fmt=fmt, use_bias=True))
+                prev = ch
+        mods.append(DBBLinear(prev, c.num_classes, fmt=c.fmt, use_bias=True))
+        for i, m in enumerate(mods):
+            self.add_module(f"l{i}", m)
+        self.n_layers = len(mods)
+
+    def layers(self) -> list:
+        """Ordered (conv …, linear head) layer modules."""
+        return [getattr(self, f"l{i}") for i in range(self.n_layers)]
+
+    def init(self, generator: torch.Generator, device) -> "SparseCNN":
+        """Seeded random weights (drawn on the CPU, placed on ``device``),
+        projected onto the DBB constraint; zero biases. In place."""
+        for m in self.layers():
+            m.init(generator, device)
+        return self
+
+    # ------------------------------------------------------------- state
+    def state(self) -> dict:
+        """``{"l{i}": {"w", "b", "aq"}}``, the reference's parameter tree."""
+        return {f"l{i}": m.state() for i, m in enumerate(self.layers())}
+
+    def load_state(self, tree: dict) -> "SparseCNN":
+        for i, m in enumerate(self.layers()):
+            m.load_state(tree[f"l{i}"])
+        return self
+
+    # ----------------------------------------------------------- forward
+    def forward(self, x: torch.Tensor, *, collect_act_stats: bool = False,
+                intermediates: Optional[list] = None):
+        """x: (N, H, W, C) fp32 -> logits (N, num_classes).
+
+        With ``collect_act_stats`` returns ``(logits, stats)``, one
+        :class:`ActStats` per layer, measured on the activation it reads.
+        ``intermediates`` (a list) collects each conv's output.
+        """
+        layers = self.layers()
+        if not collect_act_stats and self._int8_chain_ready(layers):
+            return self._apply_int8_resident(layers, x, intermediates)
+        stats = []
+        h, w = x.shape[1], x.shape[2]
+        for i, m in enumerate(layers[:-1]):
+            if collect_act_stats:
+                stats.append(measure_activation(x, name=f"l{i}",
+                                                macs=m.flops(x.shape[0], h, w) // 2))
+                h, w = m.out_hw(h, w)
+            x = torch.relu(m(x))
+            if intermediates is not None:
+                intermediates.append(x)
+        x = x.mean(dim=(1, 2))  # global average pool
+        head = layers[-1]
+        if collect_act_stats:
+            stats.append(measure_activation(x, name=f"l{len(layers) - 1}",
+                                            macs=head.flops(x.shape[0]) // 2))
+        logits = head(x)
+        if collect_act_stats:
+            return logits, tuple(stats)
+        return logits
+
+    def _int8_chain_ready(self, layers) -> bool:
+        """True iff every compressed conv after the (fp) stem is quantized
+        with a calibrated ``aq`` and the head is quantized."""
+        any_quant = False
+        for i, m in enumerate(layers[:-1]):
+            if isinstance(m.w, QuantDBBWeight):
+                if m.aq is None:
+                    return False
+                any_quant = True
+            elif i > 0:
+                return False
+        return any_quant and isinstance(layers[-1].w, QuantDBBWeight)
+
+    def _apply_int8_resident(self, layers, x, intermediates=None):
+        """One fused kernel per layer, int8 activations in between."""
+        convs, head = layers[:-1], layers[-1]
+        n = len(convs)
+        for i, m in enumerate(convs):
+            out_scale = convs[i + 1].aq if i + 1 < n else None
+            if isinstance(m.w, QuantDBBWeight):
+                x = m.quant_serve(x, relu=True, out_scale=out_scale)
+            else:
+                x = m.dense_serve(x, relu=True, out_scale=out_scale)
+            if intermediates is not None:
+                intermediates.append(x)
+        x = x.mean(dim=(1, 2))  # global average pool over the fp32 flush
+        return head.quant_serve(x)
+
+    # ---------------------------------------------- the paper's technique
+    def constrain(self) -> "SparseCNN":
+        for m in self.layers():
+            m.constrain()
+        return self
+
+    def compress(self) -> "SparseCNN":
+        """In place: every DBB layer's dense weight becomes compressed."""
+        for m in self.layers():
+            m.compress_params()
+        return self
+
+    def quantize(self, stats=None) -> "SparseCNN":
+        """In place: INT8 serving state. ``stats`` (one :class:`ActStats`
+        per layer, from ``forward(x, collect_act_stats=True)``) calibrates
+        each layer's static activation scale; the dense stem stays fp32."""
+        layers = self.layers()
+        if stats is not None and len(stats) != len(layers):
+            raise ValueError(
+                f"calibration stats for {len(stats)} layers, model has {len(layers)}")
+        for i, m in enumerate(layers):
+            m.quantize(act_scale_from_stats(stats[i]) if stats is not None else None)
+        return self
+
+    def flops(self, batch: int) -> int:
+        """Executed MACs*2 under the time-unrolled occupancy model."""
+        h = w = self.cfg.image_size
+        total = 0
+        for m in self.layers():
+            if isinstance(m, DBBConv2d):
+                total += m.flops(batch, h, w)
+                h, w = m.out_hw(h, w)
+            else:
+                total += m.flops(batch)
+        return total

@@ -1,0 +1,147 @@
+"""The port's CUDA kernels on a card, each against its plain PyTorch version
+on the same inputs: int8 and int32 results exactly, fp32 within
+rtol = atol = 1e-5 (summation order differs), requantized codes from an
+fp32 accumulator within one code on at most 0.1 % of entries.
+
+Every test here is marked ``cuda`` and skips without a card. The file
+imports neither JAX nor the JAX package, so it runs where only the port is
+installed:
+
+    python -m pytest -m cuda tests/test_torch_cuda.py
+"""
+import dataclasses
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import smoke_cnn_config
+from repro_torch.core import quant as tq
+from repro_torch.core import vdbb as tv
+from repro_torch.interop import params_from_numpy, unflatten
+from repro_torch.kernels import build
+from repro_torch.kernels import im2col_conv as stem_k
+from repro_torch.kernels import ops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import vdbb_im2col_conv as conv_k
+from repro_torch.kernels import vdbb_matmul as head_k
+from repro_torch.models.cnn import SparseCNN
+
+FIXTURE = Path(__file__).resolve().parent / "data" / "torch_parity_cnn.npz"
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels are CUDA C++ and run only there")
+    with tref.full_fp32():
+        yield torch.device("cuda", 0)
+
+
+def _rng_tensor(rng, *shape, scale=1.0):
+    return torch.from_numpy((scale * rng.normal(size=shape)).astype(np.float32))
+
+
+def _codes_close(got, want):
+    d = (got.int() - want.int()).abs()
+    assert int(d.max()) <= 1 and float((d > 0).float().mean()) <= 1e-3
+
+
+@pytest.mark.parametrize("dtype", ["int8", "fp32"])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_kernel_matches_plain(card, dtype, stride):
+    """Ragged everywhere: 9x9 images, F = 72, M not a multiple of the tile."""
+    rng = np.random.default_rng(stride)
+    x, w, bias = _rng_tensor(rng, 3, 9, 9, 16), _rng_tensor(rng, 3, 3, 16, 72), _rng_tensor(rng, 72)
+    dw = tv.dbb_encode_conv(w, tv.DBBFormat(8, 3, "matrix"), prune=True)
+    idx = dw.indices[:, :, 0].contiguous().to(card)
+    if dtype == "int8":
+        qw = tq.quantize_dbb(dw)
+        xq = tq.quantize(x, tq.dynamic_act_scale(x))
+        args = (xq.to(card), qw.values.to(card), idx, dw.fmt, 3, 3)
+        for kw in (dict(scales=(qw.scales * 0.01).to(card), bias=bias.to(card), relu=True,
+                        out_scale=0.05, stride=stride),
+                   dict(scales=(qw.scales * 0.01).to(card), bias=bias.to(card), stride=stride),
+                   dict(stride=stride)):
+            assert torch.equal(conv_k.vdbb_im2col_conv_tc(*args, **kw),
+                               conv_k.vdbb_im2col_conv_tc_plain(*args, **kw))
+    else:
+        args = (x.to(card), dw.values.to(card), idx, dw.fmt, 3, 3)
+        kw = dict(bias=bias.to(card), relu=True, stride=stride)
+        torch.testing.assert_close(conv_k.vdbb_im2col_conv_tc(*args, **kw),
+                                   conv_k.vdbb_im2col_conv_tc_plain(*args, **kw), **TOL)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m", [1, 8, 67])
+def test_head_kernel_matches_plain(card, m):
+    rng = np.random.default_rng(m)
+    a, w, bias = _rng_tensor(rng, m, 512), _rng_tensor(rng, 512, 1000), _rng_tensor(rng, 1000)
+    qw = tq.quantize_dbb(tv.dbb_encode(w, tv.DBBFormat(8, 3, "matrix"), prune=True))
+    aq = tq.quantize(a, tq.dynamic_act_scale(a)).to(card)
+    args = (aq, qw.values.to(card), qw.indices[:, :, 0].contiguous().to(card), qw.fmt)
+    kw = dict(scales=(qw.scales * 0.01).to(card), bias=bias.to(card))
+    assert torch.equal(head_k.vdbb_matmul_tc(*args, **kw), head_k.vdbb_matmul_tc_plain(*args, **kw))
+    assert torch.equal(head_k.vdbb_matmul_tc(*args), head_k.vdbb_matmul_tc_plain(*args))
+    torch.cuda.synchronize()
+
+
+def test_stem_kernel_matches_plain(card):
+    rng = np.random.default_rng(80)
+    x, w, bias = (_rng_tensor(rng, 4, 33, 33, 3).to(card), _rng_tensor(rng, 3, 3, 3, 64, scale=0.2).to(card),
+                  _rng_tensor(rng, 64).to(card))
+    kw = dict(bias=bias, relu=True, stride=1)
+    torch.testing.assert_close(stem_k.im2col_conv(x, w, **kw), stem_k.im2col_conv_plain(x, w, **kw), **TOL)
+    _codes_close(stem_k.im2col_conv(x, w, out_scale=0.03, **kw),
+                 stem_k.im2col_conv_plain(x, w, out_scale=0.03, **kw))
+    xq = torch.randint(-127, 128, (2, 9, 9, 8), dtype=torch.int8, device=card)
+    wq = torch.randint(-127, 128, (3, 3, 8, 16), dtype=torch.int8, device=card)
+    assert torch.equal(stem_k.im2col_conv(xq, wq, stride=2), stem_k.im2col_conv_plain(xq, wq, stride=2))
+    torch.cuda.synchronize()
+
+
+def test_per_column_weight_raises_on_card(card):
+    dw = tv.dbb_encode(torch.randn(64, 16), tv.DBBFormat(8, 3, None), prune=True).to(card)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        ops.vdbb_matmul(torch.randn(4, 64, device=card), dw)
+
+
+def test_golden_fixture_on_card(card):
+    """The JAX reference's fixture through the kernels: later layers exact,
+    logits within 1e-3 relative L2."""
+    with np.load(FIXTURE) as z:
+        tree = unflatten(z)
+    cfg = dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny"), convs_per_stage=2)
+    model = SparseCNN(cfg).load_state(params_from_numpy(tree["params"], card))
+    inter = []
+    build.reset_launches()
+    with torch.no_grad():
+        logits = model(torch.from_numpy(tree["input"]).to(card), intermediates=inter)
+    n_conv = len(model.layers()) - 1
+    assert build.launch_counts() == {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1, "vdbb_matmul_tc": 1}
+    _codes_close(inter[0].cpu(), torch.from_numpy(tree["intermediates"]["0"]))
+    convs = model.layers()[:-1]
+    with torch.no_grad():
+        for i in range(1, n_conv):
+            out_scale = convs[i + 1].aq if i + 1 < n_conv else None
+            got = convs[i].quant_serve(torch.from_numpy(tree["intermediates"][str(i - 1)]).to(card),
+                                       relu=True, out_scale=out_scale)
+            assert np.array_equal(got.cpu().numpy(), tree["intermediates"][str(i)])
+    want = torch.from_numpy(tree["logits"]).double()
+    assert float((logits.cpu().double() - want).norm() / want.norm()) <= 1e-3
+
+
+def test_serve_smoke_on_card(card):
+    from repro_torch.launch import serve
+
+    model, _, out = serve.serve("sparse-cnn-tiny", smoke=True, batches=(1, 3), requests=2,
+                                device=card, log=lambda *_: None)
+    n_conv = len(model.layers()) - 1
+    for b, r in out.items():
+        assert r["logits"].shape == (b, 10) and r["images_per_s"] > 0
+        assert r["launches_per_forward"] == {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1,
+                                             "vdbb_matmul_tc": 1}

@@ -1,0 +1,317 @@
+"""The port's kernel layer held against the JAX package.
+
+Every ``repro_torch.kernels.ops`` entry point, called with CPU tensors,
+runs its kernel's plain PyTorch version. That version must match the JAX
+Pallas kernel (``interpret=True``, as the JAX package's own tests run it on
+the CPU) and the port's ``ref.py``: int8 and int32 results exactly, fp32
+within rtol = atol = 1e-5 (summation order differs). Requantized codes
+from an fp32 accumulator may differ by one code on at most 0.1 % of the
+entries, for the same reason.
+
+A wrapper given a tensor that is not on the CPU launches its CUDA kernel or
+raises; it never takes the plain version. Here that is shown on the
+``meta`` device; ``test_torch_cuda.py`` holds each CUDA kernel against its
+plain version on a card.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import quant as jq
+from repro.core import vdbb as jv
+from repro.kernels import core as jcore
+from repro.kernels import ops as jops
+from repro_torch.core import quant as tq
+from repro_torch.core import vdbb as tv
+from repro_torch.kernels import core as tcore
+from repro_torch.kernels import im2col_conv as stem_k
+from repro_torch.kernels import ops as tops
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels import vdbb_im2col_conv as conv_k
+from repro_torch.kernels import vdbb_matmul as head_k
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a))
+
+
+def _j(t):
+    return jnp.asarray(t.numpy() if isinstance(t, torch.Tensor) else t)
+
+
+def _assert_codes_close(got, want):
+    """int8 codes from an fp32 accumulator: within one code on <= 0.1 %."""
+    d = np.abs(np.asarray(got, np.int32) - np.asarray(want, np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3, (d.max(), (d > 0).mean())
+
+
+def _matmul_case(m, k, n, nnz, group, seed):
+    rng = np.random.default_rng(seed)
+    a = rng.normal(size=(m, k)).astype(np.float32)
+    w = rng.normal(size=(k, n)).astype(np.float32)
+    bias = rng.normal(size=(n,)).astype(np.float32)
+    jw = jv.dbb_encode(jnp.asarray(w), jv.DBBFormat(8, nnz, group), prune=True)
+    tw = tv.dbb_encode(_t(w), tv.DBBFormat(8, nnz, group), prune=True)
+    return a, bias, jw, tw
+
+
+def _conv_case(n, h, c, f, nnz, group, seed):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(n, h, h, c)).astype(np.float32)
+    w = rng.normal(size=(3, 3, c, f)).astype(np.float32)
+    bias = rng.normal(size=(f,)).astype(np.float32)
+    if c % 8:  # a dense stem: C is not blockable
+        return x, w, bias, None, None
+    jw = jv.dbb_encode_conv(jnp.asarray(w), jv.DBBFormat(8, nnz, group), prune=True)
+    tw = tv.dbb_encode_conv(_t(w), tv.DBBFormat(8, nnz, group), prune=True)
+    return x, w, bias, jw, tw
+
+
+# ------------------------------------------------------------ host pieces
+
+
+@pytest.mark.parametrize("h,k,s,pad", [(64, 3, 2, "SAME"), (64, 3, 1, "SAME"), (9, 3, 2, "SAME"),
+                                       (8, 3, 1, "VALID"), (8, 3, 2, ((1, 2), (0, 1)))])
+def test_conv_geometry_matches(h, k, s, pad):
+    assert tcore.conv_geometry(h, h, k, k, s, pad) == jcore.conv_geometry(h, h, k, k, s, pad)
+
+
+def test_stride2_same_pads_at_the_end():
+    assert tcore.conv_geometry(64, 64, 3, 3, 2, "SAME")[1] == ((0, 1), (0, 1))
+
+
+@pytest.mark.parametrize("kind", ["int_raw", "int_relu", "int_scale", "fp_none", "requant"])
+def test_epilogue_output_dtype_rules(kind):
+    ops_dtype = torch.float32 if kind == "fp_none" else torch.int8
+    kw = {"int_raw": {}, "int_relu": dict(relu=True), "int_scale": dict(scales=0.5),
+          "fp_none": {}, "requant": dict(scales=0.5, out_scale=0.1)}[kind]
+    ep = tcore.epilogue_plan(4, "cpu", acc_dtype=tcore.acc_dtype_for(ops_dtype), **kw)
+    _, _, _, jout = jcore.epilogue_plan(
+        4, 4, acc_dtype=jcore.acc_dtype_for(jnp.float32 if kind == "fp_none" else jnp.int8),
+        in_dtype=jnp.float32 if kind == "fp_none" else jnp.int8, **kw)
+    assert str(ep.out_dtype).split(".")[-1] == jnp.dtype(jout).name
+    if kind == "requant":
+        assert ep.out_scale.shape == (4,) and float(ep.out_scale[3]) == pytest.approx(0.1)
+
+
+def test_epilogue_plain_flush_matches_reference():
+    rng = np.random.default_rng(3)
+    acc = rng.integers(-40000, 40000, size=(16, 12)).astype(np.int32)
+    scale = (rng.random(12) * 1e-3).astype(np.float32)
+    bias = rng.normal(size=12).astype(np.float32)
+    from repro.kernels import ref as jref
+
+    for out_scale in (None, 0.05):
+        ep = tcore.epilogue_plan(12, "cpu", scales=_t(scale), bias=_t(bias), relu=True,
+                                 out_scale=out_scale, acc_dtype=torch.int32)
+        got = tcore.apply_epilogue(_t(acc), ep)
+        want = jref.quant_epilogue_ref(jnp.asarray(acc), jnp.asarray(scale), bias=jnp.asarray(bias),
+                                       relu=True, out_scale=out_scale)
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+        np.testing.assert_array_equal(
+            tref.quant_epilogue_ref(_t(acc), _t(scale), bias=_t(bias), relu=True,
+                                    out_scale=out_scale).numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------------ vdbb_matmul
+
+
+@pytest.mark.parametrize("m,n,nnz,group,epi", [(16, 24, 3, "matrix", False), (8, 24, 3, "matrix", True),
+                                               (5, 16, 2, None, True), (16, 16, 4, 8, False)])
+def test_vdbb_matmul_fp32(m, n, nnz, group, epi):
+    a, bias, jw, tw = _matmul_case(m, 64, n, nnz, group, seed=m + n + nnz)
+    kw = dict(bias=bias, relu=True) if epi else {}
+    got = tops.vdbb_matmul(_t(a), tw, **{k: (_t(v) if k == "bias" else v) for k, v in kw.items()})
+    want = jops.vdbb_matmul(jnp.asarray(a), jw, interpret=True,
+                            **{k: (jnp.asarray(v) if k == "bias" else v) for k, v in kw.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plain = tv.dbb_matmul_ref(_t(a), tw)
+    if epi:
+        plain = torch.relu(plain + _t(bias))
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("group", ["matrix", None])
+def test_vdbb_matmul_int8_raw_accumulator(group):
+    a, _, jw, tw = _matmul_case(16, 64, 24, 3, group, seed=5)
+    tqw = tq.quantize_dbb(tw)
+    aq = tq.quantize(_t(a), tq.dynamic_act_scale(_t(a)))
+    got = tops.vdbb_matmul(aq, tqw.as_dbb())
+    want = jops.vdbb_matmul(_j(aq), jq.quantize_dbb(jw).as_dbb(), interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    idx = tqw.indices[:, :, 0] if group == "matrix" else tqw.indices
+    np.testing.assert_array_equal(
+        got.numpy(), tref.vdbb_matmul_int_ref(aq, tqw.values, idx, tqw.fmt).numpy())
+
+
+@pytest.mark.parametrize("m,requant,int8_in", [(8, False, False), (3, True, True), (16, True, False)])
+def test_quant_matmul(m, requant, int8_in):
+    a, bias, jw, tw = _matmul_case(m, 64, 40, 3, "matrix", seed=m)
+    jqw, tqw = jq.quantize_dbb(jw), tq.quantize_dbb(tw)
+    s = float(jq.dynamic_act_scale(jnp.asarray(a)))
+    x = tq.quantize(_t(a), s) if int8_in else _t(a)
+    kw = dict(relu=True, out_scale=0.03 if requant else None)
+    got = tops.quant_matmul(x, tqw, s, bias=_t(bias), **kw)
+    want = jops.quant_matmul(_j(x), jqw, s, bias=jnp.asarray(bias), interpret=True, **kw)
+    assert got.dtype == (torch.int8 if requant else torch.float32)
+    if requant:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    xq = tq.quantize(_t(a), s)
+    acc = tq.int_matmul_ref(xq, tv.dbb_decode(tqw.as_dbb()))
+    plain = tref.quant_epilogue_ref(acc, s * tqw.scales, bias=_t(bias), **kw)
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+# ------------------------------------------------------ fused_im2col_conv
+
+
+@pytest.mark.parametrize("stride,padding", [(1, "SAME"), (2, "SAME"), (1, "VALID")])
+def test_fused_im2col_conv_fp32(stride, padding):
+    x, w, bias, _, _ = _conv_case(2, 9, 3, 16, 3, "matrix", seed=stride)
+    got = tops.fused_im2col_conv(_t(x), _t(w), bias=_t(bias), relu=True, stride=stride,
+                                 padding=padding)
+    want = jops.fused_im2col_conv(jnp.asarray(x), jnp.asarray(w), bias=jnp.asarray(bias),
+                                  relu=True, stride=stride, padding=padding, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    conv = tref.conv_lax_ref(_t(x), _t(w), stride=stride, padding=padding)
+    np.testing.assert_allclose(got.numpy(), torch.relu(conv + _t(bias)).numpy(), **TOL)
+    np.testing.assert_allclose(
+        tref.im2col_conv_ref(_t(x), _t(w), stride=stride, padding=padding).numpy(),
+        conv.numpy(), **TOL)
+
+
+def test_fused_im2col_conv_stem_requantizes_to_int8():
+    """The int8-resident chain's stem: fp32 conv, bias, ReLU, int8 codes."""
+    x, w, bias, _, _ = _conv_case(4, 16, 3, 32, 3, "matrix", seed=11)
+    kw = dict(relu=True, out_scale=0.02, stride=1, padding="SAME")
+    got = tops.fused_im2col_conv(_t(x), _t(w), bias=_t(bias), **kw)
+    want = jops.fused_im2col_conv(jnp.asarray(x), jnp.asarray(w), bias=jnp.asarray(bias),
+                                  interpret=True, **kw)
+    assert got.dtype == torch.int8
+    _assert_codes_close(got.numpy(), want)
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_fused_im2col_conv_int8_raw_accumulator(stride):
+    rng = np.random.default_rng(stride + 20)
+    xq = rng.integers(-127, 128, size=(2, 8, 8, 8)).astype(np.int8)
+    wq = rng.integers(-127, 128, size=(3, 3, 8, 16)).astype(np.int8)
+    got = tops.fused_im2col_conv(_t(xq), _t(wq), stride=stride)
+    want = jops.fused_im2col_conv(jnp.asarray(xq), jnp.asarray(wq), stride=stride, interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+# ------------------------------------------------------------ sparse_conv
+
+
+@pytest.mark.parametrize("group,stride,epi", [("matrix", 1, True), ("matrix", 2, False),
+                                              (None, 2, True)])
+def test_sparse_conv_fp32(group, stride, epi):
+    x, _, bias, jw, tw = _conv_case(2, 8, 16, 16, 3, group, seed=stride + 30)
+    kw = dict(relu=True) if epi else {}
+    tb, jb = (_t(bias), jnp.asarray(bias)) if epi else (None, None)
+    got = tops.sparse_conv(_t(x), tw, 3, 3, bias=tb, stride=stride, **kw)
+    want = jops.sparse_conv(jnp.asarray(x), jw, 3, 3, bias=jb, stride=stride, bf=8,
+                            interpret=True, **kw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    plain = tref.sparse_conv_ref(_t(x), tw, 3, 3, stride=stride)
+    if epi:
+        plain = torch.relu(plain + tb)
+    np.testing.assert_allclose(got.numpy(), plain.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("group,stride", [("matrix", 1), ("matrix", 2), (None, 1)])
+def test_sparse_conv_int8_raw_accumulator(group, stride):
+    x, _, _, jw, tw = _conv_case(2, 8, 16, 16, 3, group, seed=stride + 40)
+    tqw, jqw = tq.quantize_dbb(tw), jq.quantize_dbb(jw)
+    xq = tq.quantize(_t(x), tq.dynamic_act_scale(_t(x)))
+    got = tops.sparse_conv(xq, tqw.as_dbb(), 3, 3, stride=stride)
+    want = jops.sparse_conv(_j(xq), jqw.as_dbb(), 3, 3, stride=stride, bf=8, interpret=True)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    np.testing.assert_array_equal(
+        got.numpy(), tref.sparse_conv_int_ref(xq, tqw.as_dbb(), 3, 3, stride=stride).numpy())
+
+
+@pytest.mark.parametrize("stride,requant", [(1, True), (2, True), (1, False)])
+def test_quant_conv_int8_resident(stride, requant):
+    """int8 codes in, the next layer's int8 codes (or fp32) out: exact."""
+    x, _, bias, jw, tw = _conv_case(2, 8, 16, 24, 3, "matrix", seed=stride + 50)
+    tqw, jqw = tq.quantize_dbb(tw), jq.quantize_dbb(jw)
+    s = float(tq.dynamic_act_scale(_t(x)))
+    xq = tq.quantize(_t(x), s)
+    kw = dict(relu=True, out_scale=0.04 if requant else None, stride=stride)
+    got = tops.quant_conv(xq, tqw, 3, 3, s, bias=_t(bias), **kw)
+    want = jops.quant_conv(_j(xq), jqw, 3, 3, s, bias=jnp.asarray(bias), bf=8,
+                           interpret=True, **kw)
+    assert got.dtype == (torch.int8 if requant else torch.float32)
+    if requant:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:  # jit may contract the flush's multiply and add into one FMA
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    acc = tref.sparse_conv_int_ref(xq, tqw.as_dbb(), 3, 3, stride=stride)
+    plain = tref.quant_epilogue_ref(acc, s * tqw.scales, bias=_t(bias), relu=True,
+                                    out_scale=kw["out_scale"])
+    np.testing.assert_array_equal(got.numpy(), plain.numpy())
+
+
+# ------------------------------------------- off the CPU: kernel or raise
+
+
+def test_per_column_weight_off_the_cpu_raises_not_implemented():
+    x, _, _, _, tw = _conv_case(1, 8, 16, 16, 3, None, seed=60)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 6"):
+        tops.sparse_conv(_t(x).to("meta"), tw.to("meta"), 3, 3)
+    a, _, _, mw = _matmul_case(4, 64, 16, 3, 4, seed=61)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 5"):
+        tops.vdbb_matmul(_t(a).to("meta"), mw.to("meta"))
+
+
+@pytest.mark.parametrize("which", ["stem", "conv", "head"])
+def test_wrapper_never_runs_plain_version_off_the_cpu(which, monkeypatch):
+    """A tensor off the CPU reaches the kernel's operand checks (which
+    refuse a non-CUDA device), never the plain version."""
+    def boom(*a, **k):
+        raise AssertionError("plain version ran for a tensor off the CPU")
+
+    monkeypatch.setattr(stem_k, "im2col_conv_plain", boom)
+    monkeypatch.setattr(conv_k, "vdbb_im2col_conv_tc_plain", boom)
+    monkeypatch.setattr(head_k, "vdbb_matmul_tc_plain", boom)
+    x, w, _, _, tw = _conv_case(1, 8, 16, 16, 3, "matrix", seed=62)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        if which == "stem":
+            tops.fused_im2col_conv(_t(x).to(meta), _t(w).to(meta))
+        elif which == "conv":
+            tops.sparse_conv(_t(x).to(meta), tw.to(meta), 3, 3)
+        else:
+            a, _, _, mw = _matmul_case(4, 64, 16, 3, "matrix", seed=63)
+            tops.vdbb_matmul(_t(a).to(meta), mw.to(meta))
+
+
+def test_launch_counters_start_at_zero_and_reset():
+    from repro_torch.kernels import build
+
+    assert set(build.KERNELS) == {"im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc"}
+    for k in build.KERNELS.values():
+        k.launches = 5
+    build.reset_launches()
+    assert build.launch_counts() == {"im2col_conv": 0, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0}
+    for k in build.KERNELS.values():
+        assert k.replaces.startswith("src/repro/kernels/") and (build.CSRC / k.source).exists()
+
+
+def test_malformed_indices_are_refused():
+    a, _, _, tw = _matmul_case(4, 64, 16, 3, "matrix", seed=64)
+    with pytest.raises(ValueError, match="indices"):
+        head_k.vdbb_matmul_tc(_t(a), tw.values, tw.indices[:-1, :, 0], tw.fmt)
+    x, _, _, _, cw = _conv_case(1, 8, 16, 16, 3, "matrix", seed=65)
+    with pytest.raises(ValueError, match="indices"):
+        conv_k.vdbb_im2col_conv_tc(_t(x), cw.values, cw.indices[:, :2, 0], cw.fmt, 3, 3)
