@@ -9,17 +9,22 @@ Phases, each of which fails the run:
      layer shape of sparse-cnn-s at batch 64, int8 and fp32 instantiations,
      with random nonzero biases: int8 and int32 exact, fp32 within
      rtol = atol = 1e-5, the stem's requantized codes within one code on at
-     most 0.1 % of entries (fp32 summation order);
-  3. sparse-cnn-s end to end through ``repro_torch.launch.serve``: request
-     batches of 1, 8 and 64, one stem, seven conv and one head launch per
-     forward, each batch's logits against the plain chain on the same card
-     and images (equal when the stem codes agree, else within 1e-3
-     relative L2); then a
-     torch.profiler pass over served forwards at batch 1 and 64 (device
-     time per kernel, the card's idle share);
-  4. the committed golden fixture of the JAX reference
-     (tests/data/torch_parity_cnn.npz) through ``interop.params_from_numpy``;
-  5. one JSON line of the kernels (launches, errors, times, bounds).
+     most 0.1 % of entries (fp32 summation order). Both models: one pattern
+     shared across each layer's outputs (tc kernels) and a pattern per
+     output column (``pattern=None``, bw kernels); then a grouped format
+     (DBBFormat(8, 3, 4)) at l4 and the head, and nnz of 1, 2, 4 and 8 at
+     l4's shape on both the tc and the bw kernel;
+  3. sparse-cnn-s end to end through ``repro_torch.launch.serve``, once per
+     pattern: request batches of 1, 8 and 64, one stem, seven conv and one
+     head launch per forward on that pattern's kernels, each batch's logits
+     against the plain chain on the same card and images (equal when the
+     stem codes agree, else within 1e-3 relative L2); then a torch.profiler
+     pass over served forwards at batch 1 and 64 (device time per kernel,
+     the card's idle share);
+  4. the committed golden fixtures of the JAX reference
+     (tests/data/torch_parity_cnn.npz and torch_parity_cnn_bw.npz) through
+     ``interop.params_from_numpy``;
+  5. one JSON line of the five kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -28,6 +33,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -38,7 +44,8 @@ import torch.nn.functional as F
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
-FIXTURE = ROOT / "tests" / "data" / "torch_parity_cnn.npz"
+FIXTURES = {"matrix": ROOT / "tests" / "data" / "torch_parity_cnn.npz",
+            None: ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"}
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
@@ -65,22 +72,26 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int = 5):
+def kernel_device_ms(fn, reps: int = 5, tries: int = 3):
     """Mean device time of the port's kernels in one call of ``fn``, from
-    torch.profiler's CUDA activity (None where it records none). Unlike
-    :func:`cuda_ms` it leaves out the host's share of each call."""
+    torch.profiler's CUDA activity. Unlike :func:`cuda_ms` it leaves out the
+    host's share of each call. A profiled pass now and then delivers no
+    kernel events; it is run again, up to ``tries`` times, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-          if ev.device_type == torch.autograd.DeviceType.CUDA
-          and kernel_family(ev.name) != "other"]
-    return sum(us) / reps / 1e3 if us else None
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
+              if ev.device_type == torch.autograd.DeviceType.CUDA
+              and kernel_family(ev.name) != "other"]
+        if us:
+            return sum(us) / reps / 1e3
+    return None
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float) -> tuple:
@@ -124,6 +135,20 @@ def check_close(got, want, what: str) -> float:
 # ---------------------------------------------------------------- phase 2
 
 
+def rnd(gen, dev, *shape, scale=1.0):
+    return (torch.randn(*shape, generator=gen) * scale).to(dev)
+
+
+def codes(gen, dev, *shape):
+    return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+
+
+def dequant_scales(gen, dev, n, kc):
+    # int8 codes (std ~73) times int8 weights (std ~40) over kc nonzero terms,
+    # scaled so the requantized output codes spread over about ±40
+    return ((torch.rand(n, generator=gen) + 1.0) / (2900.0 * kc ** 0.5)).to(dev)
+
+
 def layer_shapes(cfg, batch):
     """(layer, input shape) for every layer of the model at ``batch``."""
     from repro_torch.core.sparse_conv import DBBConv2d
@@ -140,124 +165,176 @@ def layer_shapes(cfg, batch):
     return out
 
 
-def check_kernels(cfg, gen, dev):
-    """Phase 2. Returns per-kernel records for the JSON line."""
-    from repro_torch.core.quant import quantize_dbb
-    from repro_torch.core.vdbb import dbb_decode, dbb_encode, dbb_encode_conv
+def timed(run, plain, library, **rec):
+    """The record of one layer: the kernel's, its plain version's and the
+    library call's times by CUDA events, and the kernel's device time."""
+    return dict(rec, ms=cuda_ms(run), plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
+                device_ms=kernel_device_ms(run))
+
+
+def stem_layer(m, xshape, out_scale, gen, dev):
+    """The dense stem: fp32 in, int8 codes out (the main path), fp32 out, and
+    the int8 instantiation, each against the plain version."""
     from repro_torch.kernels import im2col_conv as stem_k
+
+    f = m.out_channels
+    bias = rnd(gen, dev, f, scale=0.5)
+    x, w = rnd(gen, dev, *xshape), rnd(gen, dev, m.kh, m.kw, m.in_channels, f, scale=0.2)
+    kw = dict(bias=bias, relu=True, out_scale=out_scale, stride=m.stride, padding=m.padding)
+    run = lambda: stem_k.im2col_conv(x, w, **kw)  # noqa: E731
+    plain = lambda: stem_k.im2col_conv_plain(x, w, **kw)  # noqa: E731
+    err = check_codes(run(), plain(), "stem fp32->int8")
+    kw32 = dict(bias=bias, relu=True, stride=m.stride, padding=m.padding)
+    check_close(stem_k.im2col_conv(x, w, **kw32), stem_k.im2col_conv_plain(x, w, **kw32),
+                "stem fp32")
+    xq, wq = codes(gen, dev, *xshape), codes(gen, dev, m.kh, m.kw, m.in_channels, f)
+    ki = dict(stride=m.stride, padding=m.padding)
+    check_exact(stem_k.im2col_conv(xq, wq, **ki), stem_k.im2col_conv_plain(xq, wq, **ki),
+                "stem int8")
+    xn = x.permute(0, 3, 1, 2).contiguous()
+    wn = w.permute(3, 2, 0, 1).contiguous()
+    library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=1)  # noqa: E731
+    out = run()
+    nb_ = nbytes(x, w, bias, out)
+    ops = 2 * out.numel() * m.kh * m.kw * m.in_channels
+    b_ms, b_by = bound(nb_, ops, FP32_OPS_PER_S)
+    return timed(run, plain, library, err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb_, ops=ops)
+
+
+def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
+    """One compressed layer (a conv or the head) in ``fmt`` on the tc kernel
+    (``bw`` False: a pattern shared across the outputs) or the bw kernel
+    (a pattern per column, or per group, indices read in place). Holds
+    three instantiations against the plain version with random nonzero
+    biases: int8 as the main path runs it (requantized codes, or fp32 at l7
+    and the head) and the raw int32 accumulator exactly, fp32 within 1e-5.
+    Returns the layer's timed record."""
+    from repro_torch.core.quant import quantize_dbb
+    from repro_torch.core.sparse_conv import DBBConv2d
+    from repro_torch.core.vdbb import dbb_decode, dbb_encode, dbb_encode_conv
     from repro_torch.kernels import vdbb_im2col_conv as conv_k
     from repro_torch.kernels import vdbb_matmul as head_k
 
-    def rnd(*shape, scale=1.0):
-        return (torch.randn(*shape, generator=gen) * scale).to(dev)
+    conv = isinstance(m, DBBConv2d)
+    mode = "bw" if bw else "tc"
+    if conv:
+        f, k = m.out_channels, m.kh * m.kw * m.in_channels
+        kernel = getattr(conv_k, f"vdbb_im2col_conv_{mode}")
+        plain = getattr(conv_k, f"vdbb_im2col_conv_{mode}_plain")
+        geom, taps = dict(stride=m.stride, padding=m.padding), (m.kh, m.kw)
+        dw = dbb_encode_conv(rnd(gen, dev, m.kh, m.kw, m.in_channels, f, scale=k ** -0.5),
+                             fmt, prune=True)
+    else:
+        f, k = m.out_features, m.in_features
+        kernel = getattr(head_k, f"vdbb_matmul_{mode}")
+        plain = getattr(head_k, f"vdbb_matmul_{mode}_plain")
+        geom, taps = {}, ()
+        dw = dbb_encode(rnd(gen, dev, k, f, scale=k ** -0.5), fmt, prune=True)
 
-    def codes(*shape):
-        return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
+    def idx(w):
+        return w.indices if bw else w.indices[:, :, 0].contiguous()
 
-    def dequant_scales(n, kc):
-        # int8 codes (std ~73) times int8 weights (std ~40) over kc terms,
-        # scaled so the requantized output codes spread over about ±40
-        return ((torch.rand(n, generator=gen) + 1.0) / (2900.0 * kc ** 0.5)).to(dev)
+    qw = quantize_dbb(dw)
+    bias = rnd(gen, dev, f, scale=0.5)
+    xq = codes(gen, dev, *xshape)
+    kc = qw.values.shape[0] * qw.values.shape[1]
+    scales = dequant_scales(gen, dev, f, kc)
+    args = (xq, qw.values, idx(qw), fmt, *taps)
+    kw = dict(scales=scales, bias=bias, **geom)
+    if conv:
+        kw.update(relu=True, out_scale=out_scale)
+    run = lambda: kernel(*args, **kw)  # noqa: E731
+    err = check_exact(run(), plain(*args, **kw), f"{what} int8")
+    check_exact(kernel(*args, **geom), plain(*args, **geom), f"{what} int32")
+    a32 = (rnd(gen, dev, *xshape), dw.values, idx(dw), fmt, *taps)
+    k32 = dict(bias=bias, relu=conv, **geom)
+    check_close(kernel(*a32, **k32), plain(*a32, **k32), f"{what} fp32")
+    if conv:
+        xn = a32[0].permute(0, 3, 1, 2).contiguous()
+        wn = dbb_decode(dw).reshape(m.kh, m.kw, m.in_channels, f).permute(3, 2, 0, 1).contiguous()
+        library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=1)  # noqa: E731
+    else:
+        wdense = dbb_decode(qw.as_dbb()).contiguous()
+        library = lambda: torch._int_mm(xq, wdense)  # noqa: E731
+    out = run()
+    # the real tensors' bytes (values plus the shared or per-column positions)
+    # and the compressed MACs at the int8 tensor-core rate
+    nb_ = nbytes(xq, qw.values, args[2], scales, bias, out)
+    ops = 2 * out.numel() * kc
+    b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
+    return timed(run, lambda: plain(*args, **kw), library, err=err, bound_ms=b_ms,
+                 bound_by=b_by, bytes=nb_, ops=ops)
 
-    recs = {"im2col_conv": [], "vdbb_conv_tc": [], "vdbb_matmul_tc": []}
-    layers = layer_shapes(cfg, BATCH)
-    n_conv = sum(1 for m, _ in layers[:-1])
-    log(f"[kernels] layer  kernel          shape                   ms       device_ms  "
+
+def log_record(label, name, xshape, r):
+    dev_ms = r["device_ms"]
+    log(f"[kernels] {label:<13s} {name:<15s} {str(tuple(xshape)):<23s} {r['ms']:<8.4f} "
+        f"{dev_ms if dev_ms is None else round(dev_ms, 4)!s:<10s} {r['plain_ms']:<9.4f} "
+        f"{r['library_ms']:<11.4f} {r['bound_ms']:.5f} ({r['bound_by']})")
+
+
+def check_kernels(cfgs, gen, dev):
+    """Phase 2. ``cfgs`` maps a pattern ('matrix' or None) to its model's
+    config. Every layer of each model at batch 64 through its kernel, then
+    a grouped format and the nnz sweep. Returns per-kernel records of the
+    models' layers for the JSON line."""
+    from repro_torch.core.vdbb import DBBFormat
+    from repro_torch.kernels import build
+
+    recs = {name: [] for name in build.KERNELS}
+    log(f"[kernels] layer         kernel          shape                   ms       device_ms  "
         f"plain_ms  library_ms  bound_ms (by)")
-    for li, (m, xshape) in enumerate(layers):
-        last = li == len(layers) - 1
-        f = m.out_features if last else m.out_channels
-        bias = rnd(f, scale=0.5)
-        out_scale = 0.05 if li + 1 < n_conv else None  # layer 7 flushes fp32 into GAP
-        if li == 0:
-            # stem: fp32 in, int8 codes out (the main path) ...
-            x, w = rnd(*xshape), rnd(m.kh, m.kw, m.in_channels, f, scale=0.2)
-            kw = dict(bias=bias, relu=True, out_scale=out_scale, stride=m.stride,
-                      padding=m.padding)
-            run = lambda: stem_k.im2col_conv(x, w, **kw)  # noqa: E731
-            plain = lambda: stem_k.im2col_conv_plain(x, w, **kw)  # noqa: E731
-            err = check_codes(run(), plain(), "stem fp32->int8")
-            # ... fp32 out, and the int8 instantiation
-            kw32 = dict(bias=bias, relu=True, stride=m.stride, padding=m.padding)
-            check_close(stem_k.im2col_conv(x, w, **kw32),
-                        stem_k.im2col_conv_plain(x, w, **kw32), "stem fp32")
-            xq, wq = codes(*xshape), codes(m.kh, m.kw, m.in_channels, f)
-            ki = dict(stride=m.stride, padding=m.padding)
-            check_exact(stem_k.im2col_conv(xq, wq, **ki),
-                        stem_k.im2col_conv_plain(xq, wq, **ki), "stem int8")
-            xn = x.permute(0, 3, 1, 2).contiguous()
-            wn = w.permute(3, 2, 0, 1).contiguous()
-            library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=1)  # noqa: E731
-            out = run()
-            nb_ = nbytes(x, w, bias, out)
-            ops = 2 * out.numel() * m.kh * m.kw * m.in_channels
-            b_ms, b_by = bound(nb_, ops, FP32_OPS_PER_S)
-            name = "im2col_conv"
-        elif not last:
-            wt = rnd(m.kh, m.kw, m.in_channels, f, scale=(9 * m.in_channels) ** -0.5)
-            qw = quantize_dbb(dbb_encode_conv(wt, m.fmt, prune=True))
-            idx = qw.indices[:, :, 0].contiguous()
-            xq = codes(*xshape)
-            scales = dequant_scales(f, idx.numel())
-            kw = dict(scales=scales, bias=bias, relu=True, out_scale=out_scale,
-                      stride=m.stride, padding=m.padding)
-            args = (xq, qw.values, idx, m.fmt, m.kh, m.kw)
-            run = lambda: conv_k.vdbb_im2col_conv_tc(*args, **kw)  # noqa: E731
-            plain = lambda: conv_k.vdbb_im2col_conv_tc_plain(*args, **kw)  # noqa: E731
-            err = check_exact(run(), plain(), f"conv l{li} int8")
-            ki = dict(stride=m.stride, padding=m.padding)
-            check_exact(conv_k.vdbb_im2col_conv_tc(*args, **ki),
-                        conv_k.vdbb_im2col_conv_tc_plain(*args, **ki), f"conv l{li} int32")
-            dw = dbb_encode_conv(wt, m.fmt, prune=True)
-            x32 = rnd(*xshape)
-            a32 = (x32, dw.values, dw.indices[:, :, 0].contiguous(), m.fmt, m.kh, m.kw)
-            k32 = dict(bias=bias, relu=True, stride=m.stride, padding=m.padding)
-            check_close(conv_k.vdbb_im2col_conv_tc(*a32, **k32),
-                        conv_k.vdbb_im2col_conv_tc_plain(*a32, **k32), f"conv l{li} fp32")
-            xn = x32.permute(0, 3, 1, 2).contiguous()
-            wn = dbb_decode(dw).reshape(m.kh, m.kw, m.in_channels, f).permute(3, 2, 0, 1).contiguous()
-            library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=1)  # noqa: E731
-            out = run()
-            nb_ = nbytes(xq, qw.values, idx, scales, bias, out)
-            ops = 2 * out.numel() * qw.values.shape[0] * qw.values.shape[1]
-            b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
-            name = "vdbb_conv_tc"
-        else:
-            wt = rnd(m.in_features, f, scale=m.in_features ** -0.5)
-            dw = dbb_encode(wt, m.fmt, prune=True)
-            qw = quantize_dbb(dw)
-            idx = qw.indices[:, :, 0].contiguous()
-            aq = codes(*xshape)
-            scales = dequant_scales(f, idx.numel())
-            kw = dict(scales=scales, bias=bias)
-            args = (aq, qw.values, idx, m.fmt)
-            run = lambda: head_k.vdbb_matmul_tc(*args, **kw)  # noqa: E731
-            plain = lambda: head_k.vdbb_matmul_tc_plain(*args, **kw)  # noqa: E731
-            err = check_exact(run(), plain(), "head int8->fp32")
-            check_exact(head_k.vdbb_matmul_tc(*args), head_k.vdbb_matmul_tc_plain(*args),
-                        "head int32")
-            a32 = (rnd(*xshape), dw.values, dw.indices[:, :, 0].contiguous(), m.fmt)
-            check_close(head_k.vdbb_matmul_tc(*a32, bias=bias),
-                        head_k.vdbb_matmul_tc_plain(*a32, bias=bias), "head fp32")
-            wdense = dbb_decode(qw.as_dbb()).contiguous()
-            library = lambda: torch._int_mm(aq, wdense)  # noqa: E731
-            out = run()
-            nb_ = nbytes(aq, qw.values, idx, scales, bias, out)
-            ops = 2 * out.numel() * qw.values.shape[0] * qw.values.shape[1]
-            b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
-            name = "vdbb_matmul_tc"
-        ms, plain_ms, lib_ms = cuda_ms(run), cuda_ms(plain), cuda_ms(library)
-        dev_ms = kernel_device_ms(run)
-        recs[name].append(dict(err=err, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
-                               library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bytes=nb_,
-                               ops=ops))
-        log(f"[kernels] l{li:<5d} {name:<15s} {str(tuple(xshape)):<23s} {ms:<8.4f} "
-            f"{dev_ms if dev_ms is None else round(dev_ms, 4)!s:<10s} {plain_ms:<9.4f} "
-            f"{lib_ms:<11.4f} {b_ms:.5f} ({b_by})")
+    for pattern, cfg in cfgs.items():
+        mode = "tc" if pattern == "matrix" else "bw"
+        layers = layer_shapes(cfg, BATCH)
+        n_conv = len(layers) - 1
+        for li, (m, xshape) in enumerate(layers):
+            out_scale = 0.05 if li + 1 < n_conv else None  # l7 flushes fp32 into GAP
+            if li == 0:
+                if mode != "tc":
+                    continue  # one dense stem serves both models
+                name, r = "im2col_conv", stem_layer(m, xshape, out_scale, gen, dev)
+            else:
+                name = ("vdbb_matmul_" if li == n_conv else "vdbb_conv_") + mode
+                r = sparse_layer(m, xshape, m.fmt, mode == "bw", out_scale, gen, dev,
+                                 f"{mode} l{li}")
+            recs[name].append(r)
+            log_record(f"{mode} l{li}", name, xshape, r)
+
+    layers = layer_shapes(cfgs[None], BATCH)
+    grouped = DBBFormat(8, 3, 4)
+    for li in (4, len(layers) - 1):
+        m, xshape = layers[li]
+        name = "vdbb_conv_bw" if li < len(layers) - 1 else "vdbb_matmul_bw"
+        r = sparse_layer(m, xshape, grouped, True, 0.05, gen, dev, f"group=4 l{li}")
+        log_record(f"g4 l{li}", name, xshape, r)
+    # the paper's variable density: nnz of 8 at l4's shape, both modes
+    m, xshape = layers[4]
+    for nnz in (1, 2, 4, 8):
+        for mode, group in (("tc", "matrix"), ("bw", None)):
+            r = sparse_layer(m, xshape, DBBFormat(8, nnz, group), mode == "bw", 0.05, gen, dev,
+                             f"nnz={nnz} {mode} l4")
+            log_record(f"nnz{nnz} {mode} l4", f"vdbb_conv_{mode}", xshape, r)
     return recs
 
 
 # ---------------------------------------------------------------- phase 3
+
+# launches per forward of each serving path: the other mode's kernels at 0
+PER_FORWARD = {
+    "matrix": {"im2col_conv": 1, "vdbb_conv_tc": 7, "vdbb_matmul_tc": 1,
+               "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0},
+    None: {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0,
+           "vdbb_conv_bw": 7, "vdbb_matmul_bw": 1},
+}
+
+
+def plain_version(w, tc_plain, bw_plain):
+    """The plain version for a compressed weight's pattern, and the indices
+    it takes: one row shared across the outputs (tc) or as stored (bw)."""
+    if w.fmt.group_size(w.shape[1]) == w.shape[1]:
+        return tc_plain, w.indices[:, :, 0].contiguous()
+    return bw_plain, w.indices
 
 
 def plain_chain(model, x):
@@ -276,32 +353,36 @@ def plain_chain(model, x):
         conv = dict(bias=m.b, relu=True, out_scale=out_scale, stride=m.stride,
                     padding=m.padding)
         if isinstance(m.w, QuantDBBWeight):
-            x = conv_k.vdbb_im2col_conv_tc_plain(
-                x, m.w.values, m.w.indices[:, :, 0].contiguous(), m.w.fmt, m.kh, m.kw,
-                scales=m.aq * m.w.scales, **conv)
+            fn, idx = plain_version(m.w, conv_k.vdbb_im2col_conv_tc_plain,
+                                    conv_k.vdbb_im2col_conv_bw_plain)
+            x = fn(x, m.w.values, idx, m.w.fmt, m.kh, m.kw, scales=m.aq * m.w.scales, **conv)
         else:
             x = stem_k.im2col_conv_plain(x, m.w, **conv)
             stem_out = x
     xq, s_a = resolve_quant_input(x.mean(dim=(1, 2)), head.aq)
-    logits = head_k.vdbb_matmul_tc_plain(xq, head.w.values, head.w.indices[:, :, 0].contiguous(),
-                                         head.w.fmt, scales=s_a * head.w.scales, bias=head.b)
+    fn, idx = plain_version(head.w, head_k.vdbb_matmul_tc_plain, head_k.vdbb_matmul_bw_plain)
+    logits = fn(xq, head.w.values, idx, head.w.fmt, scales=s_a * head.w.scales, bias=head.b)
     return logits, stem_out
 
 
-def end_to_end(dev):
-    """Phase 3: serve sparse-cnn-s through ``launch.serve``; returns (the
-    launches of that run, images/s per request batch)."""
+def end_to_end(dev, pattern):
+    """Phase 3: serve sparse-cnn-s with ``pattern`` through ``launch.serve``
+    with every launch count at 0 just before; returns (the launches of that
+    run, images/s per request batch, the model, its inputs)."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
     build.reset_launches()
-    model, x, served = serve.serve("sparse-cnn-s", batches=(1, 8, BATCH),
+    model, x, served = serve.serve("sparse-cnn-s", batches=(1, 8, BATCH), pattern=pattern,
                                    requests=REQUESTS, device=dev, seed=0, log=log)
     main_counts = build.launch_counts()
-    want = {"im2col_conv": 1, "vdbb_conv_tc": 7, "vdbb_matmul_tc": 1}
+    want = PER_FORWARD[pattern]
+    idle = [k for k, n in want.items() if n and not main_counts[k]]
+    if idle:
+        raise AssertionError(f"pattern={pattern}: kernels {idle} never launched on the main path")
     for b, r in served.items():
         if r["launches_per_forward"] != want:
-            raise AssertionError(f"batch {b}: launches per forward "
+            raise AssertionError(f"pattern={pattern} batch {b}: launches per forward "
                                  f"{r['launches_per_forward']}, want {want}")
         logits = r["logits"]
         if logits.shape != (b, 1000) or not bool(torch.isfinite(logits).all()):
@@ -316,28 +397,33 @@ def end_to_end(dev):
         check_codes(inter[0], ref_stem, f"batch {b}: served stem codes")
         if torch.equal(inter[0], ref_stem):
             check_exact(logits, ref, f"batch {b}: served logits")
-            log(f"[serve] batch {b}: logits equal the plain chain's on the card")
+            log(f"[serve] pattern={pattern} batch {b}: logits equal the plain chain's on the card")
         else:
             err = rel_l2(logits, ref)
             if err > 1e-3:
                 raise AssertionError(f"batch {b}: served logits rel L2 {err} > 1e-3 "
                                      "vs the plain chain")
-            log(f"[serve] batch {b}: logits within rel L2 {err:.3e} of the plain chain's")
+            log(f"[serve] pattern={pattern} batch {b}: logits within rel L2 {err:.3e} of the "
+                "plain chain's")
     return main_counts, {b: r["images_per_s"] for b, r in served.items()}, model, x
 
 
 # ------------------------------------------------------------ where the time goes
 
-KERNEL_OF_LOADER = {"GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
+# operand loader -> kernel, first match wins: the bw conv's A loader is the
+# stem's Tap, so its B loader (the expand) decides
+KERNEL_OF_LOADER = {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
+                    "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
                     "Tap": "im2col_conv"}
 
 
 def kernel_family(name: str) -> str:
     """The port's kernel a CUDA kernel name belongs to (they share one
-    template, told apart by the operand loader), else 'other'."""
+    template, told apart by its operand loaders), else 'other'."""
     if "os_gemm" in name:
+        loaders = set(re.findall(r"(\w+)<", name))
         for loader, kernel in KERNEL_OF_LOADER.items():
-            if f"{loader}<" in name:
+            if loader in loaders:
                 return kernel
     return "other"
 
@@ -379,8 +465,9 @@ def profile_forwards(model, x, reps: int = 4) -> dict:
 # ---------------------------------------------------------------- phase 4
 
 
-def golden(dev):
-    """Phase 4: the JAX reference's fixture through the port on the card."""
+def golden(dev, pattern):
+    """Phase 4: the JAX reference's fixture of ``pattern`` through the port
+    on the card."""
     import dataclasses
 
     import numpy as np
@@ -389,9 +476,10 @@ def golden(dev):
     from repro_torch.interop import params_from_numpy, unflatten
     from repro_torch.models.cnn import SparseCNN
 
-    with np.load(FIXTURE) as z:
+    with np.load(FIXTURES[pattern]) as z:
         tree = unflatten(z)
-    cfg = dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny"), convs_per_stage=2)
+    cfg = dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny", pattern=pattern),
+                              convs_per_stage=2)
     model = SparseCNN(cfg).load_state(params_from_numpy(tree["params"], dev))
     x = torch.as_tensor(tree["input"]).to(dev)
     want_inter = [torch.as_tensor(tree["intermediates"][str(i)]).to(dev)
@@ -410,7 +498,7 @@ def golden(dev):
     err = rel_l2(logits, torch.as_tensor(tree["logits"]).to(dev))
     if err > 1e-3:
         raise AssertionError(f"fixture logits: rel L2 {err} > 1e-3 vs JAX")
-    log(f"[golden] JAX fixture: layers exact, logits within rel L2 {err:.3e}")
+    log(f"[golden] JAX fixture, pattern={pattern}: layers exact, logits within rel L2 {err:.3e}")
 
 
 # ------------------------------------------------------------------- main
@@ -444,24 +532,36 @@ def main() -> int:
 
     from repro_torch.configs import get_cnn_config
 
-    cfg = get_cnn_config("sparse-cnn-s")
+    patterns = ("matrix", None)  # shared across the outputs (tc), per column (bw)
+    cfgs = {p: get_cnn_config("sparse-cnn-s", pattern=p) for p in patterns}
     gen = torch.Generator().manual_seed(1)
-    recs = check_kernels(cfg, gen, dev)
+    recs = check_kernels(cfgs, gen, dev)
     log(f"[kernels] every kernel matches its plain version ({time.time() - t0:.1f} s)")
 
-    counts, ips, model, x = end_to_end(dev)
-    log(f"[serve] main-path launches (calibration, warm-ups and {REQUESTS} requests at each "
-        f"batch): {counts} ({time.time() - t0:.1f} s)")
-    for b in (1, BATCH):
-        p = profile_forwards(model, x[:b].contiguous())
-        log(f"[profile] batch {b}: per forward {json.dumps(p)}")
+    # each serving path with the counts at 0 just before it; a kernel's
+    # launches are those of the first path that runs it
+    counts, ips = {}, {}
+    for pattern in patterns:
+        main_counts, ips[str(pattern)], model, x = end_to_end(dev, pattern)
+        log(f"[serve] pattern={pattern} main-path launches (calibration, warm-ups and "
+            f"{REQUESTS} requests at each batch): {main_counts} ({time.time() - t0:.1f} s)")
+        for name, n in main_counts.items():
+            if PER_FORWARD[pattern][name]:
+                counts.setdefault(name, n)
+        for b in (1, BATCH):
+            prof = profile_forwards(model, x[:b].contiguous())
+            log(f"[profile] pattern={pattern} batch {b}: per forward {json.dumps(prof)}")
+        del model, x
 
-    golden(dev)
+    for pattern in patterns:
+        golden(dev, pattern)
 
     line = []
+    conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
+    head_library = "torch._int_mm on the decoded int8 weight"
     library_call = {"im2col_conv": "F.conv2d fp32 (TF32 off)",
-                    "vdbb_conv_tc": "F.conv2d fp32 on decoded weights (TF32 off)",
-                    "vdbb_matmul_tc": "torch._int_mm on the decoded int8 weight"}
+                    "vdbb_conv_tc": conv_library, "vdbb_matmul_tc": head_library,
+                    "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library}
     for name, rs in recs.items():
         k = build.KERNELS[name]
         line.append({

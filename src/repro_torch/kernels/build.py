@@ -23,7 +23,8 @@ from pathlib import Path
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
-SOURCES = ("im2col_conv.cu", "vdbb_conv_tc.cu", "vdbb_matmul_tc.cu")
+SOURCES = ("im2col_conv.cu", "vdbb_conv_tc.cu", "vdbb_matmul_tc.cu", "vdbb_conv_bw.cu",
+           "vdbb_matmul_bw.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v",

@@ -56,12 +56,15 @@ def conv_geometry(h: int, w: int, kh: int, kw: int, stride, padding):
     return (sh, sw), (ph, pw), (ho, wo)
 
 
-def check_indices(indices: torch.Tensor, nb: int, nnz: int, n: int) -> None:
-    """Positions of a compressed weight: (nb, nnz) shared across N, or
-    (nb, nnz, N) per column. The kernels index through them unchecked."""
-    shapes = ((nb, nnz), (nb, nnz, n))
+def check_indices(indices: torch.Tensor, nb: int, nnz: int, n: int, group: int = 1) -> None:
+    """Positions of a compressed weight: (nb, nnz) shared across N,
+    (nb, nnz, N) per column, or (nb, nnz, N/group) for a grouped weight.
+    The kernels index through them unchecked."""
+    shapes = [(nb, nnz), (nb, nnz, n)]
+    if group > 1 and n % group == 0:
+        shapes.append((nb, nnz, n // group))
     if tuple(indices.shape) not in shapes:
-        raise ValueError(f"indices {tuple(indices.shape)}: expected {shapes[0]} or {shapes[1]}")
+        raise ValueError(f"indices {tuple(indices.shape)}: expected one of {shapes}")
 
 
 def acc_dtype_for(operand_dtype: torch.dtype) -> torch.dtype:

@@ -2,33 +2,17 @@
 //
 // Replaces repro/kernels/im2col_conv.py:_im2col_conv_kernel (im2col_conv).
 // M = N*Ho*Wo, K = kh*kw*C ordered (dy, dx, c), N = F. The left operand is
-// read straight from the unpadded input through the tap's shifted view, zero
-// outside the image, so the kh*kw-duplicated im2col tensor never exists.
+// read straight from the unpadded input through the tap's shifted view
+// (`Tap`, im2col_tap.cuh), zero outside the image, so the kh*kw-duplicated
+// im2col tensor never exists.
 // On the int8-resident chain it is the fp32 C = 3 stem, whose epilogue fuses
 // bias, ReLU and the requantize to int8.
 //
 // Bound on an H100 at sparse-cnn-s batch 64: the stem's fp32 operations
 // (2*M*27*64 flops) against the 67 TFLOP/s of the CUDA cores; its bytes
 // (3 channels in, 64 int8 channels out) take less time.
+#include "im2col_tap.cuh"
 #include "os_gemm.cuh"
-
-template <typename T>
-struct Tap {
-  const T* x;
-  int h, w, c, ho, wo, sh, sw, pt, pl, kw;
-
-  __device__ __forceinline__ T operator()(int m, int k) const {
-    const int t = k / c;
-    const int ch = k - t * c;
-    const int dy = t / kw, dx = t - dy * kw;
-    const int ox = m % wo;
-    const int r = m / wo;
-    const int oy = r % ho, n = r / ho;
-    const int iy = oy * sh - pt + dy, ix = ox * sw - pl + dx;
-    if (iy < 0 || iy >= h || ix < 0 || ix >= w) return T(0);
-    return x[(((size_t)n * h + iy) * w + ix) * c + ch];
-  }
-};
 
 template <typename T>
 static cudaError_t run(const void* x, const void* wt, EpilogueArgs ep, void* out,
@@ -36,8 +20,9 @@ static cudaError_t run(const void* x, const void* wt, EpilogueArgs ep, void* out
                        int wo, int kh, int kw, int sh, int sw, int pt, int pl,
                        cudaStream_t stream) {
   Tap<T> ld{static_cast<const T*>(x), h, w, c, ho, wo, sh, sw, pt, pl, kw};
-  return os_gemm::launch<T>(out_kind, ld, static_cast<const T*>(wt), n * ho * wo,
-                            f, kh * kw * c, out, ep, stream);
+  os_gemm::DenseB<T> wb{static_cast<const T*>(wt), f};
+  return os_gemm::launch<T>(out_kind, ld, wb, n * ho * wo, f, kh * kw * c, out, ep,
+                            stream);
 }
 
 extern "C" int im2col_conv(const void* x, const void* wt, const void* scale,

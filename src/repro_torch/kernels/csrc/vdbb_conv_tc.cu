@@ -46,8 +46,9 @@ static cudaError_t run(const void* x, const void* values, const void* idx,
   const int cb = c / bz;
   GatherTap<T> ld{static_cast<const T*>(x), static_cast<const int8_t*>(idx),
                   h, w, c, ho, wo, sh, sw, pt, pl, kw, cb, nnz, bz};
-  return os_gemm::launch<T>(out_kind, ld, static_cast<const T*>(values),
-                            n * ho * wo, f, kh * kw * cb * nnz, out, ep, stream);
+  os_gemm::DenseB<T> vb{static_cast<const T*>(values), f};
+  return os_gemm::launch<T>(out_kind, ld, vb, n * ho * wo, f, kh * kw * cb * nnz,
+                            out, ep, stream);
 }
 
 extern "C" int vdbb_conv_tc(const void* x, const void* values, const void* idx,

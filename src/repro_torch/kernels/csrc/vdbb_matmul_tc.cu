@@ -29,8 +29,8 @@ static cudaError_t run(const void* a, const void* values, const void* idx,
                        int n, int bz, int nnz, cudaStream_t stream) {
   GatherCols<T> ld{static_cast<const T*>(a), static_cast<const int8_t*>(idx), k,
                    bz, nnz};
-  return os_gemm::launch<T>(out_kind, ld, static_cast<const T*>(values), m, n,
-                            (k / bz) * nnz, out, ep, stream);
+  os_gemm::DenseB<T> vb{static_cast<const T*>(values), n};
+  return os_gemm::launch<T>(out_kind, ld, vb, m, n, (k / bz) * nnz, out, ep, stream);
 }
 
 extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx,

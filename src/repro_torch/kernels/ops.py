@@ -8,8 +8,8 @@ the dequantization into the flush. Every entry point takes ``bias=``,
 ``relu=`` and ``out_scale=`` (requantize to int8 at the next layer's scale).
 
 Dispatch follows the weight's pattern sharing: a pattern shared across N
-runs the tc kernel; per-column or grouped patterns run the bw plain version
-on the CPU and raise ``NotImplementedError`` on CUDA.
+runs the tc kernel, per-column or grouped patterns the bw kernel. Each
+wrapper runs its kernel's plain version for CPU tensors.
 """
 from __future__ import annotations
 
@@ -22,14 +22,10 @@ from repro_torch.kernels import vdbb_matmul as _vm
 
 def _matmul_dispatch(a, w: DBBWeight, scales, *, bias=None, relu=False, out_scale=None):
     n = w.shape[1]
-    g = w.fmt.group_size(n)
     kw = dict(scales=scales, bias=bias, relu=relu, out_scale=out_scale)
-    if g == n:
+    if w.fmt.group_size(n) == n:
         return _vm.vdbb_matmul_tc(a, w.values, w.indices[:, :, 0].contiguous(), w.fmt, **kw)
-    if a.device.type != "cpu":
-        raise NotImplementedError(_vm.BW_TODO)
-    idx = w.indices.repeat_interleave(g, dim=2) if g > 1 else w.indices
-    return _vm.vdbb_matmul_bw_plain(a, w.values, idx, w.fmt, **kw)
+    return _vm.vdbb_matmul_bw(a, w.values, w.indices, w.fmt, **kw)
 
 
 def vdbb_matmul(a, w: DBBWeight, *, bias=None, relu=False, out_scale=None):

@@ -48,10 +48,13 @@ def acc_matmul(a, b):
 
 def decode_values(values, indices, fmt):
     """Dense (nb·bz, N) weight from compressed ``values`` (nb, nnz, N) and
-    ``indices``: (nb, nnz) shared across N or (nb, nnz, N) per column."""
+    ``indices``: (nb, nnz) shared across N, (nb, nnz, N) per column or
+    (nb, nnz, N/g) shared by groups of g neighbouring columns."""
     nb, nnz, n = values.shape
     if indices.dim() == 2:
         indices = indices[:, :, None].expand(nb, nnz, n)
+    elif indices.shape[2] != n:
+        indices = indices.repeat_interleave(n // indices.shape[2], dim=2)
     fmt_pc = dataclasses.replace(fmt, group=None)
     return dbb_decode(DBBWeight(values, indices.to(torch.int8), fmt_pc, (nb * fmt.bz, n)))
 

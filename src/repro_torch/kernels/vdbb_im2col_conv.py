@@ -1,12 +1,11 @@
 """Fused IM2COL × VDBB sparse convolution (port of
-``repro/kernels/vdbb_im2col_conv.py``): the CUDA kernel
-``csrc/vdbb_conv_tc.cu`` for patterns shared across F (tc mode) and its
-plain PyTorch version.
+``repro/kernels/vdbb_im2col_conv.py``): the CUDA kernels
+``csrc/vdbb_conv_tc.cu`` for a pattern shared across F (tc mode) and
+``csrc/vdbb_conv_bw.cu`` for a pattern per output channel or per group of
+channels (bw mode), each beside its plain PyTorch version.
 
 The conv weight (kh, kw, C, F) is compressed along K = kh·kw·C with
 C % bz == 0, so every block lies inside one tap; block ``b = t·cb + c//bz``.
-Per-column or grouped patterns (the TPU's bw kernel) have no CUDA kernel
-yet: on CUDA they raise, on the CPU their plain version runs.
 """
 from __future__ import annotations
 
@@ -25,8 +24,11 @@ KERNEL = build.CudaKernel(
     replaces="src/repro/kernels/vdbb_im2col_conv.py:60 _vdbb_conv_tc_kernel",
 )
 
-BW_TODO = ("per-column and grouped VDBB patterns (the bw conv kernel) have no "
-           "CUDA kernel yet: ROADMAP.md queue 2 item 6")
+BW_KERNEL = build.CudaKernel(
+    "vdbb_conv_bw", "vdbb_conv_bw.cu",
+    [P, P, P, P, P, P, I, P, I, I] + [I] * 16 + [P],
+    replaces="src/repro/kernels/vdbb_im2col_conv.py:95 _vdbb_conv_bw_kernel",
+)
 
 
 def _conv_weight_geometry(k: int, fmt: DBBFormat, kh: int, kw: int) -> int:
@@ -46,7 +48,7 @@ def _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, 
     nb, nnz, f = values.shape
     if nnz != fmt.nnz:
         raise ValueError(f"values nnz={nnz} != fmt.nnz={fmt.nnz}")
-    check_indices(indices, nb, nnz, f)
+    check_indices(indices, nb, nnz, f, fmt.group_size(f))
     c = _conv_weight_geometry(nb * fmt.bz, fmt, kh, kw)
     if x.shape[-1] != c:
         raise ValueError(f"x has C={x.shape[-1]} but weight encodes C={c}")
@@ -101,7 +103,8 @@ def vdbb_im2col_conv_tc(x, values, indices, fmt, kh, kw, *, scales=None,
 def vdbb_im2col_conv_bw_plain(x, values, indices, fmt, kh, kw, *, scales=None,
                               bias=None, relu=False, out_scale=None, stride=1,
                               padding="SAME"):
-    """Plain version of the per-column (bw) conv: indices (nb, nnz, F)."""
+    """Plain version of the per-column (bw) conv: explicit im2col, the
+    expanded dense weight, one product over the dense K, the plain flush."""
     (_, _, (ho, wo)), ep = _plan(x, values, indices, fmt, kh, kw, stride, padding,
                                  scales, bias, relu, out_scale)
     nb, nnz, f = values.shape
@@ -110,16 +113,43 @@ def vdbb_im2col_conv_bw_plain(x, values, indices, fmt, kh, kw, *, scales=None,
     return apply_epilogue(acc, ep).reshape(x.shape[0], ho, wo, f)
 
 
+def vdbb_im2col_conv_bw(x, values, indices, fmt, kh, kw, *, scales=None,
+                        bias=None, relu=False, out_scale=None, stride=1,
+                        padding="SAME"):
+    """Fused sparse conv with a pattern per output channel. x: (N, H, W, C)
+    int8 or fp32; values: (nb, nnz, F) of the same dtype; indices:
+    (nb, nnz, F) int8, or (nb, nnz, F/g) for ``fmt.group = g``, read in
+    place. CPU tensors take the plain version; CUDA tensors launch the
+    kernel."""
+    if x.device.type == "cpu":
+        return vdbb_im2col_conv_bw_plain(
+            x, values, indices, fmt, kh, kw, scales=scales, bias=bias, relu=relu,
+            out_scale=out_scale, stride=stride, padding=padding)
+    ((sh, sw), (ph, pw), (ho, wo)), ep = _plan(
+        x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale)
+    if values.dtype != x.dtype or indices.dtype != torch.int8 or indices.dim() != 3:
+        raise TypeError("vdbb_conv_bw: values must match x's dtype, indices be "
+                        "(nb, nnz, F/g) int8")
+    in_kind = build.check_operands("vdbb_conv_bw", x, values, indices, dtype=x.dtype)
+    n, h, w, c = x.shape
+    f = values.shape[-1]
+    out = torch.empty((n, ho, wo, f), dtype=ep.out_dtype, device=x.device)
+    BW_KERNEL.launch(
+        x.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
+        build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu),
+        out.data_ptr(), in_kind, build.out_kind(ep.out_dtype), n, h, w, c, f,
+        ho, wo, kh, kw, sh, sw, ph[0], pw[0], fmt.bz, fmt.nnz, f // indices.shape[2],
+        build.stream_of(x),
+    )
+    return out
+
+
 def vdbb_im2col_conv(x, dw: DBBWeight, kh: int, kw: int, **kw_args):
     """Fused sparse conv over a compressed DBBWeight, dispatching on its
-    pattern-sharing mode: shared across F runs the tc kernel; per-column or
-    grouped patterns run the bw plain version on the CPU and raise on CUDA."""
+    pattern-sharing mode: shared across F runs the tc kernel, per-column or
+    grouped patterns the bw kernel (grouped indices read in place)."""
     f = dw.shape[1]
-    g = dw.fmt.group_size(f)
-    if g == f:
+    if dw.fmt.group_size(f) == f:
         return vdbb_im2col_conv_tc(x, dw.values, dw.indices[:, :, 0].contiguous(),
                                    dw.fmt, kh, kw, **kw_args)
-    if x.device.type != "cpu":
-        raise NotImplementedError(BW_TODO)
-    idx = dw.indices.repeat_interleave(g, dim=2) if g > 1 else dw.indices
-    return vdbb_im2col_conv_bw_plain(x, dw.values, idx, dw.fmt, kh, kw, **kw_args)
+    return vdbb_im2col_conv_bw(x, dw.values, dw.indices, dw.fmt, kh, kw, **kw_args)

@@ -1,7 +1,7 @@
 """VDBB sparse matmul (port of ``repro/kernels/vdbb_matmul.py``): the CUDA
-kernel ``csrc/vdbb_matmul_tc.cu`` for a pattern shared across N (tc mode)
-and its plain PyTorch version. Per-column patterns (the TPU's bw kernel)
-have no CUDA kernel yet: their plain version serves CPU tensors."""
+kernels ``csrc/vdbb_matmul_tc.cu`` for a pattern shared across N (tc mode)
+and ``csrc/vdbb_matmul_bw.cu`` for a pattern per column or per group of
+columns (bw mode), each beside its plain PyTorch version."""
 from __future__ import annotations
 
 import torch
@@ -18,8 +18,11 @@ KERNEL = build.CudaKernel(
     replaces="src/repro/kernels/vdbb_matmul.py:65 _vdbb_tc_kernel",
 )
 
-BW_TODO = ("per-column and grouped VDBB patterns (the bw matmul kernel) have no "
-           "CUDA kernel yet: ROADMAP.md queue 2 item 5")
+BW_KERNEL = build.CudaKernel(
+    "vdbb_matmul_bw", "vdbb_matmul_bw.cu",
+    [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P],
+    replaces="src/repro/kernels/vdbb_matmul.py:169 _vdbb_bw_kernel",
+)
 
 
 def _plan(a, values, indices, fmt, scales, bias, relu, out_scale):
@@ -29,7 +32,7 @@ def _plan(a, values, indices, fmt, scales, bias, relu, out_scale):
         raise ValueError(f"K={k} != nb*bz = {nb}*{fmt.bz}")
     if nnz != fmt.nnz:
         raise ValueError(f"values nnz={nnz} != fmt.nnz={fmt.nnz}")
-    check_indices(indices, nb, nnz, n)
+    check_indices(indices, nb, nnz, n, fmt.group_size(n))
     return epilogue_plan(n, a.device, scales=scales, bias=bias, relu=relu,
                          out_scale=out_scale, acc_dtype=acc_dtype_for(a.dtype))
 
@@ -71,6 +74,33 @@ def vdbb_matmul_tc(a, values, indices, fmt, *, scales=None, bias=None,
 
 def vdbb_matmul_bw_plain(a, values, indices, fmt, *, scales=None, bias=None,
                          relu=False, out_scale=None):
-    """Plain version of the per-column (bw) matmul: indices (nb, nnz, N)."""
+    """Plain version of the per-column (bw) matmul: expand to the dense
+    weight, one product over the dense K, the plain flush."""
     ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
     return apply_epilogue(acc_matmul(a, decode_values(values, indices, fmt)), ep)
+
+
+def vdbb_matmul_bw(a, values, indices, fmt, *, scales=None, bias=None,
+                   relu=False, out_scale=None):
+    """A (M, K) × compressed W -> (M, N) with a pattern per column. values:
+    (nb, nnz, N) of A's dtype; indices: (nb, nnz, N) int8, or (nb, nnz, N/g)
+    for ``fmt.group = g``, read in place (never repeated per column). CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
+    if a.device.type == "cpu":
+        return vdbb_matmul_bw_plain(a, values, indices, fmt, scales=scales,
+                                    bias=bias, relu=relu, out_scale=out_scale)
+    ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
+    if values.dtype != a.dtype or indices.dtype != torch.int8 or indices.dim() != 3:
+        raise TypeError("vdbb_matmul_bw: values must match a's dtype, indices be "
+                        "(nb, nnz, N/g) int8")
+    in_kind = build.check_operands("vdbb_matmul_bw", a, values, indices, dtype=a.dtype)
+    m, k = a.shape
+    n = values.shape[-1]
+    out = torch.empty((m, n), dtype=ep.out_dtype, device=a.device)
+    BW_KERNEL.launch(
+        a.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
+        build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu),
+        out.data_ptr(), in_kind, build.out_kind(ep.out_dtype), m, k, n, fmt.bz,
+        fmt.nnz, n // indices.shape[2], build.stream_of(a),
+    )
+    return out

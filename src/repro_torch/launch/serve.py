@@ -8,6 +8,10 @@ compressed conv, global average pooling, one head GEMM kernel.
 
   python -m repro_torch.launch.serve --arch sparse-cnn-s --batch 1 8 64 --requests 8
 
+``serve(..., pattern=None)`` serves the paper's per-column patterns through
+the bw kernels; the default ``pattern='matrix'`` shares one pattern across
+each layer's outputs (the tc kernels).
+
 Prints the logits' shape, images/s (CUDA events around ``--requests``
 forwards per batch size) and the kernel launches per forward.
 """
@@ -24,12 +28,14 @@ from repro_torch.models.cnn import SparseCNN
 
 
 def build_model(arch: str, *, calib_batch: int, device, seed: int = 0,
-                smoke: bool = False):
+                smoke: bool = False, sparsity=0.625, pattern="matrix"):
     """Seeded, compressed, calibrated and quantized model, plus the
-    calibration batch. Weights and inputs are drawn on the CPU from one
+    calibration batch. ``sparsity`` and ``pattern`` choose the DBB format
+    (``configs.cnn``). Weights and inputs are drawn on the CPU from one
     ``torch.Generator`` and moved to ``device``."""
     dev = resolve_device(device)
-    cfg = (smoke_cnn_config if smoke else get_cnn_config)(arch)
+    cfg = (smoke_cnn_config if smoke else get_cnn_config)(arch, sparsity=sparsity,
+                                                          pattern=pattern)
     gen = torch.Generator().manual_seed(seed)
     model = SparseCNN(cfg).init(gen, dev).compress()
     x = torch.randn(calib_batch, cfg.image_size, cfg.image_size, cfg.in_channels,
@@ -61,7 +67,8 @@ def time_requests(model, x, requests: int) -> tuple:
 
 
 def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
-          device=None, seed: int = 0, smoke: bool = False, log=print) -> tuple:
+          device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
+          pattern="matrix", log=print) -> tuple:
     """Serve ``requests`` batches of each size in ``batches`` on the card.
     Returns ``(model, inputs, results)``: the quantized model, the seeded
     input batch (requests of batch b take its first b images) and
@@ -70,9 +77,10 @@ def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
     if dev.type != "cuda":
         raise ValueError("serving is timed with CUDA events and runs on a card")
     model, xcal = build_model(arch, calib_batch=max(batches), device=dev, seed=seed,
-                              smoke=smoke)
+                              smoke=smoke, sparsity=sparsity, pattern=pattern)
     fmt = model.cfg.fmt
-    log(f"[serve] {model.cfg.name}: INT8-calibrated, nnz={fmt.nnz}/{fmt.bz}, "
+    shared = "per column" if fmt.group is None else f"shared by group={fmt.group}"
+    log(f"[serve] {model.cfg.name}: INT8-calibrated, nnz={fmt.nnz}/{fmt.bz}, pattern {shared}, "
         f"{model.cfg.param_count() / 1e6:.2f} M weights, on {torch.cuda.get_device_name(dev)}")
     out = {}
     for b in batches:
@@ -94,9 +102,11 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true", help="reduced config of the arch")
+    ap.add_argument("--sparsity", type=float, default=0.625,
+                    help="weight sparsity: 0.625 -> 3/8 DBB, 0 -> dense")
     args = ap.parse_args(argv)
     serve(args.arch, batches=args.batch, requests=args.requests, device=args.device,
-          seed=args.seed, smoke=args.smoke)
+          seed=args.seed, smoke=args.smoke, sparsity=args.sparsity)
 
 
 if __name__ == "__main__":

@@ -5,10 +5,11 @@ fixture the card reads, the serving entry point and the import guard.
 
 The chain runs ``smoke_cnn_config("sparse-cnn-tiny")`` with two convs per
 stage at batch 8 with random nonzero biases: an int8 -> int8 conv, a
-stride-2 conv and a head at M = 8. Tolerances: the fp32 stem's requantized
-codes within one code on at most 0.1 % of entries (fp32 summation order);
-every later layer, fed JAX's own intermediates, exactly; the logits within
-1e-3 relative L2.
+stride-2 conv and a head at M = 8. The per-column chain (``pattern=None``,
+the bw kernels) runs the same model at batch 4, the size of its golden
+fixture. Tolerances: the fp32 stem's requantized codes within one code on
+at most 0.1 % of entries (fp32 summation order); every later layer, fed
+JAX's own intermediates, exactly; the logits within 1e-3 relative L2.
 """
 import ast
 import dataclasses
@@ -46,8 +47,14 @@ def chain():
     return tp.jax_chain()
 
 
-def _port_model(tree, cfg=None):
-    cfg = cfg or dataclasses.replace(tcfg.smoke_cnn_config("sparse-cnn-tiny"), convs_per_stage=2)
+@pytest.fixture(scope="module")
+def chain_bw():
+    return tp.jax_chain(batch=tp.FIXTURE_BATCH, pattern=None)
+
+
+def _port_model(tree, pattern="matrix"):
+    cfg = dataclasses.replace(tcfg.smoke_cnn_config("sparse-cnn-tiny", pattern=pattern),
+                              convs_per_stage=2)
     return SparseCNN(cfg).load_state(params_from_numpy(tree, "cpu"))
 
 
@@ -80,6 +87,22 @@ def test_sparse_cnn_s_layers():
     assert sum(c.stride == (2, 2) for c in convs) == 3
     assert (head.in_features, head.out_features) == (512, 1000)
     assert 5.1e6 < m.cfg.param_count() < 5.3e6
+
+
+def test_sparse_cnn_s_per_column_config_matches_reference():
+    """``pattern=None``: every compressed layer keeps a pattern per output
+    column, at the same widths and weights as the shared-pattern model."""
+    t = tcfg.get_cnn_config("sparse-cnn-s", pattern=None)
+    j = jcfg.get_cnn_config("sparse-cnn-s", pattern=None)
+    assert (t.fmt.bz, t.fmt.nnz, t.fmt.group) == (j.fmt.bz, j.fmt.nnz, j.fmt.group) == (8, 3, None)
+    assert t.param_count() == j.param_count() == tcfg.get_cnn_config("sparse-cnn-s").param_count()
+    assert SparseCNN(t).flops(64) == JSparseCNN(j).flops(64)
+    smoke = tcfg.smoke_cnn_config("sparse-cnn-s", pattern=None)
+    m = SparseCNN(smoke).init(torch.Generator().manual_seed(0), "cpu").compress()
+    for layer in m.layers()[1:]:
+        w = layer.w
+        n = w.shape[1]
+        assert w.indices.shape == (w.shape[0] // 8, 3, n) and w.indices.is_contiguous()
 
 
 # -------------------------------------------------------------- lifecycle
@@ -167,6 +190,44 @@ def test_chain_head_exact_and_logits_close(chain):
     assert rel_l2(logits.numpy(), chain["logits"]) <= 1e-3
 
 
+# --------------------------------------------------- per-column chain
+
+
+def test_chain_bw_stem_codes_within_one(chain_bw):
+    m = _port_model(chain_bw["params"], pattern=None)
+    assert m.l1.w.fmt.group is None and m.l1.w.indices.shape == (36, 3, 32)
+    inter = []
+    with torch.no_grad():
+        m(torch.from_numpy(chain_bw["input"]), intermediates=inter)
+    got = inter[0].numpy().astype(np.int32)
+    d = np.abs(got - chain_bw["intermediates"]["0"].astype(np.int32))
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-3
+
+
+@pytest.mark.parametrize("layer", [1, 2, 3])
+def test_chain_bw_layer_exact_on_reference_intermediates(chain_bw, layer):
+    """Per-column l1 int8 -> int8, l2 stride 2, l3 int8 -> fp32 into GAP."""
+    m = _port_model(chain_bw["params"], pattern=None)
+    convs = m.layers()[:-1]
+    out_scale = convs[layer + 1].aq if layer + 1 < len(convs) else None
+    x = torch.from_numpy(chain_bw["intermediates"][str(layer - 1)])
+    with torch.no_grad():
+        got = convs[layer].quant_serve(x, relu=True, out_scale=out_scale)
+    want = chain_bw["intermediates"][str(layer)]
+    assert got.numpy().dtype == want.dtype
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_chain_bw_head_exact_and_logits_close(chain_bw):
+    m = _port_model(chain_bw["params"], pattern=None)
+    with torch.no_grad():
+        head = m.layers()[-1].quant_serve(torch.from_numpy(chain_bw["pooled"]))
+        logits = m(torch.from_numpy(chain_bw["input"]))
+    np.testing.assert_array_equal(head.numpy(), chain_bw["logits"])
+    assert logits.shape == (tp.FIXTURE_BATCH, 10)
+    assert rel_l2(logits.numpy(), chain_bw["logits"]) <= 1e-3
+
+
 # ---------------------------------------------------------------- fixture
 
 
@@ -179,6 +240,28 @@ def test_golden_fixture_is_current():
         assert sorted(z.files) == sorted(fresh)
         for k, v in fresh.items():
             np.testing.assert_array_equal(z[k], v, err_msg=k)
+
+
+def test_golden_fixture_bw_is_current(chain_bw):
+    """The per-column fixture is the JAX reference's batch-4 chain, entry
+    by entry, under 200 KB."""
+    assert tp.FIXTURE_BW.stat().st_size < 200_000
+    fresh = flatten(chain_bw)
+    with np.load(tp.FIXTURE_BW) as z:
+        assert sorted(z.files) == sorted(fresh)
+        for k, v in fresh.items():
+            np.testing.assert_array_equal(z[k], v, err_msg=k)
+
+
+def test_golden_fixture_bw_through_the_port():
+    with np.load(tp.FIXTURE_BW) as z:
+        tree = unflatten(z)
+    m = _port_model(tree["params"], pattern=None)
+    assert isinstance(m.l1.w, QuantDBBWeight) and m.l1.w.fmt.group is None
+    assert m.l3.w.indices.shape == (72, 3, 64) and m.l3.w.indices.is_contiguous()
+    with torch.no_grad():
+        logits = m(torch.from_numpy(tree["input"]))
+    assert rel_l2(logits.numpy(), tree["logits"]) <= 1e-3
 
 
 def test_golden_fixture_through_the_port():
@@ -221,6 +304,20 @@ def test_build_model_on_the_cpu_gives_a_calibrated_int8_chain():
     model, x = serve.build_model("sparse-cnn-tiny", calib_batch=2, device="cpu", smoke=True)
     assert model._int8_chain_ready(model.layers())
     assert all(float(m.aq) > 0 for m in model.layers()[1:])
+    with torch.no_grad():
+        assert model(x).shape == (2, 10)
+
+
+@pytest.mark.parametrize("sparsity,nnz", [(0.625, 3), (0.5, 4)])
+def test_build_model_per_column_on_the_cpu(sparsity, nnz):
+    """``sparsity`` and ``pattern`` reach the config: a per-column int8
+    chain whose weights keep a pattern per output column."""
+    model, x = serve.build_model("sparse-cnn-tiny", calib_batch=2, device="cpu", smoke=True,
+                                 sparsity=sparsity, pattern=None)
+    assert (model.cfg.fmt.nnz, model.cfg.fmt.group) == (nnz, None)
+    assert model._int8_chain_ready(model.layers())
+    head = model.layers()[-1].w
+    assert head.indices.shape == (head.shape[0] // 8, nnz, head.shape[1])
     with torch.no_grad():
         assert model(x).shape == (2, 10)
 

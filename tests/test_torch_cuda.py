@@ -28,8 +28,19 @@ from repro_torch.kernels import vdbb_im2col_conv as conv_k
 from repro_torch.kernels import vdbb_matmul as head_k
 from repro_torch.models.cnn import SparseCNN
 
-FIXTURE = Path(__file__).resolve().parent / "data" / "torch_parity_cnn.npz"
+DATA = Path(__file__).resolve().parent / "data"
 TOL = dict(rtol=1e-5, atol=1e-5)
+
+
+def _per_forward(pattern, n_conv):
+    """The exact launches of one forward: the stem, ``n_conv - 1`` compressed
+    convs and the head on the pattern's kernels, the other mode's at 0."""
+    if pattern == "matrix":
+        return {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1, "vdbb_matmul_tc": 1,
+                "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0}
+    return {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0,
+            "vdbb_conv_bw": n_conv - 1, "vdbb_matmul_bw": 1}
+
 
 pytestmark = pytest.mark.cuda
 
@@ -104,25 +115,67 @@ def test_stem_kernel_matches_plain(card):
     torch.cuda.synchronize()
 
 
-def test_per_column_weight_raises_on_card(card):
-    dw = tv.dbb_encode(torch.randn(64, 16), tv.DBBFormat(8, 3, None), prune=True).to(card)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ops.vdbb_matmul(torch.randn(4, 64, device=card), dw)
+@pytest.mark.parametrize("group", [None, 4])
+@pytest.mark.parametrize("stride", [1, 2])
+def test_bw_conv_kernel_matches_plain(card, group, stride):
+    """Per-column and grouped (indices (nb, nnz, F/4) read in place), ragged:
+    9x9 images, F = 72."""
+    rng = np.random.default_rng(10 + stride)
+    x, w, bias = _rng_tensor(rng, 3, 9, 9, 16), _rng_tensor(rng, 3, 3, 16, 72), _rng_tensor(rng, 72)
+    dw = tv.dbb_encode_conv(w, tv.DBBFormat(8, 3, group), prune=True)
+    qw = tq.quantize_dbb(dw)
+    xq = tq.quantize(x, tq.dynamic_act_scale(x)).to(card)
+    args = (xq, qw.values.to(card), qw.indices.to(card), dw.fmt, 3, 3)
+    for kw in (dict(scales=(qw.scales * 0.01).to(card), bias=bias.to(card), relu=True,
+                    out_scale=0.05, stride=stride),
+               dict(stride=stride)):
+        assert torch.equal(conv_k.vdbb_im2col_conv_bw(*args, **kw),
+                           conv_k.vdbb_im2col_conv_bw_plain(*args, **kw))
+    args = (x.to(card), dw.values.to(card), dw.indices.to(card), dw.fmt, 3, 3)
+    kw = dict(bias=bias.to(card), relu=True, stride=stride)
+    torch.testing.assert_close(conv_k.vdbb_im2col_conv_bw(*args, **kw),
+                               conv_k.vdbb_im2col_conv_bw_plain(*args, **kw), **TOL)
+    torch.cuda.synchronize()
 
 
-def test_golden_fixture_on_card(card):
+@pytest.mark.parametrize("group", [None, 4])
+@pytest.mark.parametrize("m", [1, 67])
+def test_bw_head_kernel_matches_plain(card, group, m):
+    rng = np.random.default_rng(20 + m)
+    # weights at the model's 1/sqrt(K) init scale: fp32 outputs of order 1
+    a, w = _rng_tensor(rng, m, 512), _rng_tensor(rng, 512, 1000, scale=512 ** -0.5)
+    bias = _rng_tensor(rng, 1000)
+    dw = tv.dbb_encode(w, tv.DBBFormat(8, 3, group), prune=True)
+    qw = tq.quantize_dbb(dw)
+    aq = tq.quantize(a, tq.dynamic_act_scale(a)).to(card)
+    args = (aq, qw.values.to(card), qw.indices.to(card), qw.fmt)
+    kw = dict(scales=(qw.scales * 0.01).to(card), bias=bias.to(card))
+    assert torch.equal(head_k.vdbb_matmul_bw(*args, **kw), head_k.vdbb_matmul_bw_plain(*args, **kw))
+    assert torch.equal(head_k.vdbb_matmul_bw(*args), head_k.vdbb_matmul_bw_plain(*args))
+    a32 = (a.to(card), dw.values.to(card), dw.indices.to(card), dw.fmt)
+    torch.testing.assert_close(head_k.vdbb_matmul_bw(*a32, bias=bias.to(card)),
+                               head_k.vdbb_matmul_bw_plain(*a32, bias=bias.to(card)), **TOL)
+    # the dispatch takes the grouped weight's own indices to the kernel
+    build.reset_launches()
+    ops.vdbb_matmul(aq, qw.as_dbb().to(card))
+    assert build.launch_counts()["vdbb_matmul_bw"] == 1
+    torch.cuda.synchronize()
+
+
+def _golden_on_card(card, pattern, fixture):
     """The JAX reference's fixture through the kernels: later layers exact,
     logits within 1e-3 relative L2."""
-    with np.load(FIXTURE) as z:
+    with np.load(fixture) as z:
         tree = unflatten(z)
-    cfg = dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny"), convs_per_stage=2)
+    cfg = dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny", pattern=pattern),
+                              convs_per_stage=2)
     model = SparseCNN(cfg).load_state(params_from_numpy(tree["params"], card))
     inter = []
     build.reset_launches()
     with torch.no_grad():
         logits = model(torch.from_numpy(tree["input"]).to(card), intermediates=inter)
     n_conv = len(model.layers()) - 1
-    assert build.launch_counts() == {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1, "vdbb_matmul_tc": 1}
+    assert build.launch_counts() == _per_forward(pattern, n_conv)
     _codes_close(inter[0].cpu(), torch.from_numpy(tree["intermediates"]["0"]))
     convs = model.layers()[:-1]
     with torch.no_grad():
@@ -135,13 +188,21 @@ def test_golden_fixture_on_card(card):
     assert float((logits.cpu().double() - want).norm() / want.norm()) <= 1e-3
 
 
-def test_serve_smoke_on_card(card):
+def test_golden_fixture_on_card(card):
+    _golden_on_card(card, "matrix", DATA / "torch_parity_cnn.npz")
+
+
+def test_golden_fixture_bw_on_card(card):
+    _golden_on_card(card, None, DATA / "torch_parity_cnn_bw.npz")
+
+
+@pytest.mark.parametrize("pattern", ["matrix", None])
+def test_serve_smoke_on_card(card, pattern):
     from repro_torch.launch import serve
 
     model, _, out = serve.serve("sparse-cnn-tiny", smoke=True, batches=(1, 3), requests=2,
-                                device=card, log=lambda *_: None)
+                                device=card, pattern=pattern, log=lambda *_: None)
     n_conv = len(model.layers()) - 1
     for b, r in out.items():
         assert r["logits"].shape == (b, 10) and r["images_per_s"] > 0
-        assert r["launches_per_forward"] == {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1,
-                                             "vdbb_matmul_tc": 1}
+        assert r["launches_per_forward"] == _per_forward(pattern, n_conv)

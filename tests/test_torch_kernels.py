@@ -22,6 +22,8 @@ from repro.core import quant as jq
 from repro.core import vdbb as jv
 from repro.kernels import core as jcore
 from repro.kernels import ops as jops
+from repro.kernels import vdbb_im2col_conv as jconv
+from repro.kernels import vdbb_matmul as jvm
 from repro_torch.core import quant as tq
 from repro_torch.core import vdbb as tv
 from repro_torch.kernels import core as tcore
@@ -32,6 +34,8 @@ from repro_torch.kernels import vdbb_im2col_conv as conv_k
 from repro_torch.kernels import vdbb_matmul as head_k
 
 TOL = dict(rtol=1e-5, atol=1e-5)
+# per-column and grouped formats at the paper's densities (bw kernels)
+BW_CASES = [(group, nnz) for group in (None, 4) for nnz in (1, 3, 8)]
 
 
 def _t(a):
@@ -168,6 +172,52 @@ def test_quant_matmul(m, requant, int8_in):
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
 
 
+def _per_column_indices(jw):
+    """JAX's bw kernels take one position row per column: a grouped
+    weight's (nb, nnz, N/g) indices repeated g times, as ``ops`` does."""
+    g = jw.values.shape[2] // jw.indices.shape[2]
+    return jnp.repeat(jw.indices, g, axis=2)
+
+
+def _assert_bw_matches(run_port, run_jax, a, tw, jw, bias):
+    """One bw kernel at three instantiations against JAX's bw Pallas kernel
+    (per-column indices) and the port's own plain version (its indices in
+    place): fp32 with bias and ReLU within 1e-5, int8 raw int32 exactly,
+    int8 requantized codes exactly."""
+    got = run_port(_t(a), tw.values, tw.indices, tw.fmt, bias=_t(bias), relu=True)
+    want = run_jax(jnp.asarray(a), jw.values, _per_column_indices(jw), jw.fmt,
+                   bias=jnp.asarray(bias), relu=True)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    tqw, jqw = tq.quantize_dbb(tw), jq.quantize_dbb(jw)
+    s = tq.dynamic_act_scale(_t(a))
+    aq = tq.quantize(_t(a), s)
+    got = run_port(aq, tqw.values, tqw.indices, tqw.fmt)
+    want = run_jax(_j(aq), jqw.values, _per_column_indices(jqw), jqw.fmt)
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    kw = dict(relu=True, out_scale=0.05)
+    got = run_port(aq, tqw.values, tqw.indices, tqw.fmt, scales=s * tqw.scales,
+                   bias=_t(bias), **kw)
+    want = run_jax(_j(aq), jqw.values, _per_column_indices(jqw), jqw.fmt,
+                   scales=_j(s * tqw.scales), bias=jnp.asarray(bias), **kw)
+    assert got.dtype == torch.int8
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    return tqw, aq
+
+
+@pytest.mark.parametrize("group,nnz", BW_CASES)
+def test_vdbb_matmul_bw_matches_reference(group, nnz):
+    a, bias, jw, tw = _matmul_case(16, 64, 24, nnz, group, seed=70 + nnz)
+    assert tw.indices.shape == (8, nnz, 24 // tw.fmt.group_size(24))
+    tqw, aq = _assert_bw_matches(
+        head_k.vdbb_matmul_bw,
+        lambda *args, **kw: jvm.vdbb_matmul_bw(*args, interpret=True, **kw), a, tw, jw, bias)
+    np.testing.assert_array_equal(
+        head_k.vdbb_matmul_bw(aq, tqw.values, tqw.indices, tqw.fmt).numpy(),
+        tref.vdbb_matmul_int_ref(aq, tqw.values, tqw.indices, tqw.fmt).numpy())
+
+
 # ------------------------------------------------------ fused_im2col_conv
 
 
@@ -262,19 +312,73 @@ def test_quant_conv_int8_resident(stride, requant):
     np.testing.assert_array_equal(got.numpy(), plain.numpy())
 
 
+@pytest.mark.parametrize("group,nnz,stride", [(g, nnz, 1 + i % 2)
+                                              for i, (g, nnz) in enumerate(BW_CASES)])
+def test_vdbb_im2col_conv_bw_matches_reference(group, nnz, stride):
+    """Each (group, nnz) once, strides 1 and 2 taking turns."""
+    x, _, bias, jw, tw = _conv_case(2, 8, 16, 16, nnz, group, seed=80 + nnz + stride)
+    tqw, xq = _assert_bw_matches(
+        lambda *args, **kw: conv_k.vdbb_im2col_conv_bw(*args, 3, 3, stride=stride, **kw),
+        lambda *args, **kw: jconv.vdbb_im2col_conv_bw(*args, 3, 3, stride=stride, bf=8,
+                                                      interpret=True, **kw),
+        x, tw, jw, bias)
+    np.testing.assert_array_equal(
+        conv_k.vdbb_im2col_conv_bw(xq, tqw.values, tqw.indices, tqw.fmt, 3, 3,
+                                   stride=stride).numpy(),
+        tref.sparse_conv_int_ref(xq, tqw.as_dbb(), 3, 3, stride=stride).numpy())
+
+
+@pytest.mark.parametrize("group", [None, 4])
+@pytest.mark.parametrize("stride,requant", [(1, True), (2, True), (1, False)])
+def test_quant_conv_int8_resident_per_column(group, stride, requant):
+    """The per-column chain's conv: int8 codes in, the next layer's codes
+    (or fp32 into GAP) out, against JAX's ``quant_conv`` (bw kernel)."""
+    x, _, bias, jw, tw = _conv_case(2, 8, 16, 24, 3, group, seed=stride + 90)
+    tqw, jqw = tq.quantize_dbb(tw), jq.quantize_dbb(jw)
+    s = float(tq.dynamic_act_scale(_t(x)))
+    xq = tq.quantize(_t(x), s)
+    kw = dict(relu=True, out_scale=0.04 if requant else None, stride=stride)
+    got = tops.quant_conv(xq, tqw, 3, 3, s, bias=_t(bias), **kw)
+    want = jops.quant_conv(_j(xq), jqw, 3, 3, s, bias=jnp.asarray(bias), bf=8,
+                           interpret=True, **kw)
+    assert got.dtype == (torch.int8 if requant else torch.float32)
+    if requant:
+        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    else:  # jit may contract the flush's multiply and add into one FMA
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
 # ------------------------------------------- off the CPU: kernel or raise
 
 
-def test_per_column_weight_off_the_cpu_raises_not_implemented():
-    x, _, _, _, tw = _conv_case(1, 8, 16, 16, 3, None, seed=60)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 6"):
-        tops.sparse_conv(_t(x).to("meta"), tw.to("meta"), 3, 3)
-    a, _, _, mw = _matmul_case(4, 64, 16, 3, 4, seed=61)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 2 item 5"):
-        tops.vdbb_matmul(_t(a).to("meta"), mw.to("meta"))
+@pytest.mark.parametrize("which,group", [("conv", None), ("conv", 4), ("head", None),
+                                         ("head", 4)])
+def test_per_column_weight_off_the_cpu_reaches_the_bw_kernel(which, group, monkeypatch):
+    """Dispatch hands a per-column or grouped weight to the bw kernel's
+    wrapper with its own indices, (nb, nnz, N/g) as stored: nothing is
+    repeated per column, and nothing raises NotImplementedError."""
+    seen = {}
+
+    def record(*args, **kw):
+        seen["indices"] = args[2]
+        return "launched"
+
+    meta = torch.device("meta")
+    if which == "conv":
+        x, _, _, _, w = _conv_case(1, 8, 16, 16, 3, group, seed=60)
+        monkeypatch.setattr(conv_k, "vdbb_im2col_conv_bw", record)
+        w = w.to(meta)
+        assert tops.sparse_conv(_t(x).to(meta), w, 3, 3) == "launched"
+    else:
+        a, _, _, w = _matmul_case(4, 64, 16, 3, group, seed=61)
+        monkeypatch.setattr(head_k, "vdbb_matmul_bw", record)
+        w = w.to(meta)
+        assert tops.vdbb_matmul(_t(a).to(meta), w) == "launched"
+    assert seen["indices"] is w.indices
+    assert seen["indices"].shape[2] == 16 // w.fmt.group_size(16)
 
 
-@pytest.mark.parametrize("which", ["stem", "conv", "head"])
+@pytest.mark.parametrize("which", ["stem", "conv", "head", "conv_bw", "head_bw", "head_grouped"])
 def test_wrapper_never_runs_plain_version_off_the_cpu(which, monkeypatch):
     """A tensor off the CPU reaches the kernel's operand checks (which
     refuse a non-CUDA device), never the plain version."""
@@ -283,27 +387,32 @@ def test_wrapper_never_runs_plain_version_off_the_cpu(which, monkeypatch):
 
     monkeypatch.setattr(stem_k, "im2col_conv_plain", boom)
     monkeypatch.setattr(conv_k, "vdbb_im2col_conv_tc_plain", boom)
+    monkeypatch.setattr(conv_k, "vdbb_im2col_conv_bw_plain", boom)
     monkeypatch.setattr(head_k, "vdbb_matmul_tc_plain", boom)
-    x, w, _, _, tw = _conv_case(1, 8, 16, 16, 3, "matrix", seed=62)
+    monkeypatch.setattr(head_k, "vdbb_matmul_bw_plain", boom)
+    group = {"conv_bw": None, "head_bw": None, "head_grouped": 4}.get(which, "matrix")
+    x, w, _, _, tw = _conv_case(1, 8, 16, 16, 3, group, seed=62)
     meta = torch.device("meta")
     with pytest.raises(ValueError, match="CUDA"):
         if which == "stem":
             tops.fused_im2col_conv(_t(x).to(meta), _t(w).to(meta))
-        elif which == "conv":
+        elif which.startswith("conv"):
             tops.sparse_conv(_t(x).to(meta), tw.to(meta), 3, 3)
         else:
-            a, _, _, mw = _matmul_case(4, 64, 16, 3, "matrix", seed=63)
+            a, _, _, mw = _matmul_case(4, 64, 16, 3, group, seed=63)
             tops.vdbb_matmul(_t(a).to(meta), mw.to(meta))
 
 
 def test_launch_counters_start_at_zero_and_reset():
     from repro_torch.kernels import build
 
-    assert set(build.KERNELS) == {"im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc"}
+    names = {"im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc", "vdbb_conv_bw", "vdbb_matmul_bw"}
+    assert set(build.KERNELS) == names
+    assert {build.KERNELS[n].source for n in names} == set(build.SOURCES)
     for k in build.KERNELS.values():
         k.launches = 5
     build.reset_launches()
-    assert build.launch_counts() == {"im2col_conv": 0, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0}
+    assert build.launch_counts() == dict.fromkeys(names, 0)
     for k in build.KERNELS.values():
         assert k.replaces.startswith("src/repro/kernels/") and (build.CSRC / k.source).exists()
 

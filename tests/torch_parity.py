@@ -2,8 +2,10 @@
 
 Only tests import both packages: this module turns the JAX package's
 parameters into numpy trees (the form ``repro_torch.interop`` reads) and
-builds the golden fixture ``tests/data/torch_parity_cnn.npz`` from the JAX
-reference in ref mode. Regenerate it with
+builds the golden fixtures from the JAX reference in ref mode:
+``tests/data/torch_parity_cnn.npz`` (one pattern shared across each layer's
+outputs, the tc kernels) and ``tests/data/torch_parity_cnn_bw.npz``
+(per-column patterns, the bw kernels). Regenerate both with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -29,6 +31,7 @@ from repro.models.cnn import SparseCNN  # noqa: E402
 from repro_torch.interop import flatten  # noqa: E402
 
 FIXTURE = ROOT / "tests" / "data" / "torch_parity_cnn.npz"
+FIXTURE_BW = ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"
 CHAIN_BATCH = 8
 CHAIN_SEED = 0
 # the fixture holds batch 4 (under 200 KB); its head runs at M = 4, below
@@ -51,10 +54,12 @@ def to_numpy(tree):
     return np.array(tree)
 
 
-def chain_config():
+def chain_config(pattern="matrix"):
     """The chain test's model: sparse-cnn-tiny's smoke config with two convs
-    per stage (an int8 -> int8 conv, a stride-2 conv, a head at M = batch)."""
-    return dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny"), convs_per_stage=2)
+    per stage (an int8 -> int8 conv, a stride-2 conv, a head at M = batch);
+    ``pattern=None`` gives every output column its own pattern."""
+    return dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny", pattern=pattern),
+                               convs_per_stage=2)
 
 
 def random_biases(params: dict, rng: np.random.Generator) -> dict:
@@ -62,10 +67,10 @@ def random_biases(params: dict, rng: np.random.Generator) -> dict:
             for k, p in params.items()}
 
 
-def jax_chain(seed: int = CHAIN_SEED, batch: int = CHAIN_BATCH) -> dict:
+def jax_chain(seed: int = CHAIN_SEED, batch: int = CHAIN_BATCH, pattern="matrix") -> dict:
     """The JAX reference's int8-resident chain in ref mode: input, quantized
     params (numpy), every conv's output, the pooled vector and the logits."""
-    cfg = chain_config()
+    cfg = chain_config(pattern)
     model = SparseCNN(cfg)
     rng = np.random.default_rng(seed)
     params = random_biases(model.init(jax.random.PRNGKey(seed)), rng)
@@ -88,5 +93,6 @@ def fixture_bytes(chain: dict) -> bytes:
 
 if __name__ == "__main__":
     FIXTURE.parent.mkdir(parents=True, exist_ok=True)
-    FIXTURE.write_bytes(fixture_bytes(jax_chain(batch=FIXTURE_BATCH)))
-    print(f"wrote {FIXTURE} ({FIXTURE.stat().st_size} bytes)")
+    for path, pattern in ((FIXTURE, "matrix"), (FIXTURE_BW, None)):
+        path.write_bytes(fixture_bytes(jax_chain(batch=FIXTURE_BATCH, pattern=pattern)))
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
