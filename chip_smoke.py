@@ -6,14 +6,17 @@
 Phases, each of which fails the run:
   1. the card's name and power limit (nvidia-smi) and the kernels' build;
   2. every kernel against its plain PyTorch version on the card, at every
-     layer shape of sparse-cnn-s at batch 64, int8 and fp32 instantiations,
+     layer shape of sparse-cnn-s at batch 64, int8 and fp32 instantiations
+     (the bw kernels' int8 one on the tensor cores, csrc/os_mma.cuh),
      with random nonzero biases: int8 and int32 exact, fp32 within
      rtol = atol = 1e-5, the stem's requantized codes within one code on at
      most 0.1 % of entries (fp32 summation order). Both models: one pattern
      shared across each layer's outputs (tc kernels) and a pattern per
      output column (``pattern=None``, bw kernels); then a grouped format
      (DBBFormat(8, 3, 4)) at l4 and the head, and nnz of 1, 2, 4 and 8 at
-     l4's shape on both the tc and the bw kernel;
+     l4's shape on both the tc and the bw kernel; each layer timed by CUDA
+     events (kernel, plain version, library call) and by torch.profiler's
+     device time (kernel, and the library call with all its CUDA kernels);
   3. sparse-cnn-s end to end through ``repro_torch.launch.serve``, once per
      pattern: request batches of 1, 8 and 64, one stem, seven conv and one
      head launch per forward on that pattern's kernels, each batch's logits
@@ -33,6 +36,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import re
 import subprocess
 import sys
@@ -72,11 +76,16 @@ def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
     return start.elapsed_time(end) / reps
 
 
-def kernel_device_ms(fn, reps: int = 5, tries: int = 3):
-    """Mean device time of the port's kernels in one call of ``fn``, from
-    torch.profiler's CUDA activity. Unlike :func:`cuda_ms` it leaves out the
-    host's share of each call. A profiled pass now and then delivers no
-    kernel events; it is run again, up to ``tries`` times, then None."""
+def port_kernel(name: str) -> bool:
+    return kernel_family(name) != "other"
+
+
+def kernel_device_ms(fn, keep=port_kernel, reps: int = 5, tries: int = 3):
+    """Mean device time in one call of ``fn`` of the CUDA activity whose
+    name ``keep`` accepts (by default the port's kernels), from
+    torch.profiler. Unlike :func:`cuda_ms` it leaves out the host's share
+    of each call. A profiled pass now and then delivers no kernel events;
+    it is run again, up to ``tries`` times, then None."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -88,7 +97,7 @@ def kernel_device_ms(fn, reps: int = 5, tries: int = 3):
             torch.cuda.synchronize()
         us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
               if ev.device_type == torch.autograd.DeviceType.CUDA
-              and kernel_family(ev.name) != "other"]
+              and keep(ev.name)]
         if us:
             return sum(us) / reps / 1e3
     return None
@@ -167,9 +176,11 @@ def layer_shapes(cfg, batch):
 
 def timed(run, plain, library, **rec):
     """The record of one layer: the kernel's, its plain version's and the
-    library call's times by CUDA events, and the kernel's device time."""
+    library call's times by CUDA events, and the device times of the kernel
+    and of the library call (all its CUDA kernels)."""
     return dict(rec, ms=cuda_ms(run), plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
-                device_ms=kernel_device_ms(run))
+                device_ms=kernel_device_ms(run),
+                library_device_ms=kernel_device_ms(library, keep=lambda name: True))
 
 
 def stem_layer(m, xshape, out_scale, gen, dev):
@@ -214,6 +225,7 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     from repro_torch.core.vdbb import dbb_decode, dbb_encode, dbb_encode_conv
     from repro_torch.kernels import vdbb_im2col_conv as conv_k
     from repro_torch.kernels import vdbb_matmul as head_k
+    from repro_torch.kernels.core import mma_plan
 
     conv = isinstance(m, DBBConv2d)
     mode = "bw" if bw else "tc"
@@ -237,6 +249,9 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     qw = quantize_dbb(dw)
     bias = rnd(gen, dev, f, scale=0.5)
     xq = codes(gen, dev, *xshape)
+    # the bw int8 instantiation's tile rows and A chunk on the tensor cores
+    rows = xshape[0] * (math.prod(m.out_hw(xshape[1], xshape[2])) if conv else 1)
+    tile = mma_plan(what, rows, k, xshape[-1], xq.data_ptr()) if bw else None
     kc = qw.values.shape[0] * qw.values.shape[1]
     scales = dequant_scales(gen, dev, f, kc)
     args = (xq, qw.values, idx(qw), fmt, *taps)
@@ -263,14 +278,18 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     ops = 2 * out.numel() * kc
     b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
     return timed(run, lambda: plain(*args, **kw), library, err=err, bound_ms=b_ms,
-                 bound_by=b_by, bytes=nb_, ops=ops)
+                 bound_by=b_by, bytes=nb_, ops=ops,
+                 mma=tile and f"{tile.tile_rows}x64 tile, {tile.chunk} B chunks")
 
 
 def log_record(label, name, xshape, r):
-    dev_ms = r["device_ms"]
+    def ms(v):
+        return str(v if v is None else round(v, 4))
+
     log(f"[kernels] {label:<13s} {name:<15s} {str(tuple(xshape)):<23s} {r['ms']:<8.4f} "
-        f"{dev_ms if dev_ms is None else round(dev_ms, 4)!s:<10s} {r['plain_ms']:<9.4f} "
-        f"{r['library_ms']:<11.4f} {r['bound_ms']:.5f} ({r['bound_by']})")
+        f"{ms(r['device_ms']):<10s} {r['plain_ms']:<9.4f} {r['library_ms']:<11.4f} "
+        f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
+        + (f"  [{r['mma']}]" if r.get("mma") else ""))
 
 
 def check_kernels(cfgs, gen, dev):
@@ -283,7 +302,7 @@ def check_kernels(cfgs, gen, dev):
 
     recs = {name: [] for name in build.KERNELS}
     log(f"[kernels] layer         kernel          shape                   ms       device_ms  "
-        f"plain_ms  library_ms  bound_ms (by)")
+        f"plain_ms  library_ms  lib_dev_ms  bound_ms (by)")
     for pattern, cfg in cfgs.items():
         mode = "tc" if pattern == "matrix" else "bw"
         layers = layer_shapes(cfg, BATCH)
@@ -316,6 +335,23 @@ def check_kernels(cfgs, gen, dev):
                              f"nnz={nnz} {mode} l4")
             log_record(f"nnz{nnz} {mode} l4", f"vdbb_conv_{mode}", xshape, r)
     return recs
+
+
+def log_bw_summary(recs) -> None:
+    """The bw convs' device time beside the library conv's and, layer by
+    layer, beside their tc twins'; the bw head's beside torch._int_mm's."""
+    def total(rs, key):
+        vals = [r[key] for r in rs]
+        return None if None in vals else round(sum(vals), 4)
+
+    bw, tc = recs["vdbb_conv_bw"], recs["vdbb_conv_tc"]
+    ratios = [None if None in (b["device_ms"], t["device_ms"]) else round(b["device_ms"] / t["device_ms"], 3)
+              for b, t in zip(bw, tc)]
+    log(f"[kernels] bw convs: device {total(bw, 'device_ms')} ms, library conv device "
+        f"{total(bw, 'library_device_ms')} ms; per layer bw/tc device {ratios}")
+    head = recs["vdbb_matmul_bw"]
+    log(f"[kernels] bw head: device {total(head, 'device_ms')} ms, torch._int_mm device "
+        f"{total(head, 'library_device_ms')} ms")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -410,21 +446,29 @@ def end_to_end(dev, pattern):
 
 # ------------------------------------------------------------ where the time goes
 
-# operand loader -> kernel, first match wins: the bw conv's A loader is the
-# stem's Tap, so its B loader (the expand) decides
-KERNEL_OF_LOADER = {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
-                    "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
-                    "Tap": "im2col_conv"}
+# GEMM core -> {operand loader or stager -> kernel}, first match wins. On
+# os_gemm (the CUDA cores) the bw conv's fp32 A loader is the stem's Tap, so
+# its B loader (the expand) decides; on os_mma (the int8 tensor cores) both
+# bw kernels stage B with ExpandTile, so the A stager decides.
+KERNEL_OF_LOADER = {
+    "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw"},
+    "os_gemm": {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
+                "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
+                "Tap": "im2col_conv"},
+}
 
 
 def kernel_family(name: str) -> str:
-    """The port's kernel a CUDA kernel name belongs to (they share one
-    template, told apart by its operand loaders), else 'other'."""
-    if "os_gemm" in name:
-        loaders = set(re.findall(r"(\w+)<", name))
-        for loader, kernel in KERNEL_OF_LOADER.items():
-            if loader in loaders:
-                return kernel
+    """The port's kernel a CUDA kernel name belongs to, else 'other'. The
+    kernels are instances of two GEMM templates told apart by their operand
+    loaders; ``name`` may be demangled (``os_mma::kernel<128, 16, ...,
+    TapChunks, ExpandTile>(...)``) or mangled (``_ZN6os_mma6kernel...``),
+    so the names are matched as substrings."""
+    for core, loaders in KERNEL_OF_LOADER.items():
+        if core in name:
+            for loader, kernel in loaders.items():
+                if loader in name:
+                    return kernel
     return "other"
 
 
@@ -525,10 +569,14 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     build.build_all()
     log(f"[build] {len(build.SOURCES)} sources in {time.time() - t0:.1f} s -> {build.build_dir()}")
-    for src in build.SOURCES:
+    for src in build.SOURCES:  # ptxas -v: registers, shared memory, spills per kernel
+        entry = "?"
         for line in build.library_path(src).with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"[build] {src}: {line.strip()}")
+            found = re.search(r"entry function '(\w+)'", line)
+            if found:
+                entry = found.group(1)
+            elif "registers" in line or "spill" in line:
+                log(f"[build] {src} {kernel_family(entry)} {entry}: {line.strip()}")
 
     from repro_torch.configs import get_cnn_config
 
@@ -537,6 +585,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     recs = check_kernels(cfgs, gen, dev)
     log(f"[kernels] every kernel matches its plain version ({time.time() - t0:.1f} s)")
+    log_bw_summary(recs)
 
     # each serving path with the counts at 0 just before it; a kernel's
     # launches are those of the first path that runs it
@@ -575,6 +624,8 @@ def main() -> int:
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": sum(r["library_ms"] for r in rs),
+            "library_device_ms": (None if any(r["library_device_ms"] is None for r in rs)
+                                  else sum(r["library_device_ms"] for r in rs)),
             "library_call": library_call[name], "layers": len(rs),
         })
     log(f"[serve] images/s per request batch: {json.dumps(ips)}")

@@ -4,8 +4,9 @@ conv geometry, the accumulator dtype rule and the fused flush-epilogue plan.
 The TPU kernels carry an output-stationary accumulator across a sequential
 K grid axis (``os_accumulate``). On the card each thread block owns an output
 tile and loops over K itself; that loop and the flush epilogue live in
-``csrc/os_gemm.cuh`` and ``csrc/epilogue.cuh``. What stays here is what the
-host resolves before a launch.
+``csrc/os_gemm.cuh`` (the CUDA cores), ``csrc/os_mma.cuh`` (the int8 tensor
+cores, for the bw kernels' int8 instantiation) and ``csrc/epilogue.cuh``.
+What stays here is what the host resolves before a launch.
 """
 from __future__ import annotations
 
@@ -14,6 +15,11 @@ import dataclasses
 import torch
 
 QMAX = 127  # symmetric int8 clip range of the requantize epilogue
+
+# csrc/os_mma.cuh: the largest K whose int32 sum of int8 products is exact
+# (K * 127 * 127 < 2**31), and the M at or below which it takes its small tile
+MMA_MAX_K = (2**31 - 1) // (QMAX * QMAX)
+MMA_SMALL_M = 64
 
 
 def _pair(v):
@@ -122,3 +128,34 @@ def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
     if ep.out_scale is not None:
         y = torch.round(y.float() / ep.out_scale).clamp(-QMAX, QMAX)
     return y.to(ep.out_dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class MmaPlan:
+    """How ``csrc/os_mma.cuh`` runs one int8 product: ``tile_rows`` output
+    rows per block, A copied in ``chunk``-byte pieces."""
+
+    tile_rows: int
+    chunk: int
+
+
+def mma_plan(name: str, m: int, k: int, run: int, ptr: int) -> MmaPlan:
+    """The int8 tensor-core GEMM's choices for an (m, k) product whose A
+    rows are read in runs of ``run`` contiguous bytes (a conv's C: the
+    channels of one tap; a matrix's K) starting at address ``ptr``. The
+    kernel makes the same choices; this raises on what it does not take.
+
+    - tile rows: 64 for m <= 64 (the head, the deep layers at batch 1),
+      else 128;
+    - chunk: 16 bytes when ``run`` % 16 == 0 and ``ptr`` is 16-byte
+      aligned, else 8 bytes under the same two conditions, else refused;
+    - k above ``MMA_MAX_K`` is refused: the int32 sum would not be exact.
+    """
+    if k > MMA_MAX_K:
+        raise ValueError(f"{name}: K={k} above {MMA_MAX_K}, where K*127*127 would "
+                         "overflow the exact int32 accumulator")
+    for chunk in (16, 8):
+        if run % chunk == 0 and ptr % chunk == 0:
+            return MmaPlan(64 if m <= MMA_SMALL_M else 128, chunk)
+    raise ValueError(f"{name}: int8 operand rows come in runs of {run} bytes at address "
+                     f"{ptr:#x}; the kernel copies 16- or 8-byte aligned chunks")

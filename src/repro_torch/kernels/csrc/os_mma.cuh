@@ -1,0 +1,301 @@
+// Output-stationary int8 GEMM on the tensor cores, for the bw kernels' int8
+// instantiation.
+//
+// Replaces, for int8 operands, the grid plumbing of repro/kernels/core.py
+// (os_matmul_call and the K-innermost grid of os_accumulate), as os_gemm.cuh
+// does on the CUDA cores. Each block owns one BM x 64 output tile for its
+// whole life and walks K in 64-byte stages; int32 accumulators live in
+// registers as mma fragments and the flush (epilogue.cuh) runs once at the
+// end on each fragment element.
+//
+// Per stage:
+//  - A (BM x 64 bytes) arrives by cp.async in CH-byte chunks (16: .cg, or 8:
+//    .ca) into a STAGES-deep ring. A stager resolves each of a thread's rows
+//    once per tile (`row`), the thread's column of K once (`at`) and then
+//    from stage to stage (`advance`), and each chunk's source from the two
+//    (`chunk`);
+//    a chunk outside the operand is copied with src-size 0, so it lands as
+//    zeros without a branch on the load.
+//  - B (64 bytes of K x 64 columns) is built by a stager in two steps:
+//    `fetch(k8, n, K)` issues the global loads of B[k8 .. k8+7, n] into
+//    registers (a `Raw`), `pack(raw)` turns them into the 8 bytes in a
+//    uint64, which one 8-byte store puts in the K-major tile Bs[n][k8 - k0],
+//    the .col layout the mma takes. Stage kt+1 is fetched before stage kt's
+//    mmas and packed and stored after them, into the other of two buffers,
+//    so the loads' latency hides behind the mmas.
+//  - Two k32 steps of mma.sync.m16n8k32 s8 x s8 -> s32, operands from shared
+//    memory by ldmatrix. Rows are 80 bytes apart (64 + 16), so the 8 row
+//    addresses of an ldmatrix hit 8 disjoint 4-bank groups.
+// One __syncthreads per stage: after it, stage kt's A and B are visible and
+// every warp is done with stage kt-1, whose A slot and B buffer are refilled.
+//
+// The accumulation is exact without .satfinite while |acc| < 2^31, that is
+// K * 127 * 127 < 2^31; the wrapper refuses a larger K (MAX_K).
+#pragma once
+
+#include <cstdint>
+
+#include "epilogue.cuh"
+
+namespace os_mma {
+
+constexpr int BN = 64;
+constexpr int BK = 64;           // bytes of K per stage: two k32 mma steps
+constexpr int LDS = BK + 16;     // shared row pitch in bytes
+constexpr int STAGES = 3;        // depth of the A ring
+constexpr int THREADS = 256;     // 8 warps: 4 x 2 warp tiles of 32 x 32 (BM = 128)
+                                 // or 2 x 4 of 32 x 16 (BM = 64)
+constexpr int MIN_BLOCKS = 3;    // blocks an SM: caps a thread at 85 registers
+                                 // (the staging is issue-bound; 24 warps an SM
+                                 // beat 16 on an H100, a few bytes of spill aside)
+constexpr int WM = 32;
+constexpr int SMALL_M = 64;      // M at or below this takes the BM = 64 instance
+constexpr int MAX_K = 2147483647 / (127 * 127);
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+template <int CH>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src, bool valid) {
+  const int n = valid ? CH : 0;
+  if constexpr (CH == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(dst), "l"(src), "r"(n));
+}
+
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
+      "{%8,%9}, {%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// A stager of a plain row-major (M, K) int8 matrix, read as it lies.
+struct RowChunks {
+  const int8_t* a;
+  int k;
+
+  struct Row {
+    const int8_t* p;
+    bool ok;
+  };
+
+  __device__ __forceinline__ Row row(int m, int M) const {
+    return Row{a + (size_t)(m < M ? m : 0) * k, m < M};
+  }
+
+  using At = int;
+
+  __device__ __forceinline__ At at(int kk) const { return kk; }
+
+  __device__ __forceinline__ void advance(At& kk, int step) const { kk += step; }
+
+  __device__ __forceinline__ const int8_t* chunk(const Row& r, At kk, bool& ok) const {
+    ok = ok && r.ok;
+    return ok ? r.p + kk : a;
+  }
+};
+
+template <int BM, int CH, typename Out, typename StageA, typename StageB>
+__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ out,
+       EpilogueArgs ep) {
+  constexpr int WARPS_N = THREADS / 32 / (BM / WM);
+  constexpr int WN = BN / WARPS_N;                // 32 (BM = 128) or 16 (BM = 64)
+  static_assert(WN % 16 == 0, "an ldmatrix.x4 of B covers two n8 tiles");
+  constexpr int CHUNKS = BK / CH;                 // chunks in a row of a stage
+  constexpr int ROW_STEP = THREADS / CHUNKS;      // rows between a thread's chunks
+  constexpr int A_ROWS = BM / ROW_STEP;           // chunks a thread copies a stage
+  constexpr int COL_STEP = THREADS / BN;          // 8-byte groups between a thread's
+  constexpr int B_GROUPS = (BK / 8) / COL_STEP;   // groups a thread builds a stage
+  static_assert(BM % ROW_STEP == 0 && (BK / 8) % COL_STEP == 0, "tile and threads");
+
+  __shared__ __align__(16) int8_t As[STAGES][BM][LDS];
+  __shared__ __align__(16) int8_t Bs[2][BN][LDS];
+
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
+  const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
+  const int ktiles = (K + BK - 1) / BK;
+
+  // a thread copies the same rows' chunks at every stage: resolve them once
+  const int a_row = tid / CHUNKS, a_col = (tid % CHUNKS) * CH;
+  typename StageA::Row rows[A_ROWS];
+#pragma unroll
+  for (int i = 0; i < A_ROWS; ++i) rows[i] = stage_a.row(m0 + a_row + i * ROW_STEP, M);
+
+  // the stages are copied in order, so the thread's column of K moves by BK
+  // from one copy to the next
+  typename StageA::At at = stage_a.at(a_col);
+  auto load_a = [&](int kt, int s) {
+    const int k = kt * BK + a_col;
+#pragma unroll
+    for (int i = 0; i < A_ROWS; ++i) {
+      bool ok = k < K;
+      const int8_t* src = stage_a.chunk(rows[i], at, ok);
+      cp_async<CH>(smem_u32(&As[s][a_row + i * ROW_STEP][a_col]), src, ok);
+    }
+    stage_a.advance(at, BK);
+  };
+  // neighbouring threads build neighbouring columns: the stager's reads of
+  // the compressed streams are coalesced
+  const int b_col = tid % BN, b_grp = tid / BN;
+  using RawB = typename StageB::Raw;
+  auto fetch_b = [&](int kt, RawB (&raw)[B_GROUPS]) {
+#pragma unroll
+    for (int i = 0; i < B_GROUPS; ++i)
+      raw[i] = stage_b.fetch(kt * BK + (b_grp + i * COL_STEP) * 8, n0 + b_col, K);
+  };
+  auto store_b = [&](int s, const RawB (&raw)[B_GROUPS]) {
+#pragma unroll
+    for (int i = 0; i < B_GROUPS; ++i)
+      *reinterpret_cast<uint64_t*>(&Bs[s][b_col][(b_grp + i * COL_STEP) * 8]) =
+          stage_b.pack(raw[i]);
+  };
+
+  int32_t acc[WM / 16][WN / 8][4];
+#pragma unroll
+  for (int i = 0; i < WM / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
+
+#pragma unroll
+  for (int s = 0; s < STAGES - 1; ++s) {
+    if (s < ktiles) load_a(s, s);
+    cp_async_commit();
+  }
+  {
+    RawB raw[B_GROUPS];
+    fetch_b(0, raw);
+    store_b(0, raw);
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<STAGES - 2>();
+    __syncthreads();
+    const int next = kt + STAGES - 1;
+    if (next < ktiles) load_a(next, next % STAGES);
+    cp_async_commit();
+    const bool more = kt + 1 < ktiles;
+    RawB raw[B_GROUPS];
+    if (more) fetch_b(kt + 1, raw);
+
+    const int8_t(*A)[LDS] = As[kt % STAGES];
+    const int8_t(*B)[LDS] = Bs[kt & 1];
+#pragma unroll
+    for (int ks = 0; ks < BK / 32; ++ks) {
+      uint32_t af[WM / 16][4], bf[WN / 16][4];
+#pragma unroll
+      for (int i = 0; i < WM / 16; ++i)
+        ldmatrix_x4(af[i], smem_u32(&A[wm + i * 16 + (lane % 8) + ((lane / 8) % 2) * 8]
+                                       [ks * 32 + (lane / 16) * 16]));
+      // one x4 load covers two n8 tiles: registers 0, 1 are the first's
+      // two k16 halves, registers 2, 3 the second's
+#pragma unroll
+      for (int p = 0; p < WN / 16; ++p)
+        ldmatrix_x4(bf[p], smem_u32(&B[wn + p * 16 + (lane % 8) + (lane / 16) * 8]
+                                       [ks * 32 + ((lane / 8) % 2) * 16]));
+#pragma unroll
+      for (int i = 0; i < WM / 16; ++i)
+#pragma unroll
+        for (int j = 0; j < WN / 8; ++j)
+          mma_s8(acc[i][j], af[i], bf[j / 2][(j % 2) * 2], bf[j / 2][(j % 2) * 2 + 1]);
+    }
+    if (more) store_b((kt + 1) & 1, raw);
+  }
+
+  // m16n8 accumulator fragment: elements (e0, e1) at row lane/4, columns
+  // 2*(lane%4) + {0, 1}; (e2, e3) eight rows below
+#pragma unroll
+  for (int i = 0; i < WM / 16; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int m = m0 + wm + i * 16 + lane / 4 + h * 8;
+      if (m >= M) continue;
+#pragma unroll
+      for (int j = 0; j < WN / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int n = n0 + wn + j * 8 + (lane % 4) * 2 + e;
+          if (n < N)
+            out[(size_t)m * N + n] = epilogue_flush<int32_t, Out>(acc[i][j][h * 2 + e], n, ep);
+        }
+    }
+}
+
+template <int BM, int CH, typename Out, typename StageA, typename StageB>
+cudaError_t launch_typed(const StageA& stage_a, const StageB& stage_b, int M, int N, int K,
+                         void* out, EpilogueArgs ep, cudaStream_t stream) {
+  dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
+  kernel<BM, CH, Out, StageA, StageB><<<grid, THREADS, 0, stream>>>(
+      stage_a, stage_b, M, N, K, static_cast<Out*>(out), ep);
+  return cudaGetLastError();
+}
+
+// The tile instance by M, the same rule as the wrapper's
+// (repro_torch.kernels.core.mma_plan): BM = 64 for M <= 64, else 128.
+template <int CH, typename Out, typename StageA, typename StageB>
+cudaError_t launch_rows(const StageA& stage_a, const StageB& stage_b, int M, int N, int K,
+                        void* out, EpilogueArgs ep, cudaStream_t stream) {
+  if (M <= SMALL_M)
+    return launch_typed<64, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  return launch_typed<128, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+}
+
+template <typename Out, typename StageA, typename StageB>
+cudaError_t launch_chunk(int chunk, const StageA& stage_a, const StageB& stage_b, int M,
+                         int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
+  if (chunk == 16) return launch_rows<16, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  if (chunk == 8) return launch_rows<8, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  return cudaErrorInvalidValue;
+}
+
+// The A chunk width, the same rule as the wrapper's: 16 bytes when a row's
+// run of K (the channels of one tap, or a matrix row) is a multiple of 16
+// and the operand is 16-byte aligned, else 8 under the same two conditions;
+// 0 for what the kernel does not take.
+inline int chunk_bytes(int run, const void* p) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (run % 16 == 0 && a % 16 == 0) return 16;
+  if (run % 8 == 0 && a % 8 == 0) return 8;
+  return 0;
+}
+
+// Output kinds as the Python wrappers pass them (os_gemm.cuh's OutKind).
+template <typename StageA, typename StageB>
+cudaError_t launch(int out_kind, int chunk, const StageA& stage_a, const StageB& stage_b,
+                   int M, int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K > MAX_K || chunk == 0) return cudaErrorInvalidValue;
+  if (out_kind == 2 && ep.out_scale == nullptr) return cudaErrorInvalidValue;
+  switch (out_kind) {
+    case 0:
+      return launch_chunk<int32_t>(chunk, stage_a, stage_b, M, N, K, out, ep, stream);
+    case 1:
+      return launch_chunk<float>(chunk, stage_a, stage_b, M, N, K, out, ep, stream);
+    case 2:
+      return launch_chunk<int8_t>(chunk, stage_a, stage_b, M, N, K, out, ep, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace os_mma

@@ -15,7 +15,7 @@ from repro_torch.core.vdbb import DBBFormat, DBBWeight, gather_compressed
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
 from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices,
-                                      conv_geometry, epilogue_plan)
+                                      conv_geometry, epilogue_plan, mma_plan)
 from repro_torch.kernels.ref import acc_matmul, decode_values, im2col_explicit
 
 KERNEL = build.CudaKernel(
@@ -119,8 +119,9 @@ def vdbb_im2col_conv_bw(x, values, indices, fmt, kh, kw, *, scales=None,
     """Fused sparse conv with a pattern per output channel. x: (N, H, W, C)
     int8 or fp32; values: (nb, nnz, F) of the same dtype; indices:
     (nb, nnz, F) int8, or (nb, nnz, F/g) for ``fmt.group = g``, read in
-    place. CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    place. int8 runs on the tensor cores and needs C % 8 == 0 and K within
+    ``core.MMA_MAX_K`` (:func:`core.mma_plan`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return vdbb_im2col_conv_bw_plain(
             x, values, indices, fmt, kh, kw, scales=scales, bias=bias, relu=relu,
@@ -133,6 +134,8 @@ def vdbb_im2col_conv_bw(x, values, indices, fmt, kh, kw, *, scales=None,
     in_kind = build.check_operands("vdbb_conv_bw", x, values, indices, dtype=x.dtype)
     n, h, w, c = x.shape
     f = values.shape[-1]
+    if x.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        mma_plan("vdbb_conv_bw", n * ho * wo, kh * kw * c, c, x.data_ptr())
     out = torch.empty((n, ho, wo, f), dtype=ep.out_dtype, device=x.device)
     BW_KERNEL.launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),

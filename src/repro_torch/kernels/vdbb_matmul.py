@@ -9,7 +9,8 @@ import torch
 from repro_torch.core.vdbb import gather_compressed
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
-from repro_torch.kernels.core import acc_dtype_for, apply_epilogue, check_indices, epilogue_plan
+from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices, epilogue_plan,
+                                      mma_plan)
 from repro_torch.kernels.ref import acc_matmul, decode_values
 
 KERNEL = build.CudaKernel(
@@ -84,8 +85,10 @@ def vdbb_matmul_bw(a, values, indices, fmt, *, scales=None, bias=None,
                    relu=False, out_scale=None):
     """A (M, K) × compressed W -> (M, N) with a pattern per column. values:
     (nb, nnz, N) of A's dtype; indices: (nb, nnz, N) int8, or (nb, nnz, N/g)
-    for ``fmt.group = g``, read in place (never repeated per column). CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    for ``fmt.group = g``, read in place (never repeated per column). int8
+    runs on the tensor cores and needs K % 8 == 0 and K within
+    ``core.MMA_MAX_K`` (:func:`core.mma_plan`). CPU tensors take the plain
+    version; CUDA tensors launch the kernel."""
     if a.device.type == "cpu":
         return vdbb_matmul_bw_plain(a, values, indices, fmt, scales=scales,
                                     bias=bias, relu=relu, out_scale=out_scale)
@@ -96,6 +99,8 @@ def vdbb_matmul_bw(a, values, indices, fmt, *, scales=None, bias=None,
     in_kind = build.check_operands("vdbb_matmul_bw", a, values, indices, dtype=a.dtype)
     m, k = a.shape
     n = values.shape[-1]
+    if a.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        mma_plan("vdbb_matmul_bw", m, k, k, a.data_ptr())
     out = torch.empty((m, n), dtype=ep.out_dtype, device=a.device)
     BW_KERNEL.launch(
         a.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),

@@ -1,0 +1,78 @@
+"""``chip_smoke.py``'s attribution of CUDA kernel names to the port's
+kernels, on the CPU. The names are built from the GEMM templates' own
+loader and stager names, demangled as torch.profiler prints them and
+mangled as ``ptxas -v`` does. Loading the script runs nothing: its work is
+under ``if __name__ == "__main__"``."""
+import importlib.util
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    spec = importlib.util.spec_from_file_location("chip_smoke", ROOT / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mma(rows, chunk, out, stage_a):
+    return (f"void os_mma::kernel<{rows}, {chunk}, {out}, {stage_a}, ExpandTile>"
+            f"({stage_a}, ExpandTile, int, int, int, {out}*, EpilogueArgs)")
+
+
+def _gemm(t, out, load_a, load_b):
+    return (f"void os_gemm::kernel<{t}, {out}, {load_a}, {load_b}>"
+            f"({load_a}, {load_b}, int, int, int, {out}*, EpilogueArgs)")
+
+
+NAMES = [
+    # the int8 tensor-core core: both tile instances, both chunk widths, every output
+    *[(_mma(r, c, o, "TapChunks"), "vdbb_conv_bw")
+      for r in (64, 128) for c in (8, 16) for o in ("int", "float", "signed char")],
+    *[(_mma(r, c, o, "os_mma::RowChunks"), "vdbb_matmul_bw")
+      for r in (64, 128) for c in (8, 16) for o in ("int", "float", "signed char")],
+    ("_ZN6os_mma6kernelILi128ELi16Ea9TapChunks10ExpandTileEEvT2_T3_iiiPT1_12EpilogueArgs",
+     "vdbb_conv_bw"),
+    ("_ZN6os_mma6kernelILi64ELi8EiNS_9RowChunksE10ExpandTileEEvT2_T3_iiiPT1_12EpilogueArgs",
+     "vdbb_matmul_bw"),
+    # the CUDA-core core: every kernel's loaders
+    (_gemm("float", "float", "Tap<float>", "ExpandTaps<float>"), "vdbb_conv_bw"),
+    (_gemm("float", "float", "os_gemm::DenseB<float>", "ExpandCols<float>"), "vdbb_matmul_bw"),
+    (_gemm("signed char", "signed char", "GatherTap<signed char>", "os_gemm::DenseB<signed char>"),
+     "vdbb_conv_tc"),
+    (_gemm("signed char", "float", "GatherCols<signed char>", "os_gemm::DenseB<signed char>"),
+     "vdbb_matmul_tc"),
+    (_gemm("float", "signed char", "Tap<float>", "os_gemm::DenseB<float>"), "im2col_conv"),
+    ("_ZN7os_gemm6kernelIfa3TapIfE10ExpandTapsIfEEEvT1_T2_iiiPT0_12EpilogueArgs", "vdbb_conv_bw"),
+    ("_ZN7os_gemm6kernelIffNS_6DenseBIfEE10ExpandColsIfEEEvT1_T2_iiiPT0_12EpilogueArgs",
+     "vdbb_matmul_bw"),
+    # anything else is not the port's
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<int>>", "other"),
+    ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "other"),
+]
+
+
+@pytest.mark.parametrize("name,kernel", NAMES)
+def test_kernel_family_attributes_each_instance(smoke, name, kernel):
+    assert smoke.kernel_family(name) == kernel
+    assert smoke.port_kernel(name) == (kernel != "other")
+
+
+def test_kernel_family_names_only_registered_kernels(smoke):
+    from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
+
+    for loaders in smoke.KERNEL_OF_LOADER.values():
+        assert set(loaders.values()) <= set(build.KERNELS)
+
+
+def test_stager_names_are_the_templates(smoke):
+    """The names matched are the structs the sources pass to the cores."""
+    csrc = ROOT / "src" / "repro_torch" / "kernels" / "csrc"
+    text = "".join(p.read_text() for p in csrc.glob("*.cu*"))
+    for loaders in smoke.KERNEL_OF_LOADER.values():
+        for loader in loaders:
+            assert f"struct {loader} " in text, loader

@@ -206,3 +206,119 @@ def test_serve_smoke_on_card(card, pattern):
     for b, r in out.items():
         assert r["logits"].shape == (b, 10) and r["images_per_s"] > 0
         assert r["launches_per_forward"] == _per_forward(pattern, n_conv)
+
+
+# ------------------------------ the bw kernels' int8 tensor-core instantiation
+
+
+def _bw_codes(rng, nb, nnz, f, group, *, full=False, bz=8):
+    """int8 values (nb, nnz, f) and distinct positions (nb, nnz, f/g) in each
+    block column, as the quantizer would leave them: random codes in ±127,
+    or every code +127 (``full``, the accumulator's worst case)."""
+    g = 1 if group is None else group
+    pos = np.argsort(rng.random((nb, bz, f // g)), axis=1)[:, :nnz]
+    vals = np.full((nb, nnz, f), 127) if full else rng.integers(-127, 128, (nb, nnz, f))
+    return (torch.from_numpy(vals.astype(np.int8)), torch.from_numpy(np.sort(pos, axis=1).astype(np.int8)),
+            tv.DBBFormat(bz, nnz, group))
+
+
+def _act_codes(rng, shape, *, full=False, card, offset=0):
+    """int8 activations on the card, ``offset`` bytes past a 16-byte aligned
+    allocation (8 moves the kernel to its 8-byte chunks)."""
+    n = int(np.prod(shape))
+    v = np.full(n, 127) if full else rng.integers(-127, 128, n)
+    buf = torch.zeros(n + offset, dtype=torch.int8, device=card)
+    buf[offset:] = torch.from_numpy(v.astype(np.int8)).to(card)
+    return buf[offset:].view(*shape)
+
+
+def _bw_exact(kernel, plain, args, f, card, rng, **geom):
+    """int8 codes through the full flush, fp32 out of the scale and bias, and
+    the raw int32 accumulator: each equal to the plain version."""
+    scales = torch.from_numpy(rng.uniform(1e-4, 2e-4, f).astype(np.float32)).to(card)
+    bias = torch.from_numpy(rng.normal(size=f).astype(np.float32)).to(card)
+    for kw in (dict(scales=scales, bias=bias, relu=True, out_scale=0.05),
+               dict(scales=scales, bias=bias), {}):
+        got, want = kernel(*args, **kw, **geom), plain(*args, **kw, **geom)
+        assert got.dtype == want.dtype and torch.equal(got, want), kw
+    torch.cuda.synchronize()
+
+
+# (C, images, H, W, F, nnz, group, stride, byte offset of x)
+BW_CONV_MMA_CASES = [
+    (8, 3, 9, 9, 72, 3, None, 1, 0), (8, 3, 9, 9, 72, 3, None, 2, 0),
+    (24, 3, 9, 9, 72, 3, None, 1, 0), (24, 3, 9, 9, 72, 3, 4, 2, 0),
+    (32, 3, 9, 9, 72, 3, None, 2, 0), (64, 3, 9, 9, 72, 3, None, 1, 0),
+    (64, 2, 9, 9, 72, 3, 4, 2, 0), (64, 3, 9, 9, 72, 3, None, 1, 8),
+    (64, 1, 1, 1, 72, 3, None, 1, 0), (64, 2, 2, 2, 72, 3, None, 1, 0),
+    (32, 1, 1, 67, 72, 3, None, 1, 0), (32, 2, 5, 13, 72, 3, None, 1, 0),
+    (64, 2, 9, 9, 72, 1, None, 1, 0), (64, 2, 9, 9, 72, 6, None, 1, 0),
+    (64, 2, 9, 9, 72, 8, None, 1, 0), (64, 2, 9, 9, 72, 8, 4, 2, 0),
+]
+
+
+@pytest.mark.parametrize("c,n,h,w,f,nnz,group,stride,offset", BW_CONV_MMA_CASES)
+def test_bw_conv_int8_tensor_cores_match_plain(card, c, n, h, w, f, nnz, group, stride, offset):
+    """8- and 16-byte chunks (C = 8, 24 and an 8-byte offset take 8), both
+    tile instances and ragged M (1, 8, 67, 130 pixels), ragged F, nnz 1 to
+    8 (both halves of the B stager's fetch), a grouped weight, stride 2 on
+    9x9 images (taps outside the image)."""
+    rng = np.random.default_rng(c * 1000 + n * 100 + h + nnz)
+    values, idx, fmt = _bw_codes(rng, 9 * c // 8, nnz, f, group)
+    x = _act_codes(rng, (n, h, w, c), card=card, offset=offset)
+    args = (x, values.to(card), idx.to(card), fmt, 3, 3)
+    _bw_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, f, card, rng,
+              stride=stride)
+
+
+# (M, K, N, nnz, group, byte offset of A)
+BW_HEAD_MMA_CASES = [
+    (1, 512, 1000, 3, None, 0), (8, 512, 1000, 3, None, 0), (67, 512, 1000, 3, 4, 0),
+    (130, 512, 1000, 3, None, 0), (130, 24, 72, 3, None, 0), (67, 40, 1000, 1, None, 0),
+    (8, 512, 1000, 8, 4, 0), (130, 512, 72, 8, None, 0), (67, 512, 1000, 3, None, 8),
+    (67, 512, 1000, 5, 4, 0), (130, 512, 72, 7, None, 0),
+]
+
+
+@pytest.mark.parametrize("m,k,n,nnz,group,offset", BW_HEAD_MMA_CASES)
+def test_bw_head_int8_tensor_cores_match_plain(card, m, k, n, nnz, group, offset):
+    rng = np.random.default_rng(m * 100 + k + nnz)
+    values, idx, fmt = _bw_codes(rng, k // 8, nnz, n, group)
+    a = _act_codes(rng, (m, k), card=card, offset=offset)
+    _bw_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
+              (a, values.to(card), idx.to(card), fmt), n, card, rng)
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_bw_int8_full_range_at_k4608(card, full):
+    """K = 4608 (sparse-cnn-s's l7) with every code at ±127 range: all +127
+    at nnz = 8 reaches |acc| = 4608 * 127 * 127, the accumulator's worst
+    case; exact on both kernels."""
+    rng = np.random.default_rng(4608 + full)
+    values, idx, fmt = _bw_codes(rng, 576, 8, 72, None, full=full)
+    x = _act_codes(rng, (2, 5, 5, 512), full=full, card=card)
+    args = (x, values.to(card), idx.to(card), fmt, 3, 3)
+    _bw_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, 72, card, rng,
+              stride=1)
+    a = _act_codes(rng, (67, 4608), full=full, card=card)
+    _bw_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
+              (a, values.to(card), idx.to(card), fmt), 72, card, rng)
+    if full:
+        raw = head_k.vdbb_matmul_bw(a, values.to(card), idx.to(card), fmt)
+        assert int(raw.max()) == 4608 * 127 * 127
+
+
+@pytest.mark.parametrize("bz,nnz,c,group", [(4, 2, 8, None), (4, 3, 24, 4), (16, 5, 16, None),
+                                           (16, 16, 32, None)])
+def test_bw_int8_other_block_sizes(card, bz, nnz, c, group):
+    """A block of 4 (two blocks in 8 rows of K) or 16 (half a block) takes
+    the B stager's general path; still exact on both kernels."""
+    rng = np.random.default_rng(100 * bz + c)
+    values, idx, fmt = _bw_codes(rng, 9 * c // bz, nnz, 72, group, bz=bz)
+    x = _act_codes(rng, (2, 9, 9, c), card=card)
+    args = (x, values.to(card), idx.to(card), fmt, 3, 3)
+    _bw_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, 72, card, rng,
+              stride=2)
+    a = _act_codes(rng, (67, 9 * c), card=card)
+    _bw_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
+              (a, values.to(card), idx.to(card), fmt), 72, card, rng)

@@ -424,3 +424,64 @@ def test_malformed_indices_are_refused():
     x, _, _, _, cw = _conv_case(1, 8, 16, 16, 3, "matrix", seed=65)
     with pytest.raises(ValueError, match="indices"):
         conv_k.vdbb_im2col_conv_tc(_t(x), cw.values, cw.indices[:, :2, 0], cw.fmt, 3, 3)
+
+
+# --------------------------- host rules of the int8 tensor-core GEMM (os_mma)
+
+
+@pytest.mark.parametrize("m,rows", [(1, 64), (8, 64), (64, 64), (65, 128), (4096, 128),
+                                    (262144, 128)])
+def test_mma_plan_tile_rows_by_m(m, rows):
+    """The head and the deep layers at batch 1 (M <= 64) take the 64-row
+    tile; larger M the 128-row one."""
+    assert tcore.mma_plan("k", m, 576, 64, 0).tile_rows == rows
+
+
+@pytest.mark.parametrize("run,ptr,chunk", [(64, 0, 16), (512, 4096, 16), (32, 16, 16),
+                                           (24, 0, 8), (8, 0, 8), (64, 8, 8), (16, 24, 8)])
+def test_mma_plan_chunk_by_run_and_alignment(run, ptr, chunk):
+    """16-byte chunks when the run of K (C, or a matrix's K) is a multiple
+    of 16 and the operand 16-byte aligned; 8 bytes otherwise."""
+    assert tcore.mma_plan("k", 100, 9 * run, run, ptr).chunk == chunk
+
+
+@pytest.mark.parametrize("run,ptr", [(12, 0), (4, 0), (64, 4), (64, 1)])
+def test_mma_plan_refuses_what_the_kernel_cannot_copy(run, ptr):
+    with pytest.raises(ValueError, match="chunks"):
+        tcore.mma_plan("vdbb_conv_bw", 100, 9 * run, run, ptr)
+
+
+def test_mma_plan_k_limit():
+    """The int32 sum of K products of ±127 codes is exact up to MMA_MAX_K."""
+    assert tcore.MMA_MAX_K * 127 * 127 < 2**31 <= (tcore.MMA_MAX_K + 1) * 127 * 127
+    assert tcore.mma_plan("k", 64, tcore.MMA_MAX_K, 8, 0).chunk == 8
+    with pytest.raises(ValueError, match="overflow"):
+        tcore.mma_plan("vdbb_matmul_bw", 64, tcore.MMA_MAX_K + 1, 8, 0)
+
+
+@pytest.mark.parametrize("switch", ["NO_A", "NO_B", "NO_MMA"])
+def test_mma_ablation_switches_find_their_anchor(switch, tmp_path, monkeypatch):
+    """Each switch of the ablation tool applies to the core as it stands:
+    its anchor is in os_mma.cuh exactly once, and the switched copy lacks it."""
+    from repro_torch.kernels import build, mma_ablation
+
+    anchor, _ = mma_ablation.SWITCHES[switch]
+    assert (build.CSRC / "os_mma.cuh").read_text().count(anchor) == 1
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    out = mma_ablation.variant_sources("probe", (switch,))
+    assert anchor not in (out / "os_mma.cuh").read_text()
+    assert {p.name for p in out.iterdir()} == {p.name for p in build.CSRC.iterdir()}
+
+
+def test_mma_ablation_variants_each_start_from_the_sources(tmp_path, monkeypatch):
+    """The tool points the build at each variant's copy in turn; every
+    variant is still cut from the committed sources, not from the last copy."""
+    from repro_torch.kernels import build, mma_ablation
+
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    csrc = build.CSRC
+    monkeypatch.setattr(build, "CSRC", mma_ablation.variant_sources("first", ("NO_B",), csrc))
+    out = mma_ablation.variant_sources("second", ("NO_A",), csrc)
+    text = (out / "os_mma.cuh").read_text()
+    assert mma_ablation.SWITCHES["NO_B"][0] in text
+    assert mma_ablation.SWITCHES["NO_A"][0] not in text
