@@ -7,16 +7,21 @@ Phases, each of which fails the run:
   1. the card's name and power limit (nvidia-smi) and the kernels' build;
   2. every kernel against its plain PyTorch version on the card, at every
      layer shape of sparse-cnn-s at batch 64, int8 and fp32 instantiations
-     (the bw kernels' int8 one on the tensor cores, csrc/os_mma.cuh),
-     with random nonzero biases: int8 and int32 exact, fp32 within
-     rtol = atol = 1e-5, the stem's requantized codes within one code on at
-     most 0.1 % of entries (fp32 summation order). Both models: one pattern
-     shared across each layer's outputs (tc kernels) and a pattern per
-     output column (``pattern=None``, bw kernels); then a grouped format
-     (DBBFormat(8, 3, 4)) at l4 and the head, and nnz of 1, 2, 4 and 8 at
-     l4's shape on both the tc and the bw kernel; each layer timed by CUDA
-     events (kernel, plain version, library call) and by torch.profiler's
-     device time (kernel, and the library call with all its CUDA kernels);
+     (the int8 one of the bw kernels and of the tc head on the tensor cores,
+     csrc/os_mma.cuh; the stem on its direct path, and its implicit-GEMM
+     path at a larger C and in int8), with random nonzero biases: int8 and
+     int32 exact, fp32 within rtol = atol = 1e-5, the stem's requantized
+     codes within one code on at most 0.1 % of entries (fp32 summation
+     order). Both models: one pattern shared across each layer's outputs
+     (tc kernels) and a pattern per output column (``pattern=None``, bw
+     kernels); then a grouped format (DBBFormat(8, 3, 4)) at l4 and the
+     head, and nnz of 1, 2, 4 and 8 at l4's shape on both the tc and the bw
+     kernel; each layer timed by CUDA events (kernel, plain version, library
+     call) and by torch.profiler's device time (kernel, and the library call
+     with all its CUDA kernels; ``repro_torch.kernels.timing``, which allows
+     for a profiler pass that delivers only some of its kernel records); the
+     profiler's kernel names show that the tc head ran its gather stager and
+     the stem the path its plan chose;
   3. sparse-cnn-s end to end through ``repro_torch.launch.serve``, once per
      pattern: request batches of 1, 8 and 64, one stem, seven conv and one
      head launch per forward on that pattern's kernels, each batch's logits
@@ -63,44 +68,38 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn, reps: int = REPS, warmup: int = 3) -> float:
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / reps
-
-
 def port_kernel(name: str) -> bool:
     return kernel_family(name) != "other"
 
 
-def kernel_device_ms(fn, keep=port_kernel, reps: int = 5, tries: int = 3):
-    """Mean device time in one call of ``fn`` of the CUDA activity whose
-    name ``keep`` accepts (by default the port's kernels), from
-    torch.profiler. Unlike :func:`cuda_ms` it leaves out the host's share
-    of each call. A profiled pass now and then delivers no kernel events;
-    it is run again, up to ``tries`` times, then None."""
+def kernel_names(fn, tries: int = 3) -> set:
+    """Names of the CUDA kernels that one call of ``fn`` ran, from
+    torch.profiler; a pass that delivers no kernel events is run again."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     for _ in range(tries):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
+            fn()
             torch.cuda.synchronize()
-        us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-              if ev.device_type == torch.autograd.DeviceType.CUDA
-              and keep(ev.name)]
-        if us:
-            return sum(us) / reps / 1e3
-    return None
+        names = {ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+        if names:
+            return names
+    return set()
+
+
+def require_instance(fn, core: str, loader: str, what: str) -> str:
+    """Fail unless one call of ``fn`` ran a kernel of the template ``core``
+    with the stager or loader ``loader``; returns what was seen."""
+    names = kernel_names(fn)
+    if not names:
+        return "no kernel events delivered"
+    hits = sorted(n for n in names if core in n and loader in n)
+    if not hits:
+        raise AssertionError(f"{what}: no {core} kernel with {loader} among {sorted(names)}")
+    return hits[0]
 
 
 def bound(nbytes: int, ops: int, ops_per_s: float) -> tuple:
@@ -178,14 +177,18 @@ def timed(run, plain, library, **rec):
     """The record of one layer: the kernel's, its plain version's and the
     library call's times by CUDA events, and the device times of the kernel
     and of the library call (all its CUDA kernels)."""
-    return dict(rec, ms=cuda_ms(run), plain_ms=cuda_ms(plain), library_ms=cuda_ms(library),
-                device_ms=kernel_device_ms(run),
-                library_device_ms=kernel_device_ms(library, keep=lambda name: True))
+    from repro_torch.kernels.timing import device_ms, event_ms
+
+    return dict(rec, ms=event_ms(run, REPS), plain_ms=event_ms(plain, REPS),
+                library_ms=event_ms(library, REPS), device_ms=device_ms(run, keep=port_kernel),
+                library_device_ms=device_ms(library))
 
 
 def stem_layer(m, xshape, out_scale, gen, dev):
     """The dense stem: fp32 in, int8 codes out (the main path), fp32 out, and
-    the int8 instantiation, each against the plain version."""
+    the int8 instantiation, each against the plain version; the path its
+    plan chose (the direct conv) seen in the profiler's kernel names; then
+    the implicit-GEMM path in fp32 at a C the direct path does not take."""
     from repro_torch.kernels import im2col_conv as stem_k
 
     f = m.out_channels
@@ -202,6 +205,15 @@ def stem_layer(m, xshape, out_scale, gen, dev):
     ki = dict(stride=m.stride, padding=m.padding)
     check_exact(stem_k.im2col_conv(xq, wq, **ki), stem_k.im2col_conv_plain(xq, wq, **ki),
                 "stem int8")
+    path = stem_k.conv_path(x.dtype, m.in_channels, m.kh, m.kw, m.stride)
+    core, loader = ("direct_conv", "HaloTile") if path == "direct" else ("os_gemm", "Tap")
+    seen = require_instance(run, core, loader, "stem")
+    log(f"[kernels] stem: the {path} path; the profiler saw {seen}")
+    xg, wg = rnd(gen, dev, 4, 16, 16, 16), rnd(gen, dev, m.kh, m.kw, 16, f, scale=0.1)
+    if stem_k.conv_path(xg.dtype, 16, m.kh, m.kw, 1) != "gemm":
+        raise AssertionError("the C = 16 probe of the implicit-GEMM path takes the direct path")
+    check_close(stem_k.im2col_conv(xg, wg, **kw32), stem_k.im2col_conv_plain(xg, wg, **kw32),
+                "conv fp32 at C = 16 (implicit GEMM)")
     xn = x.permute(0, 3, 1, 2).contiguous()
     wn = w.permute(3, 2, 0, 1).contiguous()
     library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=1)  # noqa: E731
@@ -209,7 +221,8 @@ def stem_layer(m, xshape, out_scale, gen, dev):
     nb_ = nbytes(x, w, bias, out)
     ops = 2 * out.numel() * m.kh * m.kw * m.in_channels
     b_ms, b_by = bound(nb_, ops, FP32_OPS_PER_S)
-    return timed(run, plain, library, err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb_, ops=ops)
+    return timed(run, plain, library, err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb_, ops=ops,
+                 plan=f"{path} path")
 
 
 def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
@@ -218,14 +231,15 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     (a pattern per column, or per group, indices read in place). Holds
     three instantiations against the plain version with random nonzero
     biases: int8 as the main path runs it (requantized codes, or fp32 at l7
-    and the head) and the raw int32 accumulator exactly, fp32 within 1e-5.
-    Returns the layer's timed record."""
+    and the head) and the raw int32 accumulator exactly, fp32 within 1e-5;
+    the head's int8 also at request batches 1 and 8 and requantized to
+    codes. Returns the layer's timed record."""
     from repro_torch.core.quant import quantize_dbb
     from repro_torch.core.sparse_conv import DBBConv2d
     from repro_torch.core.vdbb import dbb_decode, dbb_encode, dbb_encode_conv
     from repro_torch.kernels import vdbb_im2col_conv as conv_k
     from repro_torch.kernels import vdbb_matmul as head_k
-    from repro_torch.kernels.core import mma_plan
+    from repro_torch.kernels.core import mma_gather_plan, mma_plan
 
     conv = isinstance(m, DBBConv2d)
     mode = "bw" if bw else "tc"
@@ -249,10 +263,14 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     qw = quantize_dbb(dw)
     bias = rnd(gen, dev, f, scale=0.5)
     xq = codes(gen, dev, *xshape)
-    # the bw int8 instantiation's tile rows and A chunk on the tensor cores
-    rows = xshape[0] * (math.prod(m.out_hw(xshape[1], xshape[2])) if conv else 1)
-    tile = mma_plan(what, rows, k, xshape[-1], xq.data_ptr()) if bw else None
     kc = qw.values.shape[0] * qw.values.shape[1]
+    # the int8 instantiation's tile rows and A staging on the tensor cores:
+    # the bw kernels copy A in chunks, the tc head gathers it
+    rows = xshape[0] * (math.prod(m.out_hw(xshape[1], xshape[2])) if conv else 1)
+    if bw:
+        tile = mma_plan(what, rows, k, xshape[-1], xq.data_ptr())
+    else:
+        tile = None if conv else mma_gather_plan(what, rows, kc)
     scales = dequant_scales(gen, dev, f, kc)
     args = (xq, qw.values, idx(qw), fmt, *taps)
     kw = dict(scales=scales, bias=bias, **geom)
@@ -260,7 +278,14 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
         kw.update(relu=True, out_scale=out_scale)
     run = lambda: kernel(*args, **kw)  # noqa: E731
     err = check_exact(run(), plain(*args, **kw), f"{what} int8")
+    if tile is not None and tile.gathered:
+        require_instance(run, "os_mma", "GatherMux", what)
     check_exact(kernel(*args, **geom), plain(*args, **geom), f"{what} int32")
+    if not conv:  # the head at each request batch: fp32 dequant, int32, int8 codes
+        for b in (1, 8, xshape[0]):
+            ab = (xq[:b].contiguous(), *args[1:])
+            for kwb in (kw, {}, dict(kw, relu=True, out_scale=0.05)):
+                check_exact(kernel(*ab, **kwb), plain(*ab, **kwb), f"{what} int8 at batch {b}")
     a32 = (rnd(gen, dev, *xshape), dw.values, idx(dw), fmt, *taps)
     k32 = dict(bias=bias, relu=conv, **geom)
     check_close(kernel(*a32, **k32), plain(*a32, **k32), f"{what} fp32")
@@ -277,9 +302,12 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     nb_ = nbytes(xq, qw.values, args[2], scales, bias, out)
     ops = 2 * out.numel() * kc
     b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
+    plan_note = None
+    if tile is not None:
+        staging = "A gathered into 8 B words" if tile.gathered else f"{tile.chunk} B chunks"
+        plan_note = f"{tile.tile_rows}x64 tile, {staging}"
     return timed(run, lambda: plain(*args, **kw), library, err=err, bound_ms=b_ms,
-                 bound_by=b_by, bytes=nb_, ops=ops,
-                 mma=tile and f"{tile.tile_rows}x64 tile, {tile.chunk} B chunks")
+                 bound_by=b_by, bytes=nb_, ops=ops, plan=plan_note)
 
 
 def log_record(label, name, xshape, r):
@@ -289,7 +317,7 @@ def log_record(label, name, xshape, r):
     log(f"[kernels] {label:<13s} {name:<15s} {str(tuple(xshape)):<23s} {r['ms']:<8.4f} "
         f"{ms(r['device_ms']):<10s} {r['plain_ms']:<9.4f} {r['library_ms']:<11.4f} "
         f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
-        + (f"  [{r['mma']}]" if r.get("mma") else ""))
+        + (f"  [{r['plan']}]" if r.get("plan") else ""))
 
 
 def check_kernels(cfgs, gen, dev):
@@ -337,21 +365,26 @@ def check_kernels(cfgs, gen, dev):
     return recs
 
 
-def log_bw_summary(recs) -> None:
+def log_summary(recs) -> None:
     """The bw convs' device time beside the library conv's and, layer by
-    layer, beside their tc twins'; the bw head's beside torch._int_mm's."""
+    layer, beside their tc twins'; each head's beside torch._int_mm's; the
+    stem's beside F.conv2d's."""
     def total(rs, key):
         vals = [r[key] for r in rs]
-        return None if None in vals else round(sum(vals), 4)
+        return None if None in vals else round(sum(vals), 5)
 
     bw, tc = recs["vdbb_conv_bw"], recs["vdbb_conv_tc"]
     ratios = [None if None in (b["device_ms"], t["device_ms"]) else round(b["device_ms"] / t["device_ms"], 3)
               for b, t in zip(bw, tc)]
     log(f"[kernels] bw convs: device {total(bw, 'device_ms')} ms, library conv device "
         f"{total(bw, 'library_device_ms')} ms; per layer bw/tc device {ratios}")
-    head = recs["vdbb_matmul_bw"]
-    log(f"[kernels] bw head: device {total(head, 'device_ms')} ms, torch._int_mm device "
-        f"{total(head, 'library_device_ms')} ms")
+    for mode in ("bw", "tc"):
+        head = recs[f"vdbb_matmul_{mode}"]
+        log(f"[kernels] {mode} head: device {total(head, 'device_ms')} ms, torch._int_mm device "
+            f"{total(head, 'library_device_ms')} ms")
+    stem = recs["im2col_conv"]
+    log(f"[kernels] stem: device {total(stem, 'device_ms')} ms, F.conv2d device "
+        f"{total(stem, 'library_device_ms')} ms")
 
 
 # ---------------------------------------------------------------- phase 3
@@ -446,24 +479,28 @@ def end_to_end(dev, pattern):
 
 # ------------------------------------------------------------ where the time goes
 
-# GEMM core -> {operand loader or stager -> kernel}, first match wins. On
-# os_gemm (the CUDA cores) the bw conv's fp32 A loader is the stem's Tap, so
-# its B loader (the expand) decides; on os_mma (the int8 tensor cores) both
-# bw kernels stage B with ExpandTile, so the A stager decides.
+# kernel template -> {operand loader or stager -> kernel}, first match wins.
+# On os_gemm (the CUDA cores) the bw conv's fp32 A loader is the stem's Tap,
+# so its B loader (the expand) decides; on os_mma (the int8 tensor cores)
+# the A stager decides (the bw kernels' cp.async chunks, the tc head's
+# gather); the stem's direct conv is a template of its own.
 KERNEL_OF_LOADER = {
-    "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw"},
+    "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw",
+               "GatherMux": "vdbb_matmul_tc"},
     "os_gemm": {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
                 "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
                 "Tap": "im2col_conv"},
+    "direct_conv": {"HaloTile": "im2col_conv"},
 }
 
 
 def kernel_family(name: str) -> str:
     """The port's kernel a CUDA kernel name belongs to, else 'other'. The
     kernels are instances of two GEMM templates told apart by their operand
-    loaders; ``name`` may be demangled (``os_mma::kernel<128, 16, ...,
-    TapChunks, ExpandTile>(...)``) or mangled (``_ZN6os_mma6kernel...``),
-    so the names are matched as substrings."""
+    loaders, and of the stem's direct conv; ``name`` may be demangled
+    (``os_mma::kernel<128, 16, ..., TapChunks, ExpandTile>(...)``) or
+    mangled (``_ZN6os_mma6kernel...``), so the names are matched as
+    substrings."""
     for core, loaders in KERNEL_OF_LOADER.items():
         if core in name:
             for loader, kernel in loaders.items():
@@ -472,10 +509,13 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_forwards(model, x, reps: int = 4) -> dict:
+def profile_forwards(model, x, per_forward, reps: int = 4) -> dict:
     """Device time per kernel and the device's idle share over ``reps``
     served forwards, from torch.profiler's CUDA activity. Idle is the share
-    of the host-clock window in which no kernel ran."""
+    of the host-clock window in which no kernel ran. A pass may deliver only
+    some of its kernel records, so a port kernel's time is the mean of its
+    records times its launches (``per_forward`` a forward); ``records``
+    gives how many came, to set against those launches."""
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
@@ -487,14 +527,16 @@ def profile_forwards(model, x, reps: int = 4) -> dict:
                 model(x)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    spans, per = [], {}
+    spans, dur = [], {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         a, b = ev.time_range.start, ev.time_range.end
         spans.append((a, b))
-        fam = kernel_family(ev.name)
-        per[fam] = per.get(fam, 0.0) + (b - a) / reps / 1e3
+        dur.setdefault(kernel_family(ev.name), []).append(b - a)
+    per = {fam: (sum(d) / len(d) * per_forward[fam] * reps if per_forward.get(fam) else sum(d))
+           / reps / 1e3 for fam, d in dur.items()}
+    records = {fam: len(d) for fam, d in dur.items()}
     if not spans:
         return {"device_ms": None, "wall_ms": wall_us / reps / 1e3, "idle": None, "per_kernel_ms": {}}
     busy, end = 0.0, float("-inf")
@@ -503,7 +545,7 @@ def profile_forwards(model, x, reps: int = 4) -> dict:
             busy += b - max(a, end)
             end = b
     return {"device_ms": busy / reps / 1e3, "wall_ms": wall_us / reps / 1e3,
-            "idle": max(0.0, 1.0 - busy / wall_us), "per_kernel_ms": per}
+            "idle": max(0.0, 1.0 - busy / wall_us), "per_kernel_ms": per, "records": records}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -585,7 +627,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1)
     recs = check_kernels(cfgs, gen, dev)
     log(f"[kernels] every kernel matches its plain version ({time.time() - t0:.1f} s)")
-    log_bw_summary(recs)
+    log_summary(recs)
 
     # each serving path with the counts at 0 just before it; a kernel's
     # launches are those of the first path that runs it
@@ -598,7 +640,7 @@ def main() -> int:
             if PER_FORWARD[pattern][name]:
                 counts.setdefault(name, n)
         for b in (1, BATCH):
-            prof = profile_forwards(model, x[:b].contiguous())
+            prof = profile_forwards(model, x[:b].contiguous(), PER_FORWARD[pattern])
             log(f"[profile] pattern={pattern} batch {b}: per forward {json.dumps(prof)}")
         del model, x
 

@@ -5,7 +5,8 @@ The TPU kernels carry an output-stationary accumulator across a sequential
 K grid axis (``os_accumulate``). On the card each thread block owns an output
 tile and loops over K itself; that loop and the flush epilogue live in
 ``csrc/os_gemm.cuh`` (the CUDA cores), ``csrc/os_mma.cuh`` (the int8 tensor
-cores, for the bw kernels' int8 instantiation) and ``csrc/epilogue.cuh``.
+cores, for the int8 instantiation of the bw kernels and the tc head) and
+``csrc/epilogue.cuh``.
 What stays here is what the host resolves before a launch.
 """
 from __future__ import annotations
@@ -133,10 +134,22 @@ def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
 @dataclasses.dataclass(frozen=True)
 class MmaPlan:
     """How ``csrc/os_mma.cuh`` runs one int8 product: ``tile_rows`` output
-    rows per block, A copied in ``chunk``-byte pieces."""
+    rows per block, A stored in ``chunk``-byte pieces (copied by cp.async,
+    or gathered through registers when ``gathered``)."""
 
     tile_rows: int
     chunk: int
+    gathered: bool = False
+
+
+def _mma_check_k(name: str, k: int) -> None:
+    if k > MMA_MAX_K:
+        raise ValueError(f"{name}: K={k} above {MMA_MAX_K}, where K*127*127 would "
+                         "overflow the exact int32 accumulator")
+
+
+def _mma_tile_rows(m: int) -> int:
+    return 64 if m <= MMA_SMALL_M else 128
 
 
 def mma_plan(name: str, m: int, k: int, run: int, ptr: int) -> MmaPlan:
@@ -151,11 +164,19 @@ def mma_plan(name: str, m: int, k: int, run: int, ptr: int) -> MmaPlan:
       aligned, else 8 bytes under the same two conditions, else refused;
     - k above ``MMA_MAX_K`` is refused: the int32 sum would not be exact.
     """
-    if k > MMA_MAX_K:
-        raise ValueError(f"{name}: K={k} above {MMA_MAX_K}, where K*127*127 would "
-                         "overflow the exact int32 accumulator")
+    _mma_check_k(name, k)
     for chunk in (16, 8):
         if run % chunk == 0 and ptr % chunk == 0:
-            return MmaPlan(64 if m <= MMA_SMALL_M else 128, chunk)
+            return MmaPlan(_mma_tile_rows(m), chunk)
     raise ValueError(f"{name}: int8 operand rows come in runs of {run} bytes at address "
                      f"{ptr:#x}; the kernel copies 16- or 8-byte aligned chunks")
+
+
+def mma_gather_plan(name: str, m: int, kc: int) -> MmaPlan:
+    """The same choices for a product over a gathered A (the tc kernels'
+    activation mux, ``csrc/mux_stage.cuh``): tile rows as :func:`mma_plan`;
+    A gathered byte by byte through registers into 8-byte words, so neither
+    alignment nor the length of a run matters; a compressed K ``kc`` above
+    ``MMA_MAX_K`` is refused."""
+    _mma_check_k(name, kc)
+    return MmaPlan(_mma_tile_rows(m), 8, gathered=True)

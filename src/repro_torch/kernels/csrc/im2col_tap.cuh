@@ -36,6 +36,7 @@ struct Tap {
 // tile (`row`). A chunk outside the image or past M is
 // reported invalid (copied with src-size 0: zeros).
 struct TapChunks {
+  static constexpr bool kRegisters = false;  // cp.async chunks (os_mma.cuh)
   const int8_t* x;
   int h, w, c, ho, wo, sh, sw, pt, pl, kw;
 

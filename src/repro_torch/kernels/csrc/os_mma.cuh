@@ -1,5 +1,5 @@
-// Output-stationary int8 GEMM on the tensor cores, for the bw kernels' int8
-// instantiation.
+// Output-stationary int8 GEMM on the tensor cores: the int8 instantiation of
+// the bw kernels and of the tc head.
 //
 // Replaces, for int8 operands, the grid plumbing of repro/kernels/core.py
 // (os_matmul_call and the K-innermost grid of os_accumulate), as os_gemm.cuh
@@ -9,20 +9,30 @@
 // end on each fragment element.
 //
 // Per stage:
-//  - A (BM x 64 bytes) arrives by cp.async in CH-byte chunks (16: .cg, or 8:
-//    .ca) into a STAGES-deep ring. A stager resolves each of a thread's rows
-//    once per tile (`row`), the thread's column of K once (`at`) and then
-//    from stage to stage (`advance`), and each chunk's source from the two
-//    (`chunk`);
-//    a chunk outside the operand is copied with src-size 0, so it lands as
-//    zeros without a branch on the load.
+//  - A (BM x 64 bytes) comes one of two ways, chosen at compile time by the
+//    stager's `kRegisters`:
+//    - by cp.async in CH-byte chunks (16: .cg, or 8: .ca) into a STAGES-deep
+//      ring, for an A whose K runs lie contiguous in memory. A stager
+//      resolves each of a thread's rows once per tile (`row`), the thread's
+//      column of K once (`at`) and then from stage to stage (`advance`), and
+//      each chunk's source from the two (`chunk`); a chunk outside the
+//      operand is copied with src-size 0, so it lands as zeros without a
+//      branch on the load;
+//    - through registers, for an A gathered byte by byte (the tc kernels'
+//      activation mux, mux_stage.cuh). The first 64 threads resolve the
+//      stage's 64 source offsets (`source`) into a shared row one stage
+//      ahead; a thread reads its 8 offsets from it once for all its rows,
+//      `fetch`es the bytes into registers before the stage's mmas and
+//      `pack`s them into one 8-byte word after, into the other of two
+//      buffers, as B does.
 //  - B (64 bytes of K x 64 columns) is built by a stager in two steps:
 //    `fetch(k8, n, K)` issues the global loads of B[k8 .. k8+7, n] into
 //    registers (a `Raw`), `pack(raw)` turns them into the 8 bytes in a
 //    uint64, which one 8-byte store puts in the K-major tile Bs[n][k8 - k0],
 //    the .col layout the mma takes. Stage kt+1 is fetched before stage kt's
 //    mmas and packed and stored after them, into the other of two buffers,
-//    so the loads' latency hides behind the mmas.
+//    so the loads' latency hides behind the mmas. B rows at or past K are
+//    zero, so a register-staged A may hold any byte there.
 //  - Two k32 steps of mma.sync.m16n8k32 s8 x s8 -> s32, operands from shared
 //    memory by ldmatrix. Rows are 80 bytes apart (64 + 16), so the 8 row
 //    addresses of an ldmatrix hit 8 disjoint 4-bank groups.
@@ -48,6 +58,7 @@ constexpr int THREADS = 256;     // 8 warps: 4 x 2 warp tiles of 32 x 32 (BM = 1
 constexpr int MIN_BLOCKS = 3;    // blocks an SM: caps a thread at 85 registers
                                  // (the staging is issue-bound; 24 warps an SM
                                  // beat 16 on an H100, a few bytes of spill aside)
+constexpr int MIN_BLOCKS_REG_A = 2;  // with A's bytes in flight in registers too
 constexpr int WM = 32;
 constexpr int SMALL_M = 64;      // M at or below this takes the BM = 64 instance
 constexpr int MAX_K = 2147483647 / (127 * 127);
@@ -89,6 +100,7 @@ __device__ __forceinline__ void mma_s8(int32_t (&d)[4], const uint32_t (&a)[4], 
 
 // A stager of a plain row-major (M, K) int8 matrix, read as it lies.
 struct RowChunks {
+  static constexpr bool kRegisters = false;  // cp.async chunks
   const int8_t* a;
   int k;
 
@@ -113,10 +125,36 @@ struct RowChunks {
   }
 };
 
+// What a stager of A keeps per thread from one stage to the next: a cp.async
+// stager its column of K (`At`), a register stager the bytes in flight
+// (`Raw`); the other is an empty struct.
+template <typename S, bool = S::kRegisters>
+struct AState {
+  using At = typename S::At;
+  struct Raw {};
+};
+template <typename S>
+struct AState<S, true> {
+  struct At {};
+  using Raw = typename S::Raw;
+};
+
+// A register stager's source offsets, for the stage being fetched and the
+// one after it; nothing for a cp.async stager.
+template <bool>
+struct Sources {};
+template <>
+struct Sources<true> {
+  int off[2][BK];
+};
+
 template <int BM, int CH, typename Out, typename StageA, typename StageB>
-__global__ void __launch_bounds__(THREADS, MIN_BLOCKS)
+__global__ void __launch_bounds__(THREADS, StageA::kRegisters ? MIN_BLOCKS_REG_A : MIN_BLOCKS)
 kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ out,
        EpilogueArgs ep) {
+  constexpr bool REG_A = StageA::kRegisters;
+  static_assert(!REG_A || CH == 8, "a register-staged A is stored in 8-byte words");
+  constexpr int A_BUFS = REG_A ? 2 : STAGES;      // two buffers as B's, or the cp.async ring
   constexpr int WARPS_N = THREADS / 32 / (BM / WM);
   constexpr int WN = BN / WARPS_N;                // 32 (BM = 128) or 16 (BM = 64)
   static_assert(WN % 16 == 0, "an ldmatrix.x4 of B covers two n8 tiles");
@@ -127,8 +165,9 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
   constexpr int B_GROUPS = (BK / 8) / COL_STEP;   // groups a thread builds a stage
   static_assert(BM % ROW_STEP == 0 && (BK / 8) % COL_STEP == 0, "tile and threads");
 
-  __shared__ __align__(16) int8_t As[STAGES][BM][LDS];
+  __shared__ __align__(16) int8_t As[A_BUFS][BM][LDS];
   __shared__ __align__(16) int8_t Bs[2][BN][LDS];
+  __shared__ __align__(16) Sources<REG_A> a_src;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
@@ -141,18 +180,47 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
 #pragma unroll
   for (int i = 0; i < A_ROWS; ++i) rows[i] = stage_a.row(m0 + a_row + i * ROW_STEP, M);
 
-  // the stages are copied in order, so the thread's column of K moves by BK
-  // from one copy to the next
-  typename StageA::At at = stage_a.at(a_col);
+  using AtA = typename AState<StageA>::At;
+  using RawA = typename AState<StageA>::Raw;
+  // cp.async: the stages are copied in order, so the thread's column of K
+  // moves by BK from one copy to the next
+  AtA at{};
+  if constexpr (!REG_A) at = stage_a.at(a_col);
   auto load_a = [&](int kt, int s) {
-    const int k = kt * BK + a_col;
+    if constexpr (!REG_A) {
+      const int k = kt * BK + a_col;
 #pragma unroll
-    for (int i = 0; i < A_ROWS; ++i) {
-      bool ok = k < K;
-      const int8_t* src = stage_a.chunk(rows[i], at, ok);
-      cp_async<CH>(smem_u32(&As[s][a_row + i * ROW_STEP][a_col]), src, ok);
+      for (int i = 0; i < A_ROWS; ++i) {
+        bool ok = k < K;
+        const int8_t* src = stage_a.chunk(rows[i], at, ok);
+        cp_async<CH>(smem_u32(&As[s][a_row + i * ROW_STEP][a_col]), src, ok);
+      }
+      stage_a.advance(at, BK);
     }
-    stage_a.advance(at, BK);
+  };
+  // registers: stage kt's source offsets, one a thread for the first BK
+  // threads, into the row that stage kt - 2 used
+  auto resolve_a = [&](int kt) {
+    if constexpr (REG_A) {
+      if (tid < BK) a_src.off[kt & 1][tid] = stage_a.source(kt * BK + tid, K);
+    }
+  };
+  auto fetch_a = [&](int kt, RawA (&raw)[A_ROWS]) {
+    if constexpr (REG_A) {
+      const int4* p = reinterpret_cast<const int4*>(&a_src.off[kt & 1][a_col]);
+      const int4 lo = p[0], hi = p[1];
+      const int off[CH] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+#pragma unroll
+      for (int i = 0; i < A_ROWS; ++i)
+        raw[i] = stage_a.fetch(rows[i], off);
+    }
+  };
+  auto store_a = [&](int s, const RawA (&raw)[A_ROWS]) {
+    if constexpr (REG_A) {
+#pragma unroll
+      for (int i = 0; i < A_ROWS; ++i)
+        *reinterpret_cast<uint64_t*>(&As[s][a_row + i * ROW_STEP][a_col]) = stage_a.pack(raw[i]);
+    }
   };
   // neighbouring threads build neighbouring columns: the stager's reads of
   // the compressed streams are coalesced
@@ -178,10 +246,19 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0;
 
+  if constexpr (REG_A) {
+    resolve_a(0);
+    if (ktiles > 1) resolve_a(1);
+    __syncthreads();
+    RawA raw[A_ROWS];
+    fetch_a(0, raw);
+    store_a(0, raw);
+  } else {
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_a(s, s);
-    cp_async_commit();
+    for (int s = 0; s < STAGES - 1; ++s) {
+      if (s < ktiles) load_a(s, s);
+      cp_async_commit();
+    }
   }
   {
     RawB raw[B_GROUPS];
@@ -190,16 +267,22 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
   }
 
   for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
+    if constexpr (!REG_A) cp_async_wait<STAGES - 2>();
     __syncthreads();
-    const int next = kt + STAGES - 1;
-    if (next < ktiles) load_a(next, next % STAGES);
-    cp_async_commit();
+    if constexpr (!REG_A) {
+      const int next = kt + STAGES - 1;
+      if (next < ktiles) load_a(next, next % STAGES);
+      cp_async_commit();
+    }
     const bool more = kt + 1 < ktiles;
     RawB raw[B_GROUPS];
-    if (more) fetch_b(kt + 1, raw);
+    RawA raw_a[A_ROWS];
+    if (more) {
+      fetch_b(kt + 1, raw);
+      fetch_a(kt + 1, raw_a);
+    }
 
-    const int8_t(*A)[LDS] = As[kt % STAGES];
+    const int8_t(*A)[LDS] = As[kt % A_BUFS];
     const int8_t(*B)[LDS] = Bs[kt & 1];
 #pragma unroll
     for (int ks = 0; ks < BK / 32; ++ks) {
@@ -220,7 +303,11 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
         for (int j = 0; j < WN / 8; ++j)
           mma_s8(acc[i][j], af[i], bf[j / 2][(j % 2) * 2], bf[j / 2][(j % 2) * 2 + 1]);
     }
-    if (more) store_b((kt + 1) & 1, raw);
+    if (more) {
+      store_b((kt + 1) & 1, raw);
+      store_a((kt + 1) % A_BUFS, raw_a);
+    }
+    if (kt + 2 < ktiles) resolve_a(kt + 2);
   }
 
   // m16n8 accumulator fragment: elements (e0, e1) at row lane/4, columns
@@ -264,7 +351,10 @@ cudaError_t launch_rows(const StageA& stage_a, const StageB& stage_b, int M, int
 template <typename Out, typename StageA, typename StageB>
 cudaError_t launch_chunk(int chunk, const StageA& stage_a, const StageB& stage_b, int M,
                          int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
-  if (chunk == 16) return launch_rows<16, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  // a register-staged A is stored in 8-byte words: only the 8-byte instance
+  if constexpr (!StageA::kRegisters) {
+    if (chunk == 16) return launch_rows<16, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  }
   if (chunk == 8) return launch_rows<8, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
   return cudaErrorInvalidValue;
 }

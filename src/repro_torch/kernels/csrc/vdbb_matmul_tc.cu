@@ -7,10 +7,22 @@
 // The product runs against the (K_c, N) row-major values. Any M runs here:
 // the TPU's tiny-M fallback existed for its 8-row sublane only.
 //
-// Bound on an H100 for the sparse-cnn-s head (M = batch, K = 512, N = 1000):
-// bytes, mostly the 192 KB int8 value stream; the launch itself costs more
-// than either bound at this size.
+// Bound on an H100 for the sparse-cnn-s head (M = batch, K = 512, K_c =
+// 192, N = 1000): bytes, the 192 KB of int8 values and, at batch 64, the
+// 256 KB of fp32 logits (0.15 us at 3.35 TB/s); the launch itself costs
+// more than either bound at this size, so the time is the latency of a few
+// stages on 16 blocks. What the design does about it, for int8 operands:
+// the product runs on the int8 tensor cores (os_mma.cuh, mma.sync
+// m16n8k32) over K_c in 64-byte stages, three at the head; A is gathered
+// through registers (`GatherMux`, mux_stage.cuh), each stage's 64 source
+// offsets resolved once for the whole tile and each 8 gathered bytes packed
+// by PRMT; B is the values read down each column and packed K-major
+// (`DenseTile`); the loads of stage kt+1 are in flight during stage kt's
+// mmas. M <= 64 takes the 64-row tile. fp32 operands keep os_gemm.cuh's
+// CUDA-core loop (`GatherCols`).
+#include "mux_stage.cuh"
 #include "os_gemm.cuh"
+#include "os_mma.cuh"
 
 template <typename T>
 struct GatherCols {
@@ -23,28 +35,27 @@ struct GatherCols {
   }
 };
 
-template <typename T>
-static cudaError_t run(const void* a, const void* values, const void* idx,
-                       EpilogueArgs ep, void* out, int out_kind, int m, int k,
-                       int n, int bz, int nnz, cudaStream_t stream) {
-  GatherCols<T> ld{static_cast<const T*>(a), static_cast<const int8_t*>(idx), k,
-                   bz, nnz};
-  os_gemm::DenseB<T> vb{static_cast<const T*>(values), n};
-  return os_gemm::launch<T>(out_kind, ld, vb, m, n, (k / bz) * nnz, out, ep, stream);
-}
-
 extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx,
                               const void* scale, const void* bias,
                               const void* out_scale, int relu, void* out,
                               int in_kind, int out_kind, int m, int k, int n,
                               int bz, int nnz, void* stream) {
-  if (bz <= 0 || nnz <= 0 || k % bz != 0) return cudaErrorInvalidValue;
+  if (bz <= 0 || nnz <= 0 || nnz > bz || k % bz != 0) return cudaErrorInvalidValue;
   EpilogueArgs ep{static_cast<const float*>(scale), static_cast<const float*>(bias),
                   static_cast<const float*>(out_scale), relu};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (in_kind == os_gemm::IN_INT8)
-    return run<int8_t>(a, values, idx, ep, out, out_kind, m, k, n, bz, nnz, s);
-  if (in_kind == os_gemm::IN_FLOAT32)
-    return run<float>(a, values, idx, ep, out, out_kind, m, k, n, bz, nnz, s);
+  const int kc = (k / bz) * nnz;
+  if (in_kind == os_gemm::IN_INT8) {
+    GatherMux la{static_cast<const int8_t*>(a), static_cast<const int8_t*>(idx), k, bz, nnz};
+    DenseTile lb{static_cast<const int8_t*>(values), n};
+    // the gathered A is stored in 8-byte words: the chunk width is 8
+    return os_mma::launch(out_kind, 8, la, lb, m, n, kc, out, ep, s);
+  }
+  if (in_kind == os_gemm::IN_FLOAT32) {
+    GatherCols<float> la{static_cast<const float*>(a), static_cast<const int8_t*>(idx), k, bz,
+                         nnz};
+    os_gemm::DenseB<float> lb{static_cast<const float*>(values), n};
+    return os_gemm::launch<float>(out_kind, la, lb, m, n, kc, out, ep, s);
+  }
   return cudaErrorInvalidValue;
 }

@@ -1,15 +1,24 @@
 """Where the time of the int8 tensor-core core (``csrc/os_mma.cuh``) goes:
-the bw conv at three ``sparse-cnn-s`` layer shapes (batch 64) and the bw
-head, each built from a scratch copy of ``csrc/`` with parts of the stage
-switched off, timed by torch.profiler's device time.
+the bw conv at three ``sparse-cnn-s`` layer shapes (batch 64), the bw head
+and the tc head; and where the time of the stem's direct conv
+(``csrc/im2col_conv.cu``) goes at ``sparse-cnn-s`` batch 64. Each kernel is
+built from a scratch copy of ``csrc/`` with parts switched off, and timed
+by torch.profiler's device time.
 
     PYTHONPATH=src python -m repro_torch.kernels.mma_ablation
 
 Needs a CUDA card and nvcc. Variants: ``as built``; ``no B loads`` (the B
-stager's fetch replaced by a constant); ``no A copies`` (no cp.async);
-``no mma`` (the mma replaced by an integer add); and their combinations.
-The outputs of the switched variants are meaningless; only their times
-count. The copies are built under ``build/kernels/ablation/``.
+stager's fetch replaced by a constant); ``no A copies`` (no cp.async, and
+no gather loads for the tc head's register-staged A); ``no mma`` (the mma
+replaced by an integer add); and their combinations. The stem's: ``no
+division`` (the flush's IEEE division by the requantize scale replaced by
+a multiply), ``no flush`` (the accumulators' raw bytes stored), ``no taps``
+(the loop over the 27 taps skipped), and the first version's thread tile
+(4 pixels x 16 filters, 2 blocks an SM); each with ReLU (as the stem runs,
+half its outputs zero) and without, and timed by CUDA events too (20
+back-to-back launches). The outputs of the switched variants are
+meaningless; only their times count. The copies are built under
+``build/kernels/ablation/``.
 """
 from __future__ import annotations
 
@@ -21,18 +30,39 @@ import torch
 
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
+from repro_torch.kernels.timing import device_ms, event_ms
 
 # anchor in os_mma.cuh -> its replacement under each switch
 SWITCHES = {
-    "NO_A": ("      cp_async<CH>(smem_u32(&As[s][a_row + i * ROW_STEP][a_col]), src, ok);\n", ""),
+    "NO_A": ("        cp_async<CH>(smem_u32(&As[s][a_row + i * ROW_STEP][a_col]), src, ok);\n", ""),
+    "NO_GATHER": ("        raw[i] = stage_a.fetch(rows[i], off);\n", "        raw[i] = RawA{};\n"),
     "NO_B": ("      raw[i] = stage_b.fetch(kt * BK + (b_grp + i * COL_STEP) * 8, n0 + b_col, K);\n",
              "      raw[i] = RawB{0x01010101u + kt, 0x01010101u, 0x76543210u};\n"),
     "NO_MMA": ("          mma_s8(acc[i][j], af[i], bf[j / 2][(j % 2) * 2], bf[j / 2][(j % 2) * 2 + 1]);\n",
                "          acc[i][j][0] += af[i][0] ^ bf[j / 2][0];\n"),
 }
-VARIANTS = {"as built": (), "no B loads": ("NO_B",), "no A copies": ("NO_A",),
-            "no mma": ("NO_MMA",), "no A, no B": ("NO_A", "NO_B"),
-            "no A, no B, no mma": ("NO_A", "NO_B", "NO_MMA")}
+# the stem's switches: source in csrc/, anchor, replacement
+STEM_SWITCHES = {
+    "NO_DIV": ("epilogue.cuh", "      float q = rintf(__fdiv_rn(y, ep.out_scale[n]));\n",
+               "      float q = rintf(__fmul_rn(y, ep.out_scale[n]));\n"),
+    "NO_FLUSH": ("im2col_conv.cu",
+                 "    q[f] = static_cast<uint8_t>(epilogue_flush<float, int8_t>(acc[f], fb + f, ep));\n",
+                 "    q[f] = __float_as_uint(acc[f]);\n"),
+    "NO_TAPS": ("im2col_conv.cu", "  for (int dy = 0; dy < t.kh; ++dy)\n",
+                "  for (int dy = 0; dy < 0; ++dy)\n"),
+    # the first version's thread tile: 4 pixels x 16 filters (an 8 x 32 block
+    # tile, 2 blocks an SM) in place of 4 x 8 (4 x 32, 4 blocks)
+    "TH8": ("im2col_conv.cu", "constexpr int TH = 4;", "constexpr int TH = 8;"),
+    "FT16": ("im2col_conv.cu", "constexpr int FT = 8;", "constexpr int FT = 16;"),
+    "BLOCKS2": ("im2col_conv.cu", "constexpr int MIN_BLOCKS = 4;", "constexpr int MIN_BLOCKS = 2;"),
+}
+STEM_VARIANTS = {"as built": (), "no division": ("NO_DIV",), "no flush": ("NO_FLUSH",),
+                 "no taps": ("NO_TAPS",), "no taps, no flush": ("NO_TAPS", "NO_FLUSH"),
+                 "4 x 16 a thread": ("TH8", "FT16", "BLOCKS2")}
+STEM = (64, 64, 64, 3, 64)  # (images, H, W, C, F) of the sparse-cnn-s stem at batch 64
+VARIANTS = {"as built": (), "no B loads": ("NO_B",), "no A copies": ("NO_A", "NO_GATHER"),
+            "no mma": ("NO_MMA",), "no A, no B": ("NO_A", "NO_GATHER", "NO_B"),
+            "no A, no B, no mma": ("NO_A", "NO_GATHER", "NO_B", "NO_MMA")}
 # (images, H, W, C, F) of l1, l3 and l7 at batch 64; 3x3 taps, stride 1
 CONVS = {"l1": (64, 64, 64, 64, 64), "l3": (64, 32, 32, 128, 128), "l7": (64, 8, 8, 512, 512)}
 HEAD = (64, 512, 1000)  # (M, K, N)
@@ -41,37 +71,20 @@ NNZ = 3
 
 def variant_sources(name: str, switches, csrc: Path = build.CSRC) -> Path:
     """A copy of ``csrc`` (the sources as committed) with ``switches``
-    applied to os_mma.cuh."""
+    applied: those of ``SWITCHES`` to os_mma.cuh, those of
+    ``STEM_SWITCHES`` to their own source."""
     out = build.build_dir() / "ablation" / name.replace(" ", "_").replace(",", "")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
-    core = out / "os_mma.cuh"
-    text = core.read_text()
     for sw in switches:
-        anchor, replacement = SWITCHES[sw]
+        source, anchor, replacement = (("os_mma.cuh", *SWITCHES[sw]) if sw in SWITCHES
+                                       else STEM_SWITCHES[sw])
+        path = out / source
+        text = path.read_text()
         if text.count(anchor) != 1:
-            raise RuntimeError(f"{sw}: its anchor is not in os_mma.cuh once")
-        text = text.replace(anchor, replacement)
-    core.write_text(text)
+            raise RuntimeError(f"{sw}: its anchor is not in {source} once")
+        path.write_text(text.replace(anchor, replacement))
     return out
-
-
-def device_ms(fn, reps: int = 5, tries: int = 3):
-    """Mean device time of one call of ``fn`` (all its CUDA activity)."""
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(tries):
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        us = [ev.time_range.end - ev.time_range.start for ev in prof.events()
-              if ev.device_type == torch.autograd.DeviceType.CUDA]
-        if us:
-            return sum(us) / reps / 1e3
-    return None
 
 
 def main() -> int:
@@ -103,28 +116,57 @@ def main() -> int:
     cases.append(("vdbb_matmul_bw", (a.data_ptr(), v.data_ptr(), idx.data_ptr(), None, None,
                                      None, 0, out.data_ptr(), 0, 0, m, k, n, 8, NNZ, 1, stream),
                   (a, v, idx, out)))
+    # the tc head: one pattern (nb, nnz) shared by every column
+    tc_idx = idx[:, :, 0].contiguous()
+    cases.append(("vdbb_matmul_tc", (a.data_ptr(), v.data_ptr(), tc_idx.data_ptr(), None, None,
+                                     None, 0, out.data_ptr(), 0, 0, m, k, n, 8, NNZ, stream),
+                  (a, v, tc_idx, out)))
 
     argtypes = {"vdbb_conv_bw": [P, P, P, P, P, P, I, P, I, I] + [I] * 16 + [P],
-                "vdbb_matmul_bw": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P]}
-    sources = {"vdbb_conv_bw": "vdbb_conv_bw.cu", "vdbb_matmul_bw": "vdbb_matmul_bw.cu"}
-    print(f"{'variant':<20s} " + " ".join(f"{name:>9s}" for name in [*CONVS, "head"])
+                "vdbb_matmul_bw": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P],
+                "vdbb_matmul_tc": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P]}
+    sources = {"vdbb_conv_bw": "vdbb_conv_bw.cu", "vdbb_matmul_bw": "vdbb_matmul_bw.cu",
+               "vdbb_matmul_tc": "vdbb_matmul_tc.cu"}
+    print(f"{'variant':<20s} " + " ".join(f"{name:>9s}" for name in [*CONVS, "bw head", "tc head"])
           + "   (device ms, raw int32 out)")
     csrc, registry = build.CSRC, dict(build.KERNELS)
     try:
         for name, switches in VARIANTS.items():
-            build.CSRC = variant_sources(name, switches, csrc)
-            kernels = {kn: build.CudaKernel(kn, sources[kn], argtypes[kn], replaces="ablation")
-                       for kn in sources}
-            build.build_all(tuple(sources.values()))
-            row = [device_ms(lambda kn=kn, args=args: kernels[kn].launch(*args))
-                   for kn, args, _ in cases]
-            print(f"{name:<20s} " + " ".join(f"{t:9.4f}" if t is not None else f"{'none':>9s}"
-                                             for t in row), flush=True)
+            print(f"{name:<20s} " + _row(name, switches, csrc, cases, sources, argtypes), flush=True)
+        # the stem on its direct path: fp32 in, bias, ReLU, int8 codes out
+        n, h, w, c, f = STEM
+        x = torch.randn(n, h, w, c, generator=gen).to(dev)
+        wt = (0.2 * torch.randn(3, 3, c, f, generator=gen)).to(dev)
+        bias, out_scale = torch.randn(f, generator=gen).to(dev), torch.full((f,), 0.05, device=dev)
+        out = torch.empty(n * h * w * f, dtype=torch.int8, device=dev)
+        stem = [("im2col_conv", (x.data_ptr(), wt.data_ptr(), None, bias.data_ptr(),
+                                 out_scale.data_ptr(), relu, out.data_ptr(), 1, 2, n, h, w, c, f,
+                                 h, w, 3, 3, 1, 1, 1, 1, 1, stream), (x, wt, bias, out_scale, out))
+                for relu in (1, 0)]
+        stem_src = {"im2col_conv": "im2col_conv.cu"}
+        stem_types = {"im2col_conv": [P, P, P, P, P, I, P, I, I] + [I] * 14 + [P]}
+        print(f"{'stem variant':<22s} {'ReLU':>9s} {'no ReLU':>9s} {'ReLU':>9s} {'no ReLU':>9s}"
+              "   (device ms by profiler, then by events; int8 codes out)")
+        for name, switches in STEM_VARIANTS.items():
+            print(f"{name:<22s} " + _row(f"stem {name}", switches, csrc, stem, stem_src,
+                                         stem_types, events=True), flush=True)
     finally:
         build.CSRC = csrc
         build.KERNELS.clear()
         build.KERNELS.update(registry)
     return 0
+
+
+def _row(name, switches, csrc, cases, sources, argtypes, events=False) -> str:
+    """Build the variant's copy of ``csrc`` and time each case on it (by
+    torch.profiler, and with ``events`` by CUDA events as well)."""
+    build.CSRC = variant_sources(name, switches, csrc)
+    kernels = {kn: build.CudaKernel(kn, sources[kn], argtypes[kn], replaces="ablation")
+               for kn in sources}
+    build.build_all(tuple(sources.values()))
+    calls = [lambda kn=kn, args=args: kernels[kn].launch(*args) for kn, args, _ in cases]
+    row = [device_ms(fn) for fn in calls] + ([event_ms(fn) for fn in calls] if events else [])
+    return " ".join(f"{t:9.4f}" if t is not None else f"{'none':>9s}" for t in row)
 
 
 if __name__ == "__main__":

@@ -1,0 +1,56 @@
+"""Device times of calls on the card, for ``chip_smoke.py`` and
+``kernels/mma_ablation.py``. Nothing here runs at import, and every
+function needs a CUDA card."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def device_ms(fn, keep=lambda name: True, reps: int = 5, passes: int = 3):
+    """Device time of one call of ``fn``: the CUDA kernels whose names
+    ``keep`` accepts, by torch.profiler over ``passes`` passes of ``reps``
+    calls each. A pass may deliver only some of its kernel records (on an
+    H100, one 95 us kernel once showed one record of five), so a sum over a
+    pass would undercount: the time is, for each kernel name, the mean
+    duration of its records times its launches per call (the most records
+    any pass gave it, over ``reps``, rounded up). None when no pass
+    delivered a record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    durations, most = {}, {}
+    for _ in range(passes):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        seen = {}
+        for ev in prof.events():
+            if ev.device_type == torch.autograd.DeviceType.CUDA and keep(ev.name):
+                durations.setdefault(ev.name, []).append(ev.time_range.end - ev.time_range.start)
+                seen[ev.name] = seen.get(ev.name, 0) + 1
+        for name, n in seen.items():
+            most[name] = max(most.get(name, 0), n)
+    if not durations:
+        return None
+    us = sum(sum(d) / len(d) * math.ceil(most[name] / reps) for name, d in durations.items())
+    return us / 1e3
+
+
+def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean time of one call of ``fn`` by CUDA events around ``reps``
+    back-to-back calls: the device's time when each call outlasts its
+    launch, else the host's."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps

@@ -10,7 +10,7 @@ from repro_torch.core.vdbb import gather_compressed
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
 from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices, epilogue_plan,
-                                      mma_plan)
+                                      mma_gather_plan, mma_plan)
 from repro_torch.kernels.ref import acc_matmul, decode_values
 
 KERNEL = build.CudaKernel(
@@ -52,14 +52,18 @@ def vdbb_matmul_tc(a, values, indices, fmt, *, scales=None, bias=None,
                    relu=False, out_scale=None):
     """A (M, K) × compressed W -> (M, N). values: (nb, nnz, N) of A's dtype
     (int8 or fp32); indices: (nb, nnz) int8, shared across N. Any M; ragged
-    edges are masked in the kernel. CPU tensors take the plain version; CUDA
-    tensors launch the kernel."""
+    edges are masked in the kernel. int8 runs on the tensor cores and needs
+    the compressed K = nb * nnz within ``core.MMA_MAX_K``
+    (:func:`core.mma_gather_plan`). CPU tensors take the plain version;
+    CUDA tensors launch the kernel."""
     if a.device.type == "cpu":
         return vdbb_matmul_tc_plain(a, values, indices, fmt, scales=scales,
                                     bias=bias, relu=relu, out_scale=out_scale)
     ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
     if values.dtype != a.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
         raise TypeError("vdbb_matmul_tc: values must match a's dtype, indices be (nb, nnz) int8")
+    if a.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        mma_gather_plan("vdbb_matmul_tc", a.shape[0], values.shape[0] * values.shape[1])
     in_kind = build.check_operands("vdbb_matmul_tc", a, values, indices, dtype=a.dtype)
     m, k = a.shape
     n = values.shape[-1]

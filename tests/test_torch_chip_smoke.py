@@ -19,9 +19,14 @@ def smoke():
     return mod
 
 
-def _mma(rows, chunk, out, stage_a):
-    return (f"void os_mma::kernel<{rows}, {chunk}, {out}, {stage_a}, ExpandTile>"
-            f"({stage_a}, ExpandTile, int, int, int, {out}*, EpilogueArgs)")
+def _mma(rows, chunk, out, stage_a, stage_b="ExpandTile"):
+    return (f"void os_mma::kernel<{rows}, {chunk}, {out}, {stage_a}, {stage_b}>"
+            f"({stage_a}, {stage_b}, int, int, int, {out}*, EpilogueArgs)")
+
+
+def _direct(out):
+    return (f"void direct_conv::kernel<{out}>(direct_conv::HaloTile, float const*, int, int, "
+            f"{out}*, EpilogueArgs)")
 
 
 def _gemm(t, out, load_a, load_b):
@@ -39,6 +44,18 @@ NAMES = [
      "vdbb_conv_bw"),
     ("_ZN6os_mma6kernelILi64ELi8EiNS_9RowChunksE10ExpandTileEEvT2_T3_iiiPT1_12EpilogueArgs",
      "vdbb_matmul_bw"),
+    # the tc head's int8 path: the gather stager on the same core, both tiles
+    *[(_mma(r, 8, o, "GatherMux", "DenseTile"), "vdbb_matmul_tc")
+      for r in (64, 128) for o in ("int", "float", "signed char")],
+    ("_ZN6os_mma6kernelILi64ELi8Ef9GatherMux9DenseTileEEvT2_T3_iiiPT1_12EpilogueArgs",
+     "vdbb_matmul_tc"),
+    ("_ZN6os_mma6kernelILi128ELi8Ea9GatherMux9DenseTileEEvT2_T3_iiiPT1_12EpilogueArgs",
+     "vdbb_matmul_tc"),
+    # the stem's direct conv, both outputs
+    (_direct("signed char"), "im2col_conv"),
+    (_direct("float"), "im2col_conv"),
+    ("_ZN11direct_conv6kernelIaEEvNS_8HaloTileEPKfiiPT_12EpilogueArgs", "im2col_conv"),
+    ("_ZN11direct_conv6kernelIfEEvNS_8HaloTileEPKfiiPT_12EpilogueArgs", "im2col_conv"),
     # the CUDA-core core: every kernel's loaders
     (_gemm("float", "float", "Tap<float>", "ExpandTaps<float>"), "vdbb_conv_bw"),
     (_gemm("float", "float", "os_gemm::DenseB<float>", "ExpandCols<float>"), "vdbb_matmul_bw"),
@@ -67,6 +84,19 @@ def test_kernel_family_names_only_registered_kernels(smoke):
 
     for loaders in smoke.KERNEL_OF_LOADER.values():
         assert set(loaders.values()) <= set(build.KERNELS)
+
+
+def test_no_stager_name_is_part_of_another(smoke):
+    """Names are matched as substrings: within a template, no stager's name
+    may lie inside another's, and no template's name inside another's."""
+    cores = list(smoke.KERNEL_OF_LOADER)
+    for core in cores:
+        assert not any(core != other and core in other for other in cores)
+    for core, loaders in smoke.KERNEL_OF_LOADER.items():
+        names = list(loaders)
+        for i, name in enumerate(names):
+            # an earlier name inside a later one would take its matches
+            assert not any(earlier in name for earlier in names[:i]), (core, name)
 
 
 def test_stager_names_are_the_templates(smoke):

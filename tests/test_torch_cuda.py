@@ -232,7 +232,7 @@ def _act_codes(rng, shape, *, full=False, card, offset=0):
     return buf[offset:].view(*shape)
 
 
-def _bw_exact(kernel, plain, args, f, card, rng, **geom):
+def _int8_exact(kernel, plain, args, f, card, rng, **geom):
     """int8 codes through the full flush, fp32 out of the scale and bias, and
     the raw int32 accumulator: each equal to the plain version."""
     scales = torch.from_numpy(rng.uniform(1e-4, 2e-4, f).astype(np.float32)).to(card)
@@ -267,7 +267,7 @@ def test_bw_conv_int8_tensor_cores_match_plain(card, c, n, h, w, f, nnz, group, 
     values, idx, fmt = _bw_codes(rng, 9 * c // 8, nnz, f, group)
     x = _act_codes(rng, (n, h, w, c), card=card, offset=offset)
     args = (x, values.to(card), idx.to(card), fmt, 3, 3)
-    _bw_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, f, card, rng,
+    _int8_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, f, card, rng,
               stride=stride)
 
 
@@ -285,7 +285,7 @@ def test_bw_head_int8_tensor_cores_match_plain(card, m, k, n, nnz, group, offset
     rng = np.random.default_rng(m * 100 + k + nnz)
     values, idx, fmt = _bw_codes(rng, k // 8, nnz, n, group)
     a = _act_codes(rng, (m, k), card=card, offset=offset)
-    _bw_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
+    _int8_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
               (a, values.to(card), idx.to(card), fmt), n, card, rng)
 
 
@@ -298,10 +298,10 @@ def test_bw_int8_full_range_at_k4608(card, full):
     values, idx, fmt = _bw_codes(rng, 576, 8, 72, None, full=full)
     x = _act_codes(rng, (2, 5, 5, 512), full=full, card=card)
     args = (x, values.to(card), idx.to(card), fmt, 3, 3)
-    _bw_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, 72, card, rng,
+    _int8_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, 72, card, rng,
               stride=1)
     a = _act_codes(rng, (67, 4608), full=full, card=card)
-    _bw_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
+    _int8_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
               (a, values.to(card), idx.to(card), fmt), 72, card, rng)
     if full:
         raw = head_k.vdbb_matmul_bw(a, values.to(card), idx.to(card), fmt)
@@ -317,8 +317,119 @@ def test_bw_int8_other_block_sizes(card, bz, nnz, c, group):
     values, idx, fmt = _bw_codes(rng, 9 * c // bz, nnz, 72, group, bz=bz)
     x = _act_codes(rng, (2, 9, 9, c), card=card)
     args = (x, values.to(card), idx.to(card), fmt, 3, 3)
-    _bw_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, 72, card, rng,
+    _int8_exact(conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain, args, 72, card, rng,
               stride=2)
     a = _act_codes(rng, (67, 9 * c), card=card)
-    _bw_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
+    _int8_exact(head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain,
               (a, values.to(card), idx.to(card), fmt), 72, card, rng)
+
+
+# ------------------------- the tc head's int8 tensor-core instantiation
+
+
+def _tc_codes(rng, nb, nnz, n, bz=8, *, full=False):
+    """int8 values (nb, nnz, n) and one pattern (nb, nnz) of distinct
+    positions in each block, shared by every column: random codes in ±127,
+    or every code +127 (``full``)."""
+    pos = np.sort(np.argsort(rng.random((nb, bz)), axis=1)[:, :nnz], axis=1)
+    vals = np.full((nb, nnz, n), 127) if full else rng.integers(-127, 128, (nb, nnz, n))
+    return (torch.from_numpy(vals.astype(np.int8)), torch.from_numpy(pos.astype(np.int8)),
+            tv.DBBFormat(bz, nnz, "matrix"))
+
+
+# (M, K, N, nnz, bz, byte offset of A)
+TC_HEAD_MMA_CASES = [
+    (1, 512, 1000, 3, 8, 0), (8, 512, 1000, 3, 8, 0), (64, 512, 1000, 3, 8, 0),
+    (67, 512, 1000, 3, 8, 0), (130, 512, 1000, 3, 8, 0), (64, 80, 1000, 3, 8, 0),
+    (130, 80, 72, 1, 8, 0), (1, 80, 72, 2, 8, 1), (64, 512, 72, 4, 8, 0),
+    (67, 512, 1000, 5, 8, 3), (8, 80, 1000, 6, 8, 0), (130, 512, 1000, 7, 8, 0),
+    (64, 512, 1000, 8, 8, 0), (64, 512, 1000, 3, 16, 0), (67, 80, 72, 5, 16, 0),
+    (1, 512, 1000, 8, 16, 0), (130, 80, 1000, 1, 16, 1), (8, 512, 72, 2, 16, 0),
+]
+
+
+@pytest.mark.parametrize("m,k,n,nnz,bz,offset", TC_HEAD_MMA_CASES)
+def test_tc_head_int8_tensor_cores_match_plain(card, m, k, n, nnz, bz, offset):
+    """The gather stager over the compressed K on both tile instances:
+    int8 codes, fp32 dequant + bias and the raw int32 accumulator, each
+    equal to the plain version. Ragged M and N, a compressed K that ends
+    inside a stage or inside an 8-byte group (K = 80: K_c from 5 to 60),
+    blocks of 8 and 16, nnz 1 to 8, and A at odd addresses (the gather needs
+    no alignment)."""
+    rng = np.random.default_rng(m * 1000 + k + 10 * nnz + bz + offset)
+    values, idx, fmt = _tc_codes(rng, k // bz, nnz, n, bz)
+    a = _act_codes(rng, (m, k), card=card, offset=offset)
+    _int8_exact(head_k.vdbb_matmul_tc, head_k.vdbb_matmul_tc_plain,
+                (a, values.to(card), idx.to(card), fmt), n, card, rng)
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_tc_head_int8_full_range_at_kc4608(card, full):
+    """K_c = 4608 (nnz = bz = 8 over K = 4608) with every code at ±127
+    range: all +127 drives |acc| to 4608 * 127 * 127, the accumulator's
+    worst case; exact."""
+    rng = np.random.default_rng(4609 + full)
+    values, idx, fmt = _tc_codes(rng, 576, 8, 72, full=full)
+    a = _act_codes(rng, (67, 4608), full=full, card=card)
+    args = (a, values.to(card), idx.to(card), fmt)
+    _int8_exact(head_k.vdbb_matmul_tc, head_k.vdbb_matmul_tc_plain, args, 72, card, rng)
+    if full:
+        assert int(head_k.vdbb_matmul_tc(*args).max()) == 4608 * 127 * 127
+
+
+# ----------------------------------------------- the stem's two paths
+
+
+# (images, H, W, F, stride)
+STEM_DIRECT_CASES = [(4, 33, 33, 64, 1), (4, 33, 33, 64, 2), (3, 33, 33, 72, 1),
+                     (3, 33, 33, 72, 2), (2, 33, 33, 16, 1), (2, 33, 33, 16, 2)]
+
+
+@pytest.mark.parametrize("n,h,w,f,stride", STEM_DIRECT_CASES)
+def test_stem_direct_conv_matches_plain(card, n, h, w, f, stride):
+    """C = 3 on the direct path: ragged 33 x 33 images (8 x 32 pixel tiles
+    cut at the edges), F over one 64-filter tile (72) and under it (16).
+    fp32 within rtol = atol = 1e-5, requantized codes within one code on at
+    most 0.1 % of entries (summation order)."""
+    assert stem_k.conv_path(torch.float32, 3, 3, 3, stride) == "direct"
+    rng = np.random.default_rng(100 * n + f + stride)
+    x, wt = _rng_tensor(rng, n, h, w, 3).to(card), _rng_tensor(rng, 3, 3, 3, f, scale=0.2).to(card)
+    bias = _rng_tensor(rng, f).to(card)
+    for kw in (dict(bias=bias, relu=True, stride=stride), dict(stride=stride)):
+        torch.testing.assert_close(stem_k.im2col_conv(x, wt, **kw),
+                                   stem_k.im2col_conv_plain(x, wt, **kw), **TOL)
+        _codes_close(stem_k.im2col_conv(x, wt, out_scale=0.03, **kw),
+                     stem_k.im2col_conv_plain(x, wt, out_scale=0.03, **kw))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("kh,kw,stride,padding", [
+    (5, 5, 1, "SAME"), (2, 2, 2, "VALID"), (3, 3, 1, ((0, 2), (1, 1))), (1, 3, 2, "SAME")])
+def test_stem_direct_conv_other_geometries(card, kh, kw, stride, padding):
+    """The direct path at other kernel sizes and paddings (an even kernel,
+    VALID, explicit uneven pads), C = 3, F = 64, ragged 21 x 19 images."""
+    assert stem_k.conv_path(torch.float32, 3, kh, kw, stride) == "direct"
+    rng = np.random.default_rng(10 * kh + kw + stride)
+    x = _rng_tensor(rng, 2, 21, 19, 3).to(card)
+    wt = _rng_tensor(rng, kh, kw, 3, 64, scale=0.2).to(card)
+    kw_ = dict(bias=_rng_tensor(rng, 64).to(card), relu=True, stride=stride, padding=padding)
+    torch.testing.assert_close(stem_k.im2col_conv(x, wt, **kw_), stem_k.im2col_conv_plain(x, wt, **kw_),
+                               **TOL)
+    _codes_close(stem_k.im2col_conv(x, wt, out_scale=0.03, **kw_),
+                 stem_k.im2col_conv_plain(x, wt, out_scale=0.03, **kw_))
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("stride", [1, 2])
+def test_conv_fp32_implicit_gemm_path_matches_plain(card, stride):
+    """fp32 at C = 16, too large for the direct path's budget, on the
+    implicit GEMM (os_gemm.cuh)."""
+    assert stem_k.conv_path(torch.float32, 16, 3, 3, stride) == "gemm"
+    rng = np.random.default_rng(160 + stride)
+    x, wt = _rng_tensor(rng, 2, 17, 17, 16).to(card), _rng_tensor(rng, 3, 3, 16, 72, scale=0.1).to(card)
+    kw = dict(bias=_rng_tensor(rng, 72).to(card), relu=True, stride=stride)
+    torch.testing.assert_close(stem_k.im2col_conv(x, wt, **kw), stem_k.im2col_conv_plain(x, wt, **kw),
+                               **TOL)
+    _codes_close(stem_k.im2col_conv(x, wt, out_scale=0.03, **kw),
+                 stem_k.im2col_conv_plain(x, wt, out_scale=0.03, **kw))
+    torch.cuda.synchronize()

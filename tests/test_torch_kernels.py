@@ -459,7 +459,7 @@ def test_mma_plan_k_limit():
         tcore.mma_plan("vdbb_matmul_bw", 64, tcore.MMA_MAX_K + 1, 8, 0)
 
 
-@pytest.mark.parametrize("switch", ["NO_A", "NO_B", "NO_MMA"])
+@pytest.mark.parametrize("switch", ["NO_A", "NO_GATHER", "NO_B", "NO_MMA"])
 def test_mma_ablation_switches_find_their_anchor(switch, tmp_path, monkeypatch):
     """Each switch of the ablation tool applies to the core as it stands:
     its anchor is in os_mma.cuh exactly once, and the switched copy lacks it."""
@@ -485,3 +485,75 @@ def test_mma_ablation_variants_each_start_from_the_sources(tmp_path, monkeypatch
     text = (out / "os_mma.cuh").read_text()
     assert mma_ablation.SWITCHES["NO_B"][0] in text
     assert mma_ablation.SWITCHES["NO_A"][0] not in text
+
+
+# ------------------- host rules of the tc head's gather and the stem's paths
+
+
+@pytest.mark.parametrize("m,rows", [(1, 64), (8, 64), (64, 64), (67, 128), (130, 128)])
+def test_mma_gather_plan_at_the_heads_shapes(m, rows):
+    """The tc head (K = 512, K_c = 192 at nnz = 3) at request batches 1, 8
+    and 64 takes the 64-row tile; A is gathered into 8-byte words with no
+    alignment condition."""
+    plan = tcore.mma_gather_plan("vdbb_matmul_tc", m, 192)
+    assert (plan.tile_rows, plan.chunk, plan.gathered) == (rows, 8, True)
+
+
+def test_mma_gather_plan_refuses_kc_above_the_exact_limit():
+    assert tcore.mma_gather_plan("k", 64, tcore.MMA_MAX_K).chunk == 8
+    with pytest.raises(ValueError, match="overflow"):
+        tcore.mma_gather_plan("vdbb_matmul_tc", 64, tcore.MMA_MAX_K + 1)
+
+
+@pytest.mark.parametrize("nb,refused", [(16643, False), (16644, True)])
+def test_tc_head_wrapper_refuses_kc_above_the_exact_limit(nb, refused):
+    """An int8 tc product off the CPU whose compressed K (nb * nnz, here
+    nnz = bz = 8) exceeds MMA_MAX_K = 133 144 is refused before any launch;
+    one at the limit passes the plan and reaches the operand checks."""
+    assert tcore.MMA_MAX_K == 8 * 16643
+    meta = dict(dtype=torch.int8, device="meta")
+    a, values = torch.empty(1, 8 * nb, **meta), torch.empty(nb, 8, 16, **meta)
+    indices = torch.empty(nb, 8, **meta)
+    with pytest.raises(ValueError, match="overflow" if refused else "CUDA"):
+        head_k.vdbb_matmul_tc(a, values, indices, tv.DBBFormat(8, 8, "matrix"))
+
+
+@pytest.mark.parametrize("arch", ["sparse-cnn-s", "sparse-cnn-tiny"])
+def test_stem_takes_the_direct_path(arch):
+    """The models' fp32 stems (C = 3, 3x3) take the direct conv."""
+    from repro_torch.configs import get_cnn_config
+    from repro_torch.models.cnn import SparseCNN
+
+    stem = SparseCNN(get_cnn_config(arch)).layers()[0]
+    assert stem.in_channels == 3
+    assert stem_k.conv_path(torch.float32, 3, stem.kh, stem.kw, stem.stride) == "direct"
+
+
+@pytest.mark.parametrize("dtype,c,stride,path", [
+    (torch.float32, 3, 1, "direct"), (torch.float32, 3, 2, "direct"),
+    (torch.float32, 8, 1, "direct"), (torch.float32, 16, 1, "gemm"),
+    (torch.float32, 64, 2, "gemm"), (torch.int8, 3, 1, "gemm"), (torch.int8, 64, 1, "gemm")])
+def test_stem_path_by_shape(dtype, c, stride, path):
+    """fp32 takes the direct conv while a block's halo and weight slice fit
+    the budget; int8, and fp32 at a larger C, the implicit GEMM."""
+    assert stem_k.conv_path(dtype, c, 3, 3, stride) == path
+
+
+def test_direct_conv_shared_memory_at_the_stem():
+    """A 4 x 32 output tile at stride 1 reads a 6 x 34 pixel halo (612
+    floats at C = 3); the weight slice is 27 rows of 96 floats."""
+    assert stem_k.direct_smem_bytes(3, 3, 3, 1) == 4 * (612 + 27 * 96)
+    assert stem_k.direct_smem_bytes(3, 3, 3, (2, 2)) == 4 * (9 * 65 * 3 + 1 + 27 * 96)
+    assert stem_k.direct_smem_bytes(16, 3, 3, 1) > stem_k.DIRECT_SMEM_BYTES
+
+
+@pytest.mark.parametrize("switch", ["NO_DIV", "NO_FLUSH", "NO_TAPS", "TH8", "FT16", "BLOCKS2"])
+def test_stem_ablation_switches_find_their_anchor(switch, tmp_path, monkeypatch):
+    """Each of the stem's switches applies to its source as it stands."""
+    from repro_torch.kernels import build, mma_ablation
+
+    source, anchor, _ = mma_ablation.STEM_SWITCHES[switch]
+    assert (build.CSRC / source).read_text().count(anchor) == 1
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    out = mma_ablation.variant_sources("probe", (switch,))
+    assert anchor not in (out / source).read_text()
