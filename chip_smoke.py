@@ -7,7 +7,7 @@ Phases, each of which fails the run:
   1. the card's name and power limit (nvidia-smi) and the kernels' build;
   2. every kernel against its plain PyTorch version on the card, at every
      layer shape of sparse-cnn-s at batch 64, int8 and fp32 instantiations
-     (the int8 one of the bw kernels and of the tc head on the tensor cores,
+     (the int8 one of the four compressed kernels on the tensor cores,
      csrc/os_mma.cuh; the stem on its direct path, and its implicit-GEMM
      path at a larger C and in int8), with random nonzero biases: int8 and
      int32 exact, fp32 within rtol = atol = 1e-5, the stem's requantized
@@ -19,9 +19,13 @@ Phases, each of which fails the run:
      kernel; each layer timed by CUDA events (kernel, plain version, library
      call) and by torch.profiler's device time (kernel, and the library call
      with all its CUDA kernels; ``repro_torch.kernels.timing``, which allows
-     for a profiler pass that delivers only some of its kernel records); the
-     profiler's kernel names show that the tc head ran its gather stager and
-     the stem the path its plan chose;
+     for a profiler pass that delivers only some of its kernel records); each
+     compressed layer's int8 plan (tile rows, A staging) logged, and the
+     profiler's kernel names show that the tc conv and the tc head ran their
+     gather stagers (TapMux, GatherMux) and the stem the path its plan
+     chose; beside each tc conv layer, for information, torch._int_mm over
+     the pre-gathered compressed im2col matrix (the GEMM alone), and the
+     layer at request batch 1 (checked exactly, and its device time);
   3. sparse-cnn-s end to end through ``repro_torch.launch.serve``, once per
      pattern: request batches of 1, 8 and 64, one stem, seven conv and one
      head launch per forward on that pattern's kernels, each batch's logits
@@ -72,9 +76,10 @@ def port_kernel(name: str) -> bool:
     return kernel_family(name) != "other"
 
 
-def kernel_names(fn, tries: int = 3) -> set:
+def kernel_names(fn, tries: int = 5) -> set:
     """Names of the CUDA kernels that one call of ``fn`` ran, from
-    torch.profiler; a pass that delivers no kernel events is run again."""
+    torch.profiler; a pass that delivers no kernel events is run again, and
+    after ``tries`` such passes the set is empty."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -92,10 +97,12 @@ def kernel_names(fn, tries: int = 3) -> set:
 
 def require_instance(fn, core: str, loader: str, what: str) -> str:
     """Fail unless one call of ``fn`` ran a kernel of the template ``core``
-    with the stager or loader ``loader``; returns what was seen."""
+    with the stager or loader ``loader``; returns what was seen. A profiler
+    that delivers no kernel events fails it too: the instance is unseen."""
     names = kernel_names(fn)
     if not names:
-        return "no kernel events delivered"
+        raise AssertionError(f"{what}: the profiler delivered no kernel events, so the "
+                             f"{core} kernel with {loader} was not seen")
     hits = sorted(n for n in names if core in n and loader in n)
     if not hits:
         raise AssertionError(f"{what}: no {core} kernel with {loader} among {sorted(names)}")
@@ -236,10 +243,12 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     codes. Returns the layer's timed record."""
     from repro_torch.core.quant import quantize_dbb
     from repro_torch.core.sparse_conv import DBBConv2d
-    from repro_torch.core.vdbb import dbb_decode, dbb_encode, dbb_encode_conv
+    from repro_torch.core.vdbb import dbb_decode, dbb_encode, dbb_encode_conv, gather_compressed
     from repro_torch.kernels import vdbb_im2col_conv as conv_k
     from repro_torch.kernels import vdbb_matmul as head_k
-    from repro_torch.kernels.core import mma_gather_plan, mma_plan
+    from repro_torch.kernels.core import mma_gather_plan, mma_plan, mma_tap_plan
+    from repro_torch.kernels.ref import im2col_explicit
+    from repro_torch.kernels.timing import device_ms
 
     conv = isinstance(m, DBBConv2d)
     mode = "bw" if bw else "tc"
@@ -265,12 +274,14 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     xq = codes(gen, dev, *xshape)
     kc = qw.values.shape[0] * qw.values.shape[1]
     # the int8 instantiation's tile rows and A staging on the tensor cores:
-    # the bw kernels copy A in chunks, the tc head gathers it
+    # the bw kernels copy A in chunks, the tc kernels gather it
     rows = xshape[0] * (math.prod(m.out_hw(xshape[1], xshape[2])) if conv else 1)
     if bw:
         tile = mma_plan(what, rows, k, xshape[-1], xq.data_ptr())
+    elif conv:
+        tile = mma_tap_plan(what, rows, kc, m.kh, m.kw, xshape[2], xshape[-1])
     else:
-        tile = None if conv else mma_gather_plan(what, rows, kc)
+        tile = mma_gather_plan(what, rows, kc)
     scales = dequant_scales(gen, dev, f, kc)
     args = (xq, qw.values, idx(qw), fmt, *taps)
     kw = dict(scales=scales, bias=bias, **geom)
@@ -278,8 +289,9 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
         kw.update(relu=True, out_scale=out_scale)
     run = lambda: kernel(*args, **kw)  # noqa: E731
     err = check_exact(run(), plain(*args, **kw), f"{what} int8")
-    if tile is not None and tile.gathered:
-        require_instance(run, "os_mma", "GatherMux", what)
+    if tile.gathered:
+        seen = require_instance(run, "os_mma", "TapMux" if conv else "GatherMux", what)
+        log(f"[kernels] {what}: {tile}; the profiler saw {seen}")
     check_exact(kernel(*args, **geom), plain(*args, **geom), f"{what} int32")
     if not conv:  # the head at each request batch: fp32 dequant, int32, int8 codes
         for b in (1, 8, xshape[0]):
@@ -302,12 +314,23 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     nb_ = nbytes(xq, qw.values, args[2], scales, bias, out)
     ops = 2 * out.numel() * kc
     b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
-    plan_note = None
-    if tile is not None:
-        staging = "A gathered into 8 B words" if tile.gathered else f"{tile.chunk} B chunks"
-        plan_note = f"{tile.tile_rows}x64 tile, {staging}"
-    return timed(run, lambda: plain(*args, **kw), library, err=err, bound_ms=b_ms,
-                 bound_by=b_by, bytes=nb_, ops=ops, plan=plan_note)
+    staging = f"{tile.chunk} B chunks" if not tile.gathered else "A gathered in byte lanes"
+    rec = timed(run, lambda: plain(*args, **kw), library, err=err, bound_ms=b_ms,
+                bound_by=b_by, bytes=nb_, ops=ops, plan=f"{tile.tile_rows}x64 tile, {staging}")
+    if conv and not bw:
+        # information only: the same product as one torch._int_mm over the
+        # compressed im2col matrix gathered beforehand, the gather left out
+        cols = im2col_explicit(xq, m.kh, m.kw, **geom).reshape(rows, -1)
+        ac = gather_compressed(cols, args[2], fmt.bz).contiguous()
+        wc = qw.values.reshape(kc, f).contiguous()
+        check_exact(torch._int_mm(ac, wc), kernel(*args, **geom).reshape(rows, f),
+                    f"{what} torch._int_mm over the gathered matrix")
+        rec["gemm_device_ms"] = device_ms(lambda: torch._int_mm(ac, wc))
+        # the latency point: the same layer at request batch 1, checked and timed
+        a1 = (xq[:1].contiguous(), *args[1:])
+        check_exact(kernel(*a1, **kw), plain(*a1, **kw), f"{what} int8 at batch 1")
+        rec["device_ms_b1"] = device_ms(lambda: kernel(*a1, **kw), keep=port_kernel)
+    return rec
 
 
 def log_record(label, name, xshape, r):
@@ -317,7 +340,9 @@ def log_record(label, name, xshape, r):
     log(f"[kernels] {label:<13s} {name:<15s} {str(tuple(xshape)):<23s} {r['ms']:<8.4f} "
         f"{ms(r['device_ms']):<10s} {r['plain_ms']:<9.4f} {r['library_ms']:<11.4f} "
         f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
-        + (f"  [{r['plan']}]" if r.get("plan") else ""))
+        + (f"  [{r['plan']}]" if r.get("plan") else "")
+        + (f"  torch._int_mm over the gathered matrix: device {ms(r['gemm_device_ms'])};"
+           f" at batch 1: device {ms(r['device_ms_b1'])}" if "gemm_device_ms" in r else ""))
 
 
 def check_kernels(cfgs, gen, dev):
@@ -366,18 +391,26 @@ def check_kernels(cfgs, gen, dev):
 
 
 def log_summary(recs) -> None:
-    """The bw convs' device time beside the library conv's and, layer by
-    layer, beside their tc twins'; each head's beside torch._int_mm's; the
-    stem's beside F.conv2d's."""
+    """Each conv kernel's device time beside the library conv's, in sum and
+    layer by layer, and the bw convs' beside their tc twins'; the tc convs'
+    beside torch._int_mm's over the pre-gathered matrices; each head's beside
+    torch._int_mm's; the stem's beside F.conv2d's."""
     def total(rs, key):
         vals = [r[key] for r in rs]
         return None if None in vals else round(sum(vals), 5)
 
+    def ratios(num, den, key="device_ms"):
+        return [None if None in (a["device_ms"], b[key]) else round(a["device_ms"] / b[key], 3)
+                for a, b in zip(num, den)]
+
     bw, tc = recs["vdbb_conv_bw"], recs["vdbb_conv_tc"]
-    ratios = [None if None in (b["device_ms"], t["device_ms"]) else round(b["device_ms"] / t["device_ms"], 3)
-              for b, t in zip(bw, tc)]
-    log(f"[kernels] bw convs: device {total(bw, 'device_ms')} ms, library conv device "
-        f"{total(bw, 'library_device_ms')} ms; per layer bw/tc device {ratios}")
+    for mode, rs in (("tc", tc), ("bw", bw)):
+        log(f"[kernels] {mode} convs: device {total(rs, 'device_ms')} ms, library conv device "
+            f"{total(rs, 'library_device_ms')} ms; per layer {mode}/library device "
+            f"{ratios(rs, rs, 'library_device_ms')}")
+    log(f"[kernels] tc convs: torch._int_mm over the gathered matrices, device "
+        f"{total(tc, 'gemm_device_ms')} ms; at batch 1, device {total(tc, 'device_ms_b1')} ms; "
+        f"per layer bw/tc device {ratios(bw, tc)}")
     for mode in ("bw", "tc"):
         head = recs[f"vdbb_matmul_{mode}"]
         log(f"[kernels] {mode} head: device {total(head, 'device_ms')} ms, torch._int_mm device "
@@ -480,13 +513,14 @@ def end_to_end(dev, pattern):
 # ------------------------------------------------------------ where the time goes
 
 # kernel template -> {operand loader or stager -> kernel}, first match wins.
-# On os_gemm (the CUDA cores) the bw conv's fp32 A loader is the stem's Tap,
-# so its B loader (the expand) decides; on os_mma (the int8 tensor cores)
-# the A stager decides (the bw kernels' cp.async chunks, the tc head's
-# gather); the stem's direct conv is a template of its own.
+# On os_gemm (the CUDA cores: fp32, and the stem's int8) the bw conv's A
+# loader is the stem's Tap, so its B loader (the expand) decides; on os_mma
+# (the int8 tensor cores) the A stager decides (the bw kernels' cp.async
+# chunks, the tc kernels' gathers); the stem's direct conv is a template of
+# its own.
 KERNEL_OF_LOADER = {
     "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw",
-               "GatherMux": "vdbb_matmul_tc"},
+               "GatherMux": "vdbb_matmul_tc", "TapMux": "vdbb_conv_tc"},
     "os_gemm": {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
                 "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
                 "Tap": "im2col_conv"},

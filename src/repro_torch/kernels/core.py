@@ -5,7 +5,7 @@ The TPU kernels carry an output-stationary accumulator across a sequential
 K grid axis (``os_accumulate``). On the card each thread block owns an output
 tile and loops over K itself; that loop and the flush epilogue live in
 ``csrc/os_gemm.cuh`` (the CUDA cores), ``csrc/os_mma.cuh`` (the int8 tensor
-cores, for the int8 instantiation of the bw kernels and the tc head) and
+cores, for the int8 instantiation of every compressed kernel) and
 ``csrc/epilogue.cuh``.
 What stays here is what the host resolves before a launch.
 """
@@ -21,6 +21,11 @@ QMAX = 127  # symmetric int8 clip range of the requantize epilogue
 # (K * 127 * 127 < 2**31), and the M at or below which it takes its small tile
 MMA_MAX_K = (2**31 - 1) // (QMAX * QMAX)
 MMA_SMALL_M = 64
+# csrc/mux_stage.cuh (TapMux): a conv column's source packs its tap above a
+# 27-bit offset from the row's tap-(0, 0) pixel, and a row keeps a 32-bit
+# mask of its taps inside the image
+MMA_MAX_TAPS = 32
+MMA_TAP_OFFSET_LIMIT = 2**27
 
 
 def _pair(v):
@@ -175,8 +180,24 @@ def mma_plan(name: str, m: int, k: int, run: int, ptr: int) -> MmaPlan:
 def mma_gather_plan(name: str, m: int, kc: int) -> MmaPlan:
     """The same choices for a product over a gathered A (the tc kernels'
     activation mux, ``csrc/mux_stage.cuh``): tile rows as :func:`mma_plan`;
-    A gathered byte by byte through registers into 8-byte words, so neither
-    alignment nor the length of a run matters; a compressed K ``kc`` above
-    ``MMA_MAX_K`` is refused."""
+    A gathered byte by byte through registers, so neither alignment nor the
+    length of a run matters, on the core's 8-byte instance; a compressed K
+    ``kc`` above ``MMA_MAX_K`` is refused."""
     _mma_check_k(name, kc)
     return MmaPlan(_mma_tile_rows(m), 8, gathered=True)
+
+
+def mma_tap_plan(name: str, m: int, kc: int, kh: int, kw: int, w: int, c: int) -> MmaPlan:
+    """:func:`mma_gather_plan` for the tc conv's gather over the taps of a
+    kh x kw conv on an NHWC input of width ``w`` and ``c`` channels
+    (``TapMux``, ``csrc/mux_stage.cuh``). Also refuses what the stager's
+    packing cannot hold: more than ``MMA_MAX_TAPS`` taps, or a tap offset
+    ((dy·w + dx)·c + ch) of ``MMA_TAP_OFFSET_LIMIT`` or more."""
+    plan = mma_gather_plan(name, m, kc)
+    if kh * kw > MMA_MAX_TAPS:
+        raise ValueError(f"{name}: {kh}x{kw} = {kh * kw} taps, above the {MMA_MAX_TAPS} "
+                         "a row's tap mask holds")
+    if ((kh - 1) * w + kw) * c > MMA_TAP_OFFSET_LIMIT:
+        raise ValueError(f"{name}: tap offsets up to (({kh} - 1) * {w} + {kw}) * {c} bytes "
+                         f"reach the packed source's limit of {MMA_TAP_OFFSET_LIMIT}")
+    return plan

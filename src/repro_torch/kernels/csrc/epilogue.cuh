@@ -37,8 +37,11 @@ __device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs
     if (ep.bias != nullptr) y = __fadd_rn(y, ep.bias[n]);
     if (ep.relu) y = fmaxf(y, 0.0f);
     if constexpr (std::is_same<Out, int8_t>::value) {
-      // round half to even (rintf), as jnp.round does; IEEE division
-      float q = rintf(__fdiv_rn(y, ep.out_scale[n]));
+      // round half to even (rintf), as jnp.round does; IEEE division. A zero
+      // dividend (after ReLU, about half the outputs) would take the
+      // division's slow path; 0 / s is +-0, code 0 either way, so it skips
+      // the division. NaN still takes it.
+      float q = y == 0.0f ? 0.0f : rintf(__fdiv_rn(y, ep.out_scale[n]));
       q = fminf(fmaxf(q, -127.0f), 127.0f);
       return static_cast<int8_t>(q);
     } else {

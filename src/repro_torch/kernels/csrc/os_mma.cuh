@@ -1,5 +1,5 @@
 // Output-stationary int8 GEMM on the tensor cores: the int8 instantiation of
-// the bw kernels and of the tc head.
+// the bw kernels and of the tc kernels.
 //
 // Replaces, for int8 operands, the grid plumbing of repro/kernels/core.py
 // (os_matmul_call and the K-innermost grid of os_accumulate), as os_gemm.cuh
@@ -21,10 +21,13 @@
 //    - through registers, for an A gathered byte by byte (the tc kernels'
 //      activation mux, mux_stage.cuh). The first 64 threads resolve the
 //      stage's 64 source offsets (`source`) into a shared row one stage
-//      ahead; a thread reads its 8 offsets from it once for all its rows,
-//      `fetch`es the bytes into registers before the stage's mmas and
-//      `pack`s them into one 8-byte word after, into the other of two
-//      buffers, as B does.
+//      ahead; the bytes are fetched into registers before the stage's mmas
+//      and stored after them, into the other of two buffers, as B does.
+//      In byte lanes: a warp's 32 lanes take 32 neighbouring columns of one
+//      row (a thread columns lane and lane + 32 of rows warp + 8 i), so a
+//      warp's load reads a few neighbouring lines; each row's state (`row`)
+//      is resolved once a tile into shared memory and read there (a
+//      broadcast), each byte fetched by `fetch_byte` and stored alone.
 //  - B (64 bytes of K x 64 columns) is built by a stager in two steps:
 //    `fetch(k8, n, K)` issues the global loads of B[k8 .. k8+7, n] into
 //    registers (a `Raw`), `pack(raw)` turns them into the 8 bytes in a
@@ -126,8 +129,8 @@ struct RowChunks {
 };
 
 // What a stager of A keeps per thread from one stage to the next: a cp.async
-// stager its column of K (`At`), a register stager the bytes in flight
-// (`Raw`); the other is an empty struct.
+// stager its column of K (`At`), a register stager 8 of the bytes in flight
+// a `Raw` (zero-extended, one a word); the other is an empty struct.
 template <typename S, bool = S::kRegisters>
 struct AState {
   using At = typename S::At;
@@ -136,7 +139,9 @@ struct AState {
 template <typename S>
 struct AState<S, true> {
   struct At {};
-  using Raw = typename S::Raw;
+  struct Raw {
+    uint32_t v[8];
+  };
 };
 
 // A register stager's source offsets, for the stage being fetched and the
@@ -148,12 +153,21 @@ struct Sources<true> {
   int off[2][BK];
 };
 
+// A register stager's row states of the tile, in shared memory; nothing
+// for a cp.async stager.
+template <bool, typename Row, int BM>
+struct RowStates {};
+template <typename Row, int BM>
+struct RowStates<true, Row, BM> {
+  Row row[BM];
+};
+
 template <int BM, int CH, typename Out, typename StageA, typename StageB>
 __global__ void __launch_bounds__(THREADS, StageA::kRegisters ? MIN_BLOCKS_REG_A : MIN_BLOCKS)
 kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ out,
        EpilogueArgs ep) {
   constexpr bool REG_A = StageA::kRegisters;
-  static_assert(!REG_A || CH == 8, "a register-staged A is stored in 8-byte words");
+  static_assert(!REG_A || CH == 8, "a register-staged A takes the 8-byte instance");
   constexpr int A_BUFS = REG_A ? 2 : STAGES;      // two buffers as B's, or the cp.async ring
   constexpr int WARPS_N = THREADS / 32 / (BM / WM);
   constexpr int WN = BN / WARPS_N;                // 32 (BM = 128) or 16 (BM = 64)
@@ -164,10 +178,15 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
   constexpr int COL_STEP = THREADS / BN;          // 8-byte groups between a thread's
   constexpr int B_GROUPS = (BK / 8) / COL_STEP;   // groups a thread builds a stage
   static_assert(BM % ROW_STEP == 0 && (BK / 8) % COL_STEP == 0, "tile and threads");
+  // byte lanes: a thread's A_ROWS * 8 bytes are columns lane and lane + 32
+  // of rows warp + 8 * (q / 2) for q = i * 8 + j
+  constexpr int WARPS = THREADS / 32;
+  static_assert(!REG_A || (BK == 64 && A_ROWS * 8 * WARPS * 32 == BM * BK), "byte lanes");
 
   __shared__ __align__(16) int8_t As[A_BUFS][BM][LDS];
   __shared__ __align__(16) int8_t Bs[2][BN][LDS];
   __shared__ __align__(16) Sources<REG_A> a_src;
+  __shared__ __align__(16) RowStates<REG_A, typename StageA::Row, BM> a_rows;
 
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int wm = (warp / WARPS_N) * WM, wn = (warp % WARPS_N) * WN;
@@ -175,10 +194,15 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
   const int ktiles = (K + BK - 1) / BK;
 
   // a thread copies the same rows' chunks at every stage: resolve them once
+  // (in byte lanes, every row once into shared memory)
   const int a_row = tid / CHUNKS, a_col = (tid % CHUNKS) * CH;
   typename StageA::Row rows[A_ROWS];
+  if constexpr (REG_A) {
+    for (int r = tid; r < BM; r += THREADS) a_rows.row[r] = stage_a.row(m0 + r, M);
+  } else {
 #pragma unroll
-  for (int i = 0; i < A_ROWS; ++i) rows[i] = stage_a.row(m0 + a_row + i * ROW_STEP, M);
+    for (int i = 0; i < A_ROWS; ++i) rows[i] = stage_a.row(m0 + a_row + i * ROW_STEP, M);
+  }
 
   using AtA = typename AState<StageA>::At;
   using RawA = typename AState<StageA>::Raw;
@@ -207,19 +231,17 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
   };
   auto fetch_a = [&](int kt, RawA (&raw)[A_ROWS]) {
     if constexpr (REG_A) {
-      const int4* p = reinterpret_cast<const int4*>(&a_src.off[kt & 1][a_col]);
-      const int4 lo = p[0], hi = p[1];
-      const int off[CH] = {lo.x, lo.y, lo.z, lo.w, hi.x, hi.y, hi.z, hi.w};
+      const int src[2] = {a_src.off[kt & 1][lane], a_src.off[kt & 1][lane + 32]};
 #pragma unroll
-      for (int i = 0; i < A_ROWS; ++i)
-        raw[i] = stage_a.fetch(rows[i], off);
+      for (int q = 0; q < A_ROWS * 8; ++q)
+        raw[q / 8].v[q % 8] = stage_a.fetch_byte(a_rows.row[warp + 8 * (q / 2)], src[q % 2]);
     }
   };
   auto store_a = [&](int s, const RawA (&raw)[A_ROWS]) {
     if constexpr (REG_A) {
 #pragma unroll
-      for (int i = 0; i < A_ROWS; ++i)
-        *reinterpret_cast<uint64_t*>(&As[s][a_row + i * ROW_STEP][a_col]) = stage_a.pack(raw[i]);
+      for (int q = 0; q < A_ROWS * 8; ++q)
+        As[s][warp + 8 * (q / 2)][lane + 32 * (q % 2)] = static_cast<int8_t>(raw[q / 8].v[q % 8]);
     }
   };
   // neighbouring threads build neighbouring columns: the stager's reads of
@@ -351,7 +373,7 @@ cudaError_t launch_rows(const StageA& stage_a, const StageB& stage_b, int M, int
 template <typename Out, typename StageA, typename StageB>
 cudaError_t launch_chunk(int chunk, const StageA& stage_a, const StageB& stage_b, int M,
                          int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
-  // a register-staged A is stored in 8-byte words: only the 8-byte instance
+  // a register-staged A takes only the 8-byte instance
   if constexpr (!StageA::kRegisters) {
     if (chunk == 16) return launch_rows<16, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
   }

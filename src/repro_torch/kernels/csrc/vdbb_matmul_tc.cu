@@ -15,11 +15,11 @@
 // the product runs on the int8 tensor cores (os_mma.cuh, mma.sync
 // m16n8k32) over K_c in 64-byte stages, three at the head; A is gathered
 // through registers (`GatherMux`, mux_stage.cuh), each stage's 64 source
-// offsets resolved once for the whole tile and each 8 gathered bytes packed
-// by PRMT; B is the values read down each column and packed K-major
-// (`DenseTile`); the loads of stage kt+1 are in flight during stage kt's
-// mmas. M <= 64 takes the 64-row tile. fp32 operands keep os_gemm.cuh's
-// CUDA-core loop (`GatherCols`).
+// offsets resolved once for the whole tile, in byte lanes (a warp's 32 lanes
+// on 32 neighbouring columns of one row); B is the values read down each
+// column and packed K-major (`DenseTile`); the loads of stage kt+1 are in
+// flight during stage kt's mmas. M <= 64 takes the 64-row tile. fp32
+// operands keep os_gemm.cuh's CUDA-core loop (`GatherCols`).
 #include "mux_stage.cuh"
 #include "os_gemm.cuh"
 #include "os_mma.cuh"
@@ -48,7 +48,7 @@ extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx
   if (in_kind == os_gemm::IN_INT8) {
     GatherMux la{static_cast<const int8_t*>(a), static_cast<const int8_t*>(idx), k, bz, nnz};
     DenseTile lb{static_cast<const int8_t*>(values), n};
-    // the gathered A is stored in 8-byte words: the chunk width is 8
+    // a gathered A takes the core's 8-byte instance: the chunk width is 8
     return os_mma::launch(out_kind, 8, la, lb, m, n, kc, out, ep, s);
   }
   if (in_kind == os_gemm::IN_FLOAT32) {

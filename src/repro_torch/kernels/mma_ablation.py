@@ -1,20 +1,24 @@
 """Where the time of the int8 tensor-core core (``csrc/os_mma.cuh``) goes:
-the bw conv at three ``sparse-cnn-s`` layer shapes (batch 64), the bw head
-and the tc head; and where the time of the stem's direct conv
-(``csrc/im2col_conv.cu``) goes at ``sparse-cnn-s`` batch 64. Each kernel is
-built from a scratch copy of ``csrc/`` with parts switched off, and timed
-by torch.profiler's device time.
+the bw conv and the tc conv at three ``sparse-cnn-s`` layer shapes (batch
+64), the bw head and the tc head; and where the time of the stem's direct
+conv (``csrc/im2col_conv.cu``) goes at ``sparse-cnn-s`` batch 64. Each
+kernel is built from a scratch copy of ``csrc/`` with parts switched off,
+and timed by torch.profiler's device time.
 
     PYTHONPATH=src python -m repro_torch.kernels.mma_ablation
 
-Needs a CUDA card and nvcc. Variants: ``as built``; ``no B loads`` (the B
-stager's fetch replaced by a constant); ``no A copies`` (no cp.async, and
-no gather loads for the tc head's register-staged A); ``no mma`` (the mma
-replaced by an integer add); and their combinations. The stem's: ``no
-division`` (the flush's IEEE division by the requantize scale replaced by
-a multiply), ``no flush`` (the accumulators' raw bytes stored), ``no taps``
-(the loop over the 27 taps skipped), and the first version's thread tile
-(4 pixels x 16 filters, 2 blocks an SM); each with ReLU (as the stem runs,
+Needs a CUDA card and nvcc. Variants of the core: ``as built``; ``no B
+loads`` (the B stager's fetch replaced by a constant); ``no A copies`` (no
+cp.async, and no gather loads for the tc kernels' register-staged A); ``no
+mma`` (the mma replaced by an integer add); every combination of the three;
+and ``no zero test`` (the flush divides a zero dividend too, as before the
+test in ``epilogue.cuh``). The convs run as served: dequantize, bias, ReLU
+and requantize to int8 codes (about half of them zero); the heads return
+the raw int32 accumulator. The stem's variants: ``no division`` (the
+flush's IEEE division by the requantize scale replaced by a multiply), ``no
+zero test``, ``no flush`` (the accumulators' raw bytes stored), ``no taps``
+(the loop over the 27 taps skipped), and the first version's thread tile (4
+pixels x 16 filters, 2 blocks an SM); each with ReLU (as the stem runs,
 half its outputs zero) and without, and timed by CUDA events too (20
 back-to-back launches). The outputs of the switched variants are
 meaningless; only their times count. The copies are built under
@@ -35,16 +39,20 @@ from repro_torch.kernels.timing import device_ms, event_ms
 # anchor in os_mma.cuh -> its replacement under each switch
 SWITCHES = {
     "NO_A": ("        cp_async<CH>(smem_u32(&As[s][a_row + i * ROW_STEP][a_col]), src, ok);\n", ""),
-    "NO_GATHER": ("        raw[i] = stage_a.fetch(rows[i], off);\n", "        raw[i] = RawA{};\n"),
+    "NO_GATHER": ("        raw[q / 8].v[q % 8] = stage_a.fetch_byte(a_rows.row[warp + 8 * (q / 2)], src[q % 2]);\n",
+                  "        raw[q / 8].v[q % 8] = 0u;\n"),
     "NO_B": ("      raw[i] = stage_b.fetch(kt * BK + (b_grp + i * COL_STEP) * 8, n0 + b_col, K);\n",
              "      raw[i] = RawB{0x01010101u + kt, 0x01010101u, 0x76543210u};\n"),
     "NO_MMA": ("          mma_s8(acc[i][j], af[i], bf[j / 2][(j % 2) * 2], bf[j / 2][(j % 2) * 2 + 1]);\n",
                "          acc[i][j][0] += af[i][0] ^ bf[j / 2][0];\n"),
 }
-# the stem's switches: source in csrc/, anchor, replacement
-STEM_SWITCHES = {
-    "NO_DIV": ("epilogue.cuh", "      float q = rintf(__fdiv_rn(y, ep.out_scale[n]));\n",
-               "      float q = rintf(__fmul_rn(y, ep.out_scale[n]));\n"),
+# switches of other sources: the flush's (epilogue.cuh, every kernel's) and
+# the stem's: source in csrc/, anchor, replacement
+_REQUANTIZE = "      float q = y == 0.0f ? 0.0f : rintf(__fdiv_rn(y, ep.out_scale[n]));\n"
+SOURCE_SWITCHES = {
+    "NO_DIV": ("epilogue.cuh", _REQUANTIZE, "      float q = rintf(__fmul_rn(y, ep.out_scale[n]));\n"),
+    "NO_ZERO_TEST": ("epilogue.cuh", _REQUANTIZE,
+                     "      float q = rintf(__fdiv_rn(y, ep.out_scale[n]));\n"),
     "NO_FLUSH": ("im2col_conv.cu",
                  "    q[f] = static_cast<uint8_t>(epilogue_flush<float, int8_t>(acc[f], fb + f, ep));\n",
                  "    q[f] = __float_as_uint(acc[f]);\n"),
@@ -56,13 +64,16 @@ STEM_SWITCHES = {
     "FT16": ("im2col_conv.cu", "constexpr int FT = 8;", "constexpr int FT = 16;"),
     "BLOCKS2": ("im2col_conv.cu", "constexpr int MIN_BLOCKS = 4;", "constexpr int MIN_BLOCKS = 2;"),
 }
-STEM_VARIANTS = {"as built": (), "no division": ("NO_DIV",), "no flush": ("NO_FLUSH",),
+STEM_VARIANTS = {"as built": (), "no division": ("NO_DIV",), "no zero test": ("NO_ZERO_TEST",),
+                 "no flush": ("NO_FLUSH",),
                  "no taps": ("NO_TAPS",), "no taps, no flush": ("NO_TAPS", "NO_FLUSH"),
                  "4 x 16 a thread": ("TH8", "FT16", "BLOCKS2")}
 STEM = (64, 64, 64, 3, 64)  # (images, H, W, C, F) of the sparse-cnn-s stem at batch 64
-VARIANTS = {"as built": (), "no B loads": ("NO_B",), "no A copies": ("NO_A", "NO_GATHER"),
-            "no mma": ("NO_MMA",), "no A, no B": ("NO_A", "NO_GATHER", "NO_B"),
-            "no A, no B, no mma": ("NO_A", "NO_GATHER", "NO_B", "NO_MMA")}
+_NO_A = ("NO_A", "NO_GATHER")
+VARIANTS = {"as built": (), "no B loads": ("NO_B",), "no A copies": _NO_A, "no mma": ("NO_MMA",),
+            "no A, no B": (*_NO_A, "NO_B"), "no A, no mma": (*_NO_A, "NO_MMA"),
+            "no B, no mma": ("NO_B", "NO_MMA"), "no A, no B, no mma": (*_NO_A, "NO_B", "NO_MMA"),
+            "no zero test": ("NO_ZERO_TEST",)}
 # (images, H, W, C, F) of l1, l3 and l7 at batch 64; 3x3 taps, stride 1
 CONVS = {"l1": (64, 64, 64, 64, 64), "l3": (64, 32, 32, 128, 128), "l7": (64, 8, 8, 512, 512)}
 HEAD = (64, 512, 1000)  # (M, K, N)
@@ -72,13 +83,13 @@ NNZ = 3
 def variant_sources(name: str, switches, csrc: Path = build.CSRC) -> Path:
     """A copy of ``csrc`` (the sources as committed) with ``switches``
     applied: those of ``SWITCHES`` to os_mma.cuh, those of
-    ``STEM_SWITCHES`` to their own source."""
+    ``SOURCE_SWITCHES`` to their own source."""
     out = build.build_dir() / "ablation" / name.replace(" ", "_").replace(",", "")
     shutil.rmtree(out, ignore_errors=True)
     shutil.copytree(csrc, out)
     for sw in switches:
         source, anchor, replacement = (("os_mma.cuh", *SWITCHES[sw]) if sw in SWITCHES
-                                       else STEM_SWITCHES[sw])
+                                       else SOURCE_SWITCHES[sw])
         path = out / source
         text = path.read_text()
         if text.count(anchor) != 1:
@@ -104,12 +115,22 @@ def main() -> int:
 
     stream = torch.cuda.current_stream(dev).cuda_stream
     cases = []
-    for n, h, w, c, f in CONVS.values():
-        x, (v, idx) = codes(n, h, w, c), weight(9 * c, f)
-        out = torch.empty(n * h * w * f, dtype=torch.int32, device=dev)
-        args = (x.data_ptr(), v.data_ptr(), idx.data_ptr(), None, None, None, 0, out.data_ptr(),
-                0, 0, n, h, w, c, f, h, w, 3, 3, 1, 1, 1, 1, 8, NNZ, 1, stream)
-        cases.append(("vdbb_conv_bw", args, (x, v, idx, out)))
+    # the convs as served: dequantize, bias, ReLU, requantize to int8 codes,
+    # scaled so the codes spread over about +-40 and half of them are zero
+    for mode in ("bw", "tc"):
+        for n, h, w, c, f in CONVS.values():
+            x, (v, idx) = codes(n, h, w, c), weight(9 * c, f)
+            if mode == "tc":  # one pattern (nb, nnz) shared by every column
+                idx = idx[:, :, 0].contiguous()
+            kc = 9 * c // 8 * NNZ
+            scale = ((torch.rand(f, generator=gen) + 1.0) / (2900.0 * kc ** 0.5)).to(dev)
+            bias = (0.5 * torch.randn(f, generator=gen)).to(dev)
+            out_scale = torch.full((f,), 0.05, device=dev)
+            out = torch.empty(n * h * w * f, dtype=torch.int8, device=dev)
+            args = (x.data_ptr(), v.data_ptr(), idx.data_ptr(), scale.data_ptr(), bias.data_ptr(),
+                    out_scale.data_ptr(), 1, out.data_ptr(), 0, 2, n, h, w, c, f, h, w, 3, 3, 1, 1,
+                    1, 1, 8, NNZ, *((1,) if mode == "bw" else ()), stream)
+            cases.append((f"vdbb_conv_{mode}", args, (x, v, idx, scale, bias, out_scale, out)))
     m, k, n = HEAD
     a, (v, idx) = codes(m, k), weight(k, n)
     out = torch.empty(m * n, dtype=torch.int32, device=dev)
@@ -123,12 +144,13 @@ def main() -> int:
                   (a, v, tc_idx, out)))
 
     argtypes = {"vdbb_conv_bw": [P, P, P, P, P, P, I, P, I, I] + [I] * 16 + [P],
+                "vdbb_conv_tc": [P, P, P, P, P, P, I, P, I, I] + [I] * 15 + [P],
                 "vdbb_matmul_bw": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P],
                 "vdbb_matmul_tc": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P]}
-    sources = {"vdbb_conv_bw": "vdbb_conv_bw.cu", "vdbb_matmul_bw": "vdbb_matmul_bw.cu",
-               "vdbb_matmul_tc": "vdbb_matmul_tc.cu"}
-    print(f"{'variant':<20s} " + " ".join(f"{name:>9s}" for name in [*CONVS, "bw head", "tc head"])
-          + "   (device ms, raw int32 out)")
+    sources = {name: f"{name}.cu" for name in argtypes}
+    columns = [f"{mode} {layer}" for mode in ("bw", "tc") for layer in CONVS] + ["bw head", "tc head"]
+    print(f"{'variant':<20s} " + " ".join(f"{name:>9s}" for name in columns)
+          + "   (device ms; convs int8 codes out, heads raw int32 out)")
     csrc, registry = build.CSRC, dict(build.KERNELS)
     try:
         for name, switches in VARIANTS.items():

@@ -15,7 +15,8 @@ from repro_torch.core.vdbb import DBBFormat, DBBWeight, gather_compressed
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
 from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices,
-                                      conv_geometry, epilogue_plan, mma_plan)
+                                      conv_geometry, epilogue_plan, mma_plan,
+                                      mma_tap_plan)
 from repro_torch.kernels.ref import acc_matmul, decode_values, im2col_explicit
 
 KERNEL = build.CudaKernel(
@@ -77,7 +78,9 @@ def vdbb_im2col_conv_tc(x, values, indices, fmt, kh, kw, *, scales=None,
                         padding="SAME"):
     """Fused sparse conv, one pattern shared across F. x: (N, H, W, C) int8
     or fp32; values: (nb, nnz, F) of the same dtype; indices: (nb, nnz) int8
-    with nb = kh·kw·C/bz. int8 accumulates exactly in int32. CPU tensors take
+    with nb = kh·kw·C/bz. int8 accumulates exactly in int32 on the tensor
+    cores and needs the compressed K = nb·nnz within ``core.MMA_MAX_K`` and
+    taps the gather can encode (:func:`core.mma_tap_plan`). CPU tensors take
     the plain version; CUDA tensors launch the kernel."""
     if x.device.type == "cpu":
         return vdbb_im2col_conv_tc_plain(
@@ -87,9 +90,11 @@ def vdbb_im2col_conv_tc(x, values, indices, fmt, kh, kw, *, scales=None,
         x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale)
     if values.dtype != x.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
         raise TypeError("vdbb_conv_tc: values must match x's dtype, indices be (nb, nnz) int8")
-    in_kind = build.check_operands("vdbb_conv_tc", x, values, indices, dtype=x.dtype)
     n, h, w, c = x.shape
     f = values.shape[-1]
+    if x.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        mma_tap_plan("vdbb_conv_tc", n * ho * wo, values.shape[0] * values.shape[1], kh, kw, w, c)
+    in_kind = build.check_operands("vdbb_conv_tc", x, values, indices, dtype=x.dtype)
     out = torch.empty((n, ho, wo, f), dtype=ep.out_dtype, device=x.device)
     KERNEL.launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),

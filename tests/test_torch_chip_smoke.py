@@ -51,6 +51,13 @@ NAMES = [
      "vdbb_matmul_tc"),
     ("_ZN6os_mma6kernelILi128ELi8Ea9GatherMux9DenseTileEEvT2_T3_iiiPT1_12EpilogueArgs",
      "vdbb_matmul_tc"),
+    # the tc conv's int8 path: the tap gather stager on the same core, both tiles
+    *[(_mma(r, 8, o, "TapMux", "DenseTile"), "vdbb_conv_tc")
+      for r in (64, 128) for o in ("int", "float", "signed char")],
+    ("_ZN6os_mma6kernelILi128ELi8Ea6TapMux9DenseTileEEvT2_T3_iiiPT1_12EpilogueArgs",
+     "vdbb_conv_tc"),
+    ("_ZN6os_mma6kernelILi64ELi8Ef6TapMux9DenseTileEEvT2_T3_iiiPT1_12EpilogueArgs",
+     "vdbb_conv_tc"),
     # the stem's direct conv, both outputs
     (_direct("signed char"), "im2col_conv"),
     (_direct("float"), "im2col_conv"),
@@ -63,6 +70,9 @@ NAMES = [
      "vdbb_conv_tc"),
     (_gemm("signed char", "float", "GatherCols<signed char>", "os_gemm::DenseB<signed char>"),
      "vdbb_matmul_tc"),
+    (_gemm("float", "signed char", "GatherTap", "os_gemm::DenseB<float>"), "vdbb_conv_tc"),
+    ("_ZN7os_gemm6kernelIfa9GatherTapNS_6DenseBIfEEEEvT1_T2_iiiPT0_12EpilogueArgs",
+     "vdbb_conv_tc"),
     (_gemm("float", "signed char", "Tap<float>", "os_gemm::DenseB<float>"), "im2col_conv"),
     ("_ZN7os_gemm6kernelIfa3TapIfE10ExpandTapsIfEEEvT1_T2_iiiPT0_12EpilogueArgs", "vdbb_conv_bw"),
     ("_ZN7os_gemm6kernelIffNS_6DenseBIfEE10ExpandColsIfEEEvT1_T2_iiiPT0_12EpilogueArgs",
@@ -106,3 +116,19 @@ def test_stager_names_are_the_templates(smoke):
     for loaders in smoke.KERNEL_OF_LOADER.values():
         for loader in loaders:
             assert f"struct {loader} " in text, loader
+
+
+@pytest.mark.parametrize("names,seen", [
+    (set(), None),
+    ({_mma(128, 8, "float", "GatherMux", "DenseTile")}, None),
+    ({_mma(128, 8, "signed char", "TapMux", "DenseTile"), _direct("signed char")},
+     _mma(128, 8, "signed char", "TapMux", "DenseTile"))])
+def test_require_instance_fails_unless_it_sees_the_instance(smoke, monkeypatch, names, seen):
+    """The smoke's evidence that a path ran its kernel: a profiler pass with
+    no kernel events fails it as a pass without the instance does."""
+    monkeypatch.setattr(smoke, "kernel_names", lambda fn: names)
+    if seen is None:
+        with pytest.raises(AssertionError):
+            smoke.require_instance(lambda: None, "os_mma", "TapMux", "tc l1")
+    else:
+        assert smoke.require_instance(lambda: None, "os_mma", "TapMux", "tc l1") == seen

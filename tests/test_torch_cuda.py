@@ -377,6 +377,78 @@ def test_tc_head_int8_full_range_at_kc4608(card, full):
         assert int(head_k.vdbb_matmul_tc(*args).max()) == 4608 * 127 * 127
 
 
+# ------------------------- the tc conv's int8 tensor-core instantiation
+
+
+# (C, images, H, W, F, kh, kw, nnz, bz, stride, padding, byte offset of x)
+TC_CONV_MMA_CASES = [
+    (8, 3, 9, 9, 72, 3, 3, 3, 8, 1, "SAME", 0), (8, 2, 9, 9, 72, 3, 3, 1, 8, 2, "SAME", 0),
+    (24, 3, 9, 9, 72, 3, 3, 3, 8, 2, "SAME", 1), (64, 3, 9, 9, 72, 3, 3, 3, 8, 1, "VALID", 0),
+    (64, 2, 9, 9, 64, 3, 3, 3, 8, 2, ((0, 2), (1, 1)), 3), (512, 2, 5, 5, 72, 3, 3, 3, 8, 1, "SAME", 0),
+    (512, 1, 8, 8, 520, 3, 3, 3, 8, 1, "SAME", 0), (64, 2, 9, 9, 72, 1, 1, 3, 8, 1, "SAME", 0),
+    (64, 2, 9, 9, 72, 1, 1, 3, 8, 2, "VALID", 0), (16, 2, 11, 11, 72, 5, 5, 3, 8, 1, "SAME", 0),
+    (16, 2, 11, 11, 72, 5, 5, 2, 8, 2, "VALID", 0), (8, 2, 9, 9, 72, 3, 3, 2, 4, 1, "SAME", 0),
+    (24, 2, 9, 9, 72, 3, 3, 3, 4, 2, ((1, 0), (2, 1)), 0), (32, 2, 9, 9, 72, 3, 3, 5, 16, 2, "SAME", 0),
+    (16, 2, 7, 7, 72, 3, 3, 16, 16, 1, "SAME", 0), (64, 2, 9, 9, 72, 3, 3, 1, 8, 1, "SAME", 0),
+    (64, 2, 9, 9, 72, 3, 3, 8, 8, 1, "SAME", 0), (64, 1, 1, 1, 72, 3, 3, 3, 8, 1, "SAME", 0),
+    (32, 1, 1, 67, 72, 3, 3, 3, 8, 1, "SAME", 0), (32, 2, 5, 13, 72, 3, 3, 3, 8, 1, "SAME", 0),
+    (64, 2, 2, 2, 72, 2, 2, 3, 8, 1, "SAME", 0),
+]
+
+
+@pytest.mark.parametrize("c,n,h,w,f,kh,kw,nnz,bz,stride,padding,offset", TC_CONV_MMA_CASES)
+def test_tc_conv_int8_tensor_cores_match_plain(card, c, n, h, w, f, kh, kw, nnz, bz, stride,
+                                               padding, offset):
+    """The tap gather stager over the compressed K on both tile instances:
+    int8 codes, fp32 dequant + bias and the raw int32 accumulator, each
+    equal to the plain version. C of 8 to 512; a tap of 1 to 192 compressed
+    columns, so one 64-column stage spans every tap (C = 8: 9 or 27 columns
+    in all), 16 taps of a 5x5 (C = 16, nnz = 2), or ends inside one tap;
+    1x1, 2x2, 3x3 and 5x5 taps, strides 1 and 2, SAME, VALID and explicit
+    padding; blocks of 4, 8 and 16, nnz 1 to 16; M of 1 to 243 pixels, none
+    a multiple of 128, and F of 72 and 520; x at odd addresses (the gather
+    needs no alignment)."""
+    rng = np.random.default_rng(c * 1000 + n * 100 + h + 10 * kh + nnz + bz + stride + offset)
+    values, idx, fmt = _tc_codes(rng, kh * kw * c // bz, nnz, f, bz)
+    x = _act_codes(rng, (n, h, w, c), card=card, offset=offset)
+    args = (x, values.to(card), idx.to(card), fmt, kh, kw)
+    _int8_exact(conv_k.vdbb_im2col_conv_tc, conv_k.vdbb_im2col_conv_tc_plain, args, f, card, rng,
+                stride=stride, padding=padding)
+
+
+@pytest.mark.parametrize("full", [True, False])
+def test_tc_conv_int8_full_range_at_kc4608(card, full):
+    """K_c = 4608 (C = 512, 3x3, nnz = bz = 8) with every code at +-127
+    range: all +127 drives an interior pixel's |acc| to 4608 * 127 * 127,
+    the accumulator's worst case; exact."""
+    rng = np.random.default_rng(4610 + full)
+    values, idx, fmt = _tc_codes(rng, 576, 8, 72, full=full)
+    x = _act_codes(rng, (2, 5, 5, 512), full=full, card=card)
+    args = (x, values.to(card), idx.to(card), fmt, 3, 3)
+    _int8_exact(conv_k.vdbb_im2col_conv_tc, conv_k.vdbb_im2col_conv_tc_plain, args, 72, card, rng)
+    if full:
+        assert int(conv_k.vdbb_im2col_conv_tc(*args).max()) == 4608 * 127 * 127
+
+
+def test_tc_conv_int8_runs_the_tap_gather_on_the_tensor_cores(card):
+    """The int8 tc conv launches one os_mma kernel with the TapMux stager
+    and never the CUDA-core loop (os_gemm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rng = np.random.default_rng(15)
+    values, idx, fmt = _tc_codes(rng, 72, 3, 64)
+    x = _act_codes(rng, (2, 9, 9, 64), card=card)
+    args = (x, values.to(card), idx.to(card), fmt, 3, 3)
+    conv_k.vdbb_im2col_conv_tc(*args)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        conv_k.vdbb_im2col_conv_tc(*args, out_scale=0.05, relu=True)
+        torch.cuda.synchronize()
+    names = {ev.name for ev in prof.events() if ev.device_type == torch.autograd.DeviceType.CUDA}
+    assert any("os_mma" in name and "TapMux" in name for name in names), names
+    assert not any("os_gemm" in name for name in names), names
+
+
 # ----------------------------------------------- the stem's two paths
 
 

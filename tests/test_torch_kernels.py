@@ -493,8 +493,8 @@ def test_mma_ablation_variants_each_start_from_the_sources(tmp_path, monkeypatch
 @pytest.mark.parametrize("m,rows", [(1, 64), (8, 64), (64, 64), (67, 128), (130, 128)])
 def test_mma_gather_plan_at_the_heads_shapes(m, rows):
     """The tc head (K = 512, K_c = 192 at nnz = 3) at request batches 1, 8
-    and 64 takes the 64-row tile; A is gathered into 8-byte words with no
-    alignment condition."""
+    and 64 takes the 64-row tile; A is gathered byte by byte on the core's
+    8-byte instance with no alignment condition."""
     plan = tcore.mma_gather_plan("vdbb_matmul_tc", m, 192)
     assert (plan.tile_rows, plan.chunk, plan.gathered) == (rows, 8, True)
 
@@ -547,13 +547,87 @@ def test_direct_conv_shared_memory_at_the_stem():
     assert stem_k.direct_smem_bytes(16, 3, 3, 1) > stem_k.DIRECT_SMEM_BYTES
 
 
-@pytest.mark.parametrize("switch", ["NO_DIV", "NO_FLUSH", "NO_TAPS", "TH8", "FT16", "BLOCKS2"])
+@pytest.mark.parametrize("switch", ["NO_DIV", "NO_FLUSH", "NO_TAPS", "TH8", "FT16", "BLOCKS2",
+                                    "NO_ZERO_TEST"])
 def test_stem_ablation_switches_find_their_anchor(switch, tmp_path, monkeypatch):
-    """Each of the stem's switches applies to its source as it stands."""
+    """Each of the switches of the stem and the flush applies to its source
+    as it stands; the flush's two find the division behind the zero test."""
     from repro_torch.kernels import build, mma_ablation
 
-    source, anchor, _ = mma_ablation.STEM_SWITCHES[switch]
+    source, anchor, replacement = mma_ablation.SOURCE_SWITCHES[switch]
     assert (build.CSRC / source).read_text().count(anchor) == 1
+    if switch in ("NO_DIV", "NO_ZERO_TEST"):
+        assert "__fdiv_rn(y, ep.out_scale[n])" in anchor and "y == 0.0f" in anchor
+        assert "y == 0.0f" not in replacement
     monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
     out = mma_ablation.variant_sources("probe", (switch,))
     assert anchor not in (out / source).read_text()
+
+
+# ------------------------------- host rules of the tc conv's gather (TapMux)
+
+
+def _sparse_cnn_s_convs():
+    """(layer, (H, W, C), kh, kw, stride, padding, nb·nnz) of every
+    compressed conv of sparse-cnn-s (the stem is dense)."""
+    from repro_torch.configs import get_cnn_config
+    from repro_torch.core.sparse_conv import DBBConv2d
+    from repro_torch.models.cnn import SparseCNN
+
+    cfg = get_cnn_config("sparse-cnn-s")
+    out, h = [], cfg.image_size
+    for i, m in enumerate(SparseCNN(cfg).layers()):
+        if isinstance(m, DBBConv2d):
+            if i > 0:
+                kc = m.kh * m.kw * m.in_channels // m.fmt.bz * m.fmt.nnz
+                out.append((i, (h, h, m.in_channels), m.kh, m.kw, m.stride, m.padding, kc))
+            h = m.out_hw(h, h)[0]
+    return out
+
+
+@pytest.mark.parametrize("batch", [1, 8, 64])
+@pytest.mark.parametrize("layer", range(1, 8))
+def test_mma_tap_plan_at_every_sparse_cnn_s_conv(layer, batch):
+    """The tc conv at each compressed layer of sparse-cnn-s and request
+    batches 1, 8 and 64: gathered on the core's 8-byte instance, 64 tile
+    rows where the batch's pixels are 64 or fewer (l7 at batch 1) and 128
+    elsewhere."""
+    convs = {c[0]: c[1:] for c in _sparse_cnn_s_convs()}
+    assert sorted(convs) == list(range(1, 8))
+    (h, w, c), kh, kw, stride, padding, kc = convs[layer]
+    (_, _, (ho, wo)) = tcore.conv_geometry(h, w, kh, kw, stride, padding)
+    m = batch * ho * wo
+    plan = tcore.mma_tap_plan("vdbb_conv_tc", m, kc, kh, kw, w, c)
+    assert (plan.tile_rows, plan.chunk, plan.gathered) == (64 if m <= 64 else 128, 8, True)
+    assert kc * 127 * 127 < 2**31
+
+
+@pytest.mark.parametrize("kh,kw,w,c,refused", [
+    (3, 3, 64, 64, None), (1, 32, 64, 8, None), (4, 8, 16, 8, None), (5, 7, 16, 8, "taps"),
+    (6, 6, 16, 8, "taps"), (1, 33, 64, 8, "taps"),
+    # ((kh - 1) * w + kw) * c against 2**27: at the limit, and one channel group past it
+    (3, 3, 2**20 - 2, 64, None), (3, 3, 2**20 - 1, 64, "limit"), (1, 1, 1, 2**27 + 8, "limit")])
+def test_mma_tap_plan_refuses_what_the_gather_cannot_encode(kh, kw, w, c, refused):
+    """A row's tap mask holds 32 taps and a packed source a 27-bit offset."""
+    if refused is None:
+        assert tcore.mma_tap_plan("k", 100, 72, kh, kw, w, c).gathered
+    else:
+        with pytest.raises(ValueError, match=refused):
+            tcore.mma_tap_plan("vdbb_conv_tc", 100, 72, kh, kw, w, c)
+
+
+@pytest.mark.parametrize("xshape,kh,kw,nb,nnz,match", [
+    # K_c = nb * nnz at MMA_MAX_K = 8 * 16643 (a 1x1 conv over C = 8 * 16643,
+    # nnz = bz = 8) and one block past it; 36 taps; a tap offset at 2**27 and past it
+    ((1, 1, 1, 8 * 16643), 1, 1, 16643, 8, "CUDA"), ((1, 1, 1, 8 * 16644), 1, 1, 16644, 8, "overflow"),
+    ((1, 2, 2, 8), 6, 6, 36, 3, "taps"), ((1, 3, 2**20 - 1, 64), 3, 3, 72, 3, "limit"),
+    ((1, 3, 2**20 - 2, 64), 3, 3, 72, 3, "CUDA")])
+def test_tc_conv_wrapper_refuses_what_the_gather_cannot_run(xshape, kh, kw, nb, nnz, match):
+    """An int8 tc conv off the CPU whose compressed K exceeds MMA_MAX_K, or
+    whose taps the gather cannot encode, is refused before any launch; one
+    at a limit passes the plan and reaches the operand checks."""
+    meta = dict(dtype=torch.int8, device="meta")
+    x, values = torch.empty(*xshape, **meta), torch.empty(nb, nnz, 16, **meta)
+    indices = torch.empty(nb, nnz, **meta)
+    with pytest.raises(ValueError, match=match):
+        conv_k.vdbb_im2col_conv_tc(x, values, indices, tv.DBBFormat(8, nnz, "matrix"), kh, kw)
