@@ -36,7 +36,28 @@ Phases, each of which fails the run:
   4. the committed golden fixtures of the JAX reference
      (tests/data/torch_parity_cnn.npz and torch_parity_cnn_bw.npz) through
      ``interop.params_from_numpy``;
-  5. one JSON line of the five kernels (launches, errors, times, bounds).
+  5. sparse-cnn-s served through frozen plans on CUDA graphs
+     (``SparseCNN.plan_set``, ``models/plan.py``), once per pattern, with
+     the launch counts at 0 just before: buckets 1 … 64, seven captures at
+     warmup and none after; each bucket's replay equal to the unplanned
+     forward bit for bit at batches 1, 8 and 64, and a ragged 5 and 100
+     (64 + 36 padded to 64) equal to serving each image alone; a replay's
+     captured launches one stem, seven convs and one head; the unplanned
+     and planned forward timed in turns (unplanned, planned, planned,
+     unplanned) on CUDA events, and the profiler's device-busy and idle
+     share of planned forwards at batch 1 and 64; the continuous-batching
+     server (``launch/server.py``) over 256 Poisson requests of 1–8 images
+     at half its measured capacity: every request's logits equal to its
+     own plan serve, no capture after warmup, the books balanced; then NaN
+     through the server (an injected NaN row fails its request alone, a
+     NaN bias in the last conv flushes to code 0 at the head's input as in
+     the reference, a NaN bias in the head fails every request with
+     NumericalFault); last, a re-quantized model's plan raises
+     StalePlanError;
+  6. the flush's NaN and ±inf (NaN and ±inf in the scale and bias rows, a
+     NaN requantize scale, with and without ReLU, fp32 and int8 outputs)
+     through all five kernels against their plain versions;
+  7. one JSON line of the five kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -49,6 +70,7 @@ import math
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -476,7 +498,7 @@ def end_to_end(dev, pattern):
 
     build.reset_launches()
     model, x, served = serve.serve("sparse-cnn-s", batches=(1, 8, BATCH), pattern=pattern,
-                                   requests=REQUESTS, device=dev, seed=0, log=log)
+                                   requests=REQUESTS, device=dev, seed=0, plan=False, log=log)
     main_counts = build.launch_counts()
     want = PER_FORWARD[pattern]
     idle = [k for k, n in want.items() if n and not main_counts[k]]
@@ -543,9 +565,10 @@ def kernel_family(name: str) -> str:
     return "other"
 
 
-def profile_forwards(model, x, per_forward, reps: int = 4) -> dict:
+def profile_forwards(fn, x, per_forward, reps: int = 4) -> dict:
     """Device time per kernel and the device's idle share over ``reps``
-    served forwards, from torch.profiler's CUDA activity. Idle is the share
+    served forwards ``fn(x)`` (the model, or a plan's serve), from
+    torch.profiler's CUDA activity. Idle is the share
     of the host-clock window in which no kernel ran. A pass may deliver only
     some of its kernel records, so a port kernel's time is the mean of its
     records times its launches (``per_forward`` a forward); ``records``
@@ -553,12 +576,12 @@ def profile_forwards(model, x, per_forward, reps: int = 4) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     with torch.no_grad():
-        model(x)
+        fn(x)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
-                model(x)
+                fn(x)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     spans, dur = [], {}
@@ -621,6 +644,318 @@ def golden(dev, pattern):
     log(f"[golden] JAX fixture, pattern={pattern}: layers exact, logits within rel L2 {err:.3e}")
 
 
+# ---------------------------------------------------------------- phase 5
+
+SERVER_REQUESTS = 256
+
+
+def check_nan_same(got, want, what: str, exact: bool = True) -> None:
+    """NaN exactly where the plain version has NaN; elsewhere equal, or for
+    the stem within its tolerances (``exact`` False: fp32 summation order)."""
+    if got.dtype != want.dtype or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against the plain "
+                             f"version's {want.dtype} {tuple(want.shape)}")
+    if got.dtype.is_floating_point:
+        if not torch.equal(got.isnan(), want.isnan()):
+            raise AssertionError(f"{what}: NaN where the plain version has none, or none "
+                                 "where it has NaN")
+        got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+    if exact:
+        check_exact(got, want, what)
+    elif got.dtype.is_floating_point:
+        check_close(got, want, what)
+    else:
+        check_codes(got, want, what)
+
+
+def solo(plan_set, x):
+    """Each image of ``x`` served alone through the bucket-1 plan."""
+    return torch.cat([plan_set.plans[1].serve(x[i: i + 1]) for i in range(x.shape[0])])
+
+
+def planned_path(dev, pattern) -> dict:
+    """Phase 5 for one pattern; the launch counts at 0 just before it. Returns
+    the record of the phase: launches (counted at capture and eager warm-up),
+    the launches its graphs replayed, the timings and the server's summary."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.launch import serve
+    from repro_torch.launch.faults import FaultInjector
+    from repro_torch.launch.server import CNNServer, NumericalFault, auto_rate
+    from repro_torch.models.plan import StalePlanError
+
+    t0 = time.time()
+    build.reset_launches()
+    model, x = serve.build_model("sparse-cnn-s", calib_batch=BATCH, device=dev, seed=0,
+                                 pattern=pattern)
+    ps = model.plan_set(max_batch=BATCH)
+    traces = ps.warmup()
+    if ps.buckets != (1, 2, 4, 8, 16, 32, 64) or traces != 7:
+        raise AssertionError(f"pattern={pattern}: buckets {ps.buckets}, {traces} captures at "
+                             "warmup; want 1 … 64 and 7")
+    want = PER_FORWARD[pattern]
+    with torch.no_grad():
+        for b in (1, 8, BATCH):
+            xb = x[:b].contiguous()
+            check_exact(ps.plans[b].serve(xb), model(xb), f"pattern={pattern} batch {b}: "
+                        "planned logits against the unplanned forward")
+        for b in ps.buckets:
+            got = next(iter(ps.plans[b].graph_launches.values()))
+            if {k: got.get(k, 0) for k in want} != want:
+                raise AssertionError(f"pattern={pattern} bucket {b}: a replay launches {got}, "
+                                     f"want {want}")
+        gen = torch.Generator().manual_seed(2)
+        x100 = torch.randn(100, *x.shape[1:], generator=gen).to(dev)
+        for n in (5, 100):
+            check_exact(ps.serve(x100[:n]), solo(ps, x100[:n]),
+                        f"pattern={pattern} ragged {n}: served against each image alone")
+    # no host sync inside a serve of tensors on the card, on this thread or
+    # another (the server's dispatcher replays what warmup captured here)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for b in (1, 8, BATCH):
+            ps.plans[b].serve(x[:b])
+        ps.serve(x100[:5])
+        errors = []
+
+        def other_thread():
+            try:
+                ps.serve(x100)
+            except Exception as e:  # noqa: BLE001 -- reported below
+                errors.append(e)
+
+        worker = threading.Thread(target=other_thread)
+        worker.start()
+        worker.join(60)
+        if worker.is_alive() or errors:
+            raise AssertionError(f"pattern={pattern}: a serve on another thread: {errors}")
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    log(f"[plan] pattern={pattern}: {traces} captures at warmup; replays equal the unplanned "
+        f"forward at batches 1, 8, 64, ragged 5 and 100 equal each image alone; no host sync "
+        f"inside a serve (sync debug mode 'error'), on this thread or another; a replay "
+        f"launches {want}; tiles at 64: {json.dumps(ps.tiles[BATCH])}")
+
+    # timing in turns: unplanned, planned, planned, unplanned
+    turns = {}
+    with torch.no_grad():
+        for b in (1, 8, BATCH):
+            xb = x[:b].contiguous()
+            fns = {"unplanned": lambda: model(xb), "planned": lambda: ps.plans[b].serve(xb)}
+            for name in ("unplanned", "planned", "planned", "unplanned"):
+                turns.setdefault(b, {}).setdefault(name, []).append(event_ms(fns[name], 50))
+    timing = {}
+    for b, r in turns.items():
+        timing[b] = {k: (v if b != BATCH else [b / (t / 1e3) for t in v]) for k, v in r.items()}
+    log(f"[plan] pattern={pattern} in turns (unplanned, planned, planned, unplanned; CUDA "
+        f"events over 50 calls): ms per request at batch 1 {json.dumps(timing[1])}, at batch "
+        f"8 {json.dumps(timing[8])}; images/s at batch 64 {json.dumps(timing[BATCH])}")
+    profiles = {}
+    for b in (1, BATCH):
+        xb = x[:b].contiguous()
+        prof = profile_forwards(ps.plans[b].serve, xb, want, reps=20)
+        seen = [k for k, n in want.items() if n and prof["records"].get(k)] \
+            if prof["device_ms"] is not None else []
+        missing = [k for k, n in want.items() if n and k not in seen]
+        note = ("the profiler saw every kernel inside the graph replays" if not missing else
+                f"the profiler dropped {missing} inside the graph replays: their launches are "
+                "the capture's counts")
+        profiles[b] = prof
+        log(f"[profile] pattern={pattern} batch {b} planned: per forward {json.dumps(prof)}; "
+            f"{note}")
+
+    # the server: 256 Poisson requests of 1-8 images at half the capacity
+    rng = np.random.default_rng(7)
+    pool = x100.cpu().numpy()
+    sizes = rng.integers(1, 9, SERVER_REQUESTS)
+    starts = [int(rng.integers(0, pool.shape[0] - n + 1)) for n in sizes]
+    requests = [pool[a: a + n] for a, n in zip(starts, sizes)]
+    rate, bucket_us = auto_rate(ps, x.shape[1:])
+    rate_rps = rate / float(sizes.mean())  # half the capacity in images, as requests
+    log(f"[server] pattern={pattern}: auto rate {rate:.1f} images/s (bucket 64 takes "
+        f"{bucket_us:.1f} us on the host path), {rate_rps:.1f} requests/s of "
+        f"{float(sizes.mean()):.2f} images")
+    run = serve.serve_continuous(ps, requests, rate=rate_rps, max_wait_ms=5.0, seed=3, log=log)
+    if run["failures"] or any(r is None for r in run["results"]):
+        raise AssertionError(f"pattern={pattern}: server failures {run['failures']}")
+    if run["retraces_after_warmup"] != 0 or not run["summary"]["accounting_ok"]:
+        raise AssertionError(f"pattern={pattern}: {run['retraces_after_warmup']} captures after "
+                             f"warmup, books {run['summary']}")
+    for i, (req, got) in enumerate(zip(requests, run["results"])):
+        check_exact(torch.from_numpy(got), torch.from_numpy(ps.serve(req)),
+                    f"pattern={pattern} server request {i}: against its own plan serve")
+    # the same offer with the interpreter's switch interval cut from 5 ms to
+    # 0.5 ms: how long the dispatcher waits for the lock the submitting
+    # thread holds
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(5e-4)
+    try:
+        fast = serve.serve_continuous(ps, requests, rate=rate_rps, max_wait_ms=5.0, seed=3,
+                                      log=log)
+    finally:
+        sys.setswitchinterval(interval)
+    if fast["failures"] or not fast["summary"]["accounting_ok"]:
+        raise AssertionError(f"pattern={pattern}: server failures {fast['failures']}")
+    for name, r in (("5 ms", run), ("0.5 ms", fast)):
+        s = r["summary"]
+        per_batch = s["completed"] / s["throughput_rps"] / s["batches"] * 1e3
+        log(f"[server] pattern={pattern} switch interval {name}: p50 {s['p50_us']} us, p99 "
+            f"{s['p99_us']} us, {s['throughput_rps']} images/s; {per_batch:.3f} ms of the run "
+            f"(first arrival to last logits) per batch of {s['completed'] / s['batches']:.1f} "
+            f"images, a batch's serve {r['health']['service_estimate_s'] * 1e3:.3f} ms (EMA)")
+
+    # NaN through the server: an injected NaN row fails its request alone
+    inj = FaultInjector()
+    batch = [pool[16 * i: 16 * i + 16] for i in range(4)]  # 64 images: one flush by count
+    inj.poison(batch[2], "nan")
+    with CNNServer(ps, max_wait_ms=1000.0, faults=inj) as srv:
+        srv.warmup()
+        futures = [srv.submit(r) for r in batch]
+        for i, f in enumerate(futures):
+            if i == 2:
+                try:
+                    f.result(timeout=60)
+                    raise AssertionError("the NaN-poisoned request completed")
+                except NumericalFault:
+                    pass
+            else:
+                check_exact(torch.from_numpy(f.result(timeout=60)),
+                            torch.from_numpy(ps.serve(batch[i])), "poison's neighbour")
+    if srv.stats.bucket_counts != {BATCH: 1} or srv.retraces_after_warmup:
+        raise AssertionError(f"poisoned co-batch: {srv.stats.summary()}")
+    # a NaN bias in the last conv: code 0 at the head's input, finite logits
+    conv, head = model.layers()[-2], model.layers()[-1]
+    saved = conv.b.clone(), head.b.clone()
+    conv.b[3] = float("nan")
+    few = [pool[i: i + 2] for i in range(0, 8, 2)]
+    with CNNServer(model.plan_set(buckets=(1, 2, 4, 8)), max_wait_ms=1.0) as srv:
+        srv.warmup()
+        got = [srv.submit(r).result(timeout=60) for r in few]
+    with torch.no_grad():
+        ref = model(torch.from_numpy(np.concatenate(few)).to(dev)).cpu()
+    if not bool(torch.isfinite(ref).all()):
+        raise AssertionError("a NaN bias in the last conv gave non-finite logits")
+    check_exact(torch.from_numpy(np.concatenate(got)), ref, "NaN last-conv bias through the server")
+    # a NaN bias in the head: NaN logits, every request fails alone
+    head.b[7] = float("nan")
+    with CNNServer(model.plan_set(buckets=(1, 2, 4, 8)), max_wait_ms=1.0) as srv:
+        srv.warmup()
+        futures = [srv.submit(r) for r in few]
+        faults = 0
+        for f in futures:
+            try:
+                f.result(timeout=60)
+            except NumericalFault:
+                faults += 1
+    s = srv.stats.summary()
+    if faults != len(few) or s["completed"] or not s["accounting_ok"]:
+        raise AssertionError(f"NaN head bias: {faults} NumericalFault of {len(few)}, {s}")
+    log(f"[server] pattern={pattern} NaN: an injected NaN row failed its request alone in a "
+        "64-image co-batch; a NaN last-conv bias gave finite logits equal to the unplanned "
+        f"forward; a NaN head bias failed all {len(few)} requests with NumericalFault")
+    if ps.trace_count != 7:
+        raise AssertionError(f"pattern={pattern}: {ps.trace_count} captures, want 7")
+
+    # staleness: the biases restored, the plan set passes its check; a
+    # re-quantize in place fails it
+    conv.b.copy_(saved[0])
+    head.b.copy_(saved[1])
+    ps.check(model.state())
+    with torch.no_grad():
+        _, stats = model(x * 2.0, collect_act_stats=True)
+    model.quantize(stats)
+    try:
+        ps.check(model.state())
+        raise AssertionError("a re-quantized model's plan set passed its check")
+    except StalePlanError:
+        pass
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    idle = [k for k, n in want.items() if n and not counts[k]]
+    if idle:
+        raise AssertionError(f"pattern={pattern}: kernels {idle} never launched on the planned path")
+    replayed = {k: 0 for k in want}
+    for b in ps.buckets:
+        plan = ps.plans[b]
+        for k, n in next(iter(plan.graph_launches.values())).items():
+            replayed[k] = replayed.get(k, 0) + n * plan.replays
+    log(f"[plan] pattern={pattern}: launches counted (eager warm-ups and captures) {counts}; "
+        f"launched by graph replays {replayed}; StalePlanError after a re-quantize "
+        f"({time.time() - t0:.1f} s)")
+    return {"counts": counts, "replayed": replayed, "timing": timing, "profiles": profiles,
+            "server": run["summary"], "server_fast_switch": fast["summary"]}
+
+
+# ---------------------------------------------------------------- phase 6
+
+
+def check_nan_flush(cfgs, gen, dev) -> None:
+    """Phase 6: NaN and ±inf in the flush rows of every kernel at an
+    sparse-cnn-s layer shape (batch 8), against the plain versions."""
+    from repro_torch.core.quant import quantize_dbb
+    from repro_torch.core.vdbb import dbb_encode, dbb_encode_conv
+    from repro_torch.kernels import im2col_conv as stem_k
+    from repro_torch.kernels import vdbb_im2col_conv as conv_k
+    from repro_torch.kernels import vdbb_matmul as head_k
+
+    def rows(f, scale):
+        s = (torch.rand(f, generator=gen) + 1.0) * scale
+        b = torch.randn(f, generator=gen)
+        s[1], s[2] = float("nan"), float("inf")
+        b[3], b[4], b[5] = float("nan"), float("-inf"), float("inf")
+        nan_out = torch.full((f,), 0.05)
+        nan_out[7] = float("nan")
+        return s.to(dev), b.to(dev), nan_out.to(dev)
+
+    def cases(s, b, nan_out):
+        for relu in (False, True):
+            for out_scale in (None, 0.05, nan_out):
+                yield dict(scales=s, bias=b, relu=relu, out_scale=out_scale)
+
+    n = 0
+    for pattern, cfg in cfgs.items():
+        mode = "tc" if pattern == "matrix" else "bw"
+        layers = layer_shapes(cfg, 8)
+        m, xshape = layers[4]
+        f = m.out_channels
+        dw = dbb_encode_conv(rnd(gen, dev, m.kh, m.kw, m.in_channels, f, scale=0.05), m.fmt,
+                             prune=True)
+        qw = quantize_dbb(dw)
+        idx = qw.indices if mode == "bw" else qw.indices[:, :, 0].contiguous()
+        args = (codes(gen, dev, *xshape), qw.values, idx, m.fmt, m.kh, m.kw)
+        kernel = getattr(conv_k, f"vdbb_im2col_conv_{mode}")
+        plain = getattr(conv_k, f"vdbb_im2col_conv_{mode}_plain")
+        for kw in cases(*rows(f, 1e-4)):
+            kw.update(stride=m.stride, padding=m.padding)
+            check_nan_same(kernel(*args, **kw), plain(*args, **kw), f"{mode} conv NaN flush {kw}")
+            n += 1
+        hm, hshape = layers[-1]
+        hw = quantize_dbb(dbb_encode(rnd(gen, dev, hm.in_features, hm.out_features, scale=0.05),
+                                     hm.fmt, prune=True))
+        hidx = hw.indices if mode == "bw" else hw.indices[:, :, 0].contiguous()
+        hargs = (codes(gen, dev, *hshape), hw.values, hidx, hm.fmt)
+        kernel = getattr(head_k, f"vdbb_matmul_{mode}")
+        plain = getattr(head_k, f"vdbb_matmul_{mode}_plain")
+        for kw in cases(*rows(hm.out_features, 1e-4)):
+            check_nan_same(kernel(*hargs, **kw), plain(*hargs, **kw), f"{mode} head NaN flush")
+            n += 1
+    m, xshape = layer_shapes(cfgs["matrix"], 8)[0]
+    x, w = rnd(gen, dev, *xshape), rnd(gen, dev, m.kh, m.kw, m.in_channels, m.out_channels,
+                                       scale=0.2)
+    for kw in cases(*rows(m.out_channels, 1.0)):
+        kw.update(stride=m.stride, padding=m.padding)
+        check_nan_same(stem_k.im2col_conv(x, w, **kw), stem_k.im2col_conv_plain(x, w, **kw),
+                       "stem NaN flush", exact=False)
+        n += 1
+    torch.cuda.synchronize()
+    log(f"[nan] {n} NaN/inf flush cases through the five kernels equal their plain versions "
+        "(NaN through ReLU, NaN codes 0, ±inf clipped to ±127)")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -681,6 +1016,9 @@ def main() -> int:
     for pattern in patterns:
         golden(dev, pattern)
 
+    planned = {str(p): planned_path(dev, p) for p in patterns}
+    check_nan_flush(cfgs, gen, dev)
+
     line = []
     conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
     head_library = "torch._int_mm on the decoded int8 weight"
@@ -703,8 +1041,13 @@ def main() -> int:
             "library_device_ms": (None if any(r["library_device_ms"] is None for r in rs)
                                   else sum(r["library_device_ms"] for r in rs)),
             "library_call": library_call[name], "layers": len(rs),
+            "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
         })
-    log(f"[serve] images/s per request batch: {json.dumps(ips)}")
+    log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
+    log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
+    log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
+    log(f"[server] per pattern, switch interval 0.5 ms: "
+        f"{json.dumps({p: r['server_fast_switch'] for p, r in planned.items()})}")
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

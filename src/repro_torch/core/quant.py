@@ -23,8 +23,12 @@ QMAX = 127  # symmetric int8: [-127, 127]; -128 unused so negation is safe
 
 
 def as_f32(v, device) -> torch.Tensor:
-    """``v`` (a number or a tensor) as an fp32 tensor on ``device``."""
-    return torch.as_tensor(v, dtype=torch.float32, device=device)
+    """``v`` (a number or a tensor) as an fp32 tensor on ``device``. A number
+    is filled in on the device, with no copy from the host, so that a CUDA
+    graph can capture it."""
+    if isinstance(v, torch.Tensor):
+        return v.to(device=device, dtype=torch.float32)
+    return torch.full((), v, dtype=torch.float32, device=device)
 
 
 def weight_scales(values: torch.Tensor) -> torch.Tensor:
@@ -40,9 +44,11 @@ def dynamic_act_scale(x: torch.Tensor) -> torch.Tensor:
 
 
 def quantize(x: torch.Tensor, scale) -> torch.Tensor:
-    """Symmetric round-to-nearest-even int8: clip(round(x / scale), ±QMAX)."""
+    """Symmetric round-to-nearest-even int8: clip(round(x / scale), ±QMAX).
+    NaN is code 0 on every device, as the reference's int8 cast gives it
+    (the card's cast of a NaN is not relied on)."""
     q = torch.round(x.float() / as_f32(scale, x.device))
-    return q.clamp(-QMAX, QMAX).to(torch.int8)
+    return q.clamp(-QMAX, QMAX).nan_to_num(nan=0.0).to(torch.int8)
 
 
 def dequantize(q: torch.Tensor, scale) -> torch.Tensor:

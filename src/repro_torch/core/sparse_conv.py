@@ -10,11 +10,12 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.core.quant import QuantDBBWeight
+from repro_torch.core.quant import QuantDBBWeight, quantize
 from repro_torch.core.sparse_linear import DBBLayer, trunc_normal
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, DENSE, dbb_encode_conv, dbb_prune
 from repro_torch.kernels import ops
 from repro_torch.kernels.core import _pair, conv_geometry
+from repro_torch.models.plan import resolve_tune_cache
 
 
 class DBBConv2d(DBBLayer):
@@ -46,17 +47,49 @@ class DBBConv2d(DBBLayer):
         self._init_bias(self.out_channels, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        w = self.w
+        return self._conv(x, self.w, self.b, self.aq)
+
+    def _conv(self, x, w, b, aq):
         conv = dict(stride=self.stride, padding=self.padding)
         if isinstance(w, QuantDBBWeight):
-            y = ops.quant_conv(x, w, self.kh, self.kw, self.aq, **conv)
+            y = ops.quant_conv(x, w, self.kh, self.kw, aq, **conv)
         elif isinstance(w, DBBWeight):
             y = ops.sparse_conv(x, w, self.kh, self.kw, **conv)
         else:
             y = ops.fused_im2col_conv(x, w.to(x.dtype), **conv)
         if self.use_bias:
-            y = y + self.b.to(y.dtype)
+            y = y + b.to(y.dtype)
         return y
+
+    def make_plan(self, *, batch: int, h: int, w: int, relu: bool = False, out_scale=None,
+                  fused: bool = False, tune: str = "off"):
+        """Stage this layer's serving step once for a (batch, h, w) input
+        (port of the reference's ``make_plan``; ``tune='off'`` only). Returns
+        ``(run, tiles)``: ``run`` is ``x -> y`` with the layer's current
+        state frozen in, on the path :meth:`SparseCNN.forward` takes. With
+        ``fused`` (the int8-resident chain) it is :meth:`quant_serve` or, for
+        the dense stem, :meth:`dense_serve`, staged through
+        ``ops.stage_*``, and ``tiles`` is the int8 tile plan or the stem's
+        path; otherwise it is the per-layer conv (+ bias), then ReLU and a
+        requantize at ``out_scale`` when asked, and ``tiles`` is empty."""
+        resolve_tune_cache(tune)
+        wt, b, aq = self.w, self.b, self.aq
+        x_shape = (batch, h, w, self.in_channels)
+        geom = dict(stride=self.stride, padding=self.padding)
+        if fused and isinstance(wt, QuantDBBWeight):
+            return ops.stage_quant_conv(wt, self.kh, self.kw, aq, x_shape, bias=b, relu=relu,
+                                        out_scale=out_scale, **geom)
+        if fused:
+            return ops.stage_fused_im2col_conv(wt, x_shape, bias=b, relu=relu,
+                                               out_scale=out_scale, **geom)
+
+        def run(x):
+            y = self._conv(x, wt, b, aq)
+            if relu:
+                y = torch.relu(y)
+            return y if out_scale is None else quantize(y, out_scale)
+
+        return run, {}
 
     def quant_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None):
         """One-kernel INT8 conv with the fused epilogue; int8 codes out when

@@ -15,9 +15,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from repro_torch.core.quant import QuantDBBWeight, quantize_dbb
+from repro_torch.core.quant import QuantDBBWeight, quantize, quantize_dbb
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, DENSE, dbb_encode, dbb_prune
 from repro_torch.kernels import ops
+from repro_torch.models.plan import resolve_tune_cache
 
 STATE_KEYS = ("w", "b", "aq")
 
@@ -93,18 +94,41 @@ class DBBLinear(DBBLayer):
         self._init_bias(self.out_features, device)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self._linear(x, self.w, self.b, self.aq)
+
+    def _linear(self, x, w, b, aq):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
-        w = self.w
         if isinstance(w, QuantDBBWeight):
-            y = ops.quant_matmul(x2, w, self.aq)
+            y = ops.quant_matmul(x2, w, aq)
         elif isinstance(w, DBBWeight):
             y = ops.vdbb_matmul(x2, w)
         else:
             y = x2 @ w.to(x.dtype)
         if self.use_bias:
-            y = y + self.b.to(y.dtype)
+            y = y + b.to(y.dtype)
         return y.reshape(*lead, self.out_features)
+
+    def make_plan(self, *, batch: int, relu: bool = False, out_scale=None,
+                  fused: bool = False, tune: str = "off"):
+        """Stage this layer's serving step once for ``batch`` rows; the GEMM
+        twin of ``DBBConv2d.make_plan``. Returns ``(run, tiles)``: with
+        ``fused`` and a quantized weight, :meth:`quant_serve` staged through
+        ``ops.stage_quant_matmul`` (tiles: the int8 tile plan); otherwise
+        the per-layer product (+ bias), then ReLU and a requantize at
+        ``out_scale`` when asked (no tiles)."""
+        resolve_tune_cache(tune)
+        wt, b, aq = self.w, self.b, self.aq
+        if fused and isinstance(wt, QuantDBBWeight):
+            return ops.stage_quant_matmul(wt, aq, batch, bias=b, relu=relu, out_scale=out_scale)
+
+        def run(x):
+            y = self._linear(x, wt, b, aq)
+            if relu:
+                y = torch.relu(y)
+            return y if out_scale is None else quantize(y, out_scale)
+
+        return run, {}
 
     def quant_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None):
         """One-kernel INT8 GEMM with the fused epilogue: dequant, bias,

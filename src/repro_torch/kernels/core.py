@@ -97,6 +97,11 @@ class Epilogue:
     relu: bool
     out_dtype: torch.dtype
 
+    @property
+    def flush_kw(self) -> dict:
+        """The resolved flush as the plain versions' keyword arguments."""
+        return dict(scales=self.scale, bias=self.bias, relu=self.relu, out_scale=self.out_scale)
+
 
 def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
                   out_scale=None, acc_dtype) -> Epilogue:
@@ -123,7 +128,9 @@ def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
 def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
     """The plain flush, in the kernels' order: dequantize, add the bias,
     ReLU, requantize (round half to even, clip to ±QMAX). One separate op
-    per step, so each rounds once, as the reference does."""
+    per step, so each rounds once, as the reference does. NaN passes ReLU
+    and requantizes to code 0 on every device (the card's cast of a NaN to
+    int8 is not relied on)."""
     y = acc
     if ep.scale is not None:
         y = y.float() * ep.scale
@@ -132,7 +139,7 @@ def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
     if ep.relu:
         y = torch.clamp_min(y, 0)
     if ep.out_scale is not None:
-        y = torch.round(y.float() / ep.out_scale).clamp(-QMAX, QMAX)
+        y = torch.round(y.float() / ep.out_scale).clamp(-QMAX, QMAX).nan_to_num(nan=0.0)
     return y.to(ep.out_dtype)
 
 

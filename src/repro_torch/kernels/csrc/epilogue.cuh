@@ -35,14 +35,19 @@ __device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs
     float y = acc_to_float(acc);
     if (ep.scale != nullptr) y = __fmul_rn(y, ep.scale[n]);
     if (ep.bias != nullptr) y = __fadd_rn(y, ep.bias[n]);
-    if (ep.relu) y = fmaxf(y, 0.0f);
+    // NaN passes ReLU as it does through jnp.maximum (fmaxf would give 0);
+    // -0 stays -0, which compares equal to 0
+    if (ep.relu) y = y < 0.0f ? 0.0f : y;
     if constexpr (std::is_same<Out, int8_t>::value) {
       // round half to even (rintf), as jnp.round does; IEEE division. A zero
       // dividend (after ReLU, about half the outputs) would take the
       // division's slow path; 0 / s is +-0, code 0 either way, so it skips
       // the division. NaN still takes it.
       float q = y == 0.0f ? 0.0f : rintf(__fdiv_rn(y, ep.out_scale[n]));
-      q = fminf(fmaxf(q, -127.0f), 127.0f);
+      // a NaN quotient is code 0, as the reference's clip + int8 cast gives
+      // on its devices; the clip (fmaxf would make it -127) and the cast (of
+      // a NaN, undefined) never see one
+      q = q != q ? 0.0f : fminf(fmaxf(q, -127.0f), 127.0f);
       return static_cast<int8_t>(q);
     } else {
       return y;

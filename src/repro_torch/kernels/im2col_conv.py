@@ -52,15 +52,18 @@ def conv_path(dtype: torch.dtype, c: int, kh: int, kw: int, stride) -> str:
     return "gemm"
 
 
-def _plan(x, w, stride, padding, scales, bias, relu, out_scale):
-    n, h, wd, c = x.shape
+def _geometry(x_shape, w, stride, padding):
+    n, h, wd, c = x_shape
     kh, kw, wc, f = w.shape
     if wc != c:
         raise ValueError(f"channel mismatch: x has {c}, w has {wc}")
-    geom = conv_geometry(h, wd, kh, kw, stride, padding)
-    ep = epilogue_plan(f, x.device, scales=scales, bias=bias, relu=relu,
+    return conv_geometry(h, wd, kh, kw, stride, padding)
+
+
+def _plan(x, w, stride, padding, scales, bias, relu, out_scale):
+    ep = epilogue_plan(w.shape[-1], x.device, scales=scales, bias=bias, relu=relu,
                        out_scale=out_scale, acc_dtype=acc_dtype_for(x.dtype))
-    return geom, ep
+    return _geometry(x.shape, w, stride, padding), ep
 
 
 def im2col_conv_plain(x, w, *, scales=None, bias=None, relu=False, out_scale=None,
@@ -81,8 +84,13 @@ def im2col_conv(x, w, *, scales=None, bias=None, relu=False, out_scale=None,
     if x.device.type == "cpu":
         return im2col_conv_plain(x, w, scales=scales, bias=bias, relu=relu,
                                  out_scale=out_scale, stride=stride, padding=padding)
-    ((sh, sw), (ph, pw), (ho, wo)), ep = _plan(
-        x, w, stride, padding, scales, bias, relu, out_scale)
+    geom, ep = _plan(x, w, stride, padding, scales, bias, relu, out_scale)
+    return _launch(x, w, geom, ep)
+
+
+def _launch(x, w, geom, ep):
+    """The kernel on CUDA operands, the conv geometry and the flush resolved."""
+    (sh, sw), (ph, pw), (ho, wo) = geom
     if w.dtype != x.dtype:
         raise TypeError(f"im2col_conv: x is {x.dtype}, w is {w.dtype}")
     in_kind = build.check_operands("im2col_conv", x, w, dtype=x.dtype)
@@ -97,3 +105,23 @@ def im2col_conv(x, w, *, scales=None, bias=None, relu=False, out_scale=None,
         ph[0], pw[0], int(direct), build.stream_of(x),
     )
     return out
+
+
+def stage_im2col_conv(w, x_shape, *, scales=None, bias=None, relu=False, out_scale=None,
+                      stride=1, padding="SAME"):
+    """:func:`im2col_conv` with the weight's side resolved once, for a plan
+    (``models/plan.py``): the flush rows, and the path :func:`conv_path`
+    takes at ``x_shape``. Returns ``(run, tiles)``: ``run(x)`` is the conv
+    (the plain version for a CPU tensor, the kernel for a CUDA one), and
+    ``tiles`` records the path."""
+    kh, kw, c, f = w.shape
+    _geometry(x_shape, w, stride, padding)
+    ep = epilogue_plan(f, w.device, scales=scales, bias=bias, relu=relu,
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(w.dtype))
+
+    def run(x):
+        if x.device.type == "cpu":
+            return im2col_conv_plain(x, w, **ep.flush_kw, stride=stride, padding=padding)
+        return _launch(x, w, _geometry(x.shape, w, stride, padding), ep)
+
+    return run, {"path": conv_path(w.dtype, c, kh, kw, stride)}

@@ -10,10 +10,16 @@ the dequantization into the flush. Every entry point takes ``bias=``,
 Dispatch follows the weight's pattern sharing: a pattern shared across N
 runs the tc kernel, per-column or grouped patterns the bw kernel. Each
 wrapper runs its kernel's plain version for CPU tensors.
+
+The ``stage_*`` entries are the frozen plans' (``models/plan.py``): each
+resolves once what its unplanned twin resolves on every call (the dequant
+scale product, the shared pattern's index row, the flush rows, the tile
+plan) and returns ``(run, tiles)``, ``run(x)`` launching on the resolved
+operands.
 """
 from __future__ import annotations
 
-from repro_torch.core.quant import QuantDBBWeight, resolve_quant_input
+from repro_torch.core.quant import QuantDBBWeight, as_f32, resolve_quant_input
 from repro_torch.core.vdbb import DBBWeight
 from repro_torch.kernels import im2col_conv as _im2col
 from repro_torch.kernels import vdbb_im2col_conv as _vconv
@@ -66,3 +72,39 @@ def quant_conv(x, qw: QuantDBBWeight, kh: int, kw: int, act_scale=None, *,
     return _vconv.vdbb_im2col_conv(xq, qw.as_dbb(), kh, kw, scales=s_a * qw.scales,
                                    bias=bias, relu=relu, out_scale=out_scale,
                                    stride=stride, padding=padding)
+
+
+def _calibrated(qw: QuantDBBWeight, act_scale):
+    if act_scale is None:
+        raise ValueError("a plan stages a calibrated activation scale and this layer has "
+                         "none: quantize the model with calibration stats")
+    return as_f32(act_scale, qw.device)
+
+
+def stage_quant_matmul(qw: QuantDBBWeight, act_scale, m: int, *, bias=None, relu=False,
+                       out_scale=None):
+    """:func:`quant_matmul` at ``m`` rows, staged once: ``run(x)`` quantizes
+    an fp ``x`` at the calibrated ``act_scale`` (int8 codes pass as they
+    are) and launches with the scale product ``act_scale * qw.scales``."""
+    s_a = _calibrated(qw, act_scale)
+    run, tiles = _vm.stage_vdbb_matmul(qw.as_dbb(), m, scales=s_a * qw.scales, bias=bias,
+                                       relu=relu, out_scale=out_scale)
+    return (lambda x: run(resolve_quant_input(x, s_a)[0])), tiles
+
+
+def stage_quant_conv(qw: QuantDBBWeight, kh: int, kw: int, act_scale, x_shape, *,
+                     bias=None, relu=False, out_scale=None, stride=1, padding="SAME"):
+    """:func:`quant_conv` at input shape ``x_shape``, staged once; the conv
+    twin of :func:`stage_quant_matmul`."""
+    s_a = _calibrated(qw, act_scale)
+    run, tiles = _vconv.stage_vdbb_im2col_conv(
+        qw.as_dbb(), kh, kw, x_shape, scales=s_a * qw.scales, bias=bias, relu=relu,
+        out_scale=out_scale, stride=stride, padding=padding)
+    return (lambda x: run(resolve_quant_input(x, s_a)[0])), tiles
+
+
+def stage_fused_im2col_conv(w, x_shape, *, bias=None, relu=False, out_scale=None, stride=1,
+                            padding="SAME"):
+    """:func:`fused_im2col_conv` at input shape ``x_shape``, staged once."""
+    return _im2col.stage_im2col_conv(w, x_shape, bias=bias, relu=relu, out_scale=out_scale,
+                                     stride=stride, padding=padding)

@@ -9,6 +9,8 @@ C % bz == 0, so every block lies inside one tap; block ``b = t·cb + c//bz``.
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, gather_compressed
@@ -45,16 +47,20 @@ def _conv_weight_geometry(k: int, fmt: DBBFormat, kh: int, kw: int) -> int:
     return c
 
 
-def _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale):
+def _geometry(x_shape, values, indices, fmt, kh, kw, stride, padding):
     nb, nnz, f = values.shape
     if nnz != fmt.nnz:
         raise ValueError(f"values nnz={nnz} != fmt.nnz={fmt.nnz}")
     check_indices(indices, nb, nnz, f, fmt.group_size(f))
     c = _conv_weight_geometry(nb * fmt.bz, fmt, kh, kw)
-    if x.shape[-1] != c:
-        raise ValueError(f"x has C={x.shape[-1]} but weight encodes C={c}")
-    geom = conv_geometry(x.shape[1], x.shape[2], kh, kw, stride, padding)
-    ep = epilogue_plan(f, x.device, scales=scales, bias=bias, relu=relu,
+    if x_shape[-1] != c:
+        raise ValueError(f"x has C={x_shape[-1]} but weight encodes C={c}")
+    return conv_geometry(x_shape[1], x_shape[2], kh, kw, stride, padding)
+
+
+def _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale):
+    geom = _geometry(x.shape, values, indices, fmt, kh, kw, stride, padding)
+    ep = epilogue_plan(values.shape[-1], x.device, scales=scales, bias=bias, relu=relu,
                        out_scale=out_scale, acc_dtype=acc_dtype_for(x.dtype))
     return geom, ep
 
@@ -86,8 +92,14 @@ def vdbb_im2col_conv_tc(x, values, indices, fmt, kh, kw, *, scales=None,
         return vdbb_im2col_conv_tc_plain(
             x, values, indices, fmt, kh, kw, scales=scales, bias=bias, relu=relu,
             out_scale=out_scale, stride=stride, padding=padding)
-    ((sh, sw), (ph, pw), (ho, wo)), ep = _plan(
-        x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale)
+    geom, ep = _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu,
+                     out_scale)
+    return _launch_tc(x, values, indices, fmt, kh, kw, geom, ep)
+
+
+def _launch_tc(x, values, indices, fmt, kh, kw, geom, ep):
+    """The tc kernel on CUDA operands, the conv geometry and the flush resolved."""
+    (sh, sw), (ph, pw), (ho, wo) = geom
     if values.dtype != x.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
         raise TypeError("vdbb_conv_tc: values must match x's dtype, indices be (nb, nnz) int8")
     n, h, w, c = x.shape
@@ -131,8 +143,14 @@ def vdbb_im2col_conv_bw(x, values, indices, fmt, kh, kw, *, scales=None,
         return vdbb_im2col_conv_bw_plain(
             x, values, indices, fmt, kh, kw, scales=scales, bias=bias, relu=relu,
             out_scale=out_scale, stride=stride, padding=padding)
-    ((sh, sw), (ph, pw), (ho, wo)), ep = _plan(
-        x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale)
+    geom, ep = _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu,
+                     out_scale)
+    return _launch_bw(x, values, indices, fmt, kh, kw, geom, ep)
+
+
+def _launch_bw(x, values, indices, fmt, kh, kw, geom, ep):
+    """The bw kernel on CUDA operands, the conv geometry and the flush resolved."""
+    (sh, sw), (ph, pw), (ho, wo) = geom
     if values.dtype != x.dtype or indices.dtype != torch.int8 or indices.dim() != 3:
         raise TypeError("vdbb_conv_bw: values must match x's dtype, indices be "
                         "(nb, nnz, F/g) int8")
@@ -152,12 +170,49 @@ def vdbb_im2col_conv_bw(x, values, indices, fmt, kh, kw, *, scales=None,
     return out
 
 
+def _shared(dw: DBBWeight) -> bool:
+    """True when one pattern is shared across all F outputs (the tc kernel)."""
+    return dw.fmt.group_size(dw.shape[1]) == dw.shape[1]
+
+
 def vdbb_im2col_conv(x, dw: DBBWeight, kh: int, kw: int, **kw_args):
     """Fused sparse conv over a compressed DBBWeight, dispatching on its
     pattern-sharing mode: shared across F runs the tc kernel, per-column or
     grouped patterns the bw kernel (grouped indices read in place)."""
-    f = dw.shape[1]
-    if dw.fmt.group_size(f) == f:
+    if _shared(dw):
         return vdbb_im2col_conv_tc(x, dw.values, dw.indices[:, :, 0].contiguous(),
                                    dw.fmt, kh, kw, **kw_args)
     return vdbb_im2col_conv_bw(x, dw.values, dw.indices, dw.fmt, kh, kw, **kw_args)
+
+
+def stage_vdbb_im2col_conv(dw: DBBWeight, kh: int, kw: int, x_shape, *, scales=None,
+                           bias=None, relu=False, out_scale=None, stride=1, padding="SAME"):
+    """:func:`vdbb_im2col_conv` with the weight's side resolved once, for a
+    plan (``models/plan.py``): the kernel for the pattern mode, the tc
+    kernel's shared index row, the flush rows, and the int8 tile plan at
+    ``x_shape`` (the bw plan's chunk for an input at an allocation's start,
+    as every input of a plan is). Returns ``(run, tiles)``: ``run(x)`` is the
+    conv (the plain version for a CPU tensor, the kernel for a CUDA one)."""
+    tc = _shared(dw)
+    values = dw.values
+    idx = dw.indices[:, :, 0].contiguous() if tc else dw.indices
+    (_, _, (ho, wo)) = _geometry(x_shape, values, idx, dw.fmt, kh, kw, stride, padding)
+    ep = epilogue_plan(values.shape[-1], values.device, scales=scales, bias=bias, relu=relu,
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype))
+    n, _, w, c = x_shape
+    tiles = {}
+    if values.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        kc = values.shape[0] * values.shape[1]
+        tiles = dataclasses.asdict(
+            mma_tap_plan("vdbb_conv_tc", n * ho * wo, kc, kh, kw, w, c) if tc
+            else mma_plan("vdbb_conv_bw", n * ho * wo, kh * kw * c, c, 0))
+    plain = vdbb_im2col_conv_tc_plain if tc else vdbb_im2col_conv_bw_plain
+    launch = _launch_tc if tc else _launch_bw
+
+    def run(x):
+        if x.device.type == "cpu":
+            return plain(x, values, idx, dw.fmt, kh, kw, **ep.flush_kw, stride=stride, padding=padding)
+        geom = _geometry(x.shape, values, idx, dw.fmt, kh, kw, stride, padding)
+        return launch(x, values, idx, dw.fmt, kh, kw, geom, ep)
+
+    return run, tiles

@@ -4,9 +4,11 @@ and ``csrc/vdbb_matmul_bw.cu`` for a pattern per column or per group of
 columns (bw mode), each beside its plain PyTorch version."""
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
-from repro_torch.core.vdbb import gather_compressed
+from repro_torch.core.vdbb import DBBWeight, gather_compressed
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
 from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices, epilogue_plan,
@@ -26,15 +28,19 @@ BW_KERNEL = build.CudaKernel(
 )
 
 
-def _plan(a, values, indices, fmt, scales, bias, relu, out_scale):
-    m, k = a.shape
+def _check(a_shape, values, indices, fmt):
+    m, k = a_shape
     nb, nnz, n = values.shape
     if nb * fmt.bz != k:
         raise ValueError(f"K={k} != nb*bz = {nb}*{fmt.bz}")
     if nnz != fmt.nnz:
         raise ValueError(f"values nnz={nnz} != fmt.nnz={fmt.nnz}")
     check_indices(indices, nb, nnz, n, fmt.group_size(n))
-    return epilogue_plan(n, a.device, scales=scales, bias=bias, relu=relu,
+
+
+def _plan(a, values, indices, fmt, scales, bias, relu, out_scale):
+    _check(a.shape, values, indices, fmt)
+    return epilogue_plan(values.shape[-1], a.device, scales=scales, bias=bias, relu=relu,
                          out_scale=out_scale, acc_dtype=acc_dtype_for(a.dtype))
 
 
@@ -60,6 +66,11 @@ def vdbb_matmul_tc(a, values, indices, fmt, *, scales=None, bias=None,
         return vdbb_matmul_tc_plain(a, values, indices, fmt, scales=scales,
                                     bias=bias, relu=relu, out_scale=out_scale)
     ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
+    return _launch_tc(a, values, indices, fmt, ep)
+
+
+def _launch_tc(a, values, indices, fmt, ep):
+    """The tc kernel on CUDA operands, the flush resolved."""
     if values.dtype != a.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
         raise TypeError("vdbb_matmul_tc: values must match a's dtype, indices be (nb, nnz) int8")
     if a.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
@@ -97,6 +108,11 @@ def vdbb_matmul_bw(a, values, indices, fmt, *, scales=None, bias=None,
         return vdbb_matmul_bw_plain(a, values, indices, fmt, scales=scales,
                                     bias=bias, relu=relu, out_scale=out_scale)
     ep = _plan(a, values, indices, fmt, scales, bias, relu, out_scale)
+    return _launch_bw(a, values, indices, fmt, ep)
+
+
+def _launch_bw(a, values, indices, fmt, ep):
+    """The bw kernel on CUDA operands, the flush resolved."""
     if values.dtype != a.dtype or indices.dtype != torch.int8 or indices.dim() != 3:
         raise TypeError("vdbb_matmul_bw: values must match a's dtype, indices be "
                         "(nb, nnz, N/g) int8")
@@ -113,3 +129,36 @@ def vdbb_matmul_bw(a, values, indices, fmt, *, scales=None, bias=None,
         fmt.nnz, n // indices.shape[2], build.stream_of(a),
     )
     return out
+
+
+def stage_vdbb_matmul(w: DBBWeight, m: int, *, scales=None, bias=None, relu=False,
+                      out_scale=None):
+    """The product with a compressed weight ``w`` with the weight's side
+    resolved once, for a plan (``models/plan.py``): the kernel for the
+    pattern mode (shared across N: tc; per column or group: bw), the tc
+    kernel's shared index row, the flush rows, and the int8 tile plan at
+    ``m`` rows (the bw plan's chunk for an A at an allocation's start, as
+    every input of a plan is). Returns ``(run, tiles)``: ``run(a)`` is the
+    product (the plain version for a CPU tensor, the kernel for a CUDA one)."""
+    k, n = w.shape
+    tc = w.fmt.group_size(n) == n
+    values = w.values
+    idx = w.indices[:, :, 0].contiguous() if tc else w.indices
+    _check((m, k), values, idx, w.fmt)
+    ep = epilogue_plan(n, values.device, scales=scales, bias=bias, relu=relu,
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype))
+    tiles = {}
+    if values.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        tiles = dataclasses.asdict(
+            mma_gather_plan("vdbb_matmul_tc", m, values.shape[0] * values.shape[1]) if tc
+            else mma_plan("vdbb_matmul_bw", m, k, k, 0))
+    plain = vdbb_matmul_tc_plain if tc else vdbb_matmul_bw_plain
+    launch = _launch_tc if tc else _launch_bw
+
+    def run(a):
+        if a.device.type == "cpu":
+            return plain(a, values, idx, w.fmt, **ep.flush_kw)
+        _check(a.shape, values, idx, w.fmt)
+        return launch(a, values, idx, w.fmt, ep)
+
+    return run, tiles

@@ -98,14 +98,25 @@ class SparseCNN(nn.Module):
         return self
 
     # ----------------------------------------------------------- forward
-    def forward(self, x: torch.Tensor, *, collect_act_stats: bool = False,
+    def forward(self, x: torch.Tensor, *, plan=None, collect_act_stats: bool = False,
                 intermediates: Optional[list] = None):
         """x: (N, H, W, C) fp32 -> logits (N, num_classes).
 
         With ``collect_act_stats`` returns ``(logits, stats)``, one
         :class:`ActStats` per layer, measured on the activation it reads.
-        ``intermediates`` (a list) collects each conv's output.
+        ``intermediates`` (a list) collects each conv's output. ``plan`` (a
+        :class:`~repro_torch.models.plan.ModelPlan` or ``PlanSet`` of this
+        model) serves through the frozen chain after checking that it was
+        built from the model's current state
+        (:class:`~repro_torch.models.plan.StalePlanError` otherwise); the
+        unchecked hot path is ``plan.serve(x)``.
         """
+        if plan is not None:
+            if collect_act_stats or intermediates is not None:
+                raise ValueError("plan serving is the frozen hot path; run without plan= "
+                                 "to collect stats or intermediates")
+            plan.check(self.state())
+            return plan.serve(x)
         layers = self.layers()
         if not collect_act_stats and self._int8_chain_ready(layers):
             return self._apply_int8_resident(layers, x, intermediates)
@@ -156,6 +167,51 @@ class SparseCNN(nn.Module):
                 intermediates.append(x)
         x = x.mean(dim=(1, 2))  # global average pool over the fp32 flush
         return head.quant_serve(x)
+
+    # ------------------------------------------------- frozen serving plans
+    def plan(self, *, batch: int, tune: str = "off", pool=None):
+        """Freeze a serving plan for request batch ``batch`` (port of the
+        reference's ``plan``): the stages ``l0 … l{n-1}`` (each conv on the
+        path :meth:`forward` takes for the current state, the fused int8
+        chain when calibrated), ``gap`` and the head, each with its tensors
+        frozen in. On a card the chain is captured into a CUDA graph at its
+        first ``serve`` of a signature, from ``pool`` (a
+        :class:`~repro_torch.models.plan.GraphPool`; :meth:`plan_set` shares
+        one across its buckets). Only ``tune='off'`` exists (ROADMAP item
+        10)."""
+        from repro_torch.models.plan import PlanBuilder
+
+        layers = self.layers()
+        convs, head = layers[:-1], layers[-1]
+        fused = self._int8_chain_ready(layers)
+        c = self.cfg
+        h = w = c.image_size
+        n = len(convs)
+        pb = PlanBuilder(c.name, self.state(), batch=batch, tune=tune,
+                         sample_spec=((c.image_size, c.image_size, c.in_channels), "float32"),
+                         device=head.w.device, pool=pool)
+        for i, m in enumerate(convs):
+            out_scale = convs[i + 1].aq if fused and i + 1 < n else None
+            pb.stage(f"l{i}", "conv", m.make_plan, batch=batch, h=h, w=w, relu=True,
+                     out_scale=out_scale, fused=fused)
+            h, w = m.out_hw(h, w)
+        pb.raw("gap", "pool", lambda x: x.mean(dim=(1, 2)))
+        pb.stage(f"l{n}", "linear", head.make_plan, batch=batch, fused=fused)
+        return pb.build()
+
+    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, tune: str = "off"):
+        """Freeze a bucketed serving plan set: one :meth:`plan` per
+        batch-size bucket (``make_buckets(max_batch)`` by default), all
+        pinned to the same state and, on a card, sharing one graph memory
+        pool. ``serve`` takes any batch size and, once every bucket is
+        warm, captures nothing new."""
+        from repro_torch.models.plan import GraphPool, build_plan_set, resolve_tune_cache
+
+        resolve_tune_cache(tune)
+        pool = GraphPool() if self.layers()[-1].w.device.type == "cuda" else None
+        return build_plan_set(self.cfg.name, self.state(),
+                              lambda b: self.plan(batch=b, tune=tune, pool=pool),
+                              max_batch=max_batch, buckets=buckets)
 
     # ---------------------------------------------- the paper's technique
     def constrain(self) -> "SparseCNN":

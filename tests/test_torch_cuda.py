@@ -505,3 +505,195 @@ def test_conv_fp32_implicit_gemm_path_matches_plain(card, stride):
     _codes_close(stem_k.im2col_conv(x, wt, out_scale=0.03, **kw),
                  stem_k.im2col_conv_plain(x, wt, out_scale=0.03, **kw))
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------- the flush's NaN and ±inf
+
+
+def _nan_same(got, want, *, exact=True):
+    """NaN where the plain version has NaN, and equal elsewhere (within
+    rtol = atol = 1e-5 for fp32, one code on at most 0.1 % of entries for
+    codes, when not ``exact``: the stem's fp32 summation order)."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.is_floating_point:
+        assert torch.equal(got.isnan(), want.isnan())
+        got, want = got.nan_to_num(0.0), want.nan_to_num(0.0)
+    if exact:
+        assert torch.equal(got, want)
+    elif got.dtype.is_floating_point:
+        torch.testing.assert_close(got, want, **TOL)
+    else:
+        _codes_close(got, want)
+
+
+def _poisoned_rows(rng, f, card, scale=1.0):
+    """A scale row and a bias row of ``f`` entries, each with NaN and ±inf
+    in some columns."""
+    s = (rng.uniform(1.0, 2.0, f) * scale).astype(np.float32)
+    b = rng.normal(size=f).astype(np.float32)
+    s[[1, 2]] = [np.nan, np.inf]
+    b[[3, 4, 5]] = [np.nan, -np.inf, np.inf]
+    return torch.from_numpy(s).to(card), torch.from_numpy(b).to(card)
+
+
+def _flush_cases(scales, bias):
+    """NaN in the bias, in the scale and in the requantize scale, with and
+    without ReLU, fp32 and int8 outputs."""
+    nan_out = torch.full_like(bias, 0.05)
+    nan_out[7] = float("nan")
+    for relu in (False, True):
+        for out_scale in (None, 0.05, nan_out):
+            yield dict(scales=scales, bias=bias, relu=relu, out_scale=out_scale)
+
+
+@pytest.mark.parametrize("mode", ["tc", "bw"])
+def test_flush_nan_compressed_kernels_match_plain(card, mode):
+    """The four compressed kernels' int8 paths at a layer of sparse-cnn-s's
+    shape family: NaN and ±inf in the scale, bias and requantize rows
+    flushed as the plain versions flush them (NaN through ReLU, NaN codes
+    0), exactly."""
+    rng = np.random.default_rng(61 if mode == "tc" else 62)
+    f = 72
+    if mode == "tc":
+        values, idx, fmt = _tc_codes(rng, 72, 3, f)
+    else:
+        values, idx, fmt = _bw_codes(rng, 72, 3, f, None)
+    conv = getattr(conv_k, f"vdbb_im2col_conv_{mode}")
+    conv_plain = getattr(conv_k, f"vdbb_im2col_conv_{mode}_plain")
+    head = getattr(head_k, f"vdbb_matmul_{mode}")
+    head_plain = getattr(head_k, f"vdbb_matmul_{mode}_plain")
+    x = _act_codes(rng, (2, 9, 9, 64), card=card)
+    a = _act_codes(rng, (67, 576), card=card)
+    scales, bias = _poisoned_rows(rng, f, card, scale=1e-4)
+    cargs = (x, values.to(card), idx.to(card), fmt, 3, 3)
+    hargs = (a, values.to(card), idx.to(card), fmt)
+    for kw in _flush_cases(scales, bias):
+        _nan_same(conv(*cargs, **kw, stride=2), conv_plain(*cargs, **kw, stride=2))
+        _nan_same(head(*hargs, **kw), head_plain(*hargs, **kw))
+    torch.cuda.synchronize()
+
+
+def test_flush_nan_stem_matches_plain(card):
+    """The stem's direct conv (fp32) with NaN and ±inf in its flush rows."""
+    rng = np.random.default_rng(63)
+    x = _rng_tensor(rng, 2, 33, 33, 3).to(card)
+    wt = _rng_tensor(rng, 3, 3, 3, 64, scale=0.2).to(card)
+    scales, bias = _poisoned_rows(rng, 64, card)
+    for kw in _flush_cases(scales, bias):
+        _nan_same(stem_k.im2col_conv(x, wt, **kw), stem_k.im2col_conv_plain(x, wt, **kw),
+                  exact=False)
+    torch.cuda.synchronize()
+
+
+# --------------------------------------------- plans on CUDA graphs
+
+
+@pytest.fixture(scope="module", params=["matrix", None], ids=["tc", "bw"])
+def planned(request):
+    """sparse-cnn-s at full width, calibrated on 64 seeded images, with a
+    plan set of buckets 1 … 64 captured at warmup."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels are CUDA C++ and run only there")
+    from repro_torch.launch import serve
+
+    card = torch.device("cuda", 0)
+    with tref.full_fp32():
+        model, x = serve.build_model("sparse-cnn-s", calib_batch=64, device=card,
+                                     pattern=request.param)
+        ps = model.plan_set(max_batch=64)
+        ps.warmup()
+        yield request.param, model, x, ps
+
+
+def test_graph_replay_equals_unplanned_forward(planned):
+    """Each bucket's replay gives the unplanned forward's logits bit for bit
+    (staging moves host work, not arithmetic; no kernel uses atomics), the
+    warmup captured each bucket once, and a replay launches what one
+    forward launches."""
+    pattern, model, x, ps = planned
+    assert ps.buckets == (1, 2, 4, 8, 16, 32, 64) and ps.trace_count == 7
+    n_conv = len(model.layers()) - 1
+    for b in (1, 8, 64):
+        xb = x[:b].contiguous()
+        plan = ps.plans[b]
+        replays = plan.replays
+        with torch.no_grad():
+            want = model(xb)
+        assert torch.equal(plan.serve(xb), want)
+        assert plan.replays == replays + 1
+        launches = plan.graph_launches[(tuple(xb.shape), xb.dtype)]
+        assert launches == _per_forward(pattern, n_conv)
+    ragged = x[:5].contiguous()
+    per = torch.cat([ps.plans[1].serve(ragged[i: i + 1]) for i in range(5)])
+    assert torch.equal(ps.serve(ragged), per)
+    assert np.array_equal(ps.serve(ragged.cpu().numpy()), per.cpu().numpy())
+    torch.cuda.synchronize()
+    assert ps.trace_count == 7
+
+
+def test_graph_replay_on_a_second_thread(planned):
+    """Captured on this thread, replayed on another: the same logits, and
+    no host sync inside a serve of tensors on the card (the sync debug
+    mode raises on one)."""
+    import threading
+
+    _, _, x, ps = planned
+    xb = x[:8].contiguous()
+    want = ps.serve(xb)
+    out = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        t = threading.Thread(target=lambda: out.append(ps.serve(x[:37])))
+        t.start()
+        t.join(60)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not t.is_alive() and torch.equal(out[0][:8], want)
+    t = threading.Thread(target=lambda: out.append(ps.serve(xb.cpu().numpy())))
+    t.start()
+    t.join(60)
+    assert not t.is_alive() and np.array_equal(out[1], want.cpu().numpy())
+    assert ps.trace_count == 7
+
+
+def test_plan_stale_after_requantize_on_card():
+    """A re-quantize in place moves the fingerprint (StalePlanError), while
+    the old graph still replays the tensors it froze."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card and nvcc: the kernels are CUDA C++ and run only there")
+    from repro_torch.launch import serve
+    from repro_torch.models.plan import StalePlanError
+
+    card = torch.device("cuda", 0)
+    model, x = serve.build_model("sparse-cnn-tiny", calib_batch=4, device=card, smoke=True)
+    plan = model.plan(batch=4)
+    before = plan.serve(x)
+    with torch.no_grad():
+        assert torch.equal(before, model(x))
+        _, stats = model(x * 2.0, collect_act_stats=True)
+    model.quantize(stats)
+    with pytest.raises(StalePlanError):
+        plan.check(model.state())
+    with pytest.raises(StalePlanError):
+        model(x, plan=plan)
+    assert torch.equal(plan.serve(x), before)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("calibrated", [False, True])
+def test_per_layer_plan_captures_and_matches_forward(card, calibrated):
+    """A plan of the per-layer chain (a compressed fp32 model, or a
+    quantized one without calibration, whose activation scale is taken per
+    batch on the card) captures and replays the unplanned forward's logits
+    bit for bit."""
+    cfg = smoke_cnn_config("sparse-cnn-tiny")
+    model = SparseCNN(cfg).init(torch.Generator().manual_seed(0), card).compress()
+    if calibrated:
+        model.quantize()
+    x = _rng_tensor(np.random.default_rng(64), 3, 16, 16, 3).to(card)
+    plan = model.plan(batch=3)
+    with torch.no_grad():
+        want = model(x)
+    assert torch.equal(plan.serve(x), want) and plan.trace_count == 1
+    torch.cuda.synchronize()

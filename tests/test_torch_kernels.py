@@ -120,6 +120,51 @@ def test_epilogue_plain_flush_matches_reference():
                                     out_scale=out_scale).numpy(), np.asarray(want))
 
 
+NONFINITE = np.array([np.nan, -np.inf, np.inf, -0.0, 0.0, 1.5, -2.5, 2.5, 1e30, -1e30, 300.0,
+                      -0.2], np.float32)
+
+
+@pytest.mark.parametrize("relu", [False, True])
+@pytest.mark.parametrize("out_scale", [None, 0.5, float("nan")])
+@pytest.mark.parametrize("poison", ["acc", "bias", "scale"])
+def test_epilogue_plain_flush_nonfinite_matches_reference(relu, out_scale, poison):
+    """NaN, ±inf and -0 through the plain flush as the JAX oracle flushes
+    them: NaN passes ReLU, a NaN quotient is code 0, ±inf clips to ±127, -0
+    is 0; in the accumulator (fp32, as the stem's), a bias column or a
+    scale column (NaN, ±inf)."""
+    from repro.kernels import ref as jref
+
+    n = NONFINITE.size
+    acc = np.tile(NONFINITE, (n, 1)) if poison == "acc" else np.tile(NONFINITE[::-1], (n, 1)).T
+    scale = np.ones(n, np.float32)
+    bias = np.zeros(n, np.float32)
+    if poison == "bias":
+        bias = NONFINITE.copy()
+    elif poison == "scale":
+        scale = np.where(np.isfinite(NONFINITE), 0.75, NONFINITE).astype(np.float32)
+    acc = np.ascontiguousarray(acc, np.float32)
+    ep = tcore.epilogue_plan(n, "cpu", scales=_t(scale), bias=_t(bias), relu=relu,
+                             out_scale=out_scale, acc_dtype=torch.float32)
+    got = tcore.apply_epilogue(_t(acc), ep).numpy()
+    want = np.asarray(jref.quant_epilogue_ref(jnp.asarray(acc), jnp.asarray(scale),
+                                              bias=jnp.asarray(bias), relu=relu,
+                                              out_scale=out_scale))
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, want)  # NaN equals NaN, -0 equals 0
+    if out_scale is not None:
+        assert not got[np.isnan(want.astype(np.float32))].any()
+
+
+def test_quantize_maps_nan_to_code_zero():
+    """The head's input quantize: NaN is code 0 and ±inf ±127, as the JAX
+    package's quantize gives them."""
+    from repro.core import quant as jquant
+
+    got = tq.quantize(_t(NONFINITE), 0.5).numpy()
+    np.testing.assert_array_equal(got, np.asarray(jquant.quantize(jnp.asarray(NONFINITE), 0.5)))
+    assert got[0] == 0 and got[1] == -127 and got[2] == 127
+
+
 # ------------------------------------------------------------ vdbb_matmul
 
 

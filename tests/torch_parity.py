@@ -54,6 +54,25 @@ def to_numpy(tree):
     return np.array(tree)
 
 
+def from_numpy(tree):
+    """The inverse of :func:`to_numpy`: a numpy tree (as ``interop.unflatten``
+    gives it) as the JAX package's parameter tree."""
+    from repro.core.vdbb import DBBFormat
+
+    if isinstance(tree, dict) and "values" in tree:
+        group = str(np.asarray(tree["group"]))
+        fmt = DBBFormat(int(np.asarray(tree["bz"])), int(np.asarray(tree["nnz"])),
+                        None if group == "none" else group if group == "matrix" else int(group))
+        shape = tuple(int(s) for s in np.asarray(tree["shape"]).reshape(-1))
+        values, indices = jnp.asarray(tree["values"]), jnp.asarray(tree["indices"])
+        if "scales" in tree:
+            return QuantDBBWeight(values, indices, jnp.asarray(tree["scales"]), fmt, shape)
+        return DBBWeight(values, indices, fmt, shape)
+    if isinstance(tree, dict):
+        return {k: from_numpy(v) for k, v in tree.items()}
+    return jnp.asarray(tree)
+
+
 def chain_config(pattern="matrix"):
     """The chain test's model: sparse-cnn-tiny's smoke config with two convs
     per stage (an int8 -> int8 conv, a stride-2 conv, a head at M = batch);
