@@ -57,7 +57,34 @@ Phases, each of which fails the run:
   6. the flush's NaN and ±inf (NaN and ±inf in the scale and bias rows, a
      NaN requantize scale, with and without ReLU, fp32 and int8 outputs)
      through all five kernels against their plain versions;
-  7. one JSON line of the five kernels (launches, errors, times, bounds).
+  7. the LM serving path, starcoder2-7b at full width (32 layers, d_model
+     4608, 36 query and 4 KV heads, d_ff 18432, vocab 49152):
+     a. the tc matmul's bf16 and int8 instantiations against their plain
+        versions at every projection shape (4608->4608, 4608->512,
+        4608->18432, 18432->4608) at 4 rows (decode) and 1024 (prefill):
+        int8 and int32 exact, bf16 within one bf16 ulp plus the bound on
+        the difference of two fp32 sums of the same products taken in
+        different orders (K_c·2^-24·Σ|a||w|), and at most 0.1 % of the
+        entries beyond one ulp of |plain|; each timed as phase 2 times a layer,
+        beside torch.matmul bf16 on the decoded dense weight or
+        torch._int_mm on the decoded int8 weight;
+     b. greedy generation through ``repro_torch.launch.serve`` with the
+        launch counts at 0 just before: compressed bf16 weights drawn and
+        compressed on the card leaf by leaf (seed 0), batch 4, a 256-token
+        prompt, 32 tokens, every projection on the bf16 kernel; prefill ms,
+        ms per decode step and steps/s beside the decode bound from the
+        bytes a step reads; the logits of 4 decode steps against a fresh
+        forward over the prompt and the tokens fed (relative L2 <= 2e-2);
+        then the dense bf16 baseline (torch.matmul) the same way;
+     c. INT8 prefill through a frozen plan (``serve_lm_plan``, counts at 0
+        just before): calibrate on 4x256 through the bf16 kernel, quantize,
+        ``LM.plan``; its logits equal the unplanned INT8 forward's bit for
+        bit; planned and unplanned timed in turns; captures and a replay's
+        launches;
+     d. the JAX golden fixture tests/data/torch_parity_lm.npz (qwen2-tiny,
+        fp32) through the kernels: the next token equal, prefill and decode
+        logits within 1e-5 relative L2, the quantized forward within 1e-3;
+  8. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -85,6 +112,7 @@ FIXTURES = {"matrix": ROOT / "tests" / "data" / "torch_parity_cnn.npz",
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory
 INT8_OPS_PER_S = 1979e12    # H100 SXM dense int8 tensor-core peak
 FP32_OPS_PER_S = 67e12      # H100 SXM fp32 outside the tensor cores
+BF16_OPS_PER_S = 989e12     # H100 SXM dense bf16 tensor-core peak
 BATCH = 64
 REQUESTS = 8
 REPS = 20
@@ -447,9 +475,9 @@ def log_summary(recs) -> None:
 # launches per forward of each serving path: the other mode's kernels at 0
 PER_FORWARD = {
     "matrix": {"im2col_conv": 1, "vdbb_conv_tc": 7, "vdbb_matmul_tc": 1,
-               "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0},
+               "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0},
     None: {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0,
-           "vdbb_conv_bw": 7, "vdbb_matmul_bw": 1},
+           "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 7, "vdbb_matmul_bw": 1},
 }
 
 
@@ -544,8 +572,8 @@ KERNEL_OF_LOADER = {
     "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw",
                "GatherMux": "vdbb_matmul_tc", "TapMux": "vdbb_conv_tc"},
     "os_gemm": {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
-                "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
-                "Tap": "im2col_conv"},
+                "GatherTap": "vdbb_conv_tc", "GatherColsBf16": "vdbb_matmul_tc_bf16",
+                "GatherCols": "vdbb_matmul_tc", "Tap": "im2col_conv"},
     "direct_conv": {"HaloTile": "im2col_conv"},
 }
 
@@ -584,13 +612,16 @@ def profile_forwards(fn, x, per_forward, reps: int = 4) -> dict:
                 fn(x)
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    spans, dur = [], {}
+    spans, dur, other = [], {}, {}
     for ev in prof.events():
         if ev.device_type != torch.autograd.DeviceType.CUDA:
             continue
         a, b = ev.time_range.start, ev.time_range.end
         spans.append((a, b))
-        dur.setdefault(kernel_family(ev.name), []).append(b - a)
+        fam = kernel_family(ev.name)
+        dur.setdefault(fam, []).append(b - a)
+        if fam == "other":
+            other[ev.name[:80]] = other.get(ev.name[:80], 0.0) + (b - a)
     per = {fam: (sum(d) / len(d) * per_forward[fam] * reps if per_forward.get(fam) else sum(d))
            / reps / 1e3 for fam, d in dur.items()}
     records = {fam: len(d) for fam, d in dur.items()}
@@ -601,8 +632,10 @@ def profile_forwards(fn, x, per_forward, reps: int = 4) -> dict:
         if b > end:
             busy += b - max(a, end)
             end = b
+    top = sorted(other.items(), key=lambda kv: -kv[1])[:5]
     return {"device_ms": busy / reps / 1e3, "wall_ms": wall_us / reps / 1e3,
-            "idle": max(0.0, 1.0 - busy / wall_us), "per_kernel_ms": per, "records": records}
+            "idle": max(0.0, 1.0 - busy / wall_us), "per_kernel_ms": per, "records": records,
+            "top_other_ms": {name: us / reps / 1e3 for name, us in top}}
 
 
 # ---------------------------------------------------------------- phase 4
@@ -956,6 +989,273 @@ def check_nan_flush(cfgs, gen, dev) -> None:
         "(NaN through ReLU, NaN codes 0, ±inf clipped to ±127)")
 
 
+# ---------------------------------------------------------------- phase 7
+
+LM_ARCH = "starcoder2-7b"
+LM_SMOKE = False  # the arch's reduced config (a CPU rehearsal of this phase)
+LM_BATCH, LM_PROMPT, LM_GEN = 4, 256, 32
+LM_KEEP = (0, 10, 20, 30)  # decode steps whose logits meet a fresh forward
+LM_SHAPES = {"wq/wo": (4608, 4608, 2), "wk/wv": (4608, 512, 2), "w_up": (4608, 18432, 1),
+             "w_down": (18432, 4608, 1)}  # (K, N, projections of the shape in a layer)
+LM_ROWS = {"decode": LM_BATCH, "prefill": LM_BATCH * LM_PROMPT}
+LM_FIXTURE = ROOT / "tests" / "data" / "torch_parity_lm.npz"
+
+
+def lm_kernel(k, n, m, dtype, gen, dev, what):
+    """The tc matmul at one starcoder2-7b projection shape and row count, in
+    ``dtype`` (bf16: the generate path; int8: the INT8 plan's), against its
+    plain version; returns the timed record."""
+    from repro_torch.core.quant import quantize_dbb
+    from repro_torch.core.vdbb import DBBFormat, dbb_decode, dbb_encode
+    from repro_torch.kernels import vdbb_matmul as mm
+    from repro_torch.kernels.ref import bf16_reorder_bound, check_bf16
+    from repro_torch.kernels.timing import device_ms
+
+    fmt = DBBFormat(8, 3, "matrix")
+    dw = dbb_encode(rnd(gen, dev, k, n, scale=k ** -0.5), fmt, prune=True)
+    idx = dw.indices[:, :, 0].contiguous()
+    kc = dw.values.shape[0] * dw.values.shape[1]
+    ops_ = 2 * m * kc * n
+    if dtype == torch.bfloat16:
+        a, vals = rnd(gen, dev, m, k).bfloat16(), dw.values.bfloat16().contiguous()
+        run = lambda: mm.vdbb_matmul_tc(a, vals, idx, fmt)  # noqa: E731
+        plain = lambda: mm.vdbb_matmul_tc_plain(a, vals, idx, fmt)  # noqa: E731
+        order = bf16_reorder_bound(a, vals, idx, fmt.bz)
+        err, beyond = check_bf16(run(), plain(), order, f"{what} bf16")
+        wd = dbb_decode(dw).bfloat16().contiguous()
+        library = lambda: a @ wd  # noqa: E731
+        lib_call = "torch.matmul bf16 on the decoded dense weight"
+        b_ms, b_by = bound(nbytes(a, vals, idx, run()), ops_, BF16_OPS_PER_S)
+        rec = dict(err=err, beyond_plain_ulp=beyond, cuda_core_bound_ms=ops_ / FP32_OPS_PER_S * 1e3)
+    else:
+        qw = quantize_dbb(dw)
+        a, vals = codes(gen, dev, m, k), qw.values
+        scales = dequant_scales(gen, dev, n, kc)
+        run = lambda: mm.vdbb_matmul_tc(a, vals, idx, fmt, scales=scales)  # noqa: E731
+        plain = lambda: mm.vdbb_matmul_tc_plain(a, vals, idx, fmt, scales=scales)  # noqa: E731
+        check_exact(run(), plain(), f"{what} int8 (fp32 dequant)")
+        check_exact(mm.vdbb_matmul_tc(a, vals, idx, fmt), mm.vdbb_matmul_tc_plain(a, vals, idx, fmt),
+                    f"{what} int8 (int32)")
+        wq = dbb_decode(qw.as_dbb()).contiguous()
+        library, lib_call = (lambda: torch._int_mm(a, wq)), "torch._int_mm on the decoded int8 weight"  # noqa: E731
+        try:
+            library()
+        except RuntimeError as e:  # the yardstick only: e.g. too few rows for _int_mm
+            library, lib_call = None, f"none: torch._int_mm refused ({str(e).splitlines()[0]})"
+        b_ms, b_by = bound(nbytes(a, vals, idx, scales, run()), ops_, INT8_OPS_PER_S)
+        rec = dict(err=0.0)
+    from repro_torch.kernels.timing import event_ms
+
+    rec.update(ms=event_ms(run, REPS), plain_ms=event_ms(plain, REPS),
+               device_ms=device_ms(run, keep=port_kernel), bound_ms=b_ms, bound_by=b_by,
+               ops=ops_, library_call=lib_call,
+               library_ms=None if library is None else event_ms(library, REPS),
+               library_device_ms=None if library is None else device_ms(library))
+    return rec
+
+
+def lm_kernels(gen, dev) -> dict:
+    """Phase 7a: {dtype name: {(shape, rows): record}}."""
+    out = {"bf16": {}, "int8": {}}
+    log(f"[lm kernels] shape              rows  dtype  ms        device_ms  plain_ms  "
+        f"library_ms  lib_dev_ms  bound_ms (by)")
+    for name, (k, n, _) in LM_SHAPES.items():
+        for phase, m in LM_ROWS.items():
+            for key, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+                r = lm_kernel(k, n, m, dtype, gen, dev, f"{name} {k}->{n} at M={m}")
+                out[key][(name, phase)] = r
+
+                def ms(v):
+                    return "None" if v is None else f"{v:.4f}"
+
+                log(f"[lm kernels] {name:<7s} {k:>5d}->{n:<5d}  {m:<5d} {key:<6s} {r['ms']:<9.4f} "
+                    f"{ms(r['device_ms']):<10s} {r['plain_ms']:<9.4f} {ms(r['library_ms']):<11s} "
+                    f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
+                    + (f"; CUDA-core bound {r['cuda_core_bound_ms']:.4f}; max diff {r['err']:.3g}, "
+                       f"{r['beyond_plain_ulp']} entries beyond one ulp of |plain|"
+                       if key == "bf16" else "") + f"  [{r['library_call']}]")
+    for key in out:
+        for phase in LM_ROWS:
+            per_layer = {f: sum(out[key][(s, phase)][f] * LM_SHAPES[s][2] for s in LM_SHAPES)
+                         for f in ("device_ms", "bound_ms")}
+            lib = [out[key][(s, phase)]["library_device_ms"] for s in LM_SHAPES]
+            per_layer["library_device_ms"] = (None if None in lib else
+                                              sum(v * LM_SHAPES[s][2] for s, v in zip(LM_SHAPES, lib)))
+            lib_ms = per_layer["library_device_ms"]
+            log(f"[lm kernels] {key} {phase}: one layer's six projections, device "
+                f"{per_layer['device_ms']:.4f} ms, library "
+                f"{'None' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+                f"bound {per_layer['bound_ms']:.5f} ms; x32 layers {per_layer['device_ms'] * 32:.3f} ms")
+    return out
+
+
+def tensor_bytes(tree, skip=()) -> int:
+    """Bytes of every tensor in a parameter tree (compressed values and
+    positions included), leaving out the top-level keys in ``skip``."""
+    total = 0
+    for k, v in tree.items():
+        if k in skip:
+            continue
+        if isinstance(v, dict):
+            total += tensor_bytes(v)
+        elif isinstance(v, torch.Tensor):
+            total += v.numel() * v.element_size()
+        else:
+            total += sum(t.numel() * t.element_size() for t in
+                         (v.values, v.indices, getattr(v, "scales", None)) if t is not None)
+    return total
+
+
+def projections(model) -> int:
+    """The compressed projections one forward runs: each DBB leaf once per
+    layer group it is stacked over."""
+    from repro_torch.models.common import dbb_leaves
+
+    return sum(model.cfg.num_groups if path[0] == "layers" else 1
+               for path, _ in dbb_leaves(model.defs()))
+
+
+def decode_bound(model) -> tuple:
+    """The least time a decode step could take, from the bytes it must read:
+    every weight but the embedding table (of which it reads B rows), and the
+    KV cache at its full length. Returns (ms, bytes)."""
+    c = model.cfg
+    weights = tensor_bytes(model.state(), skip=("embed",)) + LM_BATCH * c.d_model * 2
+    cache = 2 * c.num_layers * LM_BATCH * (LM_PROMPT + LM_GEN) * c.num_kv_heads * c.hd * 2
+    return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights + cache
+
+
+def lm_generate(dev) -> dict:
+    """Phase 7b: full-width generation, compressed then dense. Returns the
+    record: the compressed run's launches and both runs' times and bounds."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    out = {}
+    for dense in (False, True):
+        label = "dense" if dense else "compressed"
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        build.reset_launches()
+        rec = serve.serve_lm(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, device=dev,
+                             seed=0, dense=dense, smoke=LM_SMOKE, keep=LM_KEEP, log=log)
+        counts = build.launch_counts()
+        model = rec["model"]
+        c = model.cfg
+        toks = rec["tokens"]
+        if toks.shape != (LM_BATCH, LM_GEN) or int(toks.min()) < 0 or int(toks.max()) >= c.padded_vocab:
+            raise AssertionError(f"{label}: generated tokens {tuple(toks.shape)} out of range")
+        # every prefill and decode step generate ran (timed, warm-ups and the
+        # one whose outputs it keeps), each through every projection
+        want = 0 if dense else projections(model) * sum(rec["forwards"].values())
+        if counts["vdbb_matmul_tc_bf16"] != want or any(
+                n for k, n in counts.items() if k != "vdbb_matmul_tc_bf16"):
+            raise AssertionError(f"{label}: launches {counts}, want {want} of the bf16 tc matmul")
+        errs = {}
+        with torch.no_grad():
+            for i, lg in rec["logits"].items():
+                if not bool(torch.isfinite(lg).all()):
+                    raise AssertionError(f"{label}: decode step {i} logits not finite")
+                fresh = model.forward(torch.cat([rec["prompt"], toks[:, : i + 1]], dim=1))[:, -1:]
+                errs[i] = rel_l2(lg, fresh)
+                if errs[i] > 2e-2:
+                    raise AssertionError(f"{label}: decode step {i} logits rel L2 {errs[i]} > 2e-2 "
+                                         "against a fresh forward")
+        b_ms, b_bytes = decode_bound(model)
+        # where a decode step's time goes: the device's busy and idle share
+        # over 4 steps at the last position of a full-length cache, and each
+        # kernel's share
+        cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
+        last = toks[:, -1:]
+        per_step = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model)}
+        prof = profile_forwards(lambda t: model.decode_step(cache, t, LM_PROMPT + LM_GEN - 1),
+                                last, per_step)
+        # and of a prefill: the projections against the rest (attention,
+        # norms, the dense head)
+        prefill_prof = profile_forwards(model.forward, rec["prompt"], per_step, reps=2)
+        out[label] = dict(prefill_ms=rec["prefill_ms"], ms_per_step=rec["ms_per_step"],
+                          steps_per_s=rec["steps_per_s"], decode_bound_ms=b_ms,
+                          decode_bytes=b_bytes, consistency_rel_l2=errs, launches=counts,
+                          decode_profile=prof, prefill_profile=prefill_prof,
+                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          seconds=time.time() - t0)
+        log(f"[lm generate] {label}: prefill {rec['prefill_ms']:.3f} ms, {rec['ms_per_step']:.3f} ms "
+            f"per decode step ({rec['steps_per_s']:.2f} steps/s) against the decode bound "
+            f"{b_ms:.3f} ms ({b_bytes / 1e9:.3f} GB a step at 3.35 TB/s); decode logits against "
+            f"fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}; "
+            f"launches {counts}; peak {out[label]['peak_gb']:.2f} GB ({time.time() - t0:.1f} s)")
+        log(f"[profile] {label} decode step: {json.dumps(prof)}")
+        log(f"[profile] {label} prefill: {json.dumps(prefill_prof)}")
+        del rec, model, cache
+    return out
+
+
+def lm_plan(dev) -> dict:
+    """Phase 7c: the INT8 prefill plan at full width."""
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    build.reset_launches()
+    rec = serve.serve_lm_plan(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, steps=5, device=dev,
+                              seed=0, smoke=LM_SMOKE, log=log)
+    counts = build.launch_counts()
+    if not rec["bit_identical"]:
+        raise AssertionError("the INT8 plan's logits differ from the unplanned forward's")
+    replay = next(iter(rec["graph_launches"].values()))
+    if rec["captures"] != 1 or replay.get("vdbb_matmul_tc") != projections(rec["model"]) or any(
+            n for k, n in replay.items() if k != "vdbb_matmul_tc"):
+        raise AssertionError(f"plan: {rec['captures']} captures, a replay launches {replay}")
+    if not counts["vdbb_matmul_tc"] or not counts["vdbb_matmul_tc_bf16"]:
+        raise AssertionError(f"plan path launches {counts}: the calibration runs the bf16 kernel, "
+                             "the INT8 forward the int8 one")
+    logits = rec["logits"]
+    if logits.shape != (LM_BATCH, LM_PROMPT, rec["model"].cfg.padded_vocab) or not bool(
+            torch.isfinite(logits).all()):
+        raise AssertionError(f"plan logits {tuple(logits.shape)} not finite")
+    out = dict(timing=rec["timing"], captures=rec["captures"], replay_launches=replay,
+               launches=counts, seconds=time.time() - t0)
+    log(f"[lm plan] bit-identical to the unplanned INT8 forward; {rec['captures']} capture; a replay "
+        f"launches {replay}; launches counted (calibration, capture, unplanned calls) {counts}; "
+        f"in turns (unplanned, planned, planned, unplanned), ms per prefill "
+        f"{json.dumps(rec['timing'])} ({time.time() - t0:.1f} s)")
+    del rec
+    return out
+
+
+def lm_golden(dev) -> None:
+    """Phase 7d: the JAX reference's qwen2-tiny fixture through the kernels."""
+    import numpy as np
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.act_sparsity import ActStats
+    from repro_torch.interop import params_from_numpy, unflatten
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LM
+
+    with np.load(LM_FIXTURE) as z:
+        g = unflatten(z)
+    model = LM(get_config("qwen2-tiny")).load_params(params_from_numpy(g["params"], dev))
+    tokens = torch.as_tensor(g["tokens"]).to(dev)
+    rec = serve.generate(model, {"tokens": tokens}, gen_len=2, max_len=tokens.shape[1] + 1,
+                         keep=(0,))
+    if not torch.equal(rec["tokens"][:, :1].cpu(), torch.as_tensor(g["next"])):
+        raise AssertionError("LM fixture: the greedy next token differs from JAX's")
+    with torch.no_grad():
+        pre = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["prefill"]).to(dev))
+        dec = rel_l2(rec["logits"][0], torch.as_tensor(g["decode"]).to(dev))
+        model.quantize([ActStats(name=str(n), absmax=float(a))
+                        for n, a in zip(g["stats"]["names"], g["stats"]["absmax"])])
+        qnt = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["quant"]).to(dev))
+    if pre > 1e-5 or dec > 1e-5 or qnt > 1e-3:
+        raise AssertionError(f"LM fixture: prefill {pre}, decode {dec} (<= 1e-5), quantized {qnt} "
+                             "(<= 1e-3) rel L2 against JAX")
+    log(f"[golden] JAX LM fixture (qwen2-tiny, fp32): next token equal; rel L2 prefill {pre:.3e}, "
+        f"decode {dec:.3e}, quantized forward {qnt:.3e}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -973,6 +1273,11 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
 
     t0 = time.time()
+    phase_s = {}
+
+    def phase_done(name):
+        phase_s[name] = round(time.time() - t0 - sum(phase_s.values()), 1)
+
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True).stdout.strip().splitlines()[0]
@@ -994,9 +1299,11 @@ def main() -> int:
     patterns = ("matrix", None)  # shared across the outputs (tc), per column (bw)
     cfgs = {p: get_cnn_config("sparse-cnn-s", pattern=p) for p in patterns}
     gen = torch.Generator().manual_seed(1)
+    phase_done("1 build")
     recs = check_kernels(cfgs, gen, dev)
     log(f"[kernels] every kernel matches its plain version ({time.time() - t0:.1f} s)")
     log_summary(recs)
+    phase_done("2 kernels")
 
     # each serving path with the counts at 0 just before it; a kernel's
     # launches are those of the first path that runs it
@@ -1012,21 +1319,42 @@ def main() -> int:
             prof = profile_forwards(model, x[:b].contiguous(), PER_FORWARD[pattern])
             log(f"[profile] pattern={pattern} batch {b}: per forward {json.dumps(prof)}")
         del model, x
+    phase_done("3 serve")
 
     for pattern in patterns:
         golden(dev, pattern)
+    phase_done("4 golden")
 
     planned = {str(p): planned_path(dev, p) for p in patterns}
+    phase_done("5 plans and server")
     check_nan_flush(cfgs, gen, dev)
+    phase_done("6 NaN flush")
+
+    lm_recs = lm_kernels(gen, dev)
+    recs["vdbb_matmul_tc_bf16"] = list(lm_recs["bf16"].values())
+    phase_done("7a LM kernels")
+    lm_gen = lm_generate(dev)
+    counts["vdbb_matmul_tc_bf16"] = lm_gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"]
+    phase_done("7b LM generate")
+    lm_planned = lm_plan(dev)
+    phase_done("7c LM plan")
+    lm_golden(dev)
+    phase_done("7d LM golden")
 
     line = []
     conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
     head_library = "torch._int_mm on the decoded int8 weight"
     library_call = {"im2col_conv": "F.conv2d fp32 (TF32 off)",
                     "vdbb_conv_tc": conv_library, "vdbb_matmul_tc": head_library,
+                    "vdbb_matmul_tc_bf16": "torch.matmul bf16 on the decoded dense weight",
                     "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library}
+
+    def total(rs, key):
+        vals = [r[key] for r in rs]
+        return None if None in vals else sum(vals)
+
     for name, rs in recs.items():
-        k = build.KERNELS[name]
+        k = build.kernel_of(name)
         line.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{k.source}",
@@ -1037,18 +1365,33 @@ def main() -> int:
                           else sum(r["device_ms"] for r in rs)),
             "bound_ms": sum(r["bound_ms"] for r in rs),
             "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": sum(r["library_ms"] for r in rs),
-            "library_device_ms": (None if any(r["library_device_ms"] is None for r in rs)
-                                  else sum(r["library_device_ms"] for r in rs)),
+            "library_ms": total(rs, "library_ms"),
+            "library_device_ms": total(rs, "library_device_ms"),
             "library_call": library_call[name], "layers": len(rs),
             "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
         })
+        if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
+            line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
+                            main_path="LM generate (phase 7b)")
+        if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
+            lm8 = list(lm_recs["int8"].values())
+            line[-1]["lm"] = {
+                "shapes": [f"{s}:{p}" for s, p in lm_recs["int8"]],
+                "launches": lm_planned["launches"]["vdbb_matmul_tc"],
+                "max_abs_err": 0.0, "ms": total(lm8, "ms"), "plain_ms": total(lm8, "plain_ms"),
+                "device_ms": total(lm8, "device_ms"), "bound_ms": total(lm8, "bound_ms"),
+                "library_ms": total(lm8, "library_ms"),
+                "library_device_ms": total(lm8, "library_device_ms"),
+                "graph_replay_launches_per_prefill": lm_planned["replay_launches"]["vdbb_matmul_tc"]}
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
     log(f"[server] per pattern, switch interval 0.5 ms: "
         f"{json.dumps({p: r['server_fast_switch'] for p, r in planned.items()})}")
-    log(f"[done] {time.time() - t0:.1f} s")
+    log(f"[lm] generate: {json.dumps(lm_gen)}")
+    log(f"[lm] plan: {json.dumps(lm_planned, default=str)}")
+    log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
+    log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

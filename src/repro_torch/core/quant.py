@@ -32,8 +32,9 @@ def as_f32(v, device) -> torch.Tensor:
 
 
 def weight_scales(values: torch.Tensor) -> torch.Tensor:
-    """Per-output-channel symmetric scales from compressed (nb, nnz, N)."""
-    amax = values.float().abs().amax(dim=(0, 1))
+    """Per-output-channel symmetric scales from compressed (nb, nnz, N), or
+    (L, N) from stacked (L, nb, nnz, N)."""
+    amax = values.float().abs().amax(dim=(-3, -2))
     return amax.clamp_min(1e-12) / as_f32(QMAX, amax.device)
 
 
@@ -81,7 +82,9 @@ def act_scale_from_stats(stats) -> float:
 @dataclasses.dataclass
 class QuantDBBWeight:
     """INT8-quantized compressed DBB weight: int8 (nb, nnz, N) values, the
-    unchanged int8 positions, (N,) fp32 per-channel scales."""
+    unchanged int8 positions, (N,) fp32 per-channel scales. Stacked (a
+    leading layers axis, as :class:`DBBWeight`): values (L, nb, nnz, N),
+    scales (L, N); ``qw[g]`` is group ``g``'s weight."""
 
     values: torch.Tensor
     indices: torch.Tensor
@@ -96,6 +99,12 @@ class QuantDBBWeight:
     @property
     def device(self):
         return self.values.device
+
+    def __getitem__(self, g) -> "QuantDBBWeight":
+        if self.values.dim() != 4:
+            raise TypeError("only a stacked QuantDBBWeight (a leading layers axis) is indexed")
+        return dataclasses.replace(self, values=self.values[g], indices=self.indices[g],
+                                   scales=self.scales[g])
 
     def as_dbb(self) -> DBBWeight:
         """The int8 compressed weight viewed as a plain DBBWeight."""
@@ -112,17 +121,18 @@ class QuantDBBWeight:
 
 
 def quantize_dbb(dw: DBBWeight) -> QuantDBBWeight:
-    """Symmetric per-output-channel quantization of a compressed weight."""
+    """Symmetric per-output-channel quantization of a compressed weight,
+    stacked or not."""
     if not dw.values.dtype.is_floating_point:
         raise ValueError(f"weight already integer: {dw.values.dtype}")
     scales = weight_scales(dw.values)
-    qvals = quantize(dw.values, scales[None, None, :])
+    qvals = quantize(dw.values, scales[..., None, None, :])
     return QuantDBBWeight(qvals, dw.indices, scales, dw.fmt, dw.shape)
 
 
 def dequantize_dbb(qw: QuantDBBWeight) -> DBBWeight:
     """fp32 DBBWeight carrying the (lossy) round-tripped values."""
-    return DBBWeight(dequantize(qw.values, qw.scales[None, None, :]),
+    return DBBWeight(dequantize(qw.values, qw.scales[..., None, None, :]),
                      qw.indices, qw.fmt, qw.shape)
 
 

@@ -116,6 +116,11 @@ class DBBWeight:
     values: (nb, nnz, N), zero-padded where a block holds fewer non-zeros;
     indices: (nb, nnz, NG) int8 intra-block positions, ascending;
     fmt / shape: the static format and the dense (K, N) shape.
+
+    A stacked weight (an LM's layer groups, the reference's ``jax.vmap`` of
+    ``dbb_encode``) carries a leading axis on both arrays, values (L, nb,
+    nnz, N) and indices (L, nb, nnz, NG), and the same (K, N) ``shape``;
+    ``w[g]`` is the weight of group ``g`` (views, no copy).
     """
 
     values: torch.Tensor
@@ -131,13 +136,19 @@ class DBBWeight:
     def device(self):
         return self.values.device
 
+    def __getitem__(self, g) -> "DBBWeight":
+        if self.values.dim() != 4:
+            raise TypeError("only a stacked DBBWeight (a leading layers axis) is indexed")
+        return dataclasses.replace(self, values=self.values[g], indices=self.indices[g])
+
     def nbytes_compressed(self) -> int:
         """Stored bytes: values + bitmask (bz bits per block and group)."""
-        nb, _, ng = self.indices.shape
-        return self.values.numel() * self.values.element_size() + nb * ng * self.fmt.bz // 8
+        mask_bits = self.indices[..., 0, :].numel() * self.fmt.bz
+        return self.values.numel() * self.values.element_size() + mask_bits // 8
 
     def nbytes_dense(self) -> int:
-        return self.shape[0] * self.shape[1] * self.values.element_size()
+        stack = self.values.shape[0] if self.values.dim() == 4 else 1
+        return stack * self.shape[0] * self.shape[1] * self.values.element_size()
 
     def to(self, device) -> "DBBWeight":
         return dataclasses.replace(self, values=self.values.to(device),
@@ -146,7 +157,12 @@ class DBBWeight:
 
 def dbb_encode(w: torch.Tensor, fmt: DBBFormat, *, prune: bool = False) -> DBBWeight:
     """Compress a DBB-constrained dense (K, N) matrix (magnitude-pruned to
-    the constraint first when ``prune``)."""
+    the constraint first when ``prune``). A stacked (L, K, N) matrix is
+    encoded layer by layer into a stacked weight."""
+    if w.dim() == 3:
+        parts = [dbb_encode(wl, fmt, prune=prune) for wl in w]
+        return DBBWeight(torch.stack([p.values for p in parts]),
+                         torch.stack([p.indices for p in parts]), fmt, parts[0].shape)
     k, n = w.shape
     _check_blockable(k, fmt)
     if prune:

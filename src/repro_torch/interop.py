@@ -1,10 +1,15 @@
 """Parameters from the JAX reference, as numpy arrays, into the port's state.
 
-A parameter tree is nested dicts of numpy arrays: ``{"l{i}": {"w", "b",
-"aq"}}``. A compressed weight arrives as a dict ``{values, indices[,
+A parameter tree is nested dicts of numpy arrays: the CNN's ``{"l{i}":
+{"w", "b", "aq"}}`` or the LM's (``embed``, ``layers`` stacked over layer
+groups, ``tail``, ``final_norm``, ``lm_head`` and the ``<leaf>_aq``
+siblings). A compressed weight arrives as a dict ``{values, indices[,
 scales], bz, nnz, group, shape}`` (``scales`` makes it a
-:class:`QuantDBBWeight`); ``group`` is None, ``'matrix'`` or an int, or the
-strings ``'none'`` / ``'<int>'`` as an ``.npz`` file stores them.
+:class:`QuantDBBWeight`), stacked or not (a leading layers axis on
+``values``, ``indices`` and ``scales``); ``group`` is None, ``'matrix'`` or
+an int, or the strings ``'none'`` / ``'<int>'`` as an ``.npz`` file stores
+them. numpy has no bf16, so a bf16 array travels as its raw bits: a dict
+``{"bf16": uint16 array}`` (:func:`bf16_bits`), read back bit for bit.
 
 ``flatten`` / ``unflatten`` map a tree to and from the ``'/'``-joined keys of
 an ``.npz`` archive. Nothing here imports JAX.
@@ -29,23 +34,36 @@ def _group(v):
     return int(v)
 
 
+def bf16_bits(bits) -> dict:
+    """A bf16 array as this module carries it: its raw bits as uint16."""
+    return {"bf16": np.asarray(bits).view(np.uint16)}
+
+
+def _tensor(v, device):
+    if isinstance(v, dict) and set(v) == {"bf16"}:
+        bits = np.ascontiguousarray(np.asarray(v["bf16"]).view(np.int16))
+        return torch.from_numpy(bits).view(torch.bfloat16).to(device)
+    return torch.from_numpy(np.array(v)).to(device)
+
+
 def _leaf(v, device):
     if isinstance(v, dict) and "values" in v:
         fmt = DBBFormat(int(np.asarray(v["bz"])), int(np.asarray(v["nnz"])), _group(v.get("group")))
         shape = tuple(int(s) for s in np.asarray(v["shape"]).reshape(-1))
-        values = torch.from_numpy(np.array(v["values"])).to(device)
+        values = _tensor(v["values"], device)
         indices = torch.from_numpy(np.array(v["indices"], np.int8)).to(device)
         if "scales" in v:
             scales = torch.from_numpy(np.array(v["scales"], np.float32)).to(device)
             return QuantDBBWeight(values, indices, scales, fmt, shape)
         return DBBWeight(values, indices, fmt, shape)
-    if isinstance(v, dict):
+    if isinstance(v, dict) and set(v) != {"bf16"}:
         return {k: _leaf(x, device) for k, x in v.items()}
-    return torch.from_numpy(np.array(v)).to(device)
+    return _tensor(v, device)
 
 
 def params_from_numpy(tree: dict, device) -> dict:
-    """The port's state (``SparseCNN.load_state``'s argument) on ``device``."""
+    """The port's state (``SparseCNN.load_state``'s or ``LM.load_params``'s
+    argument) on ``device``."""
     return {k: _leaf(v, torch.device(device)) for k, v in tree.items()}
 
 

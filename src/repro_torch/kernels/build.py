@@ -9,7 +9,9 @@ change to a source rebuilds it. Nothing here runs at import.
 
 A :class:`CudaKernel` is one entry point. Its wrapper in the kernel module
 checks the operands and calls :meth:`CudaKernel.launch`, which raises on a
-nonzero ``cudaGetLastError`` and counts the launch.
+nonzero ``cudaGetLastError`` and counts the launch, under the operand
+variant the wrapper names (the tc matmul's bf16 instantiation counts as
+``vdbb_matmul_tc_bf16``).
 """
 from __future__ import annotations
 
@@ -93,12 +95,14 @@ def build_all(sources=SOURCES) -> dict:
 
 class CudaKernel:
     """One ``extern "C"`` entry point of a source in ``csrc/``: it returns the
-    ``cudaError_t`` of its launch. ``launches`` counts successful launches."""
+    ``cudaError_t`` of its launch. ``counts`` holds its successful launches
+    per operand variant: ``""`` counts under the entry's own name, each of
+    ``variants`` (e.g. ``"bf16"``) under ``<name>_<variant>``."""
 
-    def __init__(self, name: str, source: str, argtypes, *, replaces: str):
+    def __init__(self, name: str, source: str, argtypes, *, replaces: str, variants=()):
         self.name, self.source, self.replaces = name, source, replaces
         self.argtypes = list(argtypes)
-        self.launches = 0
+        self.counts = dict.fromkeys(("",) + tuple(variants), 0)
         self._lib = None
         self._fn = None
         KERNELS[name] = self
@@ -112,26 +116,38 @@ class CudaKernel:
             self._fn = fn
         return self._fn
 
-    def launch(self, *args) -> None:
+    def counted_name(self, variant: str = "") -> str:
+        return f"{self.name}_{variant}" if variant else self.name
+
+    def launch(self, *args, variant: str = "") -> None:
         err = self._entry()(*args)
         if err != 0:
-            raise RuntimeError(f"{self.name}: CUDA error {err} at launch")
-        self.launches += 1
+            raise RuntimeError(f"{self.counted_name(variant)}: CUDA error {err} at launch")
+        self.counts[variant] += 1
 
 
 def reset_launches() -> None:
     for k in KERNELS.values():
-        k.launches = 0
+        k.counts = dict.fromkeys(k.counts, 0)
 
 
 def launch_counts() -> dict:
-    return {name: k.launches for name, k in KERNELS.items()}
+    """{counted name: launches}, one entry per kernel and operand variant."""
+    return {k.counted_name(v): n for k in KERNELS.values() for v, n in k.counts.items()}
+
+
+def kernel_of(counted: str) -> CudaKernel:
+    """The entry point a :func:`launch_counts` name counts launches of."""
+    for k in KERNELS.values():
+        if any(k.counted_name(v) == counted for v in k.counts):
+            return k
+    raise KeyError(counted)
 
 
 # --- helpers the wrappers share -------------------------------------------
 
-_IN_KIND = {torch.int8: 0, torch.float32: 1}
-_OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.int8: 2}
+_IN_KIND = {torch.int8: 0, torch.float32: 1, torch.bfloat16: 2}
+_OUT_KIND = {torch.int32: 0, torch.float32: 1, torch.int8: 2, torch.bfloat16: 3}
 
 
 def pointer(t):
@@ -142,12 +158,14 @@ def stream_of(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def check_operands(name: str, *tensors, dtype) -> int:
+def check_operands(name: str, *tensors, dtype, bf16: bool = False) -> int:
     """Validate what the kernel takes: CUDA, one device, contiguous, int8 or
-    fp32 operands of ``dtype`` (int8 positions pass with their own dtype).
-    Returns the operand kind code."""
-    if dtype not in _IN_KIND:
-        raise TypeError(f"{name}: operands must be int8 or float32, got {dtype}")
+    fp32 operands of ``dtype`` (int8 positions pass with their own dtype),
+    or bf16 where the kernel has that instantiation (``bf16``). Returns the
+    operand kind code."""
+    kinds = (torch.int8, torch.float32) + ((torch.bfloat16,) if bf16 else ())
+    if dtype not in kinds:
+        raise TypeError(f"{name}: operands must be one of {kinds}, got {dtype}")
     dev = tensors[0].device
     for t in tensors:
         if t is None:

@@ -104,9 +104,10 @@ class Epilogue:
 
 
 def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
-                  out_scale=None, acc_dtype) -> Epilogue:
+                  out_scale=None, acc_dtype, in_dtype=None) -> Epilogue:
     """Rows broadcast to (n,) fp32 on ``device`` (a scalar ``out_scale``
-    broadcasts across N), and the output dtype: int8 when requantizing, fp32
+    broadcasts across N), and the output dtype: int8 when requantizing, else
+    bf16 for bf16 operands (``in_dtype``; the fp32 sum rounded once), fp32
     when a scale or bias touches the accumulator, else the raw accumulator
     dtype."""
 
@@ -118,6 +119,8 @@ def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
 
     if out_scale is not None:
         out_dtype = torch.int8
+    elif in_dtype == torch.bfloat16:
+        out_dtype = torch.bfloat16
     elif scales is not None or bias is not None:
         out_dtype = torch.float32
     else:

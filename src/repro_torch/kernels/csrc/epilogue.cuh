@@ -12,6 +12,7 @@
 #include <cstdint>
 #include <type_traits>
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 struct EpilogueArgs {
@@ -25,7 +26,8 @@ __device__ __forceinline__ float acc_to_float(int32_t v) { return __int2float_rn
 __device__ __forceinline__ float acc_to_float(float v) { return v; }
 
 // Out is int32_t only for the raw integer accumulator (ReLU at most), float
-// when a scale or bias moves the tile to fp32, int8_t when requantizing.
+// when a scale or bias moves the tile to fp32, int8_t when requantizing,
+// __nv_bfloat16 for bf16 operands (rounded once, to nearest even).
 template <typename Acc, typename Out>
 __device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs& ep) {
   if constexpr (std::is_same<Out, int32_t>::value) {
@@ -49,6 +51,8 @@ __device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs
       // a NaN, undefined) never see one
       q = q != q ? 0.0f : fminf(fmaxf(q, -127.0f), 127.0f);
       return static_cast<int8_t>(q);
+    } else if constexpr (std::is_same<Out, __nv_bfloat16>::value) {
+      return __float2bfloat16_rn(y);
     } else {
       return y;
     }

@@ -39,11 +39,13 @@ def full_fp32():
 
 def acc_matmul(a, b):
     """A product in the kernels' accumulator type: exact int32 for integer
-    operands, full fp32 otherwise."""
+    operands, full fp32 otherwise. bf16 operands are widened first (each
+    product is then exact in fp32, as in the kernel), so the result is the
+    fp32 sum on every device, never a bf16 product."""
     if not a.dtype.is_floating_point:
         return int_matmul_ref(a, b)
     with full_fp32():
-        return a @ b.to(a.dtype)
+        return a.float() @ b.to(a.dtype).float()
 
 
 def decode_values(values, indices, fmt):
@@ -130,3 +132,50 @@ def sparse_conv_int_ref(x, dw, kh, kw, *, stride=1, padding="SAME"):
     n, ho, wo, kk = cols.shape
     acc = int_matmul_ref(cols.reshape(-1, kk), dbb_decode(dw))
     return acc.reshape(n, ho, wo, -1)
+
+
+# ---------------------------------------------------------------------------
+# bf16 agreement of the kernel and its plain version
+# ---------------------------------------------------------------------------
+
+
+def bf16_ulp(x):
+    """One bf16 ulp at each |x| (the subnormal step at 0)."""
+    _, e = torch.frexp(x.float().abs())
+    return torch.ldexp(torch.ones_like(x, dtype=torch.float32), (e - 8).clamp_min(-133))
+
+
+def bf16_reorder_bound(a, values, indices, bz):
+    """The bound on the difference of two fp32 sums of the same K_c exact
+    products of a bf16 tc matmul (A (M, K), ``values`` (nb, nnz, N),
+    ``indices`` (nb, nnz)) taken in different orders: K_c·2^-24·Σ|a||w|."""
+    from repro_torch.core.vdbb import gather_compressed
+
+    kc, n = values.shape[0] * values.shape[1], values.shape[-1]
+    return (gather_compressed(a.float().abs(), indices, bz)
+            @ values.float().abs().reshape(kc, n)) * (kc * 2.0**-24)
+
+
+def check_bf16(got, want, order, what: str = "bf16") -> tuple:
+    """Raise ``AssertionError`` unless every entry of ``got`` lies within one
+    bf16 ulp (of the larger of the two values) plus ``order`` of ``want``:
+    the kernel and its plain version sum the same exact products in
+    different orders, so their fp32 values before the final rounding differ
+    by at most ``order``, and each rounding moves a value by at most half an
+    ulp. That bound is loose at a large K, so at most 0.1 % of the entries
+    may lie beyond one ulp of |want| alone (near zero, where the sums' order
+    sets the leading bits). Returns (the largest difference, the entries
+    beyond one ulp of |want|)."""
+    if got.dtype != torch.bfloat16 or want.dtype != torch.bfloat16 or got.shape != want.shape:
+        raise AssertionError(f"{what}: {got.dtype} {tuple(got.shape)} against the plain "
+                             f"version's {want.dtype} {tuple(want.shape)}")
+    d = (got.float() - want.float()).abs()
+    beyond = d > bf16_ulp(torch.maximum(got.float().abs(), want.float().abs())) + order
+    if bool(beyond.any()):
+        raise AssertionError(f"{what}: {int(beyond.sum())} entries beyond one bf16 ulp plus the "
+                             f"fp32 reordering bound (max diff {float(d.max())})")
+    past_ulp = int((d > bf16_ulp(want)).sum())
+    if past_ulp > 1e-3 * d.numel():
+        raise AssertionError(f"{what}: {past_ulp} of {d.numel()} entries beyond one bf16 ulp of "
+                             "the plain version's, above 0.1 %")
+    return float(d.max()), past_ulp

@@ -1,9 +1,11 @@
-"""Device times of calls on the card, for ``chip_smoke.py`` and
-``kernels/mma_ablation.py``. Nothing here runs at import, and every
-function needs a CUDA card."""
+"""Device times of calls on the card, for ``chip_smoke.py``,
+``kernels/mma_ablation.py`` and ``launch/serve.py``. Nothing here runs at
+import; :func:`device_ms` needs a CUDA card, :func:`event_ms` times a CPU
+device by the host clock."""
 from __future__ import annotations
 
 import math
+import time
 
 import torch
 
@@ -40,12 +42,17 @@ def device_ms(fn, keep=lambda name: True, reps: int = 5, passes: int = 3):
     return us / 1e3
 
 
-def event_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def event_ms(fn, reps: int = 20, warmup: int = 3, device="cuda") -> float:
     """Mean time of one call of ``fn`` by CUDA events around ``reps``
     back-to-back calls: the device's time when each call outlasts its
-    launch, else the host's."""
+    launch, else the host's. On a CPU ``device``, by the host clock."""
     for _ in range(warmup):
         fn()
+    if torch.device(device).type != "cuda":
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        return (time.perf_counter() - t0) * 1e3 / reps
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()

@@ -19,6 +19,7 @@ KERNEL = build.CudaKernel(
     "vdbb_matmul_tc", "vdbb_matmul_tc.cu",
     [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P],
     replaces="src/repro/kernels/vdbb_matmul.py:65 _vdbb_tc_kernel",
+    variants=("bf16",),
 )
 
 BW_KERNEL = build.CudaKernel(
@@ -41,7 +42,7 @@ def _check(a_shape, values, indices, fmt):
 def _plan(a, values, indices, fmt, scales, bias, relu, out_scale):
     _check(a.shape, values, indices, fmt)
     return epilogue_plan(values.shape[-1], a.device, scales=scales, bias=bias, relu=relu,
-                         out_scale=out_scale, acc_dtype=acc_dtype_for(a.dtype))
+                         out_scale=out_scale, acc_dtype=acc_dtype_for(a.dtype), in_dtype=a.dtype)
 
 
 def vdbb_matmul_tc_plain(a, values, indices, fmt, *, scales=None, bias=None,
@@ -57,11 +58,12 @@ def vdbb_matmul_tc_plain(a, values, indices, fmt, *, scales=None, bias=None,
 def vdbb_matmul_tc(a, values, indices, fmt, *, scales=None, bias=None,
                    relu=False, out_scale=None):
     """A (M, K) × compressed W -> (M, N). values: (nb, nnz, N) of A's dtype
-    (int8 or fp32); indices: (nb, nnz) int8, shared across N. Any M; ragged
-    edges are masked in the kernel. int8 runs on the tensor cores and needs
-    the compressed K = nb * nnz within ``core.MMA_MAX_K``
-    (:func:`core.mma_gather_plan`). CPU tensors take the plain version;
-    CUDA tensors launch the kernel."""
+    (int8, fp32 or bf16); indices: (nb, nnz) int8, shared across N. Any M;
+    ragged edges are masked in the kernel. int8 runs on the tensor cores and
+    needs the compressed K = nb * nnz within ``core.MMA_MAX_K``
+    (:func:`core.mma_gather_plan`); bf16 runs on the CUDA cores, counts its
+    launches as ``vdbb_matmul_tc_bf16`` and returns bf16 unless requantizing. CPU
+    tensors take the plain version; CUDA tensors launch the kernel."""
     if a.device.type == "cpu":
         return vdbb_matmul_tc_plain(a, values, indices, fmt, scales=scales,
                                     bias=bias, relu=relu, out_scale=out_scale)
@@ -75,7 +77,8 @@ def _launch_tc(a, values, indices, fmt, ep):
         raise TypeError("vdbb_matmul_tc: values must match a's dtype, indices be (nb, nnz) int8")
     if a.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
         mma_gather_plan("vdbb_matmul_tc", a.shape[0], values.shape[0] * values.shape[1])
-    in_kind = build.check_operands("vdbb_matmul_tc", a, values, indices, dtype=a.dtype)
+    in_kind = build.check_operands("vdbb_matmul_tc", a, values, indices, dtype=a.dtype,
+                                   bf16=True)
     m, k = a.shape
     n = values.shape[-1]
     out = torch.empty((m, n), dtype=ep.out_dtype, device=a.device)
@@ -83,7 +86,7 @@ def _launch_tc(a, values, indices, fmt, ep):
         a.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
         build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu),
         out.data_ptr(), in_kind, build.out_kind(ep.out_dtype), m, k, n, fmt.bz,
-        fmt.nnz, build.stream_of(a),
+        fmt.nnz, build.stream_of(a), variant="bf16" if a.dtype == torch.bfloat16 else "",
     )
     return out
 
@@ -146,7 +149,8 @@ def stage_vdbb_matmul(w: DBBWeight, m: int, *, scales=None, bias=None, relu=Fals
     idx = w.indices[:, :, 0].contiguous() if tc else w.indices
     _check((m, k), values, idx, w.fmt)
     ep = epilogue_plan(n, values.device, scales=scales, bias=bias, relu=relu,
-                       out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype))
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype),
+                       in_dtype=values.dtype)
     tiles = {}
     if values.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
         tiles = dataclasses.asdict(

@@ -1,5 +1,6 @@
-"""INT8 sparse-CNN serving on the card (port of ``repro/launch/serve.py``'s
-CNN path).
+"""Serving on the card (port of ``repro/launch/serve.py``): INT8 sparse-CNN
+serving, greedy LM generation on compressed weights, and LM prefill through
+a frozen INT8 plan.
 
 Seeded init -> compress -> calibrate (an fp32 pass through the fp32
 instantiation of the same kernels) -> quantize -> serve request batches on
@@ -27,6 +28,25 @@ measured capacity of the largest bucket). It reports p50/p99 latency,
 images/s, the aggregation shape and the captures after warmup:
 
   python -m repro_torch.launch.serve --arch sparse-cnn-s --server --requests 512
+
+An LM arch (``configs/registry.py``) runs batched greedy generation: seeded
+weights drawn on the device and compressed leaf by leaf into the VDBB layout
+(``--dense``: the dense baseline, every projection a ``torch.matmul``),
+prefill of a ``--prompt-len`` prompt, then ``--gen`` tokens, each decode step
+one token through every projection's tc kernel (bf16 operands) against the
+KV cache. It prints prefill ms, ms per decode step and decode steps/s:
+
+  python -m repro_torch.launch.serve --arch starcoder2-7b --batch 4 --prompt-len 256 --gen 32
+
+``--lm-plan`` serves LM prefill through a frozen plan instead: compress,
+calibrate (a bf16 forward through the same kernel), INT8-quantize, then
+``LM.plan`` (one CUDA graph), checked bit for bit against the unplanned
+INT8 forward and timed in turns with it (``--steps`` calls each):
+
+  python -m repro_torch.launch.serve --arch starcoder2-7b --lm-plan --batch 4 --prompt-len 256
+
+``--device cpu --smoke`` runs either on the CPU at the arch's reduced
+config, through the kernels' plain versions.
 """
 from __future__ import annotations
 
@@ -36,9 +56,12 @@ import time
 import torch
 
 from repro_torch import resolve_device
-from repro_torch.configs import CNN_ARCHS, get_cnn_config, smoke_cnn_config
+from repro_torch.configs import (ARCHS, CNN_ARCHS, get_cnn_config, get_config, make_batch,
+                                 smoke_cnn_config, smoke_config)
 from repro_torch.kernels import build
 from repro_torch.models.cnn import SparseCNN
+from repro_torch.models.model import LM
+from repro_torch.train.step import make_prefill, make_serve_step
 
 
 def build_model(arch: str, *, calib_batch: int, device, seed: int = 0,
@@ -164,18 +187,192 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
             "retraces_after_warmup": srv.retraces_after_warmup, "health": health}
 
 
+# ---------------------------------------------------------------- the LM
+
+
+def pad_cache(cache, plen: int, max_len: int):
+    """The prefill's K/V cache (sequence length ``plen``) in a cache of
+    capacity ``max_len``: allocated once, the prefill's entries in slots 0 …
+    plen - 1, zeros after. The same layout the reference's ``pad_to_cap``
+    gives, so decode reads the same slots and gives the same logits."""
+    if isinstance(cache, dict):
+        return {k: pad_cache(v, plen, max_len) for k, v in cache.items()}
+    shape = list(cache.shape)
+    shape[-3] = max_len
+    out = cache.new_zeros(shape)
+    out[..., :plen, :, :] = cache
+    return out
+
+
+def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
+             prefill_reps: int = 3) -> dict:
+    """Greedy batched generation: prefill, then ``gen_len - 1`` decode steps.
+    Returns ``{"tokens": (B, gen_len) int32, "steps_per_s", "prefill_ms",
+    "ms_per_step", "logits": {i: the logits of decode step i for i in
+    keep}, "forwards": {"prefill": n, "decode": n}}``; decode step i
+    consumes generated token i at position ``prompt_len + i``. Times by CUDA
+    events on a card (the host clock on the CPU), each part warm:
+    ``prefill_ms`` is the mean of ``prefill_reps`` prefills after an untimed
+    one, and the decode loop is timed after an untimed step 0, which the
+    timed step 0 then writes over with the same values. ``forwards`` counts
+    every forward run, warm-ups included."""
+    from repro_torch.kernels.timing import event_ms
+
+    prefill, step_fn = make_prefill(model), make_serve_step(model)
+    forwards = {"prefill": 0, "decode": 0}
+
+    def run(kind, fn, *args):
+        forwards[kind] += 1
+        return fn(*args)
+
+    plen = prompt_batch["tokens"].shape[1]
+    dev = model.device
+    prefill_ms = event_ms(lambda: run("prefill", prefill, prompt_batch), reps=prefill_reps,
+                          warmup=1, device=dev)
+    logits, caches = run("prefill", prefill, prompt_batch)
+    cache = pad_cache(caches, plen, max_len)
+    out = [logits[:, -1:].argmax(dim=-1).to(torch.int32)]
+    kept = {}
+    if gen_len > 1:  # warm-up; the timed step 0 rewrites its slot
+        run("decode", step_fn, cache, {"tokens": out[0]}, plen)
+
+    def decode():
+        for i in range(gen_len - 1):
+            logits, _ = run("decode", step_fn, cache, {"tokens": out[-1]}, plen + i)
+            if i in keep:
+                kept[i] = logits
+            out.append(logits.argmax(dim=-1).to(torch.int32))
+
+    decode_ms = event_ms(decode, reps=1, warmup=0, device=dev)
+    steps = max(gen_len - 1, 1)
+    return {"tokens": torch.cat(out, dim=1), "steps_per_s": steps / max(decode_ms, 1e-9) * 1e3,
+            "prefill_ms": prefill_ms, "ms_per_step": decode_ms / steps, "logits": kept,
+            "forwards": forwards}
+
+
+def lm_config(arch: str, *, smoke: bool = False, sparsity=0.625, dense: bool = False):
+    return (smoke_config if smoke else get_config)(arch, sparsity=None if dense else sparsity)
+
+
+def build_lm(arch: str, *, device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
+             dense: bool = False) -> LM:
+    """Seeded LM on ``device``: weights drawn there from one
+    ``torch.Generator``, each DBB-tagged leaf compressed as soon as it is
+    drawn (``dense``: the dense baseline)."""
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return LM(lm_config(arch, smoke=smoke, sparsity=sparsity, dense=dense)).init(
+        gen, dev, compress=True)
+
+
+def prompt_tokens(model: LM, *, batch: int, seq: int, seed: int = 0) -> dict:
+    """A seeded prompt batch, drawn on the model's device."""
+    gen = torch.Generator(device=model.device).manual_seed(seed + 1)
+    return make_batch(model.cfg, batch=batch, seq=seq, generator=gen, kind="serve")
+
+
+def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16, device=None,
+             seed: int = 0, smoke: bool = False, sparsity=0.625, dense: bool = False,
+             keep=(), log=print) -> dict:
+    """Build ``arch`` and generate ``gen`` tokens greedily after a
+    ``prompt_len`` prompt. Returns :func:`generate`'s record with the
+    ``model`` and the ``prompt`` tokens."""
+    model = build_lm(arch, device=device, seed=seed, smoke=smoke, sparsity=sparsity,
+                     dense=dense)
+    c = model.cfg
+    where = (torch.cuda.get_device_name(model.device) if model.device.type == "cuda"
+             else "the CPU (plain versions)")
+    weights = (f"VDBB-compressed, nnz={c.dbb.nnz}/{c.dbb.bz}" if c.dbb is not None
+               else "dense")
+    log(f"[serve] {c.name}: {c.param_count() / 1e6:.2f} M weights, {weights}, "
+        f"{str(c.compute_dtype).replace('torch.', '')}, on {where}")
+    prompt = prompt_tokens(model, batch=batch, seq=prompt_len, seed=seed)
+    rec = generate(model, prompt, gen_len=gen, max_len=prompt_len + gen, keep=keep)
+    log(f"[serve] generated {tuple(rec['tokens'].shape)} tokens: prefill "
+        f"({batch}x{prompt_len}) {rec['prefill_ms']:.3f} ms, {rec['ms_per_step']:.3f} ms per "
+        f"decode step, {rec['steps_per_s']:.2f} decode steps/s")
+    return dict(rec, model=model, prompt=prompt["tokens"])
+
+
+def time_in_turns(fns: dict, order, reps: int, device) -> dict:
+    """``reps`` calls of each named function in ``order`` (e.g. unplanned,
+    planned, planned, unplanned), ms per call each time (``event_ms``: CUDA
+    events on a card, the host clock on the CPU), each function warmed up
+    once before the first turn."""
+    from repro_torch.kernels.timing import event_ms
+
+    out = {}
+    with torch.no_grad():
+        for name in fns:
+            fns[name]()  # warm-up
+        for name in order:
+            out.setdefault(name, []).append(event_ms(fns[name], reps=reps, warmup=0,
+                                                     device=device))
+    return out
+
+
+def serve_lm_plan(arch: str, *, batch: int = 4, prompt_len: int = 32, steps: int = 16,
+                  device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
+                  tune: str = "off", log=print) -> dict:
+    """LM prefill served through a frozen plan: compress, calibrate (one
+    forward recording every projection's input), INT8-quantize,
+    ``LM.plan``, validate each request row against the plan's sample spec,
+    then check that the plan's logits equal the unplanned INT8 forward's bit
+    for bit and time both in turns. Returns ``{"bit_identical", "plan",
+    "model", "tokens", "logits", "timing", "captures", "graph_launches"}``."""
+    from repro_torch.launch.server import validate_request
+
+    if lm_config(arch, smoke=smoke, sparsity=sparsity).dbb is None:
+        raise SystemExit("--lm-plan needs a DBB config (drop --dense)")
+    model = build_lm(arch, device=device, seed=seed, smoke=smoke, sparsity=sparsity)
+    tokens = prompt_tokens(model, batch=batch, seq=prompt_len, seed=seed)["tokens"]
+    with torch.no_grad():
+        _, stats = model.forward(tokens, collect_act_stats=True)
+    model.quantize(stats)
+    c = model.cfg
+    log(f"[serve] {c.name}: INT8-calibrated VDBB LM (nnz={c.dbb.nnz}/{c.dbb.bz}, "
+        f"{len(stats)} calibrated projections)")
+    plan = model.plan(batch=batch, seq=prompt_len, tune=tune)
+    log(f"[serve] frozen plan: {len(plan.layers)} stages ({tune})")
+    for row in tokens.cpu().numpy():
+        validate_request(row[None], plan.sample_spec)
+    with torch.no_grad():
+        planned = plan(tokens)
+        unplanned = model.forward(tokens)
+    bit = bool(torch.equal(planned, unplanned))
+    log(f"[serve] plan vs unplanned forward bit-identical: {bit}")
+    timing = time_in_turns({"unplanned": lambda: model.forward(tokens),
+                            "planned": lambda: plan(tokens)},
+                           ("unplanned", "planned", "planned", "unplanned"), steps,
+                           model.device)
+    log(f"[serve] prefill ({batch}x{prompt_len}) in turns, ms per call: "
+        + ", ".join(f"{k} {['%.3f' % t for t in v]}" for k, v in timing.items()))
+    return {"bit_identical": bit, "plan": plan, "model": model, "tokens": tokens,
+            "logits": planned, "timing": timing, "captures": plan.trace_count,
+            "graph_launches": plan.graph_launches}
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--arch", default="sparse-cnn-s", choices=sorted(CNN_ARCHS))
-    ap.add_argument("--batch", type=int, nargs="+", default=[64],
-                    help="request batch sizes to serve")
+    ap.add_argument("--arch", default="sparse-cnn-s", choices=sorted(CNN_ARCHS) + sorted(ARCHS))
+    ap.add_argument("--batch", type=int, nargs="+", default=None,
+                    help="request batch sizes to serve (CNN; default 64), or the one LM "
+                         "batch (default 4)")
     ap.add_argument("--requests", type=int, default=8,
                     help="timed requests per batch size (with --server: requests offered)")
-    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--device", default=None,
+                    help="cuda (the default) or cpu (the kernels' plain versions)")
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--smoke", action="store_true", help="reduced config of the arch")
     ap.add_argument("--sparsity", type=float, default=0.625,
                     help="weight sparsity: 0.625 -> 3/8 DBB, 0 -> dense")
+    ap.add_argument("--dense", action="store_true", help="LM: the dense baseline")
+    ap.add_argument("--prompt-len", type=int, default=32, help="LM: prompt tokens")
+    ap.add_argument("--gen", type=int, default=16, help="LM: tokens generated")
+    ap.add_argument("--steps", type=int, default=16,
+                    help="LM --lm-plan: timed prefill calls per turn")
+    ap.add_argument("--lm-plan", action="store_true",
+                    help="LM: serve prefill through a frozen INT8 plan instead of generating")
     ap.add_argument("--plan", action=argparse.BooleanOptionalAction, default=True,
                     help="serve through a frozen plan set (--no-plan: the unplanned forward)")
     ap.add_argument("--server", action="store_true",
@@ -193,6 +390,16 @@ def main(argv=None):
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="server: per-request deadline (DeadlineExceeded past it)")
     args = ap.parse_args(argv)
+    if args.arch in ARCHS:
+        batch = args.batch[0] if args.batch else 4
+        if args.lm_plan:
+            return serve_lm_plan(args.arch, batch=batch, prompt_len=args.prompt_len,
+                                 steps=args.steps, device=args.device, seed=args.seed,
+                                 smoke=args.smoke, sparsity=args.sparsity)
+        return serve_lm(args.arch, batch=batch, prompt_len=args.prompt_len, gen=args.gen,
+                        device=args.device, seed=args.seed, smoke=args.smoke,
+                        sparsity=args.sparsity, dense=args.dense)
+    args.batch = args.batch or [64]
     if not args.server:
         serve(args.arch, batches=args.batch, requests=args.requests, device=args.device,
               seed=args.seed, smoke=args.smoke, sparsity=args.sparsity, plan=args.plan)

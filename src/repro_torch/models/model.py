@@ -1,0 +1,356 @@
+"""The dense decoder LM (port of ``repro/models/model.py:LM``).
+
+Covers ``family='dense'``, ``mixer='gqa'`` and block patterns of ``attn``
+and ``local`` blocks, with no modality frontend and no cross-attention; any
+other config raises ``NotImplementedError`` from the constructor (ROADMAP
+queue 1, item 12).
+
+The parameter tree is the reference's: ``embed``, ``layers`` stacked over
+layer groups (a leading axis on every leaf, compressed ones included),
+``tail`` for layers left over by the pattern, ``final_norm``, ``lm_head``,
+and the ``<leaf>_aq`` calibration siblings that :meth:`LM.quantize` adds.
+The model holds it (:meth:`state`) and converts it in place
+(:meth:`compress`, :meth:`quantize`). Layer groups run as a Python loop, as
+the reference's unscanned forward does; nothing is trained, so ``remat`` is
+ignored.
+
+The paper's technique runs end to end: every projection is DBB-tagged,
+:meth:`compress` encodes each into the compressed layout (values (L, nb,
+nnz, N)), and ``apply_linear`` runs the tc kernel over the compressed K
+(bf16 or fp32 operands), or on the int8 tensor cores after
+:meth:`quantize`. :meth:`plan` freezes int8 prefill into a
+:class:`~repro_torch.models.plan.ModelPlan`, one CUDA graph per signature.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.core.act_sparsity import act_scope, collect_activations
+from repro_torch.core.quant import QMAX, quantize_dbb
+from repro_torch.core.vdbb import DBBWeight, dbb_encode
+from repro_torch.models.attention import GQAttention
+from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_params,
+                                       layer_norm, rms_norm, sharded_embed_lookup, stage_linear,
+                                       tree_get, tree_set, tree_slice)
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.mlp import DenseMLP
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port's LM does not build."""
+    why = None
+    if cfg.family != "dense" or cfg.is_moe:
+        why = f"family={cfg.family!r} (MoEMLP, recurrent blocks)"
+    elif cfg.mixer != "gqa":
+        why = f"mixer={cfg.mixer!r} (MLAttention, RWKV6)"
+    elif not set(cfg.pattern) <= {"attn", "local"}:
+        why = f"block pattern {cfg.pattern} (recurrent blocks)"
+    elif cfg.frontend is not None or cfg.cross_attn:
+        why = "modality frontends and cross-attention"
+    elif cfg.tie_embeddings or cfg.embed_scale or cfg.logit_softcap:
+        why = "tied embeddings, embedding scale and logit soft-cap (recurrentgemma's)"
+    if why is not None:
+        raise NotImplementedError(
+            f"{cfg.name}: {why} not ported; the port's LM is the dense GQA decoder "
+            "(ROADMAP queue 1, item 12)")
+
+
+class LM(nn.Module):
+    def __init__(self, cfg: ModelConfig):
+        super().__init__()
+        check_supported(cfg)
+        self.cfg = cfg
+        self.params: Optional[dict] = None
+
+    # ------------------------------------------------------------- defs
+    def _mixer(self, kind):
+        if kind == "attn":
+            return GQAttention(self.cfg)
+        if kind == "local":
+            return GQAttention(self.cfg, window=self.cfg.local_window)
+        raise ValueError(kind)
+
+    def _mlp(self):
+        return DenseMLP(self.cfg)
+
+    def _norm_def(self):
+        d = {"g": Param((self.cfg.d_model,), (None,), "ones")}
+        if self.cfg.norm == "layernorm":
+            d["b"] = Param((self.cfg.d_model,), (None,), "zeros")
+        return d
+
+    def _apply_norm(self, p, x):
+        if self.cfg.norm == "layernorm":
+            return layer_norm(x, p["g"], p["b"])
+        return rms_norm(x, p["g"])
+
+    def _block_defs(self, kind):
+        return {"norm1": self._norm_def(), "mixer": self._mixer(kind).defs(),
+                "norm2": self._norm_def(), "mlp": self._mlp().defs()}
+
+    def defs(self):
+        c = self.cfg
+
+        def stack(d):
+            if isinstance(d, Param):
+                return dataclasses.replace(d, shape=(c.num_groups,) + d.shape,
+                                           axes=("layers",) + d.axes)
+            return {k: stack(v) for k, v in d.items()}
+
+        out = {
+            "embed": Param((c.padded_vocab, c.d_model), ("vocab", "embed"), "scaled"),
+            "layers": stack({f"b{i}": self._block_defs(k) for i, k in enumerate(c.pattern)}),
+            "final_norm": self._norm_def(),
+        }
+        if c.tail_pattern:
+            out["tail"] = {f"t{i}": self._block_defs(k) for i, k in enumerate(c.tail_pattern)}
+        out["lm_head"] = Param((c.d_model, c.padded_vocab), ("embed", "vocab"), "scaled")
+        return out
+
+    # ------------------------------------------------------------ state
+    def init(self, generator: torch.Generator, device, *, compress: bool = False) -> "LM":
+        """Seeded weights from ``generator``, drawn on ``device`` (the
+        generator's own) in the config's param dtype. With ``compress`` every
+        DBB-tagged leaf is encoded as soon as it is drawn, so the dense tree
+        never exists whole. In place."""
+        fn = None
+        if compress and self.cfg.dbb is not None and self.cfg.serve_compressed:
+            def fn(path, p, w):
+                return self._encode(w, p.dbb) if p.dbb is not None else w
+        self.params = init_params(self.defs(), generator, self.cfg.param_dtype, device,
+                                  leaf_fn=fn)
+        return self
+
+    def load_params(self, tree: dict) -> "LM":
+        """Adopt a parameter tree (``interop.params_from_numpy``'s output)."""
+        self.params = tree
+        return self
+
+    def state(self) -> dict:
+        """The parameter tree, the reference's ``params``."""
+        return self.params
+
+    @property
+    def device(self) -> torch.device:
+        e = self.params["embed"]
+        return e.device
+
+    # -------------------------------------------------------- embeddings
+    def _embed(self, tokens):
+        return sharded_embed_lookup(self.params["embed"], tokens.to(self.device),
+                                    self.cfg.compute_dtype)
+
+    def _logits(self, x):
+        return apply_linear(x, self.params["lm_head"], name="lm_head")
+
+    # ------------------------------------------------------------ blocks
+    def _apply_block(self, kind, p, x, positions):
+        """Full-sequence block. Returns (x, the block's K/V cache)."""
+        h = self._apply_norm(p["norm1"], x)
+        with act_scope("mixer"):
+            y, cache = self._mixer(kind)(p["mixer"], h, positions)
+        x = x + y
+        with act_scope("mlp"):
+            y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
+        return x + y2, cache
+
+    def _apply_block_decode(self, kind, p, x, cache, pos):
+        h = self._apply_norm(p["norm1"], x)
+        y, cache = self._mixer(kind).decode(p["mixer"], h, cache, pos)
+        x = x + y
+        y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
+        return x + y2, cache
+
+    # ----------------------------------------------------------- forward
+    def forward(self, tokens, *, return_cache: bool = False, collect_act_stats: bool = False):
+        """Full-sequence forward (prefill) of (B, S) tokens -> logits (B, S,
+        padded_vocab); with ``return_cache`` also the K/V of every block
+        (``{"groups": {"b{i}": {"k", "v"}}, "tail": …}``, groups stacked).
+        ``collect_act_stats=True`` appends the per-GEMM ``ActStats`` that
+        ``apply_linear`` records: ``(logits[, cache], stats)``."""
+        if collect_act_stats:
+            with collect_activations() as col:
+                out = self.forward(tokens, return_cache=return_cache)
+            out = out if isinstance(out, tuple) else (out,)
+            return (*out, col.stats)
+        c = self.cfg
+        params = self.params
+        h = self._embed(tokens)
+        b, s, _ = h.shape
+        positions = torch.arange(s, device=h.device).expand(b, s)
+        groups = []
+        for g in range(c.num_groups):
+            gp = tree_slice(params["layers"], g)
+            caches = {}
+            with act_scope(f"g{g}"):
+                for i, kind in enumerate(c.pattern):
+                    with act_scope(f"b{i}"):
+                        h, caches[f"b{i}"] = self._apply_block(kind, gp[f"b{i}"], h, positions)
+            groups.append(caches)
+        tails = {}
+        for i, kind in enumerate(c.tail_pattern):
+            with act_scope("tail"), act_scope(f"t{i}"):
+                h, tails[f"t{i}"] = self._apply_block(kind, params["tail"][f"t{i}"], h,
+                                                      positions)
+        logits = self._logits(self._apply_norm(params["final_norm"], h))
+        if not return_cache:
+            return logits
+        cache = {"groups": _stack(groups)}
+        if tails:
+            cache["tail"] = tails
+        return logits, cache
+
+    # ------------------------------------------------------------- cache
+    def init_cache(self, batch_size: int, max_len: int):
+        """Zero K/V caches: (G, B, cap, kv, hd) per pattern block (stacked
+        over groups), (B, cap, kv, hd) per tail block; ``cap`` is
+        ``max_len``, or the window for a ``local`` block (a ring)."""
+        c = self.cfg
+        dt, dev = c.compute_dtype, self.device
+
+        def block(kind):
+            return self._mixer(kind).init_cache(batch_size, max_len, dt, dev)
+
+        out = {"groups": _stack([{f"b{i}": block(k) for i, k in enumerate(c.pattern)}
+                                 for _ in range(c.num_groups)])}
+        if c.tail_pattern:
+            out["tail"] = {f"t{i}": block(k) for i, k in enumerate(c.tail_pattern)}
+        return out
+
+    def decode_step(self, cache, tokens, pos: int):
+        """One-token decode: tokens (B, 1), ``pos`` their position. Returns
+        (logits (B, 1, padded_vocab), cache), the cache updated in place."""
+        c = self.cfg
+        params = self.params
+        h = self._embed(tokens)
+        for g in range(c.num_groups):
+            gp = tree_slice(params["layers"], g)
+            gc = tree_slice(cache["groups"], g)
+            for i, kind in enumerate(c.pattern):
+                h, _ = self._apply_block_decode(kind, gp[f"b{i}"], h, gc[f"b{i}"], pos)
+        for i, kind in enumerate(c.tail_pattern):
+            h, _ = self._apply_block_decode(kind, params["tail"][f"t{i}"], h,
+                                            cache["tail"][f"t{i}"], pos)
+        return self._logits(self._apply_norm(params["final_norm"], h)), cache
+
+    # -------------------------------------------- the paper's technique
+    @staticmethod
+    def _encode(w, fmt):
+        if not isinstance(w, torch.Tensor) or w.dim() > 3:
+            return w
+        return dbb_encode(w, fmt, prune=True)
+
+    def compress(self) -> "LM":
+        """In place: every DBB-tagged weight becomes a compressed DBBWeight
+        (stacked leaves encoded group by group)."""
+        for path, pdef in dbb_leaves(self.defs()):
+            self.params = tree_set(self.params, path,
+                                   self._encode(tree_get(self.params, path), pdef.dbb))
+        return self
+
+    @staticmethod
+    def _stat_absmax(stats) -> dict:
+        """name -> max absmax over the calibration records."""
+        out = {}
+        for st in stats or []:
+            name = getattr(st, "name", "")
+            amax = float(getattr(st, "absmax", 0.0))
+            if name and amax > 0.0:
+                out[name] = max(out.get(name, 0.0), amax)
+        return out
+
+    def _leaf_act_scales(self, path, absmax):
+        """The calibrated per-tensor act scale(s) of one DBB leaf, or None:
+        an (L,) tensor for a stacked leaf (one scoped name ``g{g}.…`` per
+        group), a 0-d tensor for a tail leaf."""
+        if path[0] == "layers":
+            suffix = ".".join(path[1:])
+            scales = []
+            for g in range(self.cfg.num_groups):
+                amax = absmax.get(f"g{g}.{suffix}")
+                if amax is None:
+                    return None
+                scales.append(amax / QMAX)
+            return torch.tensor(scales, dtype=torch.float32, device=self.device)
+        amax = absmax.get(".".join(path))
+        if amax is None:
+            return None
+        return torch.tensor(amax / QMAX, dtype=torch.float32, device=self.device)
+
+    def quantize(self, stats=None) -> "LM":
+        """In place: INT8-quantize every compressed DBBWeight leaf. ``stats``
+        (from ``forward(..., collect_act_stats=True)`` on the compressed
+        model) gives each calibrated leaf a static act scale as a
+        ``<leaf>_aq`` sibling; uncalibrated leaves quantize dynamically."""
+        absmax = self._stat_absmax(stats)
+        for path, _ in dbb_leaves(self.defs()):
+            w = tree_get(self.params, path)
+            if not isinstance(w, DBBWeight):
+                continue  # dense (never compressed) or already quantized
+            self.params = tree_set(self.params, path, quantize_dbb(w))
+            aq = self._leaf_act_scales(path, absmax)
+            if aq is not None:
+                self.params = tree_set(self.params, path[:-1] + (path[-1] + "_aq",), aq)
+        return self
+
+    # -------------------------------------------------------------- plan
+    def _staged(self, tree, m: int):
+        """``tree`` with every compressed projection staged at ``m`` rows
+        (:func:`~repro_torch.models.common.stage_linear`, its ``_aq``
+        sibling frozen in)."""
+        out = {}
+        for k, v in tree.items():
+            if isinstance(v, dict):
+                out[k] = self._staged(v, m)
+            elif hasattr(v, "fmt"):
+                out[k] = stage_linear(v, tree.get(f"{k}_aq"), m, self.cfg.compute_dtype)
+            else:
+                out[k] = v
+        return out
+
+    def plan(self, *, batch: int, seq: int, tune: str = "off"):
+        """Freeze a serving plan of prefill at (``batch``, ``seq``): the
+        stages ``embed``, ``g{g}.b{i}`` for every block of every group,
+        ``t{i}`` for the tail, ``head`` (final norm and logits), each with
+        its tensors frozen in and every compressed projection staged (the
+        index row, the scale products with the calibrated act scales, each
+        group's sliced on the card now, the flush rows and the tile plan).
+        The sample is one row of int32 tokens. On a card the chain is
+        captured into one CUDA graph per input signature at its first
+        ``serve``. Only ``tune='off'`` exists (ROADMAP queue 1, item 10)."""
+        from repro_torch.models.plan import PlanBuilder
+
+        c = self.cfg
+        params = self.params
+        dev = self.device
+        m = batch * seq
+        positions = torch.arange(seq, device=dev).expand(batch, seq)
+        pb = PlanBuilder(c.name, params, batch=batch, tune=tune,
+                         sample_spec=((seq,), "int32"), device=dev)
+        pb.raw("embed", "embed", self._embed)
+
+        def block(kind, p):
+            return lambda x: self._apply_block(kind, p, x, positions)[0]
+
+        for g in range(c.num_groups):
+            gp = self._staged(tree_slice(params["layers"], g), m)
+            for i, kind in enumerate(c.pattern):
+                pb.raw(f"g{g}.b{i}", kind, block(kind, gp[f"b{i}"]))
+        for i, kind in enumerate(c.tail_pattern):
+            pb.raw(f"t{i}", kind, block(kind, self._staged(params["tail"][f"t{i}"], m)))
+        final_norm = params["final_norm"]
+        pb.raw("head", "head", lambda x: self._logits(self._apply_norm(final_norm, x)))
+        return pb.build()
+
+
+def _stack(trees: list) -> dict:
+    """Dicts of tensors with the same keys, one per group -> one dict of
+    tensors stacked on a new leading axis."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _stack([t[k] for t in trees]) for k in first}
+    return torch.stack(trees)

@@ -77,6 +77,13 @@ NAMES = [
     ("_ZN7os_gemm6kernelIfa3TapIfE10ExpandTapsIfEEEvT1_T2_iiiPT0_12EpilogueArgs", "vdbb_conv_bw"),
     ("_ZN7os_gemm6kernelIffNS_6DenseBIfEE10ExpandColsIfEEEvT1_T2_iiiPT0_12EpilogueArgs",
      "vdbb_matmul_bw"),
+    # the tc matmul's bf16 instantiation (the LM's projections), every output
+    *[(_gemm("__nv_bfloat16", o, "GatherColsBf16", "os_gemm::DenseB<__nv_bfloat16>"),
+       "vdbb_matmul_tc_bf16") for o in ("__nv_bfloat16", "float", "signed char")],
+    ("_ZN7os_gemm6kernelI13__nv_bfloat16a14GatherColsBf16NS_6DenseBIS1_EEEEvT1_T2_iiiPT0_"
+     "12EpilogueArgs", "vdbb_matmul_tc_bf16"),
+    ("_ZN7os_gemm6kernelI13__nv_bfloat16S1_14GatherColsBf16NS_6DenseBIS1_EEEEvT1_T2_iiiPT0_"
+     "12EpilogueArgs", "vdbb_matmul_tc_bf16"),
     # anything else is not the port's
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<int>>", "other"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "other"),
@@ -93,7 +100,7 @@ def test_kernel_family_names_only_registered_kernels(smoke):
     from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
 
     for loaders in smoke.KERNEL_OF_LOADER.values():
-        assert set(loaders.values()) <= set(build.KERNELS)
+        assert set(loaders.values()) <= set(build.launch_counts())
 
 
 def test_no_stager_name_is_part_of_another(smoke):
@@ -132,3 +139,59 @@ def test_require_instance_fails_unless_it_sees_the_instance(smoke, monkeypatch, 
             smoke.require_instance(lambda: None, "os_mma", "TapMux", "tc l1")
     else:
         assert smoke.require_instance(lambda: None, "os_mma", "TapMux", "tc l1") == seen
+
+
+def test_lm_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 7 end to end on the CPU at the smoke config's size: the plain
+    versions stand in for the kernels, so the timers, the profiler, the
+    CUDA memory calls and the launch counts (counted here by dtype at the
+    tc matmul's wrapper, and a replay's from the model) are stubbed."""
+    import torch
+
+    from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
+    from repro_torch.kernels import timing
+    from repro_torch.kernels import vdbb_matmul as mm
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(timing, "event_ms",
+                        lambda fn, reps=20, warmup=3, device="cuda": (fn(), 0.1)[1])
+    monkeypatch.setattr(timing, "device_ms", lambda fn, keep=None, reps=5, passes=3: (fn(), 0.1)[1])
+    monkeypatch.setattr(smoke, "profile_forwards",
+                        lambda fn, x, per, reps=4: (fn(x), {"device_ms": None})[1])
+    for name in ("empty_cache", "reset_peak_memory_stats", "max_memory_allocated"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(smoke, "LM_SMOKE", True)
+    monkeypatch.setattr(smoke, "LM_SHAPES", {"wq/wo": (128, 128, 2), "wk/wv": (128, 32, 2),
+                                             "w_up": (128, 256, 1), "w_down": (256, 128, 1)})
+    monkeypatch.setattr(smoke, "LM_ROWS", {"decode": 2, "prefill": 32})
+    monkeypatch.setattr(smoke, "LM_BATCH", 2)
+    monkeypatch.setattr(smoke, "LM_PROMPT", 16)
+    monkeypatch.setattr(smoke, "LM_GEN", 8)
+    monkeypatch.setattr(smoke, "LM_KEEP", (0, 6))
+    plain = mm.vdbb_matmul_tc
+
+    def counted(a, *args, **kw):
+        mm.KERNEL.counts["bf16" if a.dtype == torch.bfloat16 else ""] += 1
+        return plain(a, *args, **kw)
+
+    monkeypatch.setattr(mm, "vdbb_matmul_tc", counted)
+    serve_plan = serve.serve_lm_plan
+
+    def with_replay(*a, **kw):
+        rec = serve_plan(*a, **kw)
+        replay = dict.fromkeys(build.KERNELS, 0)
+        rec["graph_launches"] = {"cpu": dict(replay, vdbb_matmul_tc=smoke.projections(rec["model"]))}
+        return rec
+
+    monkeypatch.setattr(serve, "serve_lm_plan", with_replay)
+    cpu = torch.device("cpu")
+    recs = smoke.lm_kernels(torch.Generator().manual_seed(1), cpu)
+    assert len(recs["bf16"]) == len(recs["int8"]) == 8
+    gen = smoke.lm_generate(cpu)
+    # the stubbed timer calls each function once: two prefills (the timed
+    # one and the kept one) and eight decode steps (a warm-up and seven)
+    assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == 12 * (2 + 8)
+    assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
+    assert smoke.lm_plan(cpu)["captures"] == 1
+    smoke.lm_golden(cpu)
+    build.reset_launches()

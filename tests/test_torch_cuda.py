@@ -34,11 +34,12 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 
 def _per_forward(pattern, n_conv):
     """The exact launches of one forward: the stem, ``n_conv - 1`` compressed
-    convs and the head on the pattern's kernels, the other mode's at 0."""
+    convs and the head on the pattern's kernels, the other mode's and the
+    LM's bf16 tc matmul at 0."""
     if pattern == "matrix":
         return {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1, "vdbb_matmul_tc": 1,
-                "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0}
-    return {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0,
+                "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0}
+    return {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0, "vdbb_matmul_tc_bf16": 0,
             "vdbb_conv_bw": n_conv - 1, "vdbb_matmul_bw": 1}
 
 
@@ -697,3 +698,100 @@ def test_per_layer_plan_captures_and_matches_forward(card, calibrated):
         want = model(x)
     assert torch.equal(plan.serve(x), want) and plan.trace_count == 1
     torch.cuda.synchronize()
+
+
+# ------------------------------------------------------------- the LM path
+
+
+@pytest.mark.parametrize("m,k,n,nnz", [(1, 8, 1, 3), (5, 24, 40, 3), (67, 200, 70, 3),
+                                       (130, 64, 129, 1), (64, 96, 64, 8), (3, 4608, 512, 3)])
+def test_tc_matmul_bf16_matches_plain(card, m, k, n, nnz):
+    """The bf16 instantiation at ragged M, N and K, with and without a
+    flush (scale, bias, ReLU; and a requantize to int8 codes)."""
+    rng = np.random.default_rng(m + k + n)
+    fmt = tv.DBBFormat(8, nnz, "matrix")
+    dw = tv.dbb_encode(_rng_tensor(rng, k, n, scale=k**-0.5), fmt, prune=True)
+    a = _rng_tensor(rng, m, k).to(card).bfloat16()
+    vals = dw.values.to(card).bfloat16().contiguous()
+    idx = dw.indices[:, :, 0].contiguous().to(card)
+    before = build.launch_counts()["vdbb_matmul_tc_bf16"]
+    order = tref.bf16_reorder_bound(a, vals, idx, 8)
+    got = head_k.vdbb_matmul_tc(a, vals, idx, fmt)
+    tref.check_bf16(got, head_k.vdbb_matmul_tc_plain(a, vals, idx, fmt), order)
+    assert build.launch_counts()["vdbb_matmul_tc_bf16"] == before + 1
+    scales, bias = torch.rand(n, device=card) + 0.5, _rng_tensor(rng, n).to(card)
+    kw = dict(scales=scales, bias=bias, relu=True)
+    # the flush scales the sum's difference and rounds its product and its
+    # sum once each in fp32
+    acc = tv.gather_compressed(a.float(), idx, 8) @ vals.float().reshape(-1, n)
+    flush = order * scales + 2.0**-23 * ((acc * scales).abs() + bias.abs())
+    tref.check_bf16(head_k.vdbb_matmul_tc(a, vals, idx, fmt, **kw),
+                    head_k.vdbb_matmul_tc_plain(a, vals, idx, fmt, **kw), flush)
+    q = head_k.vdbb_matmul_tc(a, vals, idx, fmt, out_scale=0.05)
+    qp = head_k.vdbb_matmul_tc_plain(a, vals, idx, fmt, out_scale=0.05)
+    _codes_close(q, qp)
+
+
+LM_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+@pytest.mark.parametrize("k,n", LM_SHAPES)
+def test_tc_matmul_int8_at_lm_shapes(card, m, k, n):
+    """The int8 tensor-core path at every starcoder2-7b projection shape,
+    decode and prefill rows: int32 and the fp32 dequant flush exact."""
+    rng = np.random.default_rng(k + n + m)
+    nb = k // 8
+    vals = torch.from_numpy(rng.integers(-127, 128, (nb, 3, n), dtype=np.int8)).to(card)
+    idx = torch.from_numpy(np.sort(np.stack([rng.choice(8, 3, replace=False) for _ in range(nb)]),
+                                   axis=1).astype(np.int8)).to(card)
+    a = torch.from_numpy(rng.integers(-127, 128, (m, k), dtype=np.int8)).to(card)
+    fmt = tv.DBBFormat(8, 3, "matrix")
+    for kw in ({}, dict(scales=torch.rand(n, device=card) * 1e-4)):
+        assert torch.equal(head_k.vdbb_matmul_tc(a, vals, idx, fmt, **kw),
+                           head_k.vdbb_matmul_tc_plain(a, vals, idx, fmt, **kw))
+
+
+def test_lm_plan_captures_and_replays_without_host_sync(card):
+    """The smoke starcoder2 LM, INT8-calibrated, planned at (2, 32): one
+    capture, a replay equal to the unplanned forward bit for bit, no host
+    sync inside a replay, 6 int8 tc matmul launches a block (wq, wk, wv,
+    wo, w_up, w_down) and none of the bf16 kernel in a replay."""
+    from repro_torch.launch import serve
+
+    rec = serve.serve_lm_plan("starcoder2-7b", batch=2, prompt_len=32, steps=2, device=card,
+                              smoke=True, log=lambda *_: None)
+    assert rec["bit_identical"] and rec["captures"] == 1
+    plan, tokens = rec["plan"], rec["tokens"]
+    launches = next(iter(plan.graph_launches.values()))
+    assert launches["vdbb_matmul_tc"] == 6 * rec["model"].cfg.num_layers
+    assert launches["vdbb_matmul_tc_bf16"] == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = plan.serve(tokens)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, rec["logits"]) and plan.trace_count == 1
+
+
+def test_lm_generate_on_card_runs_the_bf16_kernel(card):
+    """Greedy generation of the smoke starcoder2 on the card: every
+    projection through the bf16 tc kernel, and each kept decode step's
+    logits against a fresh forward over the prompt and the tokens fed."""
+    from repro_torch.launch import serve
+
+    build.reset_launches()
+    rec = serve.serve_lm("starcoder2-7b", batch=2, prompt_len=16, gen=6, device=card,
+                         smoke=True, keep=(0, 4), log=lambda *_: None)
+    counts = build.launch_counts()
+    layers = rec["model"].cfg.num_layers
+    # 5 prefills (a warm-up, 3 timed, the one kept) and 6 decode steps (a
+    # warm-up and 5), 6 projections a layer (wq, wk, wv, wo, w_up, w_down)
+    assert rec["forwards"] == {"prefill": 5, "decode": 6}
+    assert counts["vdbb_matmul_tc_bf16"] == 6 * 11 * layers and counts["vdbb_matmul_tc"] == 0
+    for i, lg in rec["logits"].items():
+        seq = torch.cat([rec["prompt"], rec["tokens"][:, : i + 1]], dim=1)
+        with torch.no_grad():
+            fresh = rec["model"].forward(seq)[:, -1:]
+        assert float((lg.double() - fresh.double()).norm() / fresh.double().norm()) <= 2e-2

@@ -455,9 +455,11 @@ def test_launch_counters_start_at_zero_and_reset():
     assert set(build.KERNELS) == names
     assert {build.KERNELS[n].source for n in names} == set(build.SOURCES)
     for k in build.KERNELS.values():
-        k.launches = 5
+        k.counts = dict.fromkeys(k.counts, 5)
     build.reset_launches()
-    assert build.launch_counts() == dict.fromkeys(names, 0)
+    # the tc matmul's bf16 instantiation counts apart, under its own name
+    assert build.launch_counts() == dict.fromkeys(names | {"vdbb_matmul_tc_bf16"}, 0)
+    assert build.kernel_of("vdbb_matmul_tc_bf16") is build.KERNELS["vdbb_matmul_tc"]
     for k in build.KERNELS.values():
         assert k.replaces.startswith("src/repro/kernels/") and (build.CSRC / k.source).exists()
 

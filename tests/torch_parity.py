@@ -5,7 +5,12 @@ parameters into numpy trees (the form ``repro_torch.interop`` reads) and
 builds the golden fixtures from the JAX reference in ref mode:
 ``tests/data/torch_parity_cnn.npz`` (one pattern shared across each layer's
 outputs, the tc kernels) and ``tests/data/torch_parity_cnn_bw.npz``
-(per-column patterns, the bw kernels). Regenerate both with
+(per-column patterns, the bw kernels), and the LM's
+``tests/data/torch_parity_lm.npz`` (``qwen2-tiny``, fp32, compressed: its
+parameters, the calibration stats its INT8 quantization is made from, a
+token batch, the prefill's last-position logits, one decode step's logits
+and the quantized forward's last-position logits). Regenerate all three
+with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -28,10 +33,12 @@ from repro.configs.cnn import smoke_cnn_config  # noqa: E402
 from repro.core.quant import QuantDBBWeight  # noqa: E402
 from repro.core.vdbb import DBBWeight  # noqa: E402
 from repro.models.cnn import SparseCNN  # noqa: E402
-from repro_torch.interop import flatten  # noqa: E402
+from repro_torch.interop import bf16_bits, flatten  # noqa: E402
 
 FIXTURE = ROOT / "tests" / "data" / "torch_parity_cnn.npz"
 FIXTURE_BW = ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"
+FIXTURE_LM = ROOT / "tests" / "data" / "torch_parity_lm.npz"
+LM_BATCH, LM_SEQ = 2, 32
 CHAIN_BATCH = 8
 CHAIN_SEED = 0
 # the fixture holds batch 4 (under 200 KB); its head runs at M = 4, below
@@ -39,11 +46,18 @@ CHAIN_SEED = 0
 FIXTURE_BATCH = 4
 
 
+def _array(x):
+    """A JAX array as numpy; a bf16 one as ``interop.bf16_bits`` carries it."""
+    a = np.array(x)
+    return bf16_bits(a) if a.dtype == jnp.bfloat16 else a
+
+
 def to_numpy(tree):
-    """A JAX parameter tree as numpy: compressed weights become dicts of
-    ``values, indices[, scales], bz, nnz, group, shape``."""
+    """A JAX parameter tree as numpy: compressed weights (stacked or not)
+    become dicts of ``values, indices[, scales], bz, nnz, group, shape``,
+    bf16 arrays ``{"bf16": uint16 bits}``."""
     if isinstance(tree, (DBBWeight, QuantDBBWeight)):
-        out = dict(values=np.array(tree.values), indices=np.array(tree.indices),
+        out = dict(values=_array(tree.values), indices=np.array(tree.indices),
                    bz=tree.fmt.bz, nnz=tree.fmt.nnz, group=tree.fmt.group,
                    shape=np.array(tree.shape))
         if isinstance(tree, QuantDBBWeight):
@@ -51,7 +65,7 @@ def to_numpy(tree):
         return out
     if isinstance(tree, dict):
         return {k: to_numpy(v) for k, v in tree.items()}
-    return np.array(tree)
+    return _array(tree)
 
 
 def from_numpy(tree):
@@ -64,10 +78,12 @@ def from_numpy(tree):
         fmt = DBBFormat(int(np.asarray(tree["bz"])), int(np.asarray(tree["nnz"])),
                         None if group == "none" else group if group == "matrix" else int(group))
         shape = tuple(int(s) for s in np.asarray(tree["shape"]).reshape(-1))
-        values, indices = jnp.asarray(tree["values"]), jnp.asarray(tree["indices"])
+        values, indices = from_numpy(tree["values"]), jnp.asarray(tree["indices"])
         if "scales" in tree:
             return QuantDBBWeight(values, indices, jnp.asarray(tree["scales"]), fmt, shape)
         return DBBWeight(values, indices, fmt, shape)
+    if isinstance(tree, dict) and set(tree) == {"bf16"}:
+        return jnp.asarray(np.asarray(tree["bf16"]).view(jnp.bfloat16))
     if isinstance(tree, dict):
         return {k: from_numpy(v) for k, v in tree.items()}
     return jnp.asarray(tree)
@@ -104,6 +120,45 @@ def jax_chain(seed: int = CHAIN_SEED, batch: int = CHAIN_BATCH, pattern="matrix"
                 pooled=np.array(inter[-1].mean(axis=(1, 2))), logits=np.array(logits))
 
 
+def jax_pad_cache(cache, plen: int, max_len: int):
+    """The reference's prefill cache padded to ``max_len`` slots, as
+    ``repro.launch.serve.generate``'s ``pad_to_cap`` does."""
+    def pad(a):
+        widths = [(0, 0)] * a.ndim
+        widths[-3] = (0, max_len - plen)
+        return jnp.pad(a, widths)
+
+    return jax.tree_util.tree_map(pad, cache)
+
+
+def jax_lm_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """The JAX reference's ``qwen2-tiny`` in ref mode: compressed params, a
+    seeded token batch, the prefill's last-position logits, the next token
+    and its decode step's logits (cache padded to seq + 1), the calibration
+    stats (name, absmax) of a forward over the batch, and the forward of
+    the model quantized with them (last position). The quantized params
+    follow from the compressed ones and the stats exactly (``quantize``),
+    which keeps the file under 1 MB."""
+    from repro.configs.registry import get_config
+    from repro.models.model import LM
+
+    model = LM(get_config("qwen2-tiny"))
+    params = model.compress(model.init(jax.random.PRNGKey(seed)))
+    tokens = np.random.default_rng(seed).integers(0, model.cfg.vocab_size, (batch, seq))
+    tokens = jnp.asarray(tokens.astype(np.int32))
+    logits, cache, stats = model.forward(params, {"tokens": tokens}, return_cache=True,
+                                         collect_act_stats=True)
+    nxt = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    step, _ = model.decode_step(params, jax_pad_cache(cache, seq, seq + 1), {"tokens": nxt},
+                                jnp.int32(seq))
+    qlogits = model.forward(model.quantize(params, stats), {"tokens": tokens})
+    return dict(params=to_numpy(params), tokens=np.array(tokens),
+                stats={"names": np.array([st.name for st in stats]),
+                       "absmax": np.array([st.absmax for st in stats], np.float64)},
+                prefill=np.array(logits[:, -1:]), next=np.array(nxt), decode=np.array(step),
+                quant=np.array(qlogits[:, -1:]))
+
+
 def fixture_bytes(chain: dict) -> bytes:
     buf = io.BytesIO()
     np.savez_compressed(buf, **flatten(chain))
@@ -115,3 +170,5 @@ if __name__ == "__main__":
     for path, pattern in ((FIXTURE, "matrix"), (FIXTURE_BW, None)):
         path.write_bytes(fixture_bytes(jax_chain(batch=FIXTURE_BATCH, pattern=pattern)))
         print(f"wrote {path} ({path.stat().st_size} bytes)")
+    FIXTURE_LM.write_bytes(fixture_bytes(jax_lm_golden()))
+    print(f"wrote {FIXTURE_LM} ({FIXTURE_LM.stat().st_size} bytes)")
