@@ -67,7 +67,8 @@ Phases, each of which fails the run:
         different orders (K_c·2^-24·Σ|a||w|), and at most 0.1 % of the
         entries beyond one ulp of |plain|; each timed as phase 2 times a layer,
         beside torch.matmul bf16 on the decoded dense weight or
-        torch._int_mm on the decoded int8 weight;
+        torch._int_mm on the decoded int8 weight, each bf16 shape with its
+        tile plan (``core.bf16_mma_plan``: tile, split-K, B chunk);
      b. greedy generation through ``repro_torch.launch.serve`` with the
         launch counts at 0 just before: compressed bf16 weights drawn and
         compressed on the card leaf by leaf (seed 0), batch 4, a 256-token
@@ -92,6 +93,7 @@ nonzero and prints no result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import re
@@ -566,22 +568,24 @@ def end_to_end(dev, pattern):
 # On os_gemm (the CUDA cores: fp32, and the stem's int8) the bw conv's A
 # loader is the stem's Tap, so its B loader (the expand) decides; on os_mma
 # (the int8 tensor cores) the A stager decides (the bw kernels' cp.async
-# chunks, the tc kernels' gathers); the stem's direct conv is a template of
+# chunks, the tc kernels' gathers); bf16_mma (the bf16 tensor cores) runs
+# only the tc matmul's bf16 gather; the stem's direct conv is a template of
 # its own.
 KERNEL_OF_LOADER = {
     "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw",
                "GatherMux": "vdbb_matmul_tc", "TapMux": "vdbb_conv_tc"},
+    "bf16_mma": {"WordGather": "vdbb_matmul_tc_bf16"},
     "os_gemm": {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
-                "GatherTap": "vdbb_conv_tc", "GatherColsBf16": "vdbb_matmul_tc_bf16",
-                "GatherCols": "vdbb_matmul_tc", "Tap": "im2col_conv"},
+                "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
+                "Tap": "im2col_conv"},
     "direct_conv": {"HaloTile": "im2col_conv"},
 }
 
 
 def kernel_family(name: str) -> str:
     """The port's kernel a CUDA kernel name belongs to, else 'other'. The
-    kernels are instances of two GEMM templates told apart by their operand
-    loaders, and of the stem's direct conv; ``name`` may be demangled
+    kernels are instances of three GEMM templates told apart by their
+    operand loaders, and of the stem's direct conv; ``name`` may be demangled
     (``os_mma::kernel<128, 16, ..., TapChunks, ExpandTile>(...)``) or
     mangled (``_ZN6os_mma6kernel...``), so the names are matched as
     substrings."""
@@ -644,8 +648,6 @@ def profile_forwards(fn, x, per_forward, reps: int = 4) -> dict:
 def golden(dev, pattern):
     """Phase 4: the JAX reference's fixture of ``pattern`` through the port
     on the card."""
-    import dataclasses
-
     import numpy as np
 
     from repro_torch.configs import smoke_cnn_config
@@ -1008,6 +1010,7 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
     from repro_torch.core.quant import quantize_dbb
     from repro_torch.core.vdbb import DBBFormat, dbb_decode, dbb_encode
     from repro_torch.kernels import vdbb_matmul as mm
+    from repro_torch.kernels.core import bf16_mma_plan
     from repro_torch.kernels.ref import bf16_reorder_bound, check_bf16
     from repro_torch.kernels.timing import device_ms
 
@@ -1026,7 +1029,8 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
         library = lambda: a @ wd  # noqa: E731
         lib_call = "torch.matmul bf16 on the decoded dense weight"
         b_ms, b_by = bound(nbytes(a, vals, idx, run()), ops_, BF16_OPS_PER_S)
-        rec = dict(err=err, beyond_plain_ulp=beyond, cuda_core_bound_ms=ops_ / FP32_OPS_PER_S * 1e3)
+        plan = bf16_mma_plan("vdbb_matmul_tc", m, n, kc, (a.data_ptr(), vals.data_ptr()), k=k)
+        rec = dict(err=err, beyond_plain_ulp=beyond, plan=dataclasses.asdict(plan))
     else:
         qw = quantize_dbb(dw)
         a, vals = codes(gen, dev, m, k), qw.values
@@ -1071,7 +1075,7 @@ def lm_kernels(gen, dev) -> dict:
                 log(f"[lm kernels] {name:<7s} {k:>5d}->{n:<5d}  {m:<5d} {key:<6s} {r['ms']:<9.4f} "
                     f"{ms(r['device_ms']):<10s} {r['plain_ms']:<9.4f} {ms(r['library_ms']):<11s} "
                     f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
-                    + (f"; CUDA-core bound {r['cuda_core_bound_ms']:.4f}; max diff {r['err']:.3g}, "
+                    + (f"; plan {json.dumps(r['plan'])}; max diff {r['err']:.3g}, "
                        f"{r['beyond_plain_ulp']} entries beyond one ulp of |plain|"
                        if key == "bf16" else "") + f"  [{r['library_call']}]")
     for key in out:
@@ -1175,13 +1179,17 @@ def lm_generate(dev) -> dict:
         # norms, the dense head)
         prefill_prof = profile_forwards(model.forward, rec["prompt"], per_step, reps=2)
         out[label] = dict(prefill_ms=rec["prefill_ms"], ms_per_step=rec["ms_per_step"],
+                          prefill_host_ms=rec["prefill_host_ms"],
+                          host_ms_per_step=rec["host_ms_per_step"],
                           steps_per_s=rec["steps_per_s"], decode_bound_ms=b_ms,
                           decode_bytes=b_bytes, consistency_rel_l2=errs, launches=counts,
                           decode_profile=prof, prefill_profile=prefill_prof,
                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                           seconds=time.time() - t0)
         log(f"[lm generate] {label}: prefill {rec['prefill_ms']:.3f} ms, {rec['ms_per_step']:.3f} ms "
-            f"per decode step ({rec['steps_per_s']:.2f} steps/s) against the decode bound "
+            f"per decode step ({rec['steps_per_s']:.2f} steps/s; the host enqueues a prefill in "
+            f"{rec['prefill_host_ms']:.3f} ms and a step in {rec['host_ms_per_step']:.3f}) against "
+            f"the decode bound "
             f"{b_ms:.3f} ms ({b_bytes / 1e9:.3f} GB a step at 3.35 TB/s); decode logits against "
             f"fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}; "
             f"launches {counts}; peak {out[label]['peak_gb']:.2f} GB ({time.time() - t0:.1f} s)")

@@ -4,9 +4,10 @@ conv geometry, the accumulator dtype rule and the fused flush-epilogue plan.
 The TPU kernels carry an output-stationary accumulator across a sequential
 K grid axis (``os_accumulate``). On the card each thread block owns an output
 tile and loops over K itself; that loop and the flush epilogue live in
-``csrc/os_gemm.cuh`` (the CUDA cores), ``csrc/os_mma.cuh`` (the int8 tensor
-cores, for the int8 instantiation of every compressed kernel) and
-``csrc/epilogue.cuh``.
+``csrc/os_gemm.cuh`` (the CUDA cores, fp32), ``csrc/os_mma.cuh`` (the int8
+tensor cores, for the int8 instantiation of every compressed kernel),
+``csrc/bf16_mma.cuh`` (the bf16 tensor cores, for the tc matmul's bf16
+instantiation) and ``csrc/epilogue.cuh``.
 What stays here is what the host resolves before a launch.
 """
 from __future__ import annotations
@@ -26,6 +27,14 @@ MMA_SMALL_M = 64
 # mask of its taps inside the image
 MMA_MAX_TAPS = 32
 MMA_TAP_OFFSET_LIMIT = 2**27
+# csrc/bf16_mma.cuh: compressed columns a stage, the M at or below which it
+# takes its small tile, and per tile (rows, columns, the largest split-K
+# cluster); the split aims at the 132 SMs of an H100
+BF16_BK = 32
+BF16_SMALL_M = 16
+BF16_TILES = {"small": (16, 128, 16), "large": (128, 256, 8)}
+BF16_LARGE_STAGES = 4  # the large tile's ring
+BF16_SMS = 132
 
 
 def _pair(v):
@@ -211,3 +220,59 @@ def mma_tap_plan(name: str, m: int, kc: int, kh: int, kw: int, w: int, c: int) -
         raise ValueError(f"{name}: tap offsets up to (({kh} - 1) * {w} + {kw}) * {c} bytes "
                          f"reach the packed source's limit of {MMA_TAP_OFFSET_LIMIT}")
     return plan
+
+
+@dataclasses.dataclass(frozen=True)
+class Bf16MmaPlan:
+    """How ``csrc/bf16_mma.cuh`` runs one bf16 product: a tile of
+    ``tile_rows`` x ``tile_cols`` outputs a CTA, the compressed K split over
+    a cluster of ``split`` CTAs (reduced in rank order through distributed
+    shared memory), the values copied in ``b_chunk``-byte pieces (16: by
+    cp.async; 2: element by element through registers)."""
+
+    tile_rows: int
+    tile_cols: int
+    split: int
+    b_chunk: int
+
+
+def bf16_mma_plan(name: str, m: int, n: int, kc: int, ptrs, *, k: int) -> Bf16MmaPlan:
+    """The bf16 tensor-core GEMM's choices for an (m, kc) x (kc, n) product
+    over A (m, k) gathered to its ``kc`` compressed columns, with ``ptrs`` =
+    (A's address, the values' address). The kernel makes the same choices;
+    this raises on what it does not take.
+
+    - tile: 16 x 128 for m <= 16 (decode), else 128 x 256, both in
+      32-deep stages;
+    - split, at most the ceil(kc / 32) stages: on the small tile (bound
+      by bytes) 1 where the tiles fill the 132 SMs, else ceil(132 / tiles)
+      up to 16 CTAs a cluster; on the large tile (bound by operations, one
+      CTA an SM) 1 from 4 waves of tiles on, else the s up to 8 with the
+      fewest stage times over its waves, ceil(tiles * s / 132) *
+      (ceil(stages / s) + 4), the + 4 (its ring) a CTA's filling of its
+      ring and its flush or reduction;
+    - B chunk: 16 bytes when n % 8 == 0 and the values are 16-byte aligned,
+      else 2 (through registers);
+    - A must be 4-byte aligned with an even k: the gather copies the aligned
+      4-byte word that holds each element.
+    """
+    a_ptr, v_ptr = ptrs
+    if a_ptr % 4 or k % 2:
+        raise ValueError(f"{name}: bf16 A of {k} columns at address {a_ptr:#x}; the gather "
+                         "copies aligned 4-byte words, so it needs an even K and a 4-byte "
+                         "aligned A")
+    small = m <= BF16_SMALL_M
+    rows, cols, max_split = BF16_TILES["small" if small else "large"]
+    tiles = -(-m // rows) * -(-n // cols)
+    stages = -(-kc // BF16_BK)
+    most = min(max_split, stages)
+    if small:
+        split = 1 if tiles >= BF16_SMS else min(-(-BF16_SMS // tiles), most)
+    elif tiles >= 4 * BF16_SMS:
+        split = 1
+    else:
+        costs = [-(-tiles * s // BF16_SMS) * (-(-stages // s) + BF16_LARGE_STAGES)
+                 for s in range(1, most + 1)]
+        split = 1 + costs.index(min(costs))
+    chunk = 16 if n % 8 == 0 and v_ptr % 16 == 0 else 2
+    return Bf16MmaPlan(rows, cols, split, chunk)

@@ -15,12 +15,8 @@
 // per-column expand of a compressed weight. Ragged M, N and K edges are
 // masked here, so no operand is padded in device memory.
 //
-// Operands are int8 (int32 accumulator), fp32 or bf16 (fp32 accumulator:
-// each bf16 product is exact in fp32, so the sum rounds only at its adds,
-// and the flush rounds once to the output type).
+// Operands are int8 (int32 accumulator) or fp32 (fp32 accumulator).
 #pragma once
-
-#include <cuda_bf16.h>
 
 #include "epilogue.cuh"
 
@@ -36,18 +32,6 @@ constexpr int THREADS = 256;
 template <typename T> struct AccOf { using type = float; };
 template <> struct AccOf<int8_t> { using type = int32_t; };
 
-// An operand in the accumulator type, and an operand's zero; bf16 through
-// its intrinsics.
-template <typename Acc, typename T>
-__device__ __forceinline__ Acc widen(T v) { return static_cast<Acc>(v); }
-template <>
-__device__ __forceinline__ float widen<float, __nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-template <typename T>
-__device__ __forceinline__ T zero() { return T(0); }
-template <>
-__device__ __forceinline__ __nv_bfloat16 zero<__nv_bfloat16>() { return __float2bfloat16_rn(0.0f); }
 
 // B read as it lies: a dense row-major (K, N) matrix.
 template <typename T>
@@ -84,22 +68,22 @@ kernel(LoadA load_a, LoadB load_b, int M, int N, int K, Out* __restrict__ out,
     for (int e = threadIdx.x; e < BK * BM; e += THREADS) {
       const int kk = e % BK, mm = e / BK;
       const int k = k0 + kk, m = m0 + mm;
-      a_tile[kk][mm] = (k < K && m < M) ? load_a(m, k) : zero<T>();
+      a_tile[kk][mm] = (k < K && m < M) ? load_a(m, k) : T(0);
     }
     // neighbouring threads take neighbouring n: B's rows are row-major
     for (int e = threadIdx.x; e < BK * BN; e += THREADS) {
       const int nn = e % BN, kk = e / BN;
       const int k = k0 + kk, n = n0 + nn;
-      b_tile[kk][nn] = (k < K && n < N) ? load_b(k, n) : zero<T>();
+      b_tile[kk][nn] = (k < K && n < N) ? load_b(k, n) : T(0);
     }
     __syncthreads();
 #pragma unroll
     for (int kk = 0; kk < BK; ++kk) {
       Acc av[TM], bv[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) av[i] = widen<Acc>(a_tile[kk][ty + 16 * i]);
+      for (int i = 0; i < TM; ++i) av[i] = static_cast<Acc>(a_tile[kk][ty + 16 * i]);
 #pragma unroll
-      for (int j = 0; j < TN; ++j) bv[j] = widen<Acc>(b_tile[kk][tx + 16 * j]);
+      for (int j = 0; j < TN; ++j) bv[j] = static_cast<Acc>(b_tile[kk][tx + 16 * j]);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -131,9 +115,9 @@ cudaError_t launch_typed(const LoadA& load_a, const LoadB& load_b, int M, int N,
 }
 
 // Output kinds as the Python wrappers pass them.
-enum OutKind { OUT_INT32 = 0, OUT_FLOAT32 = 1, OUT_INT8 = 2, OUT_BF16 = 3 };
+enum OutKind { OUT_INT32 = 0, OUT_FLOAT32 = 1, OUT_INT8 = 2 };
 // Operand kinds.
-enum InKind { IN_INT8 = 0, IN_FLOAT32 = 1, IN_BF16 = 2 };
+enum InKind { IN_INT8 = 0, IN_FLOAT32 = 1 };
 
 template <typename T, typename LoadA, typename LoadB>
 cudaError_t launch(int out_kind, const LoadA& load_a, const LoadB& load_b, int M,
@@ -149,11 +133,6 @@ cudaError_t launch(int out_kind, const LoadA& load_a, const LoadB& load_b, int M
       return launch_typed<T, float>(load_a, load_b, M, N, K, out, ep, stream);
     case OUT_INT8:
       return launch_typed<T, int8_t>(load_a, load_b, M, N, K, out, ep, stream);
-    case OUT_BF16:
-      if constexpr (std::is_same<T, __nv_bfloat16>::value)
-        return launch_typed<T, __nv_bfloat16>(load_a, load_b, M, N, K, out, ep, stream);
-      else
-        return cudaErrorInvalidValue;
     default:
       return cudaErrorInvalidValue;
   }

@@ -18,26 +18,26 @@
 // offsets resolved once for the whole tile, in byte lanes (a warp's 32 lanes
 // on 32 neighbouring columns of one row); B is the values read down each
 // column and packed K-major (`DenseTile`); the loads of stage kt+1 are in
-// flight during stage kt's mmas. M <= 64 takes the 64-row tile. fp32 and
-// bf16 operands keep os_gemm.cuh's CUDA-core loop (`GatherCols`); bf16
-// accumulates in fp32 and rounds once at the flush.
+// flight during stage kt's mmas. M <= 64 takes the 64-row tile. bf16
+// operands (the LM's projections) run on the bf16 tensor cores
+// (bf16_mma.cuh: the gather by 4-byte words, the values by cp.async in a
+// ring, split-K over a thread block cluster at decode), accumulate in fp32
+// and round once at the flush. fp32 operands keep os_gemm.cuh's CUDA-core
+// loop (`GatherCols`).
+#include "bf16_mma.cuh"
 #include "mux_stage.cuh"
 #include "os_gemm.cuh"
 #include "os_mma.cuh"
 
-template <typename T>
 struct GatherCols {
-  const T* a;
+  const float* a;
   const int8_t* idx;  // (K_c,) intra-block positions, pattern shared by all N
   int lda, bz, nnz;
 
-  __device__ __forceinline__ T operator()(int m, int k) const {
+  __device__ __forceinline__ float operator()(int m, int k) const {
     return a[(size_t)m * lda + (k / nnz) * bz + idx[k]];
   }
 };
-
-// A named instance for bf16 operands, so a profiler tells it from the fp32 one.
-struct GatherColsBf16 : GatherCols<__nv_bfloat16> {};
 
 extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx,
                               const void* scale, const void* bias,
@@ -56,16 +56,15 @@ extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx
     return os_mma::launch(out_kind, 8, la, lb, m, n, kc, out, ep, s);
   }
   if (in_kind == os_gemm::IN_FLOAT32) {
-    GatherCols<float> la{static_cast<const float*>(a), static_cast<const int8_t*>(idx), k, bz,
-                         nnz};
+    GatherCols la{static_cast<const float*>(a), static_cast<const int8_t*>(idx), k, bz, nnz};
     os_gemm::DenseB<float> lb{static_cast<const float*>(values), n};
     return os_gemm::launch<float>(out_kind, la, lb, m, n, kc, out, ep, s);
   }
-  if (in_kind == os_gemm::IN_BF16) {
-    GatherColsBf16 la{{static_cast<const __nv_bfloat16*>(a), static_cast<const int8_t*>(idx), k,
-                       bz, nnz}};
-    os_gemm::DenseB<__nv_bfloat16> lb{static_cast<const __nv_bfloat16*>(values), n};
-    return os_gemm::launch<__nv_bfloat16>(out_kind, la, lb, m, n, kc, out, ep, s);
+  if (in_kind == bf16_mma::IN_BF16) {
+    bf16_mma::WordGather la{static_cast<const __nv_bfloat16*>(a), static_cast<const int8_t*>(idx),
+                            k, bz, nnz};
+    return bf16_mma::launch(out_kind, la, static_cast<const __nv_bfloat16*>(values), m, n, kc, out,
+                            ep, s);
   }
   return cudaErrorInvalidValue;
 }

@@ -1,11 +1,15 @@
 """Where the time of the int8 tensor-core core (``csrc/os_mma.cuh``) goes:
 the bw conv and the tc conv at three ``sparse-cnn-s`` layer shapes (batch
-64), the bw head and the tc head; and where the time of the stem's direct
-conv (``csrc/im2col_conv.cu``) goes at ``sparse-cnn-s`` batch 64. Each
-kernel is built from a scratch copy of ``csrc/`` with parts switched off,
-and timed by torch.profiler's device time.
+64), the bw head and the tc head; where the time of the stem's direct conv
+(``csrc/im2col_conv.cu``) goes at ``sparse-cnn-s`` batch 64; and where the
+time of the bf16 tensor-core core (``csrc/bf16_mma.cuh``) goes at the eight
+``starcoder2-7b`` projection shapes (4 and 1024 rows). Each kernel is built
+from a scratch copy of ``csrc/`` with parts switched off, and timed by
+torch.profiler's device time.
 
-    PYTHONPATH=src python -m repro_torch.kernels.mma_ablation
+    PYTHONPATH=src python -m repro_torch.kernels.mma_ablation [int8] [stem] [bf16]
+
+(no argument: all three tables).
 
 Needs a CUDA card and nvcc. Variants of the core: ``as built``; ``no B
 loads`` (the B stager's fetch replaced by a constant); ``no A copies`` (no
@@ -21,8 +25,18 @@ zero test``, ``no flush`` (the accumulators' raw bytes stored), ``no taps``
 pixels x 16 filters, 2 blocks an SM); each with ReLU (as the stem runs,
 half its outputs zero) and without, and timed by CUDA events too (20
 back-to-back launches). The outputs of the switched variants are
-meaningless; only their times count. The copies are built under
-``build/kernels/ablation/``.
+meaningless; only their times count. The bf16 core's variants: ``no B
+loads`` (no cp.async of the values), ``no A loads`` (no cp.async of A's
+words at decode, no 2-byte loads into registers at prefill), ``no A
+stores`` (the words not compacted, the registers not stored, into the
+tile the mmas read), ``no A gather`` (neither), ``no mma`` (the mma
+replaced by an xor into the accumulator), ``no split reduce`` (each output
+sums rank 0's partial alone: the cluster's other partials are parked but
+not read), ``no prefill split`` (the large tile never splits K_c),
+``decode A in registers`` (the small tile gathers A as the large one does,
+no words), and ``128 x 128 prefill tile`` (the prefill instance's tile of
+128 x 128 in place of 128 x 256; the split as the kernel chooses it for
+that tile), all on bf16 outputs. The copies are built under ``build/kernels/ablation/``.
 """
 from __future__ import annotations
 
@@ -64,6 +78,50 @@ SOURCE_SWITCHES = {
     "FT16": ("im2col_conv.cu", "constexpr int FT = 8;", "constexpr int FT = 16;"),
     "BLOCKS2": ("im2col_conv.cu", "constexpr int MIN_BLOCKS = 4;", "constexpr int MIN_BLOCKS = 2;"),
 }
+# the bf16 core's switches (bf16_mma.cuh)
+SOURCE_SWITCHES.update({
+    "NO_B16": ("bf16_mma.cuh",
+               "        cp_async<16>(smem_u32(dst), ok ? src_b : args.v, ok);\n", ""),
+    "NO_GATHER16": ("bf16_mma.cuh",
+                    "      cp_async<4>(smem_u32(&Aw[(slot * BM + warp + 8 * i) * BK + lane]),\n"
+                    "                  ok ? p + (size_t)8 * i * ga.lda : ga.a, ok);\n", ""),
+    "NO_GATHER_REG": ("bf16_mma.cuh",
+                      "      ra[i] = ldg_u16_if(p + (size_t)8 * i * ga.lda, kok && warp + 8 * i < rows);\n",
+                      "      ra[i] = 0u;\n"),
+    "NO_STORE_A": ("bf16_mma.cuh",
+                   "      dst[(warp + 8 * i) * T::AP + lane] = static_cast<uint16_t>(ra[i]);\n",
+                   "      (void)dst;\n"),
+    "NO_COMPACT": ("bf16_mma.cuh",
+                   "      dst[(warp + 8 * i) * T::AP + lane] =\n"
+                   "          static_cast<uint16_t>(Aw[(slot * BM + warp + 8 * i) * BK + lane] >> sh);\n",
+                   "      (void)sh;\n"),
+    "NO_MMA16": ("bf16_mma.cuh",
+                 "          mma_bf16(acc[i][j], af[b][i], bf[b][j / 2][(j % 2) * 2], bf[b][j / 2][(j % 2) * 2 + 1]);\n",
+                 "          acc[i][j][0] += __uint_as_float(af[b][i][0] ^ bf[b][j / 2][0]);\n"),
+    "NO_REDUCE": ("bf16_mma.cuh",
+                  "      if (s < split) sum.x += v[s].x, sum.y += v[s].y, sum.z += v[s].z, sum.w += v[s].w;\n",
+                  "      (void)v[s];\n"),
+    # no split of K_c at prefill
+    "NO_PREFILL_SPLIT": ("bf16_mma.cuh", "  int best = 1;\n", "  return 1;\n  int best = 0;\n"),
+    # A through registers at decode too (no words, no compaction)
+    "REG_DECODE": ("bf16_mma.cuh",
+                   "  static constexpr bool REG_A = !SMALL;          // A through registers, else by words\n",
+                   "  static constexpr bool REG_A = true;\n"),
+    # the prefill tile of 128 x 128
+    "NARROW": ("bf16_mma.cuh", "  return launch_typed<128, 256, BCH, Out>(ga, args, stream);\n",
+               "  return launch_typed<128, 128, BCH, Out>(ga, args, stream);\n"),
+})
+_A_LOADS, _A_STORES = ("NO_GATHER16", "NO_GATHER_REG"), ("NO_COMPACT", "NO_STORE_A")
+BF16_VARIANTS = {"as built": (), "no B loads": ("NO_B16",), "no A loads": _A_LOADS,
+                 "no A stores": _A_STORES, "no A gather": _A_LOADS + _A_STORES,
+                 "no mma": ("NO_MMA16",), "no split reduce": ("NO_REDUCE",),
+                 "no prefill split": ("NO_PREFILL_SPLIT",),
+                 "decode A in registers": ("REG_DECODE",), "128 x 128 prefill tile": ("NARROW",)}
+# (K, N) of starcoder2-7b's projections (chip_smoke.LM_SHAPES) and the rows
+# of a decode step and of a 4 x 256 prefill
+LM_SHAPES = {"wq/wo": (4608, 4608), "wk/wv": (4608, 512), "w_up": (4608, 18432),
+             "w_down": (18432, 4608)}
+LM_ROWS = (4, 1024)
 STEM_VARIANTS = {"as built": (), "no division": ("NO_DIV",), "no zero test": ("NO_ZERO_TEST",),
                  "no flush": ("NO_FLUSH",),
                  "no taps": ("NO_TAPS",), "no taps, no flush": ("NO_TAPS", "NO_FLUSH"),
@@ -98,10 +156,11 @@ def variant_sources(name: str, switches, csrc: Path = build.CSRC) -> Path:
     return out
 
 
-def main() -> int:
+def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("mma_ablation: no CUDA card available", file=sys.stderr)
         return 2
+    parts = set(argv) or {"int8", "stem", "bf16"}
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
 
@@ -149,12 +208,18 @@ def main() -> int:
                 "vdbb_matmul_tc": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P]}
     sources = {name: f"{name}.cu" for name in argtypes}
     columns = [f"{mode} {layer}" for mode in ("bw", "tc") for layer in CONVS] + ["bw head", "tc head"]
-    print(f"{'variant':<20s} " + " ".join(f"{name:>9s}" for name in columns)
-          + "   (device ms; convs int8 codes out, heads raw int32 out)")
     csrc, registry = build.CSRC, dict(build.KERNELS)
     try:
-        for name, switches in VARIANTS.items():
-            print(f"{name:<20s} " + _row(name, switches, csrc, cases, sources, argtypes), flush=True)
+        if "int8" in parts:
+            print(f"{'variant':<20s} " + " ".join(f"{name:>9s}" for name in columns)
+                  + "   (device ms; convs int8 codes out, heads raw int32 out)")
+            for name, switches in VARIANTS.items():
+                print(f"{name:<20s} " + _row(name, switches, csrc, cases, sources, argtypes),
+                      flush=True)
+        if "bf16" in parts:
+            _bf16_table(csrc, gen, dev, stream)
+        if "stem" not in parts:
+            return 0
         # the stem on its direct path: fp32 in, bias, ReLU, int8 codes out
         n, h, w, c, f = STEM
         x = torch.randn(n, h, w, c, generator=gen).to(dev)
@@ -179,7 +244,32 @@ def main() -> int:
     return 0
 
 
-def _row(name, switches, csrc, cases, sources, argtypes, events=False) -> str:
+def _bf16_table(csrc, gen, dev, stream) -> None:
+    """The bf16 core at every LM shape and row count, bf16 out, as built
+    and with each of ``BF16_VARIANTS``' parts switched off."""
+    cases = []
+    for k, n in LM_SHAPES.values():
+        nb = k // 8
+        pos = torch.argsort(torch.rand(nb, 8, generator=gen), dim=1)[:, :NNZ]
+        idx = pos.sort(dim=1).values.to(torch.int8).to(dev)
+        v = (torch.randn(nb, NNZ, n, generator=gen) * k ** -0.5).bfloat16().to(dev)
+        for m in LM_ROWS:
+            a = torch.randn(m, k, generator=gen).bfloat16().to(dev)
+            out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+            cases.append(("vdbb_matmul_tc", (a.data_ptr(), v.data_ptr(), idx.data_ptr(), None, None,
+                                             None, 0, out.data_ptr(), 2, 3, m, k, n, 8, NNZ, stream),
+                          (a, v, idx, out)))
+    columns = [f"{s}:{m}" for s in LM_SHAPES for m in LM_ROWS]
+    sources = {"vdbb_matmul_tc": "vdbb_matmul_tc.cu"}
+    argtypes = {"vdbb_matmul_tc": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P]}
+    print(f"{'bf16 variant':<20s} " + " ".join(f"{c:>12s}" for c in columns)
+          + "   (device ms; bf16 out)")
+    for name, switches in BF16_VARIANTS.items():
+        print(f"{name:<20s} " + _row(f"bf16 {name}", switches, csrc, cases, sources, argtypes,
+                                     width=12), flush=True)
+
+
+def _row(name, switches, csrc, cases, sources, argtypes, events=False, width=9) -> str:
     """Build the variant's copy of ``csrc`` and time each case on it (by
     torch.profiler, and with ``events`` by CUDA events as well)."""
     build.CSRC = variant_sources(name, switches, csrc)
@@ -188,8 +278,8 @@ def _row(name, switches, csrc, cases, sources, argtypes, events=False) -> str:
     build.build_all(tuple(sources.values()))
     calls = [lambda kn=kn, args=args: kernels[kn].launch(*args) for kn, args, _ in cases]
     row = [device_ms(fn) for fn in calls] + ([event_ms(fn) for fn in calls] if events else [])
-    return " ".join(f"{t:9.4f}" if t is not None else f"{'none':>9s}" for t in row)
+    return " ".join(f"{t:{width}.4f}" if t is not None else f"{'none':>{width}s}" for t in row)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

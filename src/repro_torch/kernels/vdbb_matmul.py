@@ -11,8 +11,8 @@ import torch
 from repro_torch.core.vdbb import DBBWeight, gather_compressed
 from repro_torch.kernels import build
 from repro_torch.kernels.build import I, P
-from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, check_indices, epilogue_plan,
-                                      mma_gather_plan, mma_plan)
+from repro_torch.kernels.core import (acc_dtype_for, apply_epilogue, bf16_mma_plan, check_indices,
+                                      epilogue_plan, mma_gather_plan, mma_plan)
 from repro_torch.kernels.ref import acc_matmul, decode_values
 
 KERNEL = build.CudaKernel(
@@ -61,9 +61,10 @@ def vdbb_matmul_tc(a, values, indices, fmt, *, scales=None, bias=None,
     (int8, fp32 or bf16); indices: (nb, nnz) int8, shared across N. Any M;
     ragged edges are masked in the kernel. int8 runs on the tensor cores and
     needs the compressed K = nb * nnz within ``core.MMA_MAX_K``
-    (:func:`core.mma_gather_plan`); bf16 runs on the CUDA cores, counts its
-    launches as ``vdbb_matmul_tc_bf16`` and returns bf16 unless requantizing. CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    (:func:`core.mma_gather_plan`); bf16 runs on the bf16 tensor cores
+    (:func:`core.bf16_mma_plan`: an even K and a 4-byte aligned A), counts its
+    launches as ``vdbb_matmul_tc_bf16`` and returns bf16 unless requantizing.
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
     if a.device.type == "cpu":
         return vdbb_matmul_tc_plain(a, values, indices, fmt, scales=scales,
                                     bias=bias, relu=relu, out_scale=out_scale)
@@ -75,12 +76,15 @@ def _launch_tc(a, values, indices, fmt, ep):
     """The tc kernel on CUDA operands, the flush resolved."""
     if values.dtype != a.dtype or indices.dtype != torch.int8 or indices.dim() != 2:
         raise TypeError("vdbb_matmul_tc: values must match a's dtype, indices be (nb, nnz) int8")
-    if a.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
-        mma_gather_plan("vdbb_matmul_tc", a.shape[0], values.shape[0] * values.shape[1])
-    in_kind = build.check_operands("vdbb_matmul_tc", a, values, indices, dtype=a.dtype,
-                                   bf16=True)
     m, k = a.shape
     n = values.shape[-1]
+    if a.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        mma_gather_plan("vdbb_matmul_tc", m, values.shape[0] * values.shape[1])
+    elif a.dtype == torch.bfloat16:  # csrc/bf16_mma.cuh
+        bf16_mma_plan("vdbb_matmul_tc", m, n, values.shape[0] * values.shape[1],
+                      (a.data_ptr(), values.data_ptr()), k=k)
+    in_kind = build.check_operands("vdbb_matmul_tc", a, values, indices, dtype=a.dtype,
+                                   bf16=True)
     out = torch.empty((m, n), dtype=ep.out_dtype, device=a.device)
     KERNEL.launch(
         a.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
@@ -139,10 +143,10 @@ def stage_vdbb_matmul(w: DBBWeight, m: int, *, scales=None, bias=None, relu=Fals
     """The product with a compressed weight ``w`` with the weight's side
     resolved once, for a plan (``models/plan.py``): the kernel for the
     pattern mode (shared across N: tc; per column or group: bw), the tc
-    kernel's shared index row, the flush rows, and the int8 tile plan at
-    ``m`` rows (the bw plan's chunk for an A at an allocation's start, as
-    every input of a plan is). Returns ``(run, tiles)``: ``run(a)`` is the
-    product (the plain version for a CPU tensor, the kernel for a CUDA one)."""
+    kernel's shared index row, the flush rows, and the tile plan at ``m``
+    rows, int8 or bf16 (for an A at an allocation's start, as every input of
+    a plan is). Returns ``(run, tiles)``: ``run(a)`` is the product (the
+    plain version for a CPU tensor, the kernel for a CUDA one)."""
     k, n = w.shape
     tc = w.fmt.group_size(n) == n
     values = w.values
@@ -152,10 +156,13 @@ def stage_vdbb_matmul(w: DBBWeight, m: int, *, scales=None, bias=None, relu=Fals
                        out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype),
                        in_dtype=values.dtype)
     tiles = {}
+    kc = values.shape[0] * values.shape[1]
     if values.dtype == torch.int8:  # the tensor-core instantiation (csrc/os_mma.cuh)
+        tiles = dataclasses.asdict(mma_gather_plan("vdbb_matmul_tc", m, kc) if tc
+                                   else mma_plan("vdbb_matmul_bw", m, k, k, 0))
+    elif values.dtype == torch.bfloat16 and tc:  # csrc/bf16_mma.cuh
         tiles = dataclasses.asdict(
-            mma_gather_plan("vdbb_matmul_tc", m, values.shape[0] * values.shape[1]) if tc
-            else mma_plan("vdbb_matmul_bw", m, k, k, 0))
+            bf16_mma_plan("vdbb_matmul_tc", m, n, kc, (0, values.data_ptr()), k=k))
     plain = vdbb_matmul_tc_plain if tc else vdbb_matmul_bw_plain
     launch = _launch_tc if tc else _launch_bw
 

@@ -208,14 +208,18 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
              prefill_reps: int = 3) -> dict:
     """Greedy batched generation: prefill, then ``gen_len - 1`` decode steps.
     Returns ``{"tokens": (B, gen_len) int32, "steps_per_s", "prefill_ms",
-    "ms_per_step", "logits": {i: the logits of decode step i for i in
-    keep}, "forwards": {"prefill": n, "decode": n}}``; decode step i
-    consumes generated token i at position ``prompt_len + i``. Times by CUDA
-    events on a card (the host clock on the CPU), each part warm:
-    ``prefill_ms`` is the mean of ``prefill_reps`` prefills after an untimed
-    one, and the decode loop is timed after an untimed step 0, which the
-    timed step 0 then writes over with the same values. ``forwards`` counts
-    every forward run, warm-ups included."""
+    "ms_per_step", "prefill_host_ms", "host_ms_per_step", "logits": {i: the
+    logits of decode step i for i in keep}, "forwards": {"prefill": n,
+    "decode": n}}``; decode step i consumes generated token i at position
+    ``prompt_len + i``. Times by CUDA events on a card (the host clock on
+    the CPU), each part warm: ``prefill_ms`` is the mean of
+    ``prefill_reps`` prefills after an untimed one, and the decode loop is
+    timed after an untimed step 0, which the timed step 0 then writes over
+    with the same values. The ``host`` times are the host clock's until the
+    calls return, before any synchronize: the time to enqueue the work (one
+    prefill; the decode loop per step), which bounds the events time from
+    below where the host is the slower side. ``forwards`` counts every
+    forward run, warm-ups included."""
     from repro_torch.kernels.timing import event_ms
 
     prefill, step_fn = make_prefill(model), make_serve_step(model)
@@ -229,25 +233,32 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
     dev = model.device
     prefill_ms = event_ms(lambda: run("prefill", prefill, prompt_batch), reps=prefill_reps,
                           warmup=1, device=dev)
+    t0 = time.perf_counter()
     logits, caches = run("prefill", prefill, prompt_batch)
+    prefill_host_ms = (time.perf_counter() - t0) * 1e3
     cache = pad_cache(caches, plen, max_len)
     out = [logits[:, -1:].argmax(dim=-1).to(torch.int32)]
     kept = {}
     if gen_len > 1:  # warm-up; the timed step 0 rewrites its slot
         run("decode", step_fn, cache, {"tokens": out[0]}, plen)
 
+    host = []
+
     def decode():
+        t0 = time.perf_counter()
         for i in range(gen_len - 1):
             logits, _ = run("decode", step_fn, cache, {"tokens": out[-1]}, plen + i)
             if i in keep:
                 kept[i] = logits
             out.append(logits.argmax(dim=-1).to(torch.int32))
+        host.append((time.perf_counter() - t0) * 1e3)
 
     decode_ms = event_ms(decode, reps=1, warmup=0, device=dev)
     steps = max(gen_len - 1, 1)
     return {"tokens": torch.cat(out, dim=1), "steps_per_s": steps / max(decode_ms, 1e-9) * 1e3,
-            "prefill_ms": prefill_ms, "ms_per_step": decode_ms / steps, "logits": kept,
-            "forwards": forwards}
+            "prefill_ms": prefill_ms, "ms_per_step": decode_ms / steps,
+            "prefill_host_ms": prefill_host_ms, "host_ms_per_step": host[0] / steps,
+            "logits": kept, "forwards": forwards}
 
 
 def lm_config(arch: str, *, smoke: bool = False, sparsity=0.625, dense: bool = False):

@@ -29,6 +29,11 @@ def _direct(out):
             f"{out}*, EpilogueArgs)")
 
 
+def _bf16(rows, chunk, out):
+    return (f"void bf16_mma::kernel<{rows}, 128, {chunk}, {out}, bf16_mma::WordGather>"
+            f"(bf16_mma::WordGather, bf16_mma::Args)")
+
+
 def _gemm(t, out, load_a, load_b):
     return (f"void os_gemm::kernel<{t}, {out}, {load_a}, {load_b}>"
             f"({load_a}, {load_b}, int, int, int, {out}*, EpilogueArgs)")
@@ -77,13 +82,14 @@ NAMES = [
     ("_ZN7os_gemm6kernelIfa3TapIfE10ExpandTapsIfEEEvT1_T2_iiiPT0_12EpilogueArgs", "vdbb_conv_bw"),
     ("_ZN7os_gemm6kernelIffNS_6DenseBIfEE10ExpandColsIfEEEvT1_T2_iiiPT0_12EpilogueArgs",
      "vdbb_matmul_bw"),
-    # the tc matmul's bf16 instantiation (the LM's projections), every output
-    *[(_gemm("__nv_bfloat16", o, "GatherColsBf16", "os_gemm::DenseB<__nv_bfloat16>"),
-       "vdbb_matmul_tc_bf16") for o in ("__nv_bfloat16", "float", "signed char")],
-    ("_ZN7os_gemm6kernelI13__nv_bfloat16a14GatherColsBf16NS_6DenseBIS1_EEEEvT1_T2_iiiPT0_"
-     "12EpilogueArgs", "vdbb_matmul_tc_bf16"),
-    ("_ZN7os_gemm6kernelI13__nv_bfloat16S1_14GatherColsBf16NS_6DenseBIS1_EEEEvT1_T2_iiiPT0_"
-     "12EpilogueArgs", "vdbb_matmul_tc_bf16"),
+    # the tc matmul's bf16 instantiation (the LM's projections) on the bf16
+    # tensor-core core: both tile instances, both B chunks, every output
+    *[(_bf16(r, c, o), "vdbb_matmul_tc_bf16")
+      for r in (16, 128) for c in (16, 2) for o in ("__nv_bfloat16", "float", "signed char")],
+    ("_ZN8bf16_mma6kernelILi16ELi128ELi16E13__nv_bfloat16NS_10WordGatherEEEvT3_NS_4ArgsE",
+     "vdbb_matmul_tc_bf16"),
+    ("_ZN8bf16_mma6kernelILi128ELi128ELi2EaNS_10WordGatherEEEvT3_NS_4ArgsE",
+     "vdbb_matmul_tc_bf16"),
     # anything else is not the port's
     ("void at::native::vectorized_elementwise_kernel<4, at::native::FillFunctor<int>>", "other"),
     ("sm90_xmma_fprop_implicit_gemm_f32f32_tf32f32_f32_nhwckrsc_nhwc", "other"),

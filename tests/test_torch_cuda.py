@@ -703,17 +703,20 @@ def test_per_layer_plan_captures_and_matches_forward(card, calibrated):
 # ------------------------------------------------------------- the LM path
 
 
-@pytest.mark.parametrize("m,k,n,nnz", [(1, 8, 1, 3), (5, 24, 40, 3), (67, 200, 70, 3),
-                                       (130, 64, 129, 1), (64, 96, 64, 8), (3, 4608, 512, 3)])
-def test_tc_matmul_bf16_matches_plain(card, m, k, n, nnz):
-    """The bf16 instantiation at ragged M, N and K, with and without a
-    flush (scale, bias, ReLU; and a requantize to int8 codes)."""
+def _bf16_operands(card, m, k, n, nnz):
     rng = np.random.default_rng(m + k + n)
     fmt = tv.DBBFormat(8, nnz, "matrix")
     dw = tv.dbb_encode(_rng_tensor(rng, k, n, scale=k**-0.5), fmt, prune=True)
     a = _rng_tensor(rng, m, k).to(card).bfloat16()
     vals = dw.values.to(card).bfloat16().contiguous()
     idx = dw.indices[:, :, 0].contiguous().to(card)
+    return rng, a, vals, idx, fmt
+
+
+def _bf16_matches_plain(card, m, k, n, nnz):
+    """The bf16 instantiation against its plain version, with and without
+    a flush (scale, bias, ReLU; and a requantize to int8 codes)."""
+    rng, a, vals, idx, fmt = _bf16_operands(card, m, k, n, nnz)
     before = build.launch_counts()["vdbb_matmul_tc_bf16"]
     order = tref.bf16_reorder_bound(a, vals, idx, 8)
     got = head_k.vdbb_matmul_tc(a, vals, idx, fmt)
@@ -730,9 +733,82 @@ def test_tc_matmul_bf16_matches_plain(card, m, k, n, nnz):
     q = head_k.vdbb_matmul_tc(a, vals, idx, fmt, out_scale=0.05)
     qp = head_k.vdbb_matmul_tc_plain(a, vals, idx, fmt, out_scale=0.05)
     _codes_close(q, qp)
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("m,k,n,nnz", [(1, 8, 1, 3), (5, 24, 40, 3), (67, 200, 70, 3),
+                                       (130, 64, 129, 1), (64, 96, 64, 8), (3, 4608, 512, 3),
+                                       (67, 1600, 70, 3)])
+def test_tc_matmul_bf16_matches_plain(card, m, k, n, nnz):
+    """The bf16 tensor-core instantiation at ragged M, N and K (N = 1 and
+    129 on the instance that fetches B through registers), with and without
+    a flush."""
+    _bf16_matches_plain(card, m, k, n, nnz)
 
 
 LM_SHAPES = [(4608, 4608), (4608, 512), (4608, 18432), (18432, 4608)]
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+@pytest.mark.parametrize("k,n", LM_SHAPES)
+def test_tc_matmul_bf16_at_lm_shapes(card, m, k, n):
+    """The bf16 instantiation at every starcoder2-7b projection shape,
+    decode and prefill rows, split or not, with every flush."""
+    _bf16_matches_plain(card, m, k, n, 3)
+
+
+# (M, K, N) of the LM shapes the plan splits over a cluster
+BF16_SPLIT_SHAPES = [(4, 4608, 4608), (4, 4608, 512), (4, 18432, 4608), (1024, 4608, 512)]
+
+
+@pytest.mark.parametrize("m,k,n", BF16_SPLIT_SHAPES)
+def test_tc_matmul_bf16_split_is_deterministic(card, m, k, n):
+    """The split-K sum is reduced in a fixed order: two calls are equal bit
+    for bit, and so is a CUDA-graph replay of the call."""
+    from repro_torch.kernels import core as tcore
+
+    _, a, vals, idx, fmt = _bf16_operands(card, m, k, n, 3)
+    kc = vals.shape[0] * vals.shape[1]
+    assert tcore.bf16_mma_plan("t", m, n, kc, (a.data_ptr(), vals.data_ptr()), k=k).split > 1
+    first = head_k.vdbb_matmul_tc(a, vals, idx, fmt)
+    assert torch.equal(head_k.vdbb_matmul_tc(a, vals, idx, fmt), first)
+    torch.cuda.synchronize()
+    graph, stream = torch.cuda.CUDAGraph(), torch.cuda.Stream()
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        head_k.vdbb_matmul_tc(a, vals, idx, fmt)  # warm-up on the capture stream
+    torch.cuda.current_stream().wait_stream(stream)
+    with torch.cuda.graph(graph):
+        out = head_k.vdbb_matmul_tc(a, vals, idx, fmt)
+    for _ in range(2):
+        out.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, first)
+
+
+def test_tc_matmul_bf16_runs_the_tensor_core_core(card):
+    """A bf16 launch of the tc matmul runs one bf16_mma kernel with the
+    WordGather stager, at decode (split over a cluster) and at prefill, and
+    never the CUDA-core loop (os_gemm)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for m in (4, 256):
+        _, a, vals, idx, fmt = _bf16_operands(card, m, 4608, 512, 3)
+        head_k.vdbb_matmul_tc(a, vals, idx, fmt)
+        torch.cuda.synchronize()
+        names = set()
+        for _ in range(5):  # a profiled pass may deliver no kernel records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(5):
+                    head_k.vdbb_matmul_tc(a, vals, idx, fmt)
+                torch.cuda.synchronize()
+            names = {ev.name for ev in prof.events()
+                     if ev.device_type == torch.autograd.DeviceType.CUDA}
+            if names:
+                break
+        assert any("bf16_mma" in name and "WordGather" in name for name in names), (m, names)
+        assert not any("os_gemm" in name or "os_mma" in name for name in names), names
 
 
 @pytest.mark.parametrize("m", [4, 1024])

@@ -13,6 +13,8 @@ raises; it never takes the plain version. Here that is shown on the
 ``meta`` device; ``test_torch_cuda.py`` holds each CUDA kernel against its
 plain version on a card.
 """
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -563,6 +565,102 @@ def test_tc_head_wrapper_refuses_kc_above_the_exact_limit(nb, refused):
     indices = torch.empty(nb, 8, **meta)
     with pytest.raises(ValueError, match="overflow" if refused else "CUDA"):
         head_k.vdbb_matmul_tc(a, values, indices, tv.DBBFormat(8, 8, "matrix"))
+
+
+# ----------------------------- host rules of the bf16 tensor-core core
+
+# (K, N, M) of starcoder2-7b's projections at decode (batch 4) and prefill
+# (4 x 256 rows), and the bf16 plan: (tile rows, tile columns, split, B chunk)
+BF16_LM_PLANS = [((4608, 4608, 4), (16, 128, 4, 16)), ((4608, 4608, 1024), (128, 256, 3, 16)),
+                 ((4608, 512, 4), (16, 128, 16, 16)), ((4608, 512, 1024), (128, 256, 8, 16)),
+                 ((4608, 18432, 4), (16, 128, 1, 16)), ((4608, 18432, 1024), (128, 256, 1, 16)),
+                 ((18432, 4608, 4), (16, 128, 4, 16)), ((18432, 4608, 1024), (128, 256, 8, 16))]
+
+
+@pytest.mark.parametrize("shape,plan", BF16_LM_PLANS)
+def test_bf16_mma_plan_at_the_lm_shapes(shape, plan):
+    """Decode takes the 16 x 128 tile and splits K_c over a cluster until
+    tiles x split covers the 132 SMs (at most 16 CTAs: wk/wv); prefill takes
+    the 128 x 256 tile and, under 4 waves of tiles, the split that balances
+    its waves over the SMs (144 tiles, wq/wo and w_down, would leave a
+    second wave of 12; w_up's 576 do not split); the values come in 16-byte
+    chunks."""
+    k, n, m = shape
+    got = tcore.bf16_mma_plan("vdbb_matmul_tc", m, n, k // 8 * 3, (0, 256), k=k)
+    assert dataclasses.astuple(got) == plan
+    if m <= 16:
+        tiles = -(-m // got.tile_rows) * -(-n // got.tile_cols)
+        assert tiles * got.split >= tcore.BF16_SMS or got.split == 16
+
+
+@pytest.mark.parametrize("n,v_ptr,chunk", [(129, 256, 2), (1, 256, 2), (40, 256, 16),
+                                           (4608, 0x1008, 2), (4608, 0x1002, 2),
+                                           (4608, 0x1010, 16)])
+def test_bf16_mma_plan_b_chunk_by_n_and_alignment(n, v_ptr, chunk):
+    """16-byte chunks need N % 8 == 0 and 16-byte aligned values; any other
+    N or address takes the instance that fetches B through registers."""
+    assert tcore.bf16_mma_plan("vdbb_matmul_tc", 4, n, 24, (0, v_ptr), k=64).b_chunk == chunk
+
+
+@pytest.mark.parametrize("m,n,kc,split", [(1, 1, 3, 1), (5, 40, 9, 1), (67, 70, 75, 3),
+                                          (67, 70, 600, 7), (130, 129, 24, 1),
+                                          (3, 512, 1728, 16)])
+def test_bf16_mma_plan_split_never_exceeds_the_stages(m, n, kc, split):
+    """The card tests' ragged shapes: a split never exceeds the 32-column
+    stages of K_c, so every CTA of a cluster has one at least; one large
+    tile of 19 stages splits 7 ways (3 stages a CTA)."""
+    assert tcore.bf16_mma_plan("t", m, n, kc, (0, 0), k=8).split == split
+
+
+@pytest.mark.parametrize("a_ptr,k", [(0x1002, 64), (0x1006, 4608), (0, 63)])
+def test_bf16_mma_plan_refuses_what_the_gather_cannot_copy(a_ptr, k):
+    """The gather copies the aligned 4-byte word holding each element: an A
+    not 4-byte aligned, or an odd K, is refused on the host."""
+    with pytest.raises(ValueError, match="4-byte"):
+        tcore.bf16_mma_plan("vdbb_matmul_tc", 4, 64, 24, (a_ptr, 0), k=k)
+
+
+def test_bf16_wrapper_refuses_a_misaligned_gather_before_launch():
+    """A bf16 tc product off the CPU with an odd K is refused by the plan
+    before any launch (meta tensors: their addresses are 0)."""
+    meta = dict(dtype=torch.bfloat16, device="meta")
+    a, values = torch.empty(2, 7, **meta), torch.empty(1, 3, 16, **meta)
+    indices = torch.empty(1, 3, dtype=torch.int8, device="meta")
+    with pytest.raises(ValueError, match="4-byte"):
+        head_k.vdbb_matmul_tc(a, values, indices, tv.DBBFormat(7, 3, "matrix"))
+
+
+@pytest.mark.parametrize("m", [4, 256])
+def test_stage_vdbb_matmul_returns_the_bf16_plan(m):
+    """A staged bf16 projection carries its tile plan (an A at an
+    allocation's start) and, on the CPU, runs the plain version."""
+    rng = np.random.default_rng(m)
+    fmt = tv.DBBFormat(8, 3, "matrix")
+    w = tv.dbb_encode(torch.from_numpy(rng.normal(size=(64, 40)).astype(np.float32)), fmt,
+                      prune=True)
+    w = dataclasses.replace(w, values=w.values.bfloat16())
+    run, tiles = head_k.stage_vdbb_matmul(w, m)
+    plan = tcore.bf16_mma_plan("vdbb_matmul_tc", m, 40, 24, (0, w.values.data_ptr()), k=64)
+    assert tiles == dataclasses.asdict(plan) and tiles["tile_rows"] == (16 if m == 4 else 128)
+    a = torch.from_numpy(rng.normal(size=(m, 64)).astype(np.float32)).bfloat16()
+    idx = w.indices[:, :, 0].contiguous()
+    assert torch.equal(run(a), head_k.vdbb_matmul_tc_plain(a, w.values, idx, fmt))
+
+
+@pytest.mark.parametrize("switch", ["NO_B16", "NO_GATHER16", "NO_GATHER_REG", "NO_COMPACT",
+                                    "NO_STORE_A", "NO_MMA16", "NO_REDUCE", "NO_PREFILL_SPLIT",
+                                    "REG_DECODE", "NARROW"])
+def test_bf16_ablation_switches_find_their_anchor(switch, tmp_path, monkeypatch):
+    """Each switch of the bf16 core's ablation applies to bf16_mma.cuh as it
+    stands: its anchor is there once, and the switched copy lacks it."""
+    from repro_torch.kernels import build, mma_ablation
+
+    source, anchor, _ = mma_ablation.SOURCE_SWITCHES[switch]
+    assert source == "bf16_mma.cuh"
+    assert (build.CSRC / source).read_text().count(anchor) == 1
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    out = mma_ablation.variant_sources("probe", (switch,))
+    assert anchor not in (out / source).read_text()
 
 
 @pytest.mark.parametrize("arch", ["sparse-cnn-s", "sparse-cnn-tiny"])
