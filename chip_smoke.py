@@ -72,11 +72,19 @@ Phases, each of which fails the run:
      b. greedy generation through ``repro_torch.launch.serve`` with the
         launch counts at 0 just before: compressed bf16 weights drawn and
         compressed on the card leaf by leaf (seed 0), batch 4, a 256-token
-        prompt, 32 tokens, every projection on the bf16 kernel; prefill ms,
-        ms per decode step and steps/s beside the decode bound from the
-        bytes a step reads; the logits of 4 decode steps against a fresh
-        forward over the prompt and the tokens fed (relative L2 <= 2e-2);
-        then the dense bf16 baseline (torch.matmul) the same way;
+        prompt, 32 tokens, every projection on the bf16 kernel, the prefill
+        and the decode step each captured once into a CUDA graph and
+        replayed (two captures, none after); the launches (the counters'
+        capture and warm-up counts plus a replay's launches times the
+        replays) one per projection per forward enqueued; prefill ms, ms
+        per decode step, steps/s and the host's enqueue times beside the
+        decode bound from the bytes a step reads, and beside an eager run
+        of the same model (``graph=False``) whose tokens and kept decode
+        logits the replays equal bit for bit; the logits of 4 decode steps
+        against a fresh forward over the prompt and the tokens fed
+        (relative L2 <= 2e-2); the profiler's busy and idle share of
+        replayed decode steps and prefills; then the dense bf16 baseline
+        (torch.matmul) the same way;
      c. INT8 prefill through a frozen plan (``serve_lm_plan``, counts at 0
         just before): calibrate on 4x256 through the bf16 kernel, quantize,
         ``LM.plan``; its logits equal the unplanned INT8 forward's bit for
@@ -85,7 +93,24 @@ Phases, each of which fails the run:
      d. the JAX golden fixture tests/data/torch_parity_lm.npz (qwen2-tiny,
         fp32) through the kernels: the next token equal, prefill and decode
         logits within 1e-5 relative L2, the quantized forward within 1e-3;
-  8. one JSON line of the six kernels (launches, errors, times, bounds).
+  8. the MoE decoder, moonshot-v1-16b-a3b at full width and depth (48
+     layers, d_model 2048, 16 heads, 64 experts of d_ff 1408, top-6, 2
+     shared experts, vocab 163840; 28.89 B weights):
+     a. the bf16 tc matmul at its compressed projection shapes
+        (2048->2048, 2048->2816, 2816->2048) at 4 and 1024 rows, as 7a;
+     b. generation as 7b, compressed (the expert stacks stay bf16, as the
+        reference leaves them) then dense, peak GB logged, with the routed
+        experts' share of a replayed step against their bytes bound; no
+        fresh-forward gate: decode routes expert choice over the batch's 4
+        tokens (cap 1), a forward within each example (cap 24), so the
+        same token meets other experts, as in the reference;
+     c. the JAX MoE fixture tests/data/torch_parity_moe.npz (moonshot's
+        smoke config, fp32) through generate's graphs: the next token
+        equal, prefill and decode logits within 1e-5 relative L2;
+     d. the INT8 prefill plan as 7c (the shared experts staged int8, the
+        router and the experts raw), bit for bit against the unplanned
+        forward;
+  9. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -1058,14 +1083,19 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
     return rec
 
 
-def lm_kernels(gen, dev) -> dict:
-    """Phase 7a: {dtype name: {(shape, rows): record}}."""
-    out = {"bf16": {}, "int8": {}}
+def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32) -> dict:
+    """Phase 7a (and 8a at moonshot's shapes, bf16 only): {dtype name:
+    {(shape, rows): record}} at each of ``shapes`` (default ``LM_SHAPES``),
+    decode and prefill rows."""
+    shapes = LM_SHAPES if shapes is None else shapes
+    kinds = {"bf16": torch.bfloat16, "int8": torch.int8}
+    out = {key: {} for key in dtypes}
     log(f"[lm kernels] shape              rows  dtype  ms        device_ms  plain_ms  "
         f"library_ms  lib_dev_ms  bound_ms (by)")
-    for name, (k, n, _) in LM_SHAPES.items():
+    for name, (k, n, _) in shapes.items():
         for phase, m in LM_ROWS.items():
-            for key, dtype in (("bf16", torch.bfloat16), ("int8", torch.int8)):
+            for key in dtypes:
+                dtype = kinds[key]
                 r = lm_kernel(k, n, m, dtype, gen, dev, f"{name} {k}->{n} at M={m}")
                 out[key][(name, phase)] = r
 
@@ -1078,18 +1108,20 @@ def lm_kernels(gen, dev) -> dict:
                     + (f"; plan {json.dumps(r['plan'])}; max diff {r['err']:.3g}, "
                        f"{r['beyond_plain_ulp']} entries beyond one ulp of |plain|"
                        if key == "bf16" else "") + f"  [{r['library_call']}]")
+    per = sum(v[2] for v in shapes.values())
     for key in out:
         for phase in LM_ROWS:
-            per_layer = {f: sum(out[key][(s, phase)][f] * LM_SHAPES[s][2] for s in LM_SHAPES)
+            per_layer = {f: sum(out[key][(s, phase)][f] * shapes[s][2] for s in shapes)
                          for f in ("device_ms", "bound_ms")}
-            lib = [out[key][(s, phase)]["library_device_ms"] for s in LM_SHAPES]
+            lib = [out[key][(s, phase)]["library_device_ms"] for s in shapes]
             per_layer["library_device_ms"] = (None if None in lib else
-                                              sum(v * LM_SHAPES[s][2] for s, v in zip(LM_SHAPES, lib)))
+                                              sum(v * shapes[s][2] for s, v in zip(shapes, lib)))
             lib_ms = per_layer["library_device_ms"]
-            log(f"[lm kernels] {key} {phase}: one layer's six projections, device "
+            log(f"[lm kernels] {key} {phase}: one layer's {per} projections, device "
                 f"{per_layer['device_ms']:.4f} ms, library "
                 f"{'None' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
-                f"bound {per_layer['bound_ms']:.5f} ms; x32 layers {per_layer['device_ms'] * 32:.3f} ms")
+                f"bound {per_layer['bound_ms']:.5f} ms; x{layers} layers "
+                f"{per_layer['device_ms'] * layers:.3f} ms")
     return out
 
 
@@ -1129,9 +1161,38 @@ def decode_bound(model) -> tuple:
     return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights + cache
 
 
-def lm_generate(dev) -> dict:
-    """Phase 7b: full-width generation, compressed then dense. Returns the
-    record: the compressed run's launches and both runs' times and bounds."""
+def graphed(fn, dev):
+    """``fn`` captured once into a CUDA graph (``models/plan.py:capture``,
+    its own pool): a replay per call. Outside a card (a CPU rehearsal of
+    the phase) ``fn`` itself."""
+    if dev.type != "cuda":
+        return lambda *_: fn()
+    from repro_torch.models.plan import GraphPool, capture
+
+    g, _, _ = capture(fn, GraphPool(), dev)
+    return lambda *_: g.replay()
+
+
+def main_path_launches(rec) -> dict:
+    """The kernels' launches over a generate run: what the counters saw (the
+    graphs' captures and eager warm-ups, or every eager call) plus each
+    graph's launches a replay times its replays."""
+    from repro_torch.kernels import build
+
+    counts = build.launch_counts()
+    return {k: n + sum(rec["replays"][kind] * per.get(k, 0)
+                       for kind, per in rec["graph_launches"].items())
+            for k, n in counts.items()}
+
+
+def lm_generate(dev, arch=LM_ARCH, fresh_gate=True, tag="lm generate") -> dict:
+    """Phase 7b (``starcoder2-7b``) and 8b (the MoE): full-width generation
+    through ``generate``'s CUDA graphs, compressed then dense, each against
+    an eager run of the same model (``graph=False``) bit for bit. Returns the
+    record: the compressed run's launches and both runs' times and bounds.
+    ``fresh_gate`` holds the kept decode steps' logits against a fresh
+    forward over the same tokens; the MoE's cannot meet it (decode routes
+    over the batch's tokens, a forward within each example)."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
@@ -1142,72 +1203,131 @@ def lm_generate(dev) -> dict:
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         build.reset_launches()
-        rec = serve.serve_lm(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, device=dev,
+        rec = serve.serve_lm(arch, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, device=dev,
                              seed=0, dense=dense, smoke=LM_SMOKE, keep=LM_KEEP, log=log)
-        counts = build.launch_counts()
+        counts = main_path_launches(rec)
         model = rec["model"]
         c = model.cfg
         toks = rec["tokens"]
         if toks.shape != (LM_BATCH, LM_GEN) or int(toks.min()) < 0 or int(toks.max()) >= c.padded_vocab:
             raise AssertionError(f"{label}: generated tokens {tuple(toks.shape)} out of range")
-        # every prefill and decode step generate ran (timed, warm-ups and the
-        # one whose outputs it keeps), each through every projection
+        # every forward generate enqueued (eager warm-ups, the one each
+        # capture records, replays), each through every projection
         want = 0 if dense else projections(model) * sum(rec["forwards"].values())
         if counts["vdbb_matmul_tc_bf16"] != want or any(
                 n for k, n in counts.items() if k != "vdbb_matmul_tc_bf16"):
             raise AssertionError(f"{label}: launches {counts}, want {want} of the bf16 tc matmul")
+        graphs = dev.type == "cuda"
+        if rec["captures"] != 2 or graphs != bool(rec["graph_launches"]):
+            raise AssertionError(f"{label}: {rec['captures']} captures, graph launches "
+                                 f"{rec['graph_launches']}: want the prefill's and the step's")
+        eager = serve.generate(model, {"tokens": rec["prompt"]}, gen_len=LM_GEN,
+                               max_len=LM_PROMPT + LM_GEN, keep=LM_KEEP, graph=False)
+        if not torch.equal(eager["tokens"], toks) or any(
+                not torch.equal(eager["logits"][i], lg) for i, lg in rec["logits"].items()):
+            raise AssertionError(f"{label}: replayed decode differs from the eager decode")
         errs = {}
         with torch.no_grad():
             for i, lg in rec["logits"].items():
                 if not bool(torch.isfinite(lg).all()):
                     raise AssertionError(f"{label}: decode step {i} logits not finite")
+                if not fresh_gate:
+                    continue
                 fresh = model.forward(torch.cat([rec["prompt"], toks[:, : i + 1]], dim=1))[:, -1:]
                 errs[i] = rel_l2(lg, fresh)
                 if errs[i] > 2e-2:
                     raise AssertionError(f"{label}: decode step {i} logits rel L2 {errs[i]} > 2e-2 "
                                          "against a fresh forward")
         b_ms, b_bytes = decode_bound(model)
-        # where a decode step's time goes: the device's busy and idle share
-        # over 4 steps at the last position of a full-length cache, and each
-        # kernel's share
+        # where a replayed decode step's time goes: the device's busy and
+        # idle share over 4 replays at the last position of a full-length
+        # cache, and each kernel's share; then a replayed prefill's
         cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
-        last = toks[:, -1:]
+        last = toks[:, -1:].contiguous()
+        pos = torch.tensor(LM_PROMPT + LM_GEN - 1, device=dev)
         per_step = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model)}
-        prof = profile_forwards(lambda t: model.decode_step(cache, t, LM_PROMPT + LM_GEN - 1),
-                                last, per_step)
-        # and of a prefill: the projections against the rest (attention,
-        # norms, the dense head)
-        prefill_prof = profile_forwards(model.forward, rec["prompt"], per_step, reps=2)
+        with torch.no_grad():
+            step = graphed(lambda: model.decode_step(cache, last, pos)[0], dev)
+            prof = profile_forwards(step, last, per_step)
+            # the host's time to enqueue one replay on an idle card: in the
+            # decode loop the host also waits once the launch queue is full
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            t_enq = time.perf_counter()
+            step()
+            prof["replay_enqueue_ms"] = (time.perf_counter() - t_enq) * 1e3
+            del step
+            prefill = graphed(lambda: model.forward(rec["prompt"]), dev)
+            prefill_prof = profile_forwards(prefill, rec["prompt"], per_step, reps=2)
+            del prefill
         out[label] = dict(prefill_ms=rec["prefill_ms"], ms_per_step=rec["ms_per_step"],
+                          eager_prefill_ms=eager["prefill_ms"],
+                          eager_ms_per_step=eager["ms_per_step"],
                           prefill_host_ms=rec["prefill_host_ms"],
                           host_ms_per_step=rec["host_ms_per_step"],
+                          eager_host_ms_per_step=eager["host_ms_per_step"],
                           steps_per_s=rec["steps_per_s"], decode_bound_ms=b_ms,
                           decode_bytes=b_bytes, consistency_rel_l2=errs, launches=counts,
+                          captures=rec["captures"], replays=rec["replays"],
+                          replay_launches=rec["graph_launches"], graph_equals_eager=True,
                           decode_profile=prof, prefill_profile=prefill_prof,
                           peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                           seconds=time.time() - t0)
-        log(f"[lm generate] {label}: prefill {rec['prefill_ms']:.3f} ms, {rec['ms_per_step']:.3f} ms "
-            f"per decode step ({rec['steps_per_s']:.2f} steps/s; the host enqueues a prefill in "
-            f"{rec['prefill_host_ms']:.3f} ms and a step in {rec['host_ms_per_step']:.3f}) against "
-            f"the decode bound "
-            f"{b_ms:.3f} ms ({b_bytes / 1e9:.3f} GB a step at 3.35 TB/s); decode logits against "
-            f"fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}; "
+        if c.is_moe:
+            out[label]["experts"] = moe_experts(model, dev, prof.get("device_ms"))
+        log(f"[{tag}] {label}: through graphs prefill {rec['prefill_ms']:.3f} ms, "
+            f"{rec['ms_per_step']:.3f} ms per decode step ({rec['steps_per_s']:.2f} steps/s; the "
+            f"host enqueues a prefill in {rec['prefill_host_ms']:.3f} ms and a step in "
+            f"{rec['host_ms_per_step']:.3f}; {rec['captures']} captures, replays "
+            f"{json.dumps(rec['replays'])}); eager prefill {eager['prefill_ms']:.3f} ms, "
+            f"{eager['ms_per_step']:.3f} ms per step (host {eager['host_ms_per_step']:.3f}); "
+            f"replayed decode logits and tokens equal to the eager run's; against the decode "
+            f"bound {b_ms:.3f} ms ({b_bytes / 1e9:.3f} GB a step at 3.35 TB/s); decode logits "
+            f"against fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}; "
             f"launches {counts}; peak {out[label]['peak_gb']:.2f} GB ({time.time() - t0:.1f} s)")
-        log(f"[profile] {label} decode step: {json.dumps(prof)}")
-        log(f"[profile] {label} prefill: {json.dumps(prefill_prof)}")
-        del rec, model, cache
+        log(f"[profile] {arch} {label} replayed decode step: {json.dumps(prof)}")
+        log(f"[profile] {arch} {label} replayed prefill: {json.dumps(prefill_prof)}")
+        if c.is_moe:
+            log(f"[profile] {arch} {label} routed experts: {json.dumps(out[label]['experts'])}")
+        del rec, model, cache, eager
     return out
 
 
-def lm_plan(dev) -> dict:
-    """Phase 7c: the INT8 prefill plan at full width."""
+def moe_experts(model, dev, step_ms) -> dict:
+    """The routed experts' share of a decode step: one layer's ``_global``
+    (router, top-cap, dispatch, the three batched products, the combine)
+    replayed from a graph at decode rows and profiled, times the layers,
+    against their bytes bound (every expert's three (d, f) matrices: at
+    batch 4 each of the 64 experts takes its top token)."""
+    from repro_torch.models.common import tree_slice
+    from repro_torch.models.mlp import MoEMLP
+
+    c = model.cfg
+    p = tree_slice(model.state()["layers"], 0)["b0"]["mlp"]
+    x = torch.randn(LM_BATCH, 1, c.d_model, generator=torch.Generator().manual_seed(3)).to(
+        dev, c.compute_dtype)
+    mlp = MoEMLP(c)
+    with torch.no_grad():
+        routed = graphed(lambda: mlp._global(p, x), dev)
+        prof = profile_forwards(routed, x, {})
+        del routed
+    one = prof.get("device_ms")
+    nbytes_ = sum(p[k].numel() * p[k].element_size() for k in ("we_up", "we_gate", "we_down"))
+    layers = c.num_layers
+    return {"layer_device_ms": one, "step_device_ms": None if one is None else one * layers,
+            "share_of_step": None if one is None or not step_ms else one * layers / step_ms,
+            "bound_ms": nbytes_ * layers / HBM_BYTES_PER_S * 1e3, "layer_profile": prof}
+
+
+def lm_plan(dev, arch=LM_ARCH, tag="lm plan") -> dict:
+    """Phase 7c (and 8d, the MoE): the INT8 prefill plan at full width."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
     torch.cuda.empty_cache()
     t0 = time.time()
     build.reset_launches()
-    rec = serve.serve_lm_plan(LM_ARCH, batch=LM_BATCH, prompt_len=LM_PROMPT, steps=5, device=dev,
+    rec = serve.serve_lm_plan(arch, batch=LM_BATCH, prompt_len=LM_PROMPT, steps=5, device=dev,
                               seed=0, smoke=LM_SMOKE, log=log)
     counts = build.launch_counts()
     if not rec["bit_identical"]:
@@ -1225,7 +1345,7 @@ def lm_plan(dev) -> dict:
         raise AssertionError(f"plan logits {tuple(logits.shape)} not finite")
     out = dict(timing=rec["timing"], captures=rec["captures"], replay_launches=replay,
                launches=counts, seconds=time.time() - t0)
-    log(f"[lm plan] bit-identical to the unplanned INT8 forward; {rec['captures']} capture; a replay "
+    log(f"[{tag}] bit-identical to the unplanned INT8 forward; {rec['captures']} capture; a replay "
         f"launches {replay}; launches counted (calibration, capture, unplanned calls) {counts}; "
         f"in turns (unplanned, planned, planned, unplanned), ms per prefill "
         f"{json.dumps(rec['timing'])} ({time.time() - t0:.1f} s)")
@@ -1264,6 +1384,47 @@ def lm_golden(dev) -> None:
         f"decode {dec:.3e}, quantized forward {qnt:.3e}")
 
 
+# ---------------------------------------------------------------- phase 8
+
+MOE_ARCH = "moonshot-v1-16b-a3b"
+# one layer's compressed projections: q, k, v, o (16 heads of 128, and 16 KV
+# heads), and the two shared experts fused (2 x 1408): up, gate, down
+MOE_SHAPES = {"wq/wk/wv/wo": (2048, 2048, 4), "w_up/w_gate": (2048, 2816, 2),
+              "w_down": (2816, 2048, 1)}
+MOE_FIXTURE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
+
+
+def moe_golden(dev) -> None:
+    """Phase 8c: the JAX reference's MoE fixture (moonshot's smoke config,
+    fp32) through the kernels and generate's graphs: the next token equal,
+    prefill and decode logits within 1e-5 relative L2."""
+    import numpy as np
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.interop import params_from_numpy, unflatten
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LM
+
+    with np.load(MOE_FIXTURE) as z:
+        g = unflatten(z)
+    cfg = dataclasses.replace(smoke_config(MOE_ARCH), param_dtype=torch.float32,
+                              compute_dtype=torch.float32)
+    model = LM(cfg).load_params(params_from_numpy(g["params"], dev))
+    tokens = torch.as_tensor(g["tokens"]).to(dev)
+    rec = serve.generate(model, {"tokens": tokens}, gen_len=2, max_len=tokens.shape[1] + 1,
+                         keep=(0,))
+    if not torch.equal(rec["tokens"][:, :1].cpu(), torch.as_tensor(g["next"])):
+        raise AssertionError("MoE fixture: the greedy next token differs from JAX's")
+    with torch.no_grad():
+        pre = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["prefill"]).to(dev))
+    dec = rel_l2(rec["logits"][0], torch.as_tensor(g["decode"]).to(dev))
+    if pre > 1e-5 or dec > 1e-5:
+        raise AssertionError(f"MoE fixture: prefill {pre}, decode {dec} rel L2 against JAX "
+                             "(<= 1e-5)")
+    log(f"[golden] JAX MoE fixture ({MOE_ARCH} smoke, fp32, {rec['captures']} graphs): next "
+        f"token equal; rel L2 prefill {pre:.3e}, decode {dec:.3e}")
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1277,8 +1438,10 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
 
-    # full fp32 for the library calls timed beside the kernels (F.conv2d)
+    # full fp32 for the library calls timed beside the kernels (F.conv2d) and
+    # the MoE router; bf16 products (the MoE's experts) accumulate in fp32
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
 
     t0 = time.time()
     phase_s = {}
@@ -1348,6 +1511,14 @@ def main() -> int:
     phase_done("7c LM plan")
     lm_golden(dev)
     phase_done("7d LM golden")
+    moe_recs = lm_kernels(gen, dev, MOE_SHAPES, dtypes=("bf16",), layers=48)["bf16"]
+    phase_done("8a MoE kernels")
+    moe_gen = lm_generate(dev, MOE_ARCH, fresh_gate=False, tag="moe generate")
+    phase_done("8b MoE generate")
+    moe_golden(dev)
+    phase_done("8c MoE golden")
+    moe_planned = lm_plan(dev, MOE_ARCH, tag="moe plan")
+    phase_done("8d MoE plan")
 
     line = []
     conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
@@ -1381,6 +1552,18 @@ def main() -> int:
         if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
             line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
                             main_path="LM generate (phase 7b)")
+            moe = list(moe_recs.values())
+            line[-1]["moe"] = {  # the same kernel at moonshot's shapes, phase 8
+                "shapes": [f"{s}:{p}" for s, p in moe_recs],
+                "launches": moe_gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"],
+                "max_abs_err": max(r["err"] for r in moe), "ms": total(moe, "ms"),
+                "plain_ms": total(moe, "plain_ms"), "device_ms": total(moe, "device_ms"),
+                "bound_ms": total(moe, "bound_ms"), "library_ms": total(moe, "library_ms"),
+                "library_device_ms": total(moe, "library_device_ms"),
+                "graph_replay_launches_per_step":
+                    moe_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"]}
+            line[-1]["graph_replay_launches"] = (
+                lm_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"])
         if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
             lm8 = list(lm_recs["int8"].values())
             line[-1]["lm"] = {
@@ -1398,6 +1581,8 @@ def main() -> int:
         f"{json.dumps({p: r['server_fast_switch'] for p, r in planned.items()})}")
     log(f"[lm] generate: {json.dumps(lm_gen)}")
     log(f"[lm] plan: {json.dumps(lm_planned, default=str)}")
+    log(f"[moe] generate: {json.dumps(moe_gen)}")
+    log(f"[moe] plan: {json.dumps(moe_planned, default=str)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

@@ -28,13 +28,17 @@ from repro_torch.kernels.core import _pair, conv_geometry
 @contextlib.contextmanager
 def full_fp32():
     """Full-precision fp32 products and convolutions on the card inside the
-    block; the TF32 flags are as they were after it."""
-    saved = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    block, and bf16 products accumulated in fp32 (no reduced-precision
+    split-K reduction); the flags are as they were after it."""
+    mm = torch.backends.cuda.matmul
+    saved = mm.allow_tf32, torch.backends.cudnn.allow_tf32, mm.allow_bf16_reduced_precision_reduction
+    mm.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    mm.allow_bf16_reduced_precision_reduction = False
     try:
         yield
     finally:
-        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = saved
+        (mm.allow_tf32, torch.backends.cudnn.allow_tf32,
+         mm.allow_bf16_reduced_precision_reduction) = saved
 
 
 def acc_matmul(a, b):

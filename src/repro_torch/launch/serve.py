@@ -34,7 +34,10 @@ weights drawn on the device and compressed leaf by leaf into the VDBB layout
 (``--dense``: the dense baseline, every projection a ``torch.matmul``),
 prefill of a ``--prompt-len`` prompt, then ``--gen`` tokens, each decode step
 one token through every projection's tc kernel (bf16 operands) against the
-KV cache. It prints prefill ms, ms per decode step and decode steps/s:
+KV cache; on a card the prefill and the decode step are each captured once
+into a CUDA graph and replayed. A MoE arch (``moonshot-v1-16b-a3b``) runs
+the same way, its expert stacks dense. It prints prefill ms, ms per decode
+step and decode steps/s:
 
   python -m repro_torch.launch.serve --arch starcoder2-7b --batch 4 --prompt-len 256 --gen 32
 
@@ -205,60 +208,119 @@ def pad_cache(cache, plen: int, max_len: int):
 
 
 def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
-             prefill_reps: int = 3) -> dict:
-    """Greedy batched generation: prefill, then ``gen_len - 1`` decode steps.
+             prefill_reps: int = 3, graph: bool = True) -> dict:
+    """Greedy batched generation: prefill, then ``gen_len - 1`` decode steps;
+    decode step i consumes generated token i at position ``prompt_len + i``.
+
+    On a card the prefill (at (B, prompt_len)) and the decode step (at (B,
+    ``max_len``)) are each captured once into a CUDA graph
+    (``models/plan.py:capture``), as the reference jits both, and every
+    prefill and decode step after is one replay. Static buffers hold the
+    prompt, the token fed to the step and its position (a 0-d int64 tensor);
+    the step writes the cache in place, takes the argmax into the token
+    buffer and the generated tokens, and advances the position, all on the
+    card. ``graph=False`` runs the same two functions eagerly, op by op: a
+    replay is held against that bit for bit. On the CPU nothing is captured:
+    ``graph=True`` runs them eagerly too and counts each as a staged
+    signature, as ``ModelPlan`` does.
+
     Returns ``{"tokens": (B, gen_len) int32, "steps_per_s", "prefill_ms",
     "ms_per_step", "prefill_host_ms", "host_ms_per_step", "logits": {i: the
     logits of decode step i for i in keep}, "forwards": {"prefill": n,
-    "decode": n}}``; decode step i consumes generated token i at position
-    ``prompt_len + i``. Times by CUDA events on a card (the host clock on
-    the CPU), each part warm: ``prefill_ms`` is the mean of
-    ``prefill_reps`` prefills after an untimed one, and the decode loop is
-    timed after an untimed step 0, which the timed step 0 then writes over
-    with the same values. The ``host`` times are the host clock's until the
-    calls return, before any synchronize: the time to enqueue the work (one
-    prefill; the decode loop per step), which bounds the events time from
-    below where the host is the slower side. ``forwards`` counts every
-    forward run, warm-ups included."""
+    "decode": n}, "captures", "replays": {"prefill": n, "decode": n},
+    "graph_launches": {"prefill": {kernel: n}, "decode": {...}}}``. Times by
+    CUDA events on a card (the host clock on the CPU), each part warm:
+    ``prefill_ms`` is the mean of ``prefill_reps`` prefills after an untimed
+    one, and the decode loop is timed after an untimed step 0, which the
+    timed step 0 then writes over with the same values. The ``host`` times
+    are the host clock's until the calls return, before any synchronize:
+    the time to enqueue the work (one prefill; the decode loop per step).
+    ``forwards`` counts every forward enqueued: eager runs (warm-ups
+    included), the one each capture records, and replays. ``captures``
+    counts the graphs (staged signatures on the CPU), ``replays`` their
+    replays and ``graph_launches`` what one replay of each launches (on a
+    card): the launch counters see a capture and its eager warm-up, not a
+    replay, so a kernel's launches are its count plus ``graph_launches`` ×
+    ``replays``, one forward's launches × ``forwards``."""
     from repro_torch.kernels.timing import event_ms
+    from repro_torch.models.plan import GraphPool, capture
 
-    prefill, step_fn = make_prefill(model), make_serve_step(model)
-    forwards = {"prefill": 0, "decode": 0}
-
-    def run(kind, fn, *args):
-        forwards[kind] += 1
-        return fn(*args)
-
-    plen = prompt_batch["tokens"].shape[1]
+    prefill, step = make_prefill(model), make_serve_step(model)
     dev = model.device
-    prefill_ms = event_ms(lambda: run("prefill", prefill, prompt_batch), reps=prefill_reps,
-                          warmup=1, device=dev)
-    t0 = time.perf_counter()
-    logits, caches = run("prefill", prefill, prompt_batch)
-    prefill_host_ms = (time.perf_counter() - t0) * 1e3
-    cache = pad_cache(caches, plen, max_len)
-    out = [logits[:, -1:].argmax(dim=-1).to(torch.int32)]
-    kept = {}
-    if gen_len > 1:  # warm-up; the timed step 0 rewrites its slot
-        run("decode", step_fn, cache, {"tokens": out[0]}, plen)
+    graphed = graph and dev.type == "cuda"
+    prompt = prompt_batch["tokens"].to(dev).clone()
+    b, plen = prompt.shape
+    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)  # the token fed to the step
+    pos = torch.zeros((), dtype=torch.int64, device=dev)  # its position
+    out = torch.zeros((b, gen_len), dtype=torch.int32, device=dev)  # the generated tokens
+    forwards = {"prefill": 0, "decode": 0}
+    replays = {"prefill": 0, "decode": 0}
+    graph_launches = {}
 
-    host = []
+    def prefill_fn():
+        forwards["prefill"] += 1
+        last, kv = prefill({"tokens": prompt})
+        nxt = last.argmax(dim=-1).to(torch.int32)
+        tok.copy_(nxt)
+        out[:, :1].copy_(nxt)
+        pos.fill_(plen)
+        return last, kv
 
-    def decode():
+    def compiled(kind, fn):
+        """``fn`` captured (on a card with ``graph``) -> a replay; else ``fn``."""
+        if not graphed:
+            return fn
+        g, static_out, graph_launches[kind] = capture(fn, GraphPool(), dev)
+
+        def replay():
+            g.replay()
+            forwards[kind] += 1
+            replays[kind] += 1
+            return static_out
+
+        return replay
+
+    with torch.no_grad():
+        run_prefill = compiled("prefill", prefill_fn)
+        prefill_ms = event_ms(run_prefill, reps=prefill_reps, warmup=1, device=dev)
         t0 = time.perf_counter()
-        for i in range(gen_len - 1):
-            logits, _ = run("decode", step_fn, cache, {"tokens": out[-1]}, plen + i)
-            if i in keep:
-                kept[i] = logits
-            out.append(logits.argmax(dim=-1).to(torch.int32))
-        host.append((time.perf_counter() - t0) * 1e3)
+        _, kv = run_prefill()
+        prefill_host_ms = (time.perf_counter() - t0) * 1e3
+        cache = pad_cache(kv, plen, max_len)  # written in place by every step
 
-    decode_ms = event_ms(decode, reps=1, warmup=0, device=dev)
+        def step_fn():
+            forwards["decode"] += 1
+            logits, _ = step(cache, {"tokens": tok}, pos)
+            nxt = logits.argmax(dim=-1).to(torch.int32)
+            tok.copy_(nxt)
+            out.index_copy_(1, pos.reshape(1) - (plen - 1), nxt)
+            pos.add_(1)
+            return logits
+
+        if gen_len > 1:  # a warm-up step (a capture runs one itself), then back to step 0
+            run_step = compiled("decode", step_fn)
+            if not graphed:
+                run_step()
+            pos.fill_(plen)
+            tok.copy_(out[:, :1])
+        kept, host = {}, []
+
+        def decode():
+            t0 = time.perf_counter()
+            for i in range(gen_len - 1):
+                logits = run_step()
+                if i in keep:
+                    kept[i] = logits.clone()
+            host.append((time.perf_counter() - t0) * 1e3)
+
+        decode_ms = event_ms(decode, reps=1, warmup=0, device=dev)
     steps = max(gen_len - 1, 1)
-    return {"tokens": torch.cat(out, dim=1), "steps_per_s": steps / max(decode_ms, 1e-9) * 1e3,
+    return {"tokens": out.clone(), "steps_per_s": steps / max(decode_ms, 1e-9) * 1e3,
             "prefill_ms": prefill_ms, "ms_per_step": decode_ms / steps,
             "prefill_host_ms": prefill_host_ms, "host_ms_per_step": host[0] / steps,
-            "logits": kept, "forwards": forwards}
+            "logits": kept, "forwards": forwards,
+            "captures": (1 + (gen_len > 1)) * graph, "replays": replays,
+            "graph_launches": graph_launches}
 
 
 def lm_config(arch: str, *, smoke: bool = False, sparsity=0.625, dense: bool = False):

@@ -109,31 +109,32 @@ class GQAttention:
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
 
-    def decode(self, p, x, cache, pos: int):
-        """x: (B,1,d); ``pos`` the current position (an int). Writes the new
-        K/V into ``cache`` in place (the reference returns an updated copy)
-        and returns (y, cache)."""
+    def decode(self, p, x, cache, pos):
+        """x: (B,1,d); ``pos`` the current position, a 0-d int64 tensor on
+        x's device. The slot, the ring's positions and the valid length are
+        device ops on it, so a CUDA graph of the step replays at any
+        position. Writes the new K/V into ``cache`` in place (the reference
+        returns an updated copy) and returns (y, cache)."""
         c = self.cfg
         hd = c.hd
         b = x.shape[0]
-        posv = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+        posv = pos.reshape(1, 1).expand(b, 1)
         q = rope(self._proj(p, x, "wq", "bq").reshape(b, 1, c.num_heads, hd), posv, c.rope_theta)
         k_new = rope(self._proj(p, x, "wk", "bk").reshape(b, 1, c.num_kv_heads, hd), posv,
                      c.rope_theta)
         v_new = self._proj(p, x, "wv", "bv").reshape(b, 1, c.num_kv_heads, hd)
         cap = cache["k"].shape[1]
-        slot = pos % cap if self.window else min(pos, cap - 1)
-        cache["k"][:, slot] = k_new[:, 0].to(cache["k"].dtype)
-        cache["v"][:, slot] = v_new[:, 0].to(cache["v"].dtype)
+        slot = pos % cap if self.window else pos.clamp(max=cap - 1)
+        cache["k"].index_copy_(1, slot.reshape(1), k_new.to(cache["k"].dtype))
+        cache["v"].index_copy_(1, slot.reshape(1), v_new.to(cache["v"].dtype))
         qg = q.reshape(b, 1, c.num_kv_heads, c.num_heads // c.num_kv_heads, hd)
         kpos = torch.arange(cap, dtype=torch.int64, device=x.device)
         if self.window:  # ring buffer: the absolute position of each slot
             base = pos - slot
             kpos = torch.where(kpos <= slot, base + kpos, base - cap + kpos)
             kpos = torch.where(kpos < 0, torch.full_like(kpos, _NO_POS), kpos)
-        out = _attend(qg, cache["k"], cache["v"],
-                      torch.full((1,), pos, dtype=torch.int64, device=x.device), kpos,
-                      window=self.window, kv_valid_len=pos + 1)
+        out = _attend(qg, cache["k"], cache["v"], pos.reshape(1), kpos, window=self.window,
+                      kv_valid_len=pos + 1)
         y = self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo")
         return y, cache
 

@@ -64,6 +64,15 @@ def _init_leaf(p: Param, generator: torch.Generator, dtype, device) -> torch.Ten
         return torch.zeros(p.shape, dtype=dtype, device=device)
     if p.init == "ones":
         return torch.ones(p.shape, dtype=dtype, device=device)
+    if len(p.shape) >= 4:
+        # a stack of stacks (the MoE's (L, E, d, f) experts): drawn one
+        # leading slice at a time into the leaf's dtype, so the fp32
+        # temporary is one slice (a whole full-width stack would be 35 GB)
+        sub = dataclasses.replace(p, shape=p.shape[1:], axes=p.axes[1:])
+        w = torch.empty(p.shape, dtype=dtype, device=device)
+        for i in range(p.shape[0]):
+            w[i] = _init_leaf(sub, generator, dtype, device)
+        return w
     w = torch.empty(p.shape, dtype=torch.float32, device=device)
     if p.init == "scaled":  # fan-in scaled truncated normal
         # fan-in is the contraction dim: second-to-last, so stacked

@@ -1,9 +1,9 @@
-"""The dense decoder LM (port of ``repro/models/model.py:LM``).
+"""The decoder LM (port of ``repro/models/model.py:LM``).
 
-Covers ``family='dense'``, ``mixer='gqa'`` and block patterns of ``attn``
-and ``local`` blocks, with no modality frontend and no cross-attention; any
-other config raises ``NotImplementedError`` from the constructor (ROADMAP
-queue 1, item 12).
+Covers ``family='dense'`` and ``family='moe'`` (``MoEMLP``) with
+``mixer='gqa'`` and block patterns of ``attn`` and ``local`` blocks, with no
+modality frontend and no cross-attention; any other config raises
+``NotImplementedError`` from the constructor (ROADMAP queue 1, item 12).
 
 The parameter tree is the reference's: ``embed``, ``layers`` stacked over
 layer groups (a leading axis on every leaf, compressed ones included),
@@ -18,7 +18,8 @@ The paper's technique runs end to end: every projection is DBB-tagged,
 :meth:`compress` encodes each into the compressed layout (values (L, nb,
 nnz, N)), and ``apply_linear`` runs the tc kernel over the compressed K
 (bf16 or fp32 operands), or on the int8 tensor cores after
-:meth:`quantize`. :meth:`plan` freezes int8 prefill into a
+:meth:`quantize`. The MoE's 4-D expert stacks carry no DBB tag and stay
+dense, as in the reference. :meth:`plan` freezes int8 prefill into a
 :class:`~repro_torch.models.plan.ModelPlan`, one CUDA graph per signature.
 """
 from __future__ import annotations
@@ -37,14 +38,14 @@ from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_par
                                        layer_norm, rms_norm, sharded_embed_lookup, stage_linear,
                                        tree_get, tree_set, tree_slice)
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.mlp import DenseMLP
+from repro_torch.models.mlp import DenseMLP, MoEMLP
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM does not build."""
     why = None
-    if cfg.family != "dense" or cfg.is_moe:
-        why = f"family={cfg.family!r} (MoEMLP, recurrent blocks)"
+    if cfg.family not in ("dense", "moe"):
+        why = f"family={cfg.family!r} (recurrent blocks, frontends)"
     elif cfg.mixer != "gqa":
         why = f"mixer={cfg.mixer!r} (MLAttention, RWKV6)"
     elif not set(cfg.pattern) <= {"attn", "local"}:
@@ -55,8 +56,8 @@ def check_supported(cfg: ModelConfig) -> None:
         why = "tied embeddings, embedding scale and logit soft-cap (recurrentgemma's)"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported; the port's LM is the dense GQA decoder "
-            "(ROADMAP queue 1, item 12)")
+            f"{cfg.name}: {why} not ported; the port's LM is the GQA dense "
+            "and MoE decoder (ROADMAP queue 1, item 12)")
 
 
 class LM(nn.Module):
@@ -75,7 +76,7 @@ class LM(nn.Module):
         raise ValueError(kind)
 
     def _mlp(self):
-        return DenseMLP(self.cfg)
+        return MoEMLP(self.cfg) if self.cfg.is_moe else DenseMLP(self.cfg)
 
     def _norm_def(self):
         d = {"g": Param((self.cfg.d_model,), (None,), "ones")}
@@ -221,11 +222,16 @@ class LM(nn.Module):
             out["tail"] = {f"t{i}": block(k) for i, k in enumerate(c.tail_pattern)}
         return out
 
-    def decode_step(self, cache, tokens, pos: int):
-        """One-token decode: tokens (B, 1), ``pos`` their position. Returns
-        (logits (B, 1, padded_vocab), cache), the cache updated in place."""
+    def decode_step(self, cache, tokens, pos):
+        """One-token decode: tokens (B, 1), ``pos`` their position, a 0-d
+        int64 tensor on the model's device (the reference's traced
+        ``jnp.int32``), or an int turned into one. Every use of it is a
+        device op, so a CUDA graph of the step replays at any position.
+        Returns (logits (B, 1, padded_vocab), cache), the cache updated in
+        place."""
         c = self.cfg
         params = self.params
+        pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
         h = self._embed(tokens)
         for g in range(c.num_groups):
             gp = tree_slice(params["layers"], g)

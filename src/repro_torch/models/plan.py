@@ -43,6 +43,7 @@ from typing import Any, Callable, Mapping, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core import act_sparsity
 from repro_torch.kernels import build
 
 
@@ -98,6 +99,36 @@ class GraphPool:
     def __init__(self):
         self.handle = torch.cuda.graph_pool_handle()
         self.lock = threading.Lock()
+
+
+def capture(fn: Callable[[], Any], pool: GraphPool, device) -> tuple:
+    """``fn()`` captured into a CUDA graph from ``pool``: the counterpart of
+    one ``jax.jit`` trace. ``fn`` reads its inputs from static tensors it
+    closes over; its outputs, and any tensor it writes in place, are static
+    too, so a replay writes them again. ``fn`` first runs once eagerly on a
+    side stream (its kernels are built and their libraries loaded before
+    the capture, and its side effects happen once), and nothing it does may
+    reach the host. Returns ``(graph, outputs, launches)``: ``launches`` is
+    what the kernel wrappers counted during the capture, what one replay
+    launches (the counters do not see replays). The caller holds
+    ``pool.lock`` where other graphs share the pool. Raises while an
+    activation collector is installed: it reads every projection's input on
+    the host."""
+    if act_sparsity.collecting():
+        raise RuntimeError("no CUDA graph is captured while activation stats are collected: "
+                           "the collector reads each projection's input on the host")
+    stream = torch.cuda.current_stream(device)
+    side = torch.cuda.Stream(device)
+    side.wait_stream(stream)
+    with torch.cuda.stream(side):
+        fn()
+    stream.wait_stream(side)
+    before = build.launch_counts()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, pool=pool.handle):
+        out = fn()
+    launches = {k: n - before.get(k, 0) for k, n in build.launch_counts().items()}
+    return graph, out, launches
 
 
 @dataclasses.dataclass
@@ -157,22 +188,12 @@ class ModelPlan:
                 return g.static_out.clone()
 
     def _capture(self, x) -> _Graph:
-        """Run the chain once eagerly on a side stream (the kernels are built
-        and their libraries loaded before capture), then capture it from
-        the pool into a graph with a static input of ``x``'s signature."""
+        """Capture the chain from the pool into a graph with a static input
+        of ``x``'s signature (:func:`capture`)."""
         static_in = torch.empty(x.shape, dtype=x.dtype, device=self.device)
         static_in.copy_(x)
-        stream = torch.cuda.current_stream(self.device)
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(stream)
-        with torch.cuda.stream(side):
-            self._chain(static_in)
-        stream.wait_stream(side)
-        before = build.launch_counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, pool=self.pool.handle):
-            static_out = self._chain(static_in)
-        launches = {k: n - before.get(k, 0) for k, n in build.launch_counts().items()}
+        graph, static_out, launches = capture(lambda: self._chain(static_in), self.pool,
+                                              self.device)
         g = _Graph(graph, static_in, static_out, launches)
         self._graphs[(tuple(x.shape), x.dtype)] = g
         return g

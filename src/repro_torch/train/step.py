@@ -4,7 +4,9 @@
 
 prefill:     full-sequence forward returning (last-token logits, cache).
 serve_step:  one-token decode against a KV cache, on compressed (VDBB)
-             weights when the model holds them.
+             weights when the model holds them; its position is a 0-d
+             int64 device tensor (the reference's traced ``jnp.int32``) or
+             an int.
 """
 from __future__ import annotations
 
@@ -23,7 +25,7 @@ def make_prefill(model: LM):
 
 
 def make_serve_step(model: LM):
-    def serve_step(cache, batch, pos: int):
+    def serve_step(cache, batch, pos):
         with torch.no_grad():
             return model.decode_step(cache, batch["tokens"], pos)
 

@@ -147,11 +147,12 @@ def test_require_instance_fails_unless_it_sees_the_instance(smoke, monkeypatch, 
         assert smoke.require_instance(lambda: None, "os_mma", "TapMux", "tc l1") == seen
 
 
-def test_lm_phase_rehearses_on_the_cpu(smoke, monkeypatch):
-    """Phase 7 end to end on the CPU at the smoke config's size: the plain
-    versions stand in for the kernels, so the timers, the profiler, the
-    CUDA memory calls and the launch counts (counted here by dtype at the
-    tc matmul's wrapper, and a replay's from the model) are stubbed."""
+def _rehearse(smoke, monkeypatch):
+    """Stub what only a card gives for a CPU rehearsal of phases 7 and 8 at
+    the smoke configs' size: the plain versions stand in for the kernels, so
+    the timers, the profiler, the CUDA memory calls and the launch counts
+    (counted here by dtype at the tc matmul's wrapper, and a plan replay's
+    from the model) are stubbed. Returns the CPU device."""
     import torch
 
     from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
@@ -169,6 +170,9 @@ def test_lm_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     monkeypatch.setattr(smoke, "LM_SMOKE", True)
     monkeypatch.setattr(smoke, "LM_SHAPES", {"wq/wo": (128, 128, 2), "wk/wv": (128, 32, 2),
                                              "w_up": (128, 256, 1), "w_down": (256, 128, 1)})
+    monkeypatch.setattr(smoke, "MOE_SHAPES", {"wq/wk/wv/wo": (128, 128, 4),
+                                              "w_up/w_gate": (128, 512, 2),
+                                              "w_down": (512, 128, 1)})
     monkeypatch.setattr(smoke, "LM_ROWS", {"decode": 2, "prefill": 32})
     monkeypatch.setattr(smoke, "LM_BATCH", 2)
     monkeypatch.setattr(smoke, "LM_PROMPT", 16)
@@ -190,14 +194,51 @@ def test_lm_phase_rehearses_on_the_cpu(smoke, monkeypatch):
         return rec
 
     monkeypatch.setattr(serve, "serve_lm_plan", with_replay)
-    cpu = torch.device("cpu")
+    return torch.device("cpu")
+
+
+def test_lm_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 7 end to end on the CPU at the smoke config's size."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    cpu = _rehearse(smoke, monkeypatch)
     recs = smoke.lm_kernels(torch.Generator().manual_seed(1), cpu)
     assert len(recs["bf16"]) == len(recs["int8"]) == 8
     gen = smoke.lm_generate(cpu)
     # the stubbed timer calls each function once: two prefills (the timed
-    # one and the kept one) and eight decode steps (a warm-up and seven)
+    # one and the kept one) and eight decode steps (a warm-up and seven);
+    # on the CPU nothing is captured, so every forward is counted as it runs
     assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == 12 * (2 + 8)
+    assert gen["compressed"]["captures"] == 2 and gen["compressed"]["graph_equals_eager"]
     assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
+    assert set(gen["compressed"]["consistency_rel_l2"]) == {0, 6}
     assert smoke.lm_plan(cpu)["captures"] == 1
     smoke.lm_golden(cpu)
+    build.reset_launches()
+
+
+def test_moe_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 8 end to end on the CPU at moonshot's smoke config: the
+    kernels at its (stubbed, small) shapes, generation compressed and dense
+    without the fresh-forward gate, the routed experts' record, the JAX
+    fixture and the INT8 plan."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    cpu = _rehearse(smoke, monkeypatch)
+    recs = smoke.lm_kernels(torch.Generator().manual_seed(1), cpu, smoke.MOE_SHAPES,
+                            dtypes=("bf16",), layers=48)
+    assert list(recs) == ["bf16"] and len(recs["bf16"]) == 6
+    gen = smoke.lm_generate(cpu, smoke.MOE_ARCH, fresh_gate=False)
+    # 2 layers of q, k, v, o and the shared experts' up, gate, down
+    assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == 14 * (2 + 8)
+    assert gen["compressed"]["consistency_rel_l2"] == {}
+    experts = gen["compressed"]["experts"]
+    assert experts["bound_ms"] > 0 and experts["layer_device_ms"] is None
+    assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
+    smoke.moe_golden(cpu)
+    assert smoke.lm_plan(cpu, smoke.MOE_ARCH)["captures"] == 1
     build.reset_launches()

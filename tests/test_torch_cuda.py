@@ -852,9 +852,10 @@ def test_lm_plan_captures_and_replays_without_host_sync(card):
 
 
 def test_lm_generate_on_card_runs_the_bf16_kernel(card):
-    """Greedy generation of the smoke starcoder2 on the card: every
-    projection through the bf16 tc kernel, and each kept decode step's
-    logits against a fresh forward over the prompt and the tokens fed."""
+    """Greedy generation of the smoke starcoder2 on the card, through its
+    CUDA graphs: every projection through the bf16 tc kernel in every
+    forward enqueued, and each kept decode step's logits against a fresh
+    forward over the prompt and the tokens fed."""
     from repro_torch.launch import serve
 
     build.reset_launches()
@@ -862,12 +863,115 @@ def test_lm_generate_on_card_runs_the_bf16_kernel(card):
                          smoke=True, keep=(0, 4), log=lambda *_: None)
     counts = build.launch_counts()
     layers = rec["model"].cfg.num_layers
-    # 5 prefills (a warm-up, 3 timed, the one kept) and 6 decode steps (a
-    # warm-up and 5), 6 projections a layer (wq, wk, wv, wo, w_up, w_down)
-    assert rec["forwards"] == {"prefill": 5, "decode": 6}
-    assert counts["vdbb_matmul_tc_bf16"] == 6 * 11 * layers and counts["vdbb_matmul_tc"] == 0
+    # through generate's two graphs: each captured after an eager warm-up,
+    # then 5 prefill replays (an untimed one, 3 timed, the one kept) and 5
+    # decode replays; 6 projections a layer (wq, wk, wv, wo, w_up, w_down).
+    # The counters see the warm-ups and the captures, not the replays.
+    assert rec["forwards"] == {"prefill": 7, "decode": 7}
+    assert rec["replays"] == {"prefill": 5, "decode": 5}
+    assert counts["vdbb_matmul_tc_bf16"] == 6 * 4 * layers and counts["vdbb_matmul_tc"] == 0
+    replayed = sum(n * rec["graph_launches"][kind]["vdbb_matmul_tc_bf16"]
+                   for kind, n in rec["replays"].items())
+    assert counts["vdbb_matmul_tc_bf16"] + replayed == 6 * 14 * layers
     for i, lg in rec["logits"].items():
         seq = torch.cat([rec["prompt"], rec["tokens"][:, : i + 1]], dim=1)
         with torch.no_grad():
             fresh = rec["model"].forward(seq)[:, -1:]
         assert float((lg.double() - fresh.double()).norm() / fresh.double().norm()) <= 2e-2
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "moonshot-v1-16b-a3b"])
+def test_generate_graph_replays_equal_eager_bit_for_bit(card, arch):
+    """Smoke starcoder2 (dense MLP) and moonshot (MoE): generate's replayed
+    prefill and decode steps give the eager run's tokens and kept logits bit
+    for bit; two captures (the prefill's and the step's) and every later
+    prefill and step a replay, none captured again; a replay of the step
+    launches one bf16 tc matmul per projection."""
+    from repro_torch.launch import serve
+
+    build.reset_launches()
+    rec = serve.serve_lm(arch, batch=2, prompt_len=16, gen=6, device=card, smoke=True,
+                         keep=(0, 2, 4), log=lambda *_: None)
+    model = rec["model"]
+    eager = serve.generate(model, {"tokens": rec["prompt"]}, gen_len=6, max_len=22,
+                           keep=(0, 2, 4), graph=False)
+    assert torch.equal(rec["tokens"], eager["tokens"])
+    for i in (0, 2, 4):
+        assert torch.equal(rec["logits"][i], eager["logits"][i]), i
+    assert rec["captures"] == 2 and eager["captures"] == 0
+    # prefills: 3 timed, 1 untimed, the kept one; steps: the 5 of the loop
+    assert rec["replays"] == {"prefill": 5, "decode": 5}
+    per = 6 if arch == "starcoder2-7b" else 7  # q, k, v, o and the MLP's (shared) projections
+    layers = model.cfg.num_layers
+    assert rec["graph_launches"]["decode"]["vdbb_matmul_tc_bf16"] == per * layers
+    assert rec["graph_launches"]["prefill"]["vdbb_matmul_tc_bf16"] == per * layers
+
+
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "moonshot-v1-16b-a3b"])
+def test_captured_prefill_and_step_equal_eager_without_host_sync(card, arch):
+    """A forward and a decode step at a tensor position, each captured
+    (``plan.capture``) and replayed with no host sync inside the replay,
+    equal to the eager calls bit for bit; the step's cache is written in
+    place at the position the tensor holds."""
+    from repro_torch.launch import serve
+    from repro_torch.models.plan import GraphPool, capture
+
+    model = serve.build_lm(arch, device=card, smoke=True)
+    toks = serve.prompt_tokens(model, batch=2, seq=16)["tokens"]
+    with torch.no_grad():
+        eager = model.forward(toks)
+        g, out, _ = capture(lambda: model.forward(toks), GraphPool(), card)
+        cache_e, cache_g = model.init_cache(2, 20), model.init_cache(2, 20)
+        pos = torch.tensor(7, device=card)
+        step_e, _ = model.decode_step(cache_e, toks[:, 7:8], 7)
+        gs, step_out, _ = capture(lambda: model.decode_step(cache_g, toks[:, 7:8], pos)[0],
+                                  GraphPool(), card)
+        for c in (cache_g["groups"]["b0"]["k"], cache_g["groups"]["b0"]["v"]):
+            c.zero_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+        gs.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(out, eager) and torch.equal(step_out, step_e)
+    assert torch.equal(cache_g["groups"]["b0"]["k"], cache_e["groups"]["b0"]["k"])
+    assert bool(cache_g["groups"]["b0"]["k"][:, :, 7].abs().sum() > 0)
+
+
+def test_moe_combine_is_the_same_bits_every_run(card):
+    """The MoE's combine and a whole routed layer at moonshot's decode and
+    prefill widths: repeated calls and a graph replay give the same bits (no
+    atomics race: one add per expert, distinct rows within each), and the
+    combine equals its CPU run."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.mlp import MoEMLP, combine
+    from repro_torch.models.plan import GraphPool, capture
+
+    rng = np.random.default_rng(0)
+    e, cap, n, d = 64, 24, 256, 2048
+    idx = torch.from_numpy(np.stack([np.stack([rng.choice(n, cap, replace=False)
+                                               for _ in range(e)]) for _ in range(4)]))
+    out = torch.from_numpy(rng.normal(size=(4, e, cap, d)).astype(np.float32)).bfloat16()
+    first = combine(out.to(card), idx.to(card), n)
+    for _ in range(3):
+        assert torch.equal(combine(out.to(card), idx.to(card), n), first)
+    assert torch.equal(first.cpu(), combine(out, idx, n))
+    cfg = get_config("moonshot-v1-16b-a3b")
+    mlp = MoEMLP(dataclasses.replace(cfg, num_shared_experts=0))
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = {"router": torch.randn(2048, 64, device=card, generator=gen, dtype=torch.bfloat16) * 0.02}
+    for k, shape in (("we_up", (64, 2048, 1408)), ("we_gate", (64, 2048, 1408)),
+                     ("we_down", (64, 1408, 2048))):
+        p[k] = torch.randn(shape, device=card, generator=gen, dtype=torch.bfloat16) * 0.02
+    for s in (1, 64):
+        x = torch.randn(4, s, 2048, device=card, generator=gen, dtype=torch.bfloat16)
+        with torch.no_grad():
+            want = mlp(p, x)
+            assert torch.equal(mlp(p, x), want)
+            g, got, _ = capture(lambda: mlp(p, x), GraphPool(), card)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), s

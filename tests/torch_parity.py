@@ -9,8 +9,11 @@ outputs, the tc kernels) and ``tests/data/torch_parity_cnn_bw.npz``
 ``tests/data/torch_parity_lm.npz`` (``qwen2-tiny``, fp32, compressed: its
 parameters, the calibration stats its INT8 quantization is made from, a
 token batch, the prefill's last-position logits, one decode step's logits
-and the quantized forward's last-position logits). Regenerate all three
-with
+and the quantized forward's last-position logits), and the MoE's
+``tests/data/torch_parity_moe.npz`` (``smoke_config("moonshot-v1-16b-a3b")``
+computed in fp32 on weights rounded to bf16 values, which the file keeps as
+bf16 bits, compressed: a token batch, the prefill's last-position logits,
+the next token and one decode step's logits). Regenerate all four with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -38,6 +41,7 @@ from repro_torch.interop import bf16_bits, flatten  # noqa: E402
 FIXTURE = ROOT / "tests" / "data" / "torch_parity_cnn.npz"
 FIXTURE_BW = ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"
 FIXTURE_LM = ROOT / "tests" / "data" / "torch_parity_lm.npz"
+FIXTURE_MOE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
 LM_BATCH, LM_SEQ = 2, 32
 CHAIN_BATCH = 8
 CHAIN_SEED = 0
@@ -159,6 +163,36 @@ def jax_lm_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> di
                 quant=np.array(qlogits[:, -1:]))
 
 
+MOE_ARCH = "moonshot-v1-16b-a3b"
+
+
+def jax_moe_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """The JAX reference's MoE LM in ref mode: ``smoke_config(MOE_ARCH)``
+    (8 experts, top-2, 2 shared) in fp32, so a card can hold the port to it
+    within 1e-5, its weights rounded to bf16 values (so the file can carry them as bf16
+    bits, half the bytes) and compressed, a seeded token batch, the
+    prefill's last-position logits, the next token and its decode step's
+    logits (cache padded to seq + 1)."""
+    from repro.configs import registry
+    from repro.models.model import LM
+
+    model = LM(dataclasses.replace(registry.smoke_config(MOE_ARCH), param_dtype=jnp.float32,
+                                   compute_dtype=jnp.float32))
+    dense = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype),
+                                   model.init(jax.random.PRNGKey(seed)))
+    params = model.compress(dense)
+    tokens = np.random.default_rng(seed).integers(0, model.cfg.vocab_size, (batch, seq))
+    tokens = jnp.asarray(tokens.astype(np.int32))
+    logits, cache = model.forward(params, {"tokens": tokens}, return_cache=True)
+    nxt = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    step, _ = model.decode_step(params, jax_pad_cache(cache, seq, seq + 1), {"tokens": nxt},
+                                jnp.int32(seq))
+    bits = jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a, params)
+    return dict(params=to_numpy(bits), tokens=np.array(tokens), prefill=np.array(logits[:, -1:]),
+                next=np.array(nxt), decode=np.array(step))
+
+
 def fixture_bytes(chain: dict) -> bytes:
     buf = io.BytesIO()
     np.savez_compressed(buf, **flatten(chain))
@@ -172,3 +206,5 @@ if __name__ == "__main__":
         print(f"wrote {path} ({path.stat().st_size} bytes)")
     FIXTURE_LM.write_bytes(fixture_bytes(jax_lm_golden()))
     print(f"wrote {FIXTURE_LM} ({FIXTURE_LM.stat().st_size} bytes)")
+    FIXTURE_MOE.write_bytes(fixture_bytes(jax_moe_golden()))
+    print(f"wrote {FIXTURE_MOE} ({FIXTURE_MOE.stat().st_size} bytes)")
