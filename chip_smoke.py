@@ -110,7 +110,32 @@ Phases, each of which fails the run:
      d. the INT8 prefill plan as 7c (the shared experts staged int8, the
         router and the experts raw), bit for bit against the unplanned
         forward;
-  9. one JSON line of the six kernels (launches, errors, times, bounds).
+  9. the recurrent decoders at full width and depth, each in turn and
+     freed before the next is built: recurrentgemma-2b (26 layers: 18
+     RG-LRU and 8 local-attention blocks, d_model 2560, 10 query heads and
+     one KV head of 256, d_ff 7680, vocab 256000 tied, logit soft-cap 30;
+     2.894 B weights) and rwkv6-3b (32 RWKV6 blocks, d_model 2560, 40 heads
+     of 64, d_ff 8960, vocab 65536; 3.074 B weights):
+     a. the tc matmul's bf16 and int8 instantiations at each model's
+        projection shapes (2560->2560, 2560->256, 2560->7680, 7680->2560;
+        2560->2560, 2560->8960, 8960->2560: K_c 960, 2880, 3360) at 4 and
+        1024 rows, as 7a;
+     b. generation as 7b, compressed then dense, with peak GB; the
+        fresh-forward gate (2e-2) holds an fp32 copy of the same weights,
+        generated through graphs on the fp32 instantiation of the kernel:
+        these random-weight stacks amplify bf16 rounding with depth (a bf16
+        forward of rwkv6-3b is ~0.5 from its fp32 forward, and so is a bf16
+        decode), so the served model's decode and forward are logged, not
+        gated; the decode bound counts the tied table that the logits read
+        whole, the K/V of the local blocks only, and the recurrent state
+        read and written;
+     c. each model's JAX fixture (tests/data/torch_parity_rglru.npz,
+        torch_parity_rwkv.npz: the smoke config, fp32) through generate's
+        graphs, as 8c;
+     d. the INT8 prefill plan as 7c (the recurrent projections staged with
+        a dynamic activation scale), bit for bit against the unplanned
+        forward;
+ 10. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -306,7 +331,7 @@ def stem_layer(m, xshape, out_scale, gen, dev):
     ops = 2 * out.numel() * m.kh * m.kw * m.in_channels
     b_ms, b_by = bound(nb_, ops, FP32_OPS_PER_S)
     return timed(run, plain, library, err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb_, ops=ops,
-                 plan=f"{path} path")
+                 plan=f"{path} path", out_bytes=nbytes(out))
 
 
 def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
@@ -393,7 +418,8 @@ def sparse_layer(m, xshape, fmt, bw, out_scale, gen, dev, what):
     b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
     staging = f"{tile.chunk} B chunks" if not tile.gathered else "A gathered in byte lanes"
     rec = timed(run, lambda: plain(*args, **kw), library, err=err, bound_ms=b_ms,
-                bound_by=b_by, bytes=nb_, ops=ops, plan=f"{tile.tile_rows}x64 tile, {staging}")
+                bound_by=b_by, bytes=nb_, ops=ops, plan=f"{tile.tile_rows}x64 tile, {staging}",
+                out_bytes=nbytes(out))
     if conv and not bw:
         # information only: the same product as one torch._int_mm over the
         # compressed im2col matrix gathered beforehand, the gather left out
@@ -1083,25 +1109,27 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
     return rec
 
 
-def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32) -> dict:
-    """Phase 7a (and 8a at moonshot's shapes, bf16 only): {dtype name:
-    {(shape, rows): record}} at each of ``shapes`` (default ``LM_SHAPES``),
+def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32,
+               unit="one layer's") -> dict:
+    """Phase 7a (8a at moonshot's shapes, bf16 only; 9a at the recurrent
+    decoders'): {dtype name: {(shape, rows): record}} at each of ``shapes``
+    (default ``LM_SHAPES``: (K, N, projections of the shape in ``unit``)),
     decode and prefill rows."""
     shapes = LM_SHAPES if shapes is None else shapes
     kinds = {"bf16": torch.bfloat16, "int8": torch.int8}
     out = {key: {} for key in dtypes}
     log(f"[lm kernels] shape              rows  dtype  ms        device_ms  plain_ms  "
         f"library_ms  lib_dev_ms  bound_ms (by)")
+
+    def ms(v):
+        return "None" if v is None else f"{v:.4f}"
+
     for name, (k, n, _) in shapes.items():
         for phase, m in LM_ROWS.items():
             for key in dtypes:
                 dtype = kinds[key]
                 r = lm_kernel(k, n, m, dtype, gen, dev, f"{name} {k}->{n} at M={m}")
                 out[key][(name, phase)] = r
-
-                def ms(v):
-                    return "None" if v is None else f"{v:.4f}"
-
                 log(f"[lm kernels] {name:<7s} {k:>5d}->{n:<5d}  {m:<5d} {key:<6s} {r['ms']:<9.4f} "
                     f"{ms(r['device_ms']):<10s} {r['plain_ms']:<9.4f} {ms(r['library_ms']):<11s} "
                     f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
@@ -1111,17 +1139,17 @@ def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32) -> dic
     per = sum(v[2] for v in shapes.values())
     for key in out:
         for phase in LM_ROWS:
-            per_layer = {f: sum(out[key][(s, phase)][f] * shapes[s][2] for s in shapes)
-                         for f in ("device_ms", "bound_ms")}
-            lib = [out[key][(s, phase)]["library_device_ms"] for s in shapes]
-            per_layer["library_device_ms"] = (None if None in lib else
-                                              sum(v * shapes[s][2] for s, v in zip(shapes, lib)))
-            lib_ms = per_layer["library_device_ms"]
-            log(f"[lm kernels] {key} {phase}: one layer's {per} projections, device "
-                f"{per_layer['device_ms']:.4f} ms, library "
-                f"{'None' if lib_ms is None else f'{lib_ms:.4f}'} ms, "
+            per_layer = {}
+            for f in ("device_ms", "bound_ms", "library_device_ms"):
+                # None where the profiler delivered no record of a shape's call
+                vals = [out[key][(s, phase)][f] for s in shapes]
+                per_layer[f] = (None if None in vals else
+                                sum(v * shapes[s][2] for s, v in zip(shapes, vals)))
+            dev_ms = per_layer["device_ms"]
+            log(f"[lm kernels] {key} {phase}: {unit} {per} projections, device "
+                f"{ms(dev_ms)} ms, library {ms(per_layer['library_device_ms'])} ms, "
                 f"bound {per_layer['bound_ms']:.5f} ms; x{layers} layers "
-                f"{per_layer['device_ms'] * layers:.3f} ms")
+                f"{ms(None if dev_ms is None else dev_ms * layers)} ms")
     return out
 
 
@@ -1152,12 +1180,21 @@ def projections(model) -> int:
 
 
 def decode_bound(model) -> tuple:
-    """The least time a decode step could take, from the bytes it must read:
-    every weight but the embedding table (of which it reads B rows), and the
-    KV cache at its full length. Returns (ms, bytes)."""
+    """The least time a decode step could take, from the bytes it must move:
+    every weight but the embedding table, of which it reads B rows, or all
+    of it when the logits are tied to it; each attention block's K/V at its
+    cache's full length (a local block's ring at most its window), read;
+    each recurrent block's state, read and written. Returns (ms, bytes)."""
     c = model.cfg
-    weights = tensor_bytes(model.state(), skip=("embed",)) + LM_BATCH * c.d_model * 2
-    cache = 2 * c.num_layers * LM_BATCH * (LM_PROMPT + LM_GEN) * c.num_kv_heads * c.hd * 2
+    table = model.state()["embed"]
+    rows = table.shape[0] if c.tie_embeddings else LM_BATCH
+    weights = tensor_bytes(model.state(), skip=("embed",)) + rows * c.d_model * table.element_size()
+    cache = 0
+    for kind in list(c.pattern) * c.num_groups + list(c.tail_pattern):
+        leaves = model._mixer(kind).init_cache(LM_BATCH, LM_PROMPT + LM_GEN, c.compute_dtype,
+                                               "meta")
+        cache += sum(v.numel() * v.element_size() * (1 if k in ("k", "v") else 2)
+                     for k, v in leaves.items())
     return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights + cache
 
 
@@ -1185,14 +1222,53 @@ def main_path_launches(rec) -> dict:
             for k, n in counts.items()}
 
 
-def lm_generate(dev, arch=LM_ARCH, fresh_gate=True, tag="lm generate") -> dict:
-    """Phase 7b (``starcoder2-7b``) and 8b (the MoE): full-width generation
-    through ``generate``'s CUDA graphs, compressed then dense, each against
-    an eager run of the same model (``graph=False``) bit for bit. Returns the
-    record: the compressed run's launches and both runs' times and bounds.
-    ``fresh_gate`` holds the kept decode steps' logits against a fresh
-    forward over the same tokens; the MoE's cannot meet it (decode routes
-    over the batch's tokens, a forward within each example)."""
+def as_fp32(tree) -> dict:
+    """A parameter tree with every floating tensor, compressed values
+    included, in fp32."""
+    out = {}
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            out[k] = as_fp32(v)
+        elif isinstance(v, torch.Tensor):
+            out[k] = v.float()
+        else:
+            out[k] = dataclasses.replace(v, values=v.values.float())
+    return out
+
+
+def fp32_consistency(model, prompt) -> dict:
+    """The model's weights in fp32 (the fp32 instantiation of the tc
+    kernel): generate from ``prompt`` through graphs, then each kept decode
+    step's logits against a fresh fp32 forward over the prompt and the
+    tokens fed. {step: relative L2}."""
+    from repro_torch.launch import serve
+    from repro_torch.models.model import LM
+
+    cfg = dataclasses.replace(model.cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+    m32 = LM(cfg).load_params(as_fp32(model.state()))
+    rec = serve.generate(m32, {"tokens": prompt}, gen_len=LM_GEN, max_len=LM_PROMPT + LM_GEN,
+                         keep=LM_KEEP)
+    with torch.no_grad():
+        return {i: rel_l2(lg, m32.forward(torch.cat([prompt, rec["tokens"][:, : i + 1]], 1))[:, -1:])
+                for i, lg in rec["logits"].items()}
+
+
+def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> dict:
+    """Phase 7b (``starcoder2-7b``), 8b (the MoE) and 9b (the recurrent
+    decoders): full-width generation through ``generate``'s CUDA graphs,
+    compressed then dense, each against an eager run of the same model
+    (``graph=False``) bit for bit. Returns the record: the compressed run's
+    launches and both runs' times and bounds.
+
+    ``fresh_gate`` holds the kept decode steps' logits within 2e-2 of a
+    fresh forward over the same tokens: the served bf16 model's
+    (``"served"``), or an fp32 copy of its weights' (``"fp32"``, the
+    recurrent decoders: their random-weight stacks amplify bf16 rounding
+    with depth, so a bf16 forward and a bf16 decode of the same tokens
+    differ by more than the gate whatever computes them; the served
+    model's distances are logged beside it); ``None``: no gate (the MoE's
+    decode routes over the batch's tokens, a forward within each
+    example)."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
@@ -1226,18 +1302,19 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate=True, tag="lm generate") -> dict:
         if not torch.equal(eager["tokens"], toks) or any(
                 not torch.equal(eager["logits"][i], lg) for i, lg in rec["logits"].items()):
             raise AssertionError(f"{label}: replayed decode differs from the eager decode")
-        errs = {}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9  # serving only: before the gate's forwards
+        served = {}
         with torch.no_grad():
             for i, lg in rec["logits"].items():
                 if not bool(torch.isfinite(lg).all()):
                     raise AssertionError(f"{label}: decode step {i} logits not finite")
-                if not fresh_gate:
-                    continue
-                fresh = model.forward(torch.cat([rec["prompt"], toks[:, : i + 1]], dim=1))[:, -1:]
-                errs[i] = rel_l2(lg, fresh)
-                if errs[i] > 2e-2:
-                    raise AssertionError(f"{label}: decode step {i} logits rel L2 {errs[i]} > 2e-2 "
-                                         "against a fresh forward")
+                if fresh_gate:
+                    seq = torch.cat([rec["prompt"], toks[:, : i + 1]], dim=1)
+                    served[i] = rel_l2(lg, model.forward(seq)[:, -1:])
+        errs = fp32_consistency(model, rec["prompt"]) if fresh_gate == "fp32" else served
+        if any(e > 2e-2 for e in errs.values()):
+            raise AssertionError(f"{label}: decode logits rel L2 {errs} against fresh "
+                                 f"{'fp32 ' if fresh_gate == 'fp32' else ''}forwards > 2e-2")
         b_ms, b_bytes = decode_bound(model)
         # where a replayed decode step's time goes: the device's busy and
         # idle share over 4 replays at the last position of a full-length
@@ -1267,11 +1344,12 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate=True, tag="lm generate") -> dict:
                           host_ms_per_step=rec["host_ms_per_step"],
                           eager_host_ms_per_step=eager["host_ms_per_step"],
                           steps_per_s=rec["steps_per_s"], decode_bound_ms=b_ms,
-                          decode_bytes=b_bytes, consistency_rel_l2=errs, launches=counts,
+                          decode_bytes=b_bytes, consistency_rel_l2=errs,
+                          served_consistency_rel_l2=served, launches=counts,
                           captures=rec["captures"], replays=rec["replays"],
                           replay_launches=rec["graph_launches"], graph_equals_eager=True,
                           decode_profile=prof, prefill_profile=prefill_prof,
-                          peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                          peak_gb=peak_gb,
                           seconds=time.time() - t0)
         if c.is_moe:
             out[label]["experts"] = moe_experts(model, dev, prof.get("device_ms"))
@@ -1283,7 +1361,8 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate=True, tag="lm generate") -> dict:
             f"{eager['ms_per_step']:.3f} ms per step (host {eager['host_ms_per_step']:.3f}); "
             f"replayed decode logits and tokens equal to the eager run's; against the decode "
             f"bound {b_ms:.3f} ms ({b_bytes / 1e9:.3f} GB a step at 3.35 TB/s); decode logits "
-            f"against fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}; "
+            f"against fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}"
+            f" ({fresh_gate}; served {json.dumps({k: round(v, 6) for k, v in served.items()})}); "
             f"launches {counts}; peak {out[label]['peak_gb']:.2f} GB ({time.time() - t0:.1f} s)")
         log(f"[profile] {arch} {label} replayed decode step: {json.dumps(prof)}")
         log(f"[profile] {arch} {label} replayed prefill: {json.dumps(prefill_prof)}")
@@ -1394,10 +1473,11 @@ MOE_SHAPES = {"wq/wk/wv/wo": (2048, 2048, 4), "w_up/w_gate": (2048, 2816, 2),
 MOE_FIXTURE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
 
 
-def moe_golden(dev) -> None:
-    """Phase 8c: the JAX reference's MoE fixture (moonshot's smoke config,
-    fp32) through the kernels and generate's graphs: the next token equal,
-    prefill and decode logits within 1e-5 relative L2."""
+def smoke_golden(dev, arch=MOE_ARCH) -> None:
+    """Phase 8c (the MoE) and 9c (the recurrent decoders): the JAX
+    reference's fixture of ``arch``'s smoke config in fp32 through the
+    kernels and generate's graphs: the next token equal, prefill and decode
+    logits within 1e-5 relative L2."""
     import numpy as np
 
     from repro_torch.configs import smoke_config
@@ -1405,24 +1485,64 @@ def moe_golden(dev) -> None:
     from repro_torch.launch import serve
     from repro_torch.models.model import LM
 
-    with np.load(MOE_FIXTURE) as z:
+    with np.load(SMOKE_FIXTURES[arch]) as z:
         g = unflatten(z)
-    cfg = dataclasses.replace(smoke_config(MOE_ARCH), param_dtype=torch.float32,
+    cfg = dataclasses.replace(smoke_config(arch), param_dtype=torch.float32,
                               compute_dtype=torch.float32)
     model = LM(cfg).load_params(params_from_numpy(g["params"], dev))
     tokens = torch.as_tensor(g["tokens"]).to(dev)
     rec = serve.generate(model, {"tokens": tokens}, gen_len=2, max_len=tokens.shape[1] + 1,
                          keep=(0,))
     if not torch.equal(rec["tokens"][:, :1].cpu(), torch.as_tensor(g["next"])):
-        raise AssertionError("MoE fixture: the greedy next token differs from JAX's")
+        raise AssertionError(f"{arch} fixture: the greedy next token differs from JAX's")
     with torch.no_grad():
         pre = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["prefill"]).to(dev))
     dec = rel_l2(rec["logits"][0], torch.as_tensor(g["decode"]).to(dev))
     if pre > 1e-5 or dec > 1e-5:
-        raise AssertionError(f"MoE fixture: prefill {pre}, decode {dec} rel L2 against JAX "
+        raise AssertionError(f"{arch} fixture: prefill {pre}, decode {dec} rel L2 against JAX "
                              "(<= 1e-5)")
-    log(f"[golden] JAX MoE fixture ({MOE_ARCH} smoke, fp32, {rec['captures']} graphs): next "
+    log(f"[golden] JAX fixture ({arch} smoke, fp32, {rec['captures']} graphs): next "
         f"token equal; rel L2 prefill {pre:.3e}, decode {dec:.3e}")
+
+
+# ---------------------------------------------------------------- phase 9
+
+RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-3b")
+# each model's compressed projections by shape: (K, N, projections of the
+# shape in one forward). recurrentgemma: 18 RG-LRU blocks (w_x, w_gate,
+# w_a, w_i, w_out) and 8 local-attention blocks (wq, wo; wk, wv: one KV head
+# of 256), an MLP in each of the 26 (w_up, w_gate; w_down). rwkv6: 32
+# blocks of time mix (w_r, w_k, w_v, w_g, w_o) and channel mix (w_r; w_k;
+# w_v).
+RECURRENT_SHAPES = {
+    "recurrentgemma-2b": {"rec w_*, attn wq/wo": (2560, 2560, 18 * 5 + 8 * 2),
+                          "attn wk/wv": (2560, 256, 8 * 2), "mlp w_up/w_gate": (2560, 7680, 26 * 2),
+                          "mlp w_down": (7680, 2560, 26)},
+    "rwkv6-3b": {"tm w_*, cm w_r": (2560, 2560, 32 * 6), "cm w_k": (2560, 8960, 32),
+                 "cm w_v": (8960, 2560, 32)},
+}
+SMOKE_FIXTURES = {MOE_ARCH: MOE_FIXTURE,
+                  "recurrentgemma-2b": ROOT / "tests" / "data" / "torch_parity_rglru.npz",
+                  "rwkv6-3b": ROOT / "tests" / "data" / "torch_parity_rwkv.npz"}
+
+
+def recurrent_phase(gen, dev) -> dict:
+    """Phase 9: each recurrent decoder in turn at full width and depth, the
+    one freed before the next is built: its projection shapes on the bf16
+    and int8 tc matmul (9a), generation compressed then dense through
+    generate's graphs with the fresh-forward gate (9b), its JAX fixture
+    (9c), the INT8 prefill plan (9d). Returns {arch: {"kernels", "generate",
+    "plan"}}."""
+    out = {}
+    for arch in RECURRENT_ARCHS:
+        t0 = time.time()
+        kernels = lm_kernels(gen, dev, RECURRENT_SHAPES[arch], layers=1, unit="one forward's")
+        generated = lm_generate(dev, arch, fresh_gate="fp32", tag=f"{arch} generate")
+        smoke_golden(dev, arch)
+        planned = lm_plan(dev, arch, tag=f"{arch} plan")
+        out[arch] = dict(kernels=kernels, generate=generated, plan=planned,
+                         seconds=time.time() - t0)
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -1474,6 +1594,13 @@ def main() -> int:
     recs = check_kernels(cfgs, gen, dev)
     log(f"[kernels] every kernel matches its plain version ({time.time() - t0:.1f} s)")
     log_summary(recs)
+    # the flush (os_accumulate, csrc/epilogue.cuh) has no launch of its own:
+    # its least time is writing each layer's output once
+    for pattern, names in (("matrix", ("im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc")),
+                           ("None", ("im2col_conv", "vdbb_conv_bw", "vdbb_matmul_bw"))):
+        out_b = sum(r["out_bytes"] for n in names for r in recs[n])
+        log(f"[kernels] flush (os_accumulate) pattern={pattern}, batch {BATCH}: the layers' "
+            f"outputs {out_b} bytes, bound {out_b / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes)")
     phase_done("2 kernels")
 
     # each serving path with the counts at 0 just before it; a kernel's
@@ -1513,12 +1640,14 @@ def main() -> int:
     phase_done("7d LM golden")
     moe_recs = lm_kernels(gen, dev, MOE_SHAPES, dtypes=("bf16",), layers=48)["bf16"]
     phase_done("8a MoE kernels")
-    moe_gen = lm_generate(dev, MOE_ARCH, fresh_gate=False, tag="moe generate")
+    moe_gen = lm_generate(dev, MOE_ARCH, fresh_gate=None, tag="moe generate")
     phase_done("8b MoE generate")
-    moe_golden(dev)
+    smoke_golden(dev, MOE_ARCH)
     phase_done("8c MoE golden")
     moe_planned = lm_plan(dev, MOE_ARCH, tag="moe plan")
     phase_done("8d MoE plan")
+    recurrent = recurrent_phase(gen, dev)
+    phase_done("9 recurrent decoders")
 
     line = []
     conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
@@ -1562,6 +1691,18 @@ def main() -> int:
                 "library_device_ms": total(moe, "library_device_ms"),
                 "graph_replay_launches_per_step":
                     moe_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"]}
+            for arch, r in recurrent.items():  # the recurrent decoders' shapes, phase 9
+                rs = list(r["kernels"]["bf16"].values())
+                gen_c = r["generate"]["compressed"]
+                line[-1][arch] = {
+                    "shapes": [f"{s}:{p}" for s, p in r["kernels"]["bf16"]],
+                    "launches": gen_c["launches"]["vdbb_matmul_tc_bf16"],
+                    "max_abs_err": max(x["err"] for x in rs), "ms": total(rs, "ms"),
+                    "plain_ms": total(rs, "plain_ms"), "device_ms": total(rs, "device_ms"),
+                    "bound_ms": total(rs, "bound_ms"), "library_ms": total(rs, "library_ms"),
+                    "library_device_ms": total(rs, "library_device_ms"),
+                    "graph_replay_launches_per_step":
+                        gen_c["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"]}
             line[-1]["graph_replay_launches"] = (
                 lm_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"])
         if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
@@ -1573,7 +1714,22 @@ def main() -> int:
                 "device_ms": total(lm8, "device_ms"), "bound_ms": total(lm8, "bound_ms"),
                 "library_ms": total(lm8, "library_ms"),
                 "library_device_ms": total(lm8, "library_device_ms"),
+                # torch._int_mm refuses 4 rows: the library call at prefill rows only
+                "prefill": {k: total([r for (_, p), r in lm_recs["int8"].items()
+                                      if p == "prefill"], k)
+                            for k in ("ms", "device_ms", "library_ms", "library_device_ms")},
                 "graph_replay_launches_per_prefill": lm_planned["replay_launches"]["vdbb_matmul_tc"]}
+            for arch, r in recurrent.items():  # the recurrent decoders' shapes and plans
+                rs = list(r["kernels"]["int8"].values())
+                line[-1][arch] = {
+                    "shapes": [f"{s}:{p}" for s, p in r["kernels"]["int8"]],
+                    "launches": r["plan"]["launches"]["vdbb_matmul_tc"], "max_abs_err": 0.0,
+                    "ms": total(rs, "ms"), "plain_ms": total(rs, "plain_ms"),
+                    "device_ms": total(rs, "device_ms"), "bound_ms": total(rs, "bound_ms"),
+                    "library_ms": total(rs, "library_ms"),
+                    "library_device_ms": total(rs, "library_device_ms"),
+                    "graph_replay_launches_per_prefill":
+                        r["plan"]["replay_launches"]["vdbb_matmul_tc"]}
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -1583,6 +1739,9 @@ def main() -> int:
     log(f"[lm] plan: {json.dumps(lm_planned, default=str)}")
     log(f"[moe] generate: {json.dumps(moe_gen)}")
     log(f"[moe] plan: {json.dumps(moe_planned, default=str)}")
+    for arch, r in recurrent.items():
+        log(f"[{arch}] generate: {json.dumps(r['generate'])}")
+        log(f"[{arch}] plan: {json.dumps(r['plan'], default=str)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

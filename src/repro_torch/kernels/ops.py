@@ -19,6 +19,8 @@ operands.
 """
 from __future__ import annotations
 
+import torch
+
 from repro_torch.core.quant import QuantDBBWeight, as_f32, resolve_quant_input
 from repro_torch.core.vdbb import DBBWeight
 from repro_torch.kernels import im2col_conv as _im2col
@@ -82,10 +84,28 @@ def _calibrated(qw: QuantDBBWeight, act_scale):
 
 
 def stage_quant_matmul(qw: QuantDBBWeight, act_scale, m: int, *, bias=None, relu=False,
-                       out_scale=None):
+                       out_scale=None, dynamic: bool = False):
     """:func:`quant_matmul` at ``m`` rows, staged once: ``run(x)`` quantizes
     an fp ``x`` at the calibrated ``act_scale`` (int8 codes pass as they
-    are) and launches with the scale product ``act_scale * qw.scales``."""
+    are) and launches with the scale product ``act_scale * qw.scales``.
+
+    With ``dynamic`` and no ``act_scale``, ``run(x)`` quantizes an fp ``x``
+    at its own per-tensor scale (``core.quant.dynamic_act_scale``) and
+    writes the scale product into the staged flush row on the card before
+    the launch (the row is the epilogue's, shared, not copied):
+    no host read, so a CUDA graph captures it, and the same bits as the
+    unplanned :func:`quant_matmul` with ``act_scale=None``."""
+    if act_scale is None and dynamic:
+        row = torch.empty(qw.shape[1], dtype=torch.float32, device=qw.device)
+        run, tiles = _vm.stage_vdbb_matmul(qw.as_dbb(), m, scales=row, bias=bias, relu=relu,
+                                           out_scale=out_scale)
+
+        def run_dynamic(x):
+            xq, s_a = resolve_quant_input(x, None)  # int8 codes without a scale raise
+            torch.mul(s_a, qw.scales, out=row)
+            return run(xq)
+
+        return run_dynamic, tiles
     s_a = _calibrated(qw, act_scale)
     run, tiles = _vm.stage_vdbb_matmul(qw.as_dbb(), m, scales=s_a * qw.scales, bias=bias,
                                        relu=relu, out_scale=out_scale)

@@ -10,21 +10,25 @@ import time
 import torch
 
 
-def device_ms(fn, keep=lambda name: True, reps: int = 5, passes: int = 3):
+def device_ms(fn, keep=lambda name: True, reps: int = 5, passes: int = 3, tries: int = 6):
     """Device time of one call of ``fn``: the CUDA kernels whose names
     ``keep`` accepts, by torch.profiler over ``passes`` passes of ``reps``
     calls each. A pass may deliver only some of its kernel records (on an
     H100, one 95 us kernel once showed one record of five), so a sum over a
     pass would undercount: the time is, for each kernel name, the mean
     duration of its records times its launches per call (the most records
-    any pass gave it, over ``reps``, rounded up). None when no pass
-    delivered a record."""
+    any pass gave it, over ``reps``, rounded up). Passes can also deliver
+    no record at all, three in a row on an H100 once, so while none has
+    come, up to ``tries`` more passes are run. None when no pass delivered
+    a record."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     durations, most = {}, {}
-    for _ in range(passes):
+    for attempt in range(passes + tries):
+        if attempt >= passes and durations:
+            break
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()

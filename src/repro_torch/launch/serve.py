@@ -36,10 +36,13 @@ prefill of a ``--prompt-len`` prompt, then ``--gen`` tokens, each decode step
 one token through every projection's tc kernel (bf16 operands) against the
 KV cache; on a card the prefill and the decode step are each captured once
 into a CUDA graph and replayed. A MoE arch (``moonshot-v1-16b-a3b``) runs
-the same way, its expert stacks dense. It prints prefill ms, ms per decode
-step and decode steps/s:
+the same way, its expert stacks dense, and so do the recurrent decoders
+(``recurrentgemma-2b``: RG-LRU and local attention; ``rwkv6-3b``), whose
+decode carries a fixed-size state beside (or instead of) the KV cache. It
+prints prefill ms, ms per decode step and decode steps/s:
 
   python -m repro_torch.launch.serve --arch starcoder2-7b --batch 4 --prompt-len 256 --gen 32
+  python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 256 --gen 32
 
 ``--lm-plan`` serves LM prefill through a frozen plan instead: compress,
 calibrate (a bf16 forward through the same kernel), INT8-quantize, then
@@ -193,18 +196,40 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
 # ---------------------------------------------------------------- the LM
 
 
+KV_KEYS = ("k", "v")
+
+
 def pad_cache(cache, plen: int, max_len: int):
-    """The prefill's K/V cache (sequence length ``plen``) in a cache of
-    capacity ``max_len``: allocated once, the prefill's entries in slots 0 …
-    plen - 1, zeros after. The same layout the reference's ``pad_to_cap``
-    gives, so decode reads the same slots and gives the same logits."""
-    if isinstance(cache, dict):
-        return {k: pad_cache(v, plen, max_len) for k, v in cache.items()}
-    shape = list(cache.shape)
-    shape[-3] = max_len
-    out = cache.new_zeros(shape)
-    out[..., :plen, :, :] = cache
+    """The prefill's cache (sequence length ``plen``) as the decode cache
+    of capacity ``max_len``, allocated once. Leaves are told apart by key:
+    K/V (``k``, ``v``) get the prefill's entries in slots 0 … plen - 1 and
+    zeros after, the layout of the reference's ``pad_to_cap``; a recurrent
+    block's state (fixed-size: ``h``, ``conv``, ``s``, ``shift``,
+    ``cm_shift``) is copied as it is. The reference pads by shape, which
+    also pads a state leaf whose axis happens to equal ``plen``."""
+    out = {}
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            out[k] = pad_cache(v, plen, max_len)
+        elif k in KV_KEYS:
+            shape = list(v.shape)
+            shape[-3] = max_len
+            out[k] = v.new_zeros(shape)
+            out[k][..., :plen, :, :] = v
+        else:
+            out[k] = v.clone()
     return out
+
+
+def restore_state(cache, prefill_cache) -> None:
+    """Set every recurrent state leaf of ``cache`` back to the prefill's,
+    in place (a decode step advances it; K/V slots are rewritten by the
+    step at their position)."""
+    for k, v in cache.items():
+        if isinstance(v, dict):
+            restore_state(v, prefill_cache[k])
+        elif k not in KV_KEYS:
+            v.copy_(prefill_cache[k])
 
 
 def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
@@ -219,10 +244,13 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
     prompt, the token fed to the step and its position (a 0-d int64 tensor);
     the step writes the cache in place, takes the argmax into the token
     buffer and the generated tokens, and advances the position, all on the
-    card. ``graph=False`` runs the same two functions eagerly, op by op: a
-    replay is held against that bit for bit. On the CPU nothing is captured:
-    ``graph=True`` runs them eagerly too and counts each as a staged
-    signature, as ``ModelPlan`` does.
+    card; a recurrent block's state is advanced in place. The warm-up
+    step's writes are undone before step 0 (the position, the token and
+    the recurrent state set back to the prefill's; the K/V slot it wrote
+    is written again by step 0). ``graph=False`` runs the same two
+    functions eagerly, op by op: a replay is held against that bit for
+    bit. On the CPU nothing is captured: ``graph=True`` runs them eagerly
+    too and counts each as a staged signature, as ``ModelPlan`` does.
 
     Returns ``{"tokens": (B, gen_len) int32, "steps_per_s", "prefill_ms",
     "ms_per_step", "prefill_host_ms", "host_ms_per_step", "logits": {i: the
@@ -303,6 +331,7 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
                 run_step()
             pos.fill_(plen)
             tok.copy_(out[:, :1])
+            restore_state(cache, kv)
         kept, host = {}, []
 
         def decode():

@@ -208,16 +208,18 @@ class StagedLinear:
     quantized: bool
 
 
-def stage_linear(w, aq, m: int, compute_dtype) -> StagedLinear:
+def stage_linear(w, aq, m: int, compute_dtype, *, dynamic: bool = False) -> StagedLinear:
     """Stage :func:`apply_linear`'s product with a compressed ``w`` at ``m``
     rows: ``ops.stage_quant_matmul`` for an int8 weight (which needs its
-    calibrated ``aq``), ``ops.stage_vdbb_matmul`` for a floating one, its
-    values in ``compute_dtype`` as the unplanned path casts them."""
+    calibrated ``aq``, unless ``dynamic`` lets it quantize each call's batch
+    at its own scale when it has none), ``ops.stage_vdbb_matmul`` for a
+    floating one, its values in ``compute_dtype`` as the unplanned path
+    casts them."""
     from repro_torch.kernels import ops
 
     _shared_pattern(w)
     if isinstance(w, QuantDBBWeight):
-        run, _ = ops.stage_quant_matmul(w, aq, m)
+        run, _ = ops.stage_quant_matmul(w, aq, m, dynamic=dynamic)
         return StagedLinear(run, w.shape, w.fmt, True)
     if w.values.dtype != compute_dtype:
         w = dataclasses.replace(w, values=w.values.to(compute_dtype))

@@ -4,7 +4,7 @@ and calibrated, the hidden activation is requantized once at its scale and
 the int8 codes feed the down GEMM) and ``MoEMLP`` (expert-choice routed
 experts with fused shared experts).
 
-The activations follow ``jax.nn.silu`` and ``jax.nn.gelu`` (its default
+The activations follow ``jax.nn.sigmoid``, ``silu`` and ``gelu`` (its default
 tanh approximation) op for op in the activation's dtype: XLA expands them
 into elementwise ops that each round to bf16, where ``F.silu`` and
 ``F.gelu`` compute in fp32 and round once. In bf16 the two differ in about
@@ -27,9 +27,15 @@ def _in(dtype, value: float) -> float:
     return float(torch.tensor(value, dtype=torch.float64).to(dtype))
 
 
+def sigmoid(x):
+    """``jax.nn.sigmoid`` (XLA's logistic): 1 / (1 + exp(-x)), every step in
+    x's dtype."""
+    return 1.0 / (1.0 + torch.exp(-x))
+
+
 def silu(x):
-    """``jax.nn.silu``: x * (1 / (1 + exp(-x))), every step in x's dtype."""
-    return x * (1.0 / (1.0 + torch.exp(-x)))
+    """``jax.nn.silu``: x * sigmoid(x), every step in x's dtype."""
+    return x * sigmoid(x)
 
 
 def gelu(x):

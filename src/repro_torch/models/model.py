@@ -1,18 +1,21 @@
 """The decoder LM (port of ``repro/models/model.py:LM``).
 
 Covers ``family='dense'`` and ``family='moe'`` (``MoEMLP``) with
-``mixer='gqa'`` and block patterns of ``attn`` and ``local`` blocks, with no
-modality frontend and no cross-attention; any other config raises
-``NotImplementedError`` from the constructor (ROADMAP queue 1, item 12).
+``mixer='gqa'``, ``family='hybrid'`` (RG-LRU ``rec`` blocks beside ``local``
+attention, recurrentgemma's tied embeddings, embedding scale and logit
+soft-cap) and ``family='ssm'`` (``mixer='rwkv6'``: RWKV6 blocks of time and
+channel mix), with no modality frontend and no cross-attention; MLA and
+those raise ``NotImplementedError`` from the constructor (ROADMAP queue 1,
+item 12).
 
 The parameter tree is the reference's: ``embed``, ``layers`` stacked over
 layer groups (a leading axis on every leaf, compressed ones included),
-``tail`` for layers left over by the pattern, ``final_norm``, ``lm_head``,
-and the ``<leaf>_aq`` calibration siblings that :meth:`LM.quantize` adds.
-The model holds it (:meth:`state`) and converts it in place
-(:meth:`compress`, :meth:`quantize`). Layer groups run as a Python loop, as
-the reference's unscanned forward does; nothing is trained, so ``remat`` is
-ignored.
+``tail`` for layers left over by the pattern, ``final_norm``, ``lm_head``
+(none when the embeddings are tied), and the ``<leaf>_aq`` calibration
+siblings that :meth:`LM.quantize` adds. The model holds it (:meth:`state`)
+and converts it in place (:meth:`compress`, :meth:`quantize`). Layer groups
+run as a Python loop, as the reference's unscanned forward does; nothing is
+trained, so ``remat`` is ignored.
 
 The paper's technique runs end to end: every projection is DBB-tagged,
 :meth:`compress` encodes each into the compressed layout (values (L, nb,
@@ -25,13 +28,14 @@ dense, as in the reference. :meth:`plan` freezes int8 prefill into a
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import torch
 from torch import nn
 
 from repro_torch.core.act_sparsity import act_scope, collect_activations
-from repro_torch.core.quant import QMAX, quantize_dbb
+from repro_torch.core.quant import QMAX, as_f32, quantize_dbb
 from repro_torch.core.vdbb import DBBWeight, dbb_encode
 from repro_torch.models.attention import GQAttention
 from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_params,
@@ -39,25 +43,20 @@ from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_par
                                        tree_get, tree_set, tree_slice)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import DenseMLP, MoEMLP
+from repro_torch.models.recurrent import RGLRUBlock, RWKV6Block
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM does not build."""
     why = None
-    if cfg.family not in ("dense", "moe"):
-        why = f"family={cfg.family!r} (recurrent blocks, frontends)"
-    elif cfg.mixer != "gqa":
-        why = f"mixer={cfg.mixer!r} (MLAttention, RWKV6)"
-    elif not set(cfg.pattern) <= {"attn", "local"}:
-        why = f"block pattern {cfg.pattern} (recurrent blocks)"
+    if cfg.mixer not in ("gqa", "rwkv6"):
+        why = f"mixer={cfg.mixer!r} (MLAttention)"
     elif cfg.frontend is not None or cfg.cross_attn:
-        why = "modality frontends and cross-attention"
-    elif cfg.tie_embeddings or cfg.embed_scale or cfg.logit_softcap:
-        why = "tied embeddings, embedding scale and logit soft-cap (recurrentgemma's)"
+        why = f"family={cfg.family!r}: modality frontends and cross-attention"
     if why is not None:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported; the port's LM is the GQA dense "
-            "and MoE decoder (ROADMAP queue 1, item 12)")
+            f"{cfg.name}: {why} not ported; the port's LM is the GQA dense, MoE, "
+            "hybrid RG-LRU and RWKV6 decoder (ROADMAP queue 1, item 12)")
 
 
 class LM(nn.Module):
@@ -73,6 +72,10 @@ class LM(nn.Module):
             return GQAttention(self.cfg)
         if kind == "local":
             return GQAttention(self.cfg, window=self.cfg.local_window)
+        if kind == "rec":
+            return RGLRUBlock(self.cfg)
+        if kind == "rwkv":
+            return RWKV6Block(self.cfg)
         raise ValueError(kind)
 
     def _mlp(self):
@@ -90,8 +93,11 @@ class LM(nn.Module):
         return rms_norm(x, p["g"])
 
     def _block_defs(self, kind):
-        return {"norm1": self._norm_def(), "mixer": self._mixer(kind).defs(),
-                "norm2": self._norm_def(), "mlp": self._mlp().defs()}
+        d = {"norm1": self._norm_def(), "mixer": self._mixer(kind).defs(),
+             "norm2": self._norm_def()}
+        if kind != "rwkv":  # RWKV6's channel mix is its MLP
+            d["mlp"] = self._mlp().defs()
+        return d
 
     def defs(self):
         c = self.cfg
@@ -109,7 +115,8 @@ class LM(nn.Module):
         }
         if c.tail_pattern:
             out["tail"] = {f"t{i}": self._block_defs(k) for i, k in enumerate(c.tail_pattern)}
-        out["lm_head"] = Param((c.d_model, c.padded_vocab), ("embed", "vocab"), "scaled")
+        if not c.tie_embeddings:
+            out["lm_head"] = Param((c.d_model, c.padded_vocab), ("embed", "vocab"), "scaled")
         return out
 
     # ------------------------------------------------------------ state
@@ -142,16 +149,33 @@ class LM(nn.Module):
 
     # -------------------------------------------------------- embeddings
     def _embed(self, tokens):
-        return sharded_embed_lookup(self.params["embed"], tokens.to(self.device),
-                                    self.cfg.compute_dtype)
+        c = self.cfg
+        h = sharded_embed_lookup(self.params["embed"], tokens.to(self.device), c.compute_dtype)
+        if c.embed_scale:  # sqrt(d_model) in fp32, rounded to the activation dtype
+            h = h * float(torch.tensor(math.sqrt(c.d_model), dtype=torch.float32).to(h.dtype))
+        return h
 
     def _logits(self, x):
-        return apply_linear(x, self.params["lm_head"], name="lm_head")
+        c = self.cfg
+        if c.tie_embeddings:  # a dense product with the table, as the reference's
+            logits = x @ self.params["embed"].t().to(x.dtype)
+        else:
+            logits = apply_linear(x, self.params["lm_head"], name="lm_head")
+        if c.logit_softcap:  # tanh(l / cap) * cap, each op rounding in l's dtype
+            logits = torch.tanh(logits / as_f32(c.logit_softcap, x.device)) * c.logit_softcap
+        return logits
 
     # ------------------------------------------------------------ blocks
     def _apply_block(self, kind, p, x, positions):
-        """Full-sequence block. Returns (x, the block's K/V cache)."""
+        """Full-sequence block. Returns (x, the block's cache: K/V, or the
+        recurrent state)."""
         h = self._apply_norm(p["norm1"], x)
+        if kind == "rwkv":  # no act scope of its own, as the reference
+            mixer, zero = self._mixer(kind), x.new_zeros((x.shape[0], x.shape[-1]))
+            y, cache = mixer.time_mix(p["mixer"]["tm"], h, zero)
+            x = x + y
+            y2, cm_shift = mixer.channel_mix(p["mixer"]["cm"], self._apply_norm(p["norm2"], x), zero)
+            return x + y2, {**cache, "cm_shift": cm_shift}
         with act_scope("mixer"):
             y, cache = self._mixer(kind)(p["mixer"], h, positions)
         x = x + y
@@ -161,6 +185,11 @@ class LM(nn.Module):
 
     def _apply_block_decode(self, kind, p, x, cache, pos):
         h = self._apply_norm(p["norm1"], x)
+        if kind == "rwkv":
+            mixer = self._mixer(kind)
+            x = x + mixer.time_mix_decode(p["mixer"]["tm"], h, cache)[0]
+            return x + mixer.channel_mix_decode(p["mixer"]["cm"],
+                                                self._apply_norm(p["norm2"], x), cache), cache
         y, cache = self._mixer(kind).decode(p["mixer"], h, cache, pos)
         x = x + y
         y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
@@ -169,8 +198,10 @@ class LM(nn.Module):
     # ----------------------------------------------------------- forward
     def forward(self, tokens, *, return_cache: bool = False, collect_act_stats: bool = False):
         """Full-sequence forward (prefill) of (B, S) tokens -> logits (B, S,
-        padded_vocab); with ``return_cache`` also the K/V of every block
-        (``{"groups": {"b{i}": {"k", "v"}}, "tail": …}``, groups stacked).
+        padded_vocab); with ``return_cache`` also every block's cache
+        (``{"groups": {"b{i}": …}, "tail": …}``, groups stacked): K/V
+        (``k``, ``v``) of an attention block, ``h`` and ``conv`` of an
+        RG-LRU block, ``s``, ``shift`` and ``cm_shift`` of an RWKV6 one.
         ``collect_act_stats=True`` appends the per-GEMM ``ActStats`` that
         ``apply_linear`` records: ``(logits[, cache], stats)``."""
         if collect_act_stats:
@@ -207,9 +238,9 @@ class LM(nn.Module):
 
     # ------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int):
-        """Zero K/V caches: (G, B, cap, kv, hd) per pattern block (stacked
-        over groups), (B, cap, kv, hd) per tail block; ``cap`` is
-        ``max_len``, or the window for a ``local`` block (a ring)."""
+        """Zero caches, stacked over groups for the pattern's blocks: K/V
+        (G, B, cap, kv, hd), ``cap`` being ``max_len`` or a ``local``
+        block's window (a ring); a recurrent block's fixed-size state."""
         c = self.cfg
         dt, dev = c.compute_dtype, self.device
 
@@ -227,8 +258,8 @@ class LM(nn.Module):
         int64 tensor on the model's device (the reference's traced
         ``jnp.int32``), or an int turned into one. Every use of it is a
         device op, so a CUDA graph of the step replays at any position.
-        Returns (logits (B, 1, padded_vocab), cache), the cache updated in
-        place."""
+        Returns (logits (B, 1, padded_vocab), cache), the cache (K/V and
+        recurrent state) updated in place."""
         c = self.cfg
         params = self.params
         pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
@@ -304,18 +335,30 @@ class LM(nn.Module):
         return self
 
     # -------------------------------------------------------------- plan
-    def _staged(self, tree, m: int):
+    def _staged(self, tree, m: int, dynamic: bool = False):
         """``tree`` with every compressed projection staged at ``m`` rows
         (:func:`~repro_torch.models.common.stage_linear`, its ``_aq``
-        sibling frozen in)."""
+        sibling frozen in; with ``dynamic`` an int8 projection without one
+        computes its activation scale from each call's batch)."""
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = self._staged(v, m)
+                out[k] = self._staged(v, m, dynamic)
             elif hasattr(v, "fmt"):
-                out[k] = stage_linear(v, tree.get(f"{k}_aq"), m, self.cfg.compute_dtype)
+                out[k] = stage_linear(v, tree.get(f"{k}_aq"), m, self.cfg.compute_dtype,
+                                      dynamic=dynamic)
             else:
                 out[k] = v
+        return out
+
+    def _staged_block(self, kind, p, m: int):
+        """One block's tree staged at ``m`` rows. The recurrent mixers'
+        projections are staged dynamic: the reference calls them with no
+        name, so calibration never gives them a scale, and its jitted plan
+        quantizes them per batch. Every other projection needs its
+        calibrated scale."""
+        out = self._staged({k: v for k, v in p.items() if k != "mixer"}, m)
+        out["mixer"] = self._staged(p["mixer"], m, dynamic=kind in ("rec", "rwkv"))
         return out
 
     def plan(self, *, batch: int, seq: int, tune: str = "off"):
@@ -324,7 +367,9 @@ class LM(nn.Module):
         ``t{i}`` for the tail, ``head`` (final norm and logits), each with
         its tensors frozen in and every compressed projection staged (the
         index row, the scale products with the calibrated act scales, each
-        group's sliced on the card now, the flush rows and the tile plan).
+        group's sliced on the card now, the flush rows and the tile plan;
+        a recurrent mixer's projections with a scale row that each call
+        fills on the card from its batch).
         The sample is one row of int32 tokens. On a card the chain is
         captured into one CUDA graph per input signature at its first
         ``serve``. Only ``tune='off'`` exists (ROADMAP queue 1, item 10)."""
@@ -343,11 +388,11 @@ class LM(nn.Module):
             return lambda x: self._apply_block(kind, p, x, positions)[0]
 
         for g in range(c.num_groups):
-            gp = self._staged(tree_slice(params["layers"], g), m)
+            gp = tree_slice(params["layers"], g)
             for i, kind in enumerate(c.pattern):
-                pb.raw(f"g{g}.b{i}", kind, block(kind, gp[f"b{i}"]))
+                pb.raw(f"g{g}.b{i}", kind, block(kind, self._staged_block(kind, gp[f"b{i}"], m)))
         for i, kind in enumerate(c.tail_pattern):
-            pb.raw(f"t{i}", kind, block(kind, self._staged(params["tail"][f"t{i}"], m)))
+            pb.raw(f"t{i}", kind, block(kind, self._staged_block(kind, params["tail"][f"t{i}"], m)))
         final_norm = params["final_norm"]
         pb.raw("head", "head", lambda x: self._logits(self._apply_norm(final_norm, x)))
         return pb.build()

@@ -232,13 +232,136 @@ def test_moe_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     recs = smoke.lm_kernels(torch.Generator().manual_seed(1), cpu, smoke.MOE_SHAPES,
                             dtypes=("bf16",), layers=48)
     assert list(recs) == ["bf16"] and len(recs["bf16"]) == 6
-    gen = smoke.lm_generate(cpu, smoke.MOE_ARCH, fresh_gate=False)
+    gen = smoke.lm_generate(cpu, smoke.MOE_ARCH, fresh_gate=None)
     # 2 layers of q, k, v, o and the shared experts' up, gate, down
     assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == 14 * (2 + 8)
     assert gen["compressed"]["consistency_rel_l2"] == {}
     experts = gen["compressed"]["experts"]
     assert experts["bound_ms"] > 0 and experts["layer_device_ms"] is None
     assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
-    smoke.moe_golden(cpu)
+    smoke.smoke_golden(cpu)
     assert smoke.lm_plan(cpu, smoke.MOE_ARCH)["captures"] == 1
     build.reset_launches()
+
+
+def test_lm_kernels_carry_a_missing_device_time(smoke, monkeypatch):
+    """A profiler that delivers no record of a shape's call leaves that
+    shape's device time None, and the per-layer sums None with it, instead
+    of failing the phase."""
+    import torch
+
+    from repro_torch.kernels import build, timing
+
+    cpu = _rehearse(smoke, monkeypatch)
+    monkeypatch.setattr(timing, "device_ms", lambda fn, keep=None, reps=5, passes=3: (fn(), None)[1])
+    recs = smoke.lm_kernels(torch.Generator().manual_seed(1), cpu,
+                            {"square": (128, 128, 2), "up": (128, 256, 1)})
+    for by_shape in recs.values():
+        assert all(r["device_ms"] is None and r["bound_ms"] > 0 for r in by_shape.values())
+    build.reset_launches()
+
+
+@pytest.mark.parametrize("delivered, passes, expect_ms", [
+    ((5, 5, 5), 3, 0.1),  # every pass delivers: the first three are taken
+    ((0, 0, 0, 0, 5), 5, 0.1),  # the first four deliver nothing: a fifth does
+    ((0,) * 9, 9, None),  # none of the 3 + 6 passes delivers a record
+])
+def test_device_ms_runs_more_passes_while_none_delivers(monkeypatch, delivered, passes,
+                                                       expect_ms):
+    """``timing.device_ms`` on a stubbed profiler whose passes deliver the
+    given numbers of 100 us records of one kernel (5 calls a pass)."""
+    from types import SimpleNamespace
+
+    import torch
+    import torch.profiler
+
+    from repro_torch.kernels import timing
+
+    counts, ran = iter(delivered), []
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            n = next(counts)
+            ran.append(n)
+            ev = SimpleNamespace(device_type=torch.autograd.DeviceType.CUDA, name="kernel",
+                                 time_range=SimpleNamespace(start=0.0, end=100.0))
+            self._events = [ev] * n
+            return False
+
+        def events(self):
+            return self._events
+
+    monkeypatch.setattr(torch.profiler, "profile", Profile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    got = timing.device_ms(lambda: None)
+    assert len(ran) == passes
+    assert got == expect_ms if expect_ms is None else got == pytest.approx(expect_ms)
+
+
+def test_recurrent_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 9 end to end on the CPU at the smoke configs' size: each
+    recurrent decoder's kernels at (stubbed, small) shapes, generation
+    compressed and dense with the fresh-forward gate, the decode bound,
+    its JAX fixture and the INT8 plan."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    cpu = _rehearse(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "RECURRENT_SHAPES", {
+        arch: {"square": (128, 128, 1), "up": (128, 256, 1)} for arch in smoke.RECURRENT_ARCHS})
+    out = smoke.recurrent_phase(torch.Generator().manual_seed(1), cpu)
+    # compressed projections a forward: recurrentgemma's smoke config has 6
+    # RG-LRU blocks of 5, 2 local-attention blocks of 4 and 8 MLPs of 3;
+    # rwkv6's 2 blocks of 5 (time mix) and 3 (channel mix)
+    for arch, per in (("recurrentgemma-2b", 62), ("rwkv6-3b", 16)):
+        r = out[arch]
+        assert len(r["kernels"]["bf16"]) == len(r["kernels"]["int8"]) == 4
+        gen = r["generate"]
+        assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == per * (2 + 8)
+        # the gate on an fp32 copy of the weights, the served model's logged
+        assert set(gen["compressed"]["consistency_rel_l2"]) == {0, 6}
+        assert set(gen["compressed"]["served_consistency_rel_l2"]) == {0, 6}
+        assert max(gen["compressed"]["consistency_rel_l2"].values()) < 1e-4
+        assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
+        assert r["plan"]["captures"] == 1
+    build.reset_launches()
+
+
+def test_decode_bound_counts_the_tied_table_and_the_state(smoke, monkeypatch):
+    """The bytes of a decode step: recurrentgemma reads its whole tied
+    table and only its local blocks hold K/V; rwkv6 reads and writes its
+    state; starcoder2 reads B rows of its table and every layer's K/V."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import LM
+
+    monkeypatch.setattr(smoke, "LM_BATCH", 2)
+    monkeypatch.setattr(smoke, "LM_PROMPT", 16)
+    monkeypatch.setattr(smoke, "LM_GEN", 8)
+
+    def bound_bytes(arch):
+        cfg = smoke_config(arch)
+        model = LM(cfg).init(torch.Generator().manual_seed(0), "cpu", compress=True)
+        weights = smoke.tensor_bytes(model.state(), skip=("embed",))
+        return cfg, weights, smoke.decode_bound(model)[1]
+
+    cfg, weights, total = bound_bytes("recurrentgemma-2b")
+    table = cfg.padded_vocab * cfg.d_model * 2
+    kv = 2 * 2 * 2 * min(cfg.local_window, 24) * cfg.num_kv_heads * cfg.hd * 2  # 2 local blocks
+    state = 2 * 6 * (2 * cfg.d_rnn_ * 4 + 2 * (cfg.conv1d_width - 1) * cfg.d_rnn_ * 2)
+    assert total == weights + table + kv + state
+    cfg, weights, total = bound_bytes("rwkv6-3b")
+    state = 2 * cfg.num_layers * 2 * (cfg.rwkv_heads * cfg.rwkv_head_dim ** 2 * 4
+                                      + 2 * cfg.d_model * 2)
+    assert total == weights + 2 * cfg.d_model * 2 + state
+    cfg, weights, total = bound_bytes("starcoder2-7b")
+    kv = 2 * cfg.num_layers * 2 * 24 * cfg.num_kv_heads * cfg.hd * 2
+    assert total == weights + 2 * cfg.d_model * 2 + kv

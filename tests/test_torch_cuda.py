@@ -811,11 +811,25 @@ def test_tc_matmul_bf16_runs_the_tensor_core_core(card):
         assert not any("os_gemm" in name or "os_mma" in name for name in names), names
 
 
+# the recurrent decoders' projection shapes (recurrentgemma-2b, rwkv6-3b)
+RECURRENT_SHAPES = [(2560, 2560), (2560, 256), (2560, 7680), (7680, 2560), (2560, 8960),
+                    (8960, 2560)]
+
+
 @pytest.mark.parametrize("m", [4, 1024])
-@pytest.mark.parametrize("k,n", LM_SHAPES)
+@pytest.mark.parametrize("k,n", RECURRENT_SHAPES)
+def test_tc_matmul_bf16_at_recurrent_shapes(card, m, k, n):
+    """The bf16 instantiation at every recurrentgemma-2b and rwkv6-3b
+    projection shape, decode and prefill rows, with every flush."""
+    _bf16_matches_plain(card, m, k, n, 3)
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+@pytest.mark.parametrize("k,n", LM_SHAPES + RECURRENT_SHAPES)
 def test_tc_matmul_int8_at_lm_shapes(card, m, k, n):
-    """The int8 tensor-core path at every starcoder2-7b projection shape,
-    decode and prefill rows: int32 and the fp32 dequant flush exact."""
+    """The int8 tensor-core path at every starcoder2-7b, recurrentgemma-2b
+    and rwkv6-3b projection shape, decode and prefill rows: int32 and the
+    fp32 dequant flush exact."""
     rng = np.random.default_rng(k + n + m)
     nb = k // 8
     vals = torch.from_numpy(rng.integers(-127, 128, (nb, 3, n), dtype=np.int8)).to(card)
@@ -939,6 +953,52 @@ def test_captured_prefill_and_step_equal_eager_without_host_sync(card, arch):
     assert torch.equal(out, eager) and torch.equal(step_out, step_e)
     assert torch.equal(cache_g["groups"]["b0"]["k"], cache_e["groups"]["b0"]["k"])
     assert bool(cache_g["groups"]["b0"]["k"][:, :, 7].abs().sum() > 0)
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_generate_graph_replays_equal_eager_bit_for_bit(card, arch):
+    """The smoke recurrent decoders: generate's replayed prefill and decode
+    steps (the state advanced in place by every replay) give the eager
+    run's tokens and kept logits bit for bit; a replay launches one bf16
+    tc matmul per compressed projection."""
+    from repro_torch.launch import serve
+    from repro_torch.models.common import dbb_leaves
+
+    rec = serve.serve_lm(arch, batch=2, prompt_len=16, gen=6, device=card, smoke=True,
+                         keep=(0, 2, 4), log=lambda *_: None)
+    model = rec["model"]
+    eager = serve.generate(model, {"tokens": rec["prompt"]}, gen_len=6, max_len=22,
+                           keep=(0, 2, 4), graph=False)
+    assert torch.equal(rec["tokens"], eager["tokens"])
+    for i in (0, 2, 4):
+        assert torch.equal(rec["logits"][i], eager["logits"][i]), i
+    assert rec["captures"] == 2 and rec["replays"] == {"prefill": 5, "decode": 5}
+    per = sum(model.cfg.num_groups if path[0] == "layers" else 1
+              for path, _ in dbb_leaves(model.defs()))
+    assert rec["graph_launches"]["decode"]["vdbb_matmul_tc_bf16"] == per
+    assert rec["graph_launches"]["prefill"]["vdbb_matmul_tc_bf16"] == per
+
+
+@pytest.mark.parametrize("arch", ["recurrentgemma-2b", "rwkv6-3b"])
+def test_recurrent_plan_dynamic_scales_replay_without_host_sync(card, arch):
+    """The smoke recurrent decoder, INT8-calibrated and planned at (2, 32):
+    its recurrent projections quantize at a per-call scale written on the
+    card, so one capture replays with no host sync, equal to the unplanned
+    forward bit for bit, every projection on the int8 tc matmul."""
+    from repro_torch.launch import serve
+
+    rec = serve.serve_lm_plan(arch, batch=2, prompt_len=32, steps=2, device=card,
+                              smoke=True, log=lambda *_: None)
+    assert rec["bit_identical"] and rec["captures"] == 1
+    launches = next(iter(rec["plan"].graph_launches.values()))
+    assert launches["vdbb_matmul_tc"] > 0 and launches["vdbb_matmul_tc_bf16"] == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rec["plan"].serve(rec["tokens"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, rec["logits"])
 
 
 def test_moe_combine_is_the_same_bits_every_run(card):

@@ -13,7 +13,10 @@ and the quantized forward's last-position logits), and the MoE's
 ``tests/data/torch_parity_moe.npz`` (``smoke_config("moonshot-v1-16b-a3b")``
 computed in fp32 on weights rounded to bf16 values, which the file keeps as
 bf16 bits, compressed: a token batch, the prefill's last-position logits,
-the next token and one decode step's logits). Regenerate all four with
+the next token and one decode step's logits), and the same for the
+recurrent decoders' smoke configs (``tests/data/torch_parity_rglru.npz``,
+``recurrentgemma-2b``; ``tests/data/torch_parity_rwkv.npz``, ``rwkv6-3b``).
+Regenerate all six with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -125,14 +128,40 @@ def jax_chain(seed: int = CHAIN_SEED, batch: int = CHAIN_BATCH, pattern="matrix"
 
 
 def jax_pad_cache(cache, plen: int, max_len: int):
-    """The reference's prefill cache padded to ``max_len`` slots, as
-    ``repro.launch.serve.generate``'s ``pad_to_cap`` does."""
-    def pad(a):
+    """The reference's prefill cache with its K/V leaves (by key: ``k``,
+    ``v``) padded to ``max_len`` slots, the layout ``pad_to_cap`` gives
+    them; recurrent state leaves as they are. ``pad_to_cap`` itself pads by
+    shape and also pads a state leaf whose axis equals the prompt length
+    (ROADMAP queue 3)."""
+    def pad(path, a):
+        if path[-1].key not in ("k", "v"):
+            return a
         widths = [(0, 0)] * a.ndim
         widths[-3] = (0, max_len - plen)
         return jnp.pad(a, widths)
 
-    return jax.tree_util.tree_map(pad, cache)
+    return jax.tree_util.tree_map_with_path(pad, cache)
+
+
+def jax_cache_after(model, params, tokens, max_len: int):
+    """The reference's decode cache after the prompt ``tokens`` (B, S), at
+    capacity ``max_len``: the prefill's cache through :func:`jax_pad_cache`,
+    or, for a model with RG-LRU blocks, the cache its ``decode_step`` builds
+    from ``init_cache`` one prompt token at a time (the sequential form its
+    own tests hold the scan to). The reference's RG-LRU prefill keeps the
+    conv's outputs as the decode window, where its decode reads the conv's
+    inputs (ROADMAP queue 3), so its prefill cache is not the state decode
+    needs. The decode step is jitted once (eagerly, its scanned layer body
+    would be traced anew at every token)."""
+    tokens = jnp.asarray(tokens)
+    if "rec" not in model.cfg.pattern:
+        _, cache = model.forward(params, {"tokens": tokens}, return_cache=True)
+        return jax_pad_cache(cache, tokens.shape[1], max_len)
+    step = jax.jit(model.decode_step)
+    cache = model.init_cache(tokens.shape[0], max_len)
+    for t in range(tokens.shape[1]):
+        _, cache = step(params, cache, {"tokens": tokens[:, t:t + 1]}, jnp.int32(t))
+    return cache
 
 
 def jax_lm_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
@@ -164,33 +193,46 @@ def jax_lm_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> di
 
 
 MOE_ARCH = "moonshot-v1-16b-a3b"
+RECURRENT_ARCHS = ("recurrentgemma-2b", "rwkv6-3b")
+FIXTURE_RECURRENT = {"recurrentgemma-2b": ROOT / "tests" / "data" / "torch_parity_rglru.npz",
+                     "rwkv6-3b": ROOT / "tests" / "data" / "torch_parity_rwkv.npz"}
 
 
-def jax_moe_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
-    """The JAX reference's MoE LM in ref mode: ``smoke_config(MOE_ARCH)``
-    (8 experts, top-2, 2 shared) in fp32, so a card can hold the port to it
-    within 1e-5, its weights rounded to bf16 values (so the file can carry them as bf16
-    bits, half the bytes) and compressed, a seeded token batch, the
-    prefill's last-position logits, the next token and its decode step's
-    logits (cache padded to seq + 1)."""
+def fp32_smoke_model(arch: str):
+    """The reference's LM at ``smoke_config(arch)`` computed in fp32."""
     from repro.configs import registry
     from repro.models.model import LM
 
-    model = LM(dataclasses.replace(registry.smoke_config(MOE_ARCH), param_dtype=jnp.float32,
-                                   compute_dtype=jnp.float32))
+    return LM(dataclasses.replace(registry.smoke_config(arch), param_dtype=jnp.float32,
+                                  compute_dtype=jnp.float32))
+
+
+def jax_smoke_golden(arch: str, seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """The JAX reference's LM in ref mode at ``smoke_config(arch)`` in
+    fp32, so a card can hold the port to it within 1e-5, its weights
+    rounded to bf16 values (so the file can carry them as bf16 bits, half
+    the bytes) and compressed: a seeded token batch, the prefill's
+    last-position logits, the next token and its decode step's logits
+    (the cache of :func:`jax_cache_after` at seq + 1 slots)."""
+    model = fp32_smoke_model(arch)
     dense = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype),
                                    model.init(jax.random.PRNGKey(seed)))
     params = model.compress(dense)
     tokens = np.random.default_rng(seed).integers(0, model.cfg.vocab_size, (batch, seq))
     tokens = jnp.asarray(tokens.astype(np.int32))
-    logits, cache = model.forward(params, {"tokens": tokens}, return_cache=True)
+    logits = model.forward(params, {"tokens": tokens})
     nxt = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
-    step, _ = model.decode_step(params, jax_pad_cache(cache, seq, seq + 1), {"tokens": nxt},
-                                jnp.int32(seq))
+    step, _ = model.decode_step(params, jax_cache_after(model, params, tokens, seq + 1),
+                                {"tokens": nxt}, jnp.int32(seq))
     bits = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a, params)
     return dict(params=to_numpy(bits), tokens=np.array(tokens), prefill=np.array(logits[:, -1:]),
                 next=np.array(nxt), decode=np.array(step))
+
+
+def jax_moe_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """:func:`jax_smoke_golden` of the MoE (8 experts, top-2, 2 shared)."""
+    return jax_smoke_golden(MOE_ARCH, seed, batch, seq)
 
 
 def fixture_bytes(chain: dict) -> bytes:
@@ -208,3 +250,6 @@ if __name__ == "__main__":
     print(f"wrote {FIXTURE_LM} ({FIXTURE_LM.stat().st_size} bytes)")
     FIXTURE_MOE.write_bytes(fixture_bytes(jax_moe_golden()))
     print(f"wrote {FIXTURE_MOE} ({FIXTURE_MOE.stat().st_size} bytes)")
+    for arch, path in FIXTURE_RECURRENT.items():
+        path.write_bytes(fixture_bytes(jax_smoke_golden(arch)))
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
