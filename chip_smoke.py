@@ -135,7 +135,30 @@ Phases, each of which fails the run:
      d. the INT8 prefill plan as 7c (the recurrent projections staged with
         a dynamic activation scale), bit for bit against the unplanned
         forward;
- 10. one JSON line of the six kernels (launches, errors, times, bounds).
+ 10. MLA, deepseek-v3-671b at published width (d_model 7168, 128 heads,
+     q LoRA 1536, latent 512 + 64 RoPE dims, 256 experts of d_ff 2048,
+     top-8, one shared, vocab 129280) cut to 2 layers (24.87 B weights;
+     the dense expert stacks, 22.5 GB a layer, leave no room for a third
+     on one card):
+     a. the tc matmul's bf16 and int8 instantiations at its projection
+        shapes (7168->1536, 1536->24576, 7168->576, 512->32768,
+        16384->7168; the shared expert's 7168->2048 and 2048->7168) at 4
+        and 1024 rows, as 7a;
+     b. generation as 8b, compressed then dense, each build dropped (its
+        graphs and caches too) before the next is drawn, peak GB logged;
+        the launches per forward kind (a decode step reads ``wkv_b``
+        decoded and skips its projection); in place of a fresh-forward
+        gate (the MoE routes decode and prefill apart), layer 0's mixer on
+        an fp32 copy of its weights: its absorbed decode over the prompt's
+        positions within 1e-4 relative L2 of its full-sequence forward,
+        the bf16 distance logged; the decode bound reads the decoded
+        ``wkv_b`` and the latent cache, writing one slot;
+     c. the JAX fixture tests/data/torch_parity_mla.npz (the smoke config,
+        fp32) through generate's graphs, as 8c, and its quantized forward
+        within 1e-3, as 7d;
+     d. the INT8 prefill plan as 7c (every MLA projection staged with its
+        calibrated scale), bit for bit against the unplanned forward;
+ 11. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -144,6 +167,7 @@ nonzero and prints no result.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import re
@@ -1170,31 +1194,47 @@ def tensor_bytes(tree, skip=()) -> int:
     return total
 
 
-def projections(model) -> int:
-    """The compressed projections one forward runs: each DBB leaf once per
-    layer group it is stacked over."""
+def projections(model, kind: str = "prefill") -> int:
+    """The compressed projections one forward of ``kind`` runs: each DBB
+    leaf once per layer group it is stacked over; at ``"decode"`` an MLA
+    block's ``wkv_b`` drops out (the absorbed decode reads it decoded)."""
     from repro_torch.models.common import dbb_leaves
 
+    absorbed = kind == "decode" and model.cfg.mixer == "mla"
     return sum(model.cfg.num_groups if path[0] == "layers" else 1
-               for path, _ in dbb_leaves(model.defs()))
+               for path, _ in dbb_leaves(model.defs())
+               if not (absorbed and path[-1] == "wkv_b"))
 
 
 def decode_bound(model) -> tuple:
     """The least time a decode step could take, from the bytes it must move:
     every weight but the embedding table, of which it reads B rows, or all
-    of it when the logits are tied to it; each attention block's K/V at its
-    cache's full length (a local block's ring at most its window), read;
-    each recurrent block's state, read and written. Returns (ms, bytes)."""
+    of it when the logits are tied to it, and an MLA block's ``wkv_b`` as
+    the step reads it, decoded to dense (``LM._absorb``) in place of the
+    leaf; each attention block's K/V at its cache's full length (a local
+    block's ring at most its window), read; an MLA block's ``c_kv`` and
+    ``k_rope``, read, and one slot of each written; each recurrent block's
+    state, read and written. Returns (ms, bytes)."""
     c = model.cfg
-    table = model.state()["embed"]
+    state = model.state()
+    table = state["embed"]
     rows = table.shape[0] if c.tie_embeddings else LM_BATCH
-    weights = tensor_bytes(model.state(), skip=("embed",)) + rows * c.d_model * table.element_size()
+    weights = tensor_bytes(state, skip=("embed",)) + rows * c.d_model * table.element_size()
+    for (block, g), pair in model._absorbed.items():
+        weights += sum(w.numel() * w.element_size() for w in pair)
+        weights -= tensor_bytes({"wkv_b": state["layers"][block]["mixer"]["wkv_b"][g]})
     cache = 0
     for kind in list(c.pattern) * c.num_groups + list(c.tail_pattern):
         leaves = model._mixer(kind).init_cache(LM_BATCH, LM_PROMPT + LM_GEN, c.compute_dtype,
                                                "meta")
-        cache += sum(v.numel() * v.element_size() * (1 if k in ("k", "v") else 2)
-                     for k, v in leaves.items())
+        for k, v in leaves.items():
+            n = v.numel() * v.element_size()
+            if k in ("k", "v"):
+                cache += n
+            elif k in ("c_kv", "k_rope"):  # and one slot written
+                cache += n + v[:, 0].numel() * v.element_size()
+            else:
+                cache += 2 * n
     return (weights + cache) / HBM_BYTES_PER_S * 1e3, weights + cache
 
 
@@ -1254,8 +1294,9 @@ def fp32_consistency(model, prompt) -> dict:
 
 
 def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> dict:
-    """Phase 7b (``starcoder2-7b``), 8b (the MoE) and 9b (the recurrent
-    decoders): full-width generation through ``generate``'s CUDA graphs,
+    """Phase 7b (``starcoder2-7b``), 8b (the MoE), 9b (the recurrent
+    decoders) and 10b (MLA; ``arch`` a name or a ``ModelConfig``, here
+    deepseek-v3-671b cut to two layers): full-width generation through ``generate``'s CUDA graphs,
     compressed then dense, each against an eager run of the same model
     (``graph=False``) bit for bit. Returns the record: the compressed run's
     launches and both runs' times and bounds.
@@ -1268,13 +1309,16 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
     differ by more than the gate whatever computes them; the served
     model's distances are logged beside it); ``None``: no gate (the MoE's
     decode routes over the batch's tokens, a forward within each
-    example)."""
+    example). An MLA model gates its mixer in its place
+    (:func:`mla_mixer_gate`)."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
     out = {}
+    name = getattr(arch, "name", arch)
     for dense in (False, True):
         label = "dense" if dense else "compressed"
+        gc.collect()  # the previous build's graphs, caches and weights
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
@@ -1288,8 +1332,9 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
         if toks.shape != (LM_BATCH, LM_GEN) or int(toks.min()) < 0 or int(toks.max()) >= c.padded_vocab:
             raise AssertionError(f"{label}: generated tokens {tuple(toks.shape)} out of range")
         # every forward generate enqueued (eager warm-ups, the one each
-        # capture records, replays), each through every projection
-        want = 0 if dense else projections(model) * sum(rec["forwards"].values())
+        # capture records, replays), each through every projection it runs
+        want = 0 if dense else sum(projections(model, kind) * n
+                                   for kind, n in rec["forwards"].items())
         if counts["vdbb_matmul_tc_bf16"] != want or any(
                 n for k, n in counts.items() if k != "vdbb_matmul_tc_bf16"):
             raise AssertionError(f"{label}: launches {counts}, want {want} of the bf16 tc matmul")
@@ -1315,6 +1360,7 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
         if any(e > 2e-2 for e in errs.values()):
             raise AssertionError(f"{label}: decode logits rel L2 {errs} against fresh "
                                  f"{'fp32 ' if fresh_gate == 'fp32' else ''}forwards > 2e-2")
+        mixer = mla_mixer_gate(model, rec["prompt"], label) if c.mixer == "mla" else None
         b_ms, b_bytes = decode_bound(model)
         # where a replayed decode step's time goes: the device's busy and
         # idle share over 4 replays at the last position of a full-length
@@ -1322,7 +1368,8 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
         cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
         last = toks[:, -1:].contiguous()
         pos = torch.tensor(LM_PROMPT + LM_GEN - 1, device=dev)
-        per_step = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model)}
+        per_step = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model, "decode")}
+        per_prefill = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model)}
         with torch.no_grad():
             step = graphed(lambda: model.decode_step(cache, last, pos)[0], dev)
             prof = profile_forwards(step, last, per_step)
@@ -1335,7 +1382,7 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
             prof["replay_enqueue_ms"] = (time.perf_counter() - t_enq) * 1e3
             del step
             prefill = graphed(lambda: model.forward(rec["prompt"]), dev)
-            prefill_prof = profile_forwards(prefill, rec["prompt"], per_step, reps=2)
+            prefill_prof = profile_forwards(prefill, rec["prompt"], per_prefill, reps=2)
             del prefill
         out[label] = dict(prefill_ms=rec["prefill_ms"], ms_per_step=rec["ms_per_step"],
                           eager_prefill_ms=eager["prefill_ms"],
@@ -1349,7 +1396,7 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
                           captures=rec["captures"], replays=rec["replays"],
                           replay_launches=rec["graph_launches"], graph_equals_eager=True,
                           decode_profile=prof, prefill_profile=prefill_prof,
-                          peak_gb=peak_gb,
+                          peak_gb=peak_gb, mixer_consistency_rel_l2=mixer,
                           seconds=time.time() - t0)
         if c.is_moe:
             out[label]["experts"] = moe_experts(model, dev, prof.get("device_ms"))
@@ -1364,10 +1411,10 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
             f"against fresh forwards, rel L2 {json.dumps({k: round(v, 6) for k, v in errs.items()})}"
             f" ({fresh_gate}; served {json.dumps({k: round(v, 6) for k, v in served.items()})}); "
             f"launches {counts}; peak {out[label]['peak_gb']:.2f} GB ({time.time() - t0:.1f} s)")
-        log(f"[profile] {arch} {label} replayed decode step: {json.dumps(prof)}")
-        log(f"[profile] {arch} {label} replayed prefill: {json.dumps(prefill_prof)}")
+        log(f"[profile] {name} {label} replayed decode step: {json.dumps(prof)}")
+        log(f"[profile] {name} {label} replayed prefill: {json.dumps(prefill_prof)}")
         if c.is_moe:
-            log(f"[profile] {arch} {label} routed experts: {json.dumps(out[label]['experts'])}")
+            log(f"[profile] {name} {label} routed experts: {json.dumps(out[label]['experts'])}")
         del rec, model, cache, eager
     return out
 
@@ -1399,7 +1446,8 @@ def moe_experts(model, dev, step_ms) -> dict:
 
 
 def lm_plan(dev, arch=LM_ARCH, tag="lm plan") -> dict:
-    """Phase 7c (and 8d, the MoE): the INT8 prefill plan at full width."""
+    """Phase 7c (and 8d, the MoE; 9d, 10d): the INT8 prefill plan at full
+    width."""
     from repro_torch.kernels import build
     from repro_torch.launch import serve
 
@@ -1474,13 +1522,15 @@ MOE_FIXTURE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
 
 
 def smoke_golden(dev, arch=MOE_ARCH) -> None:
-    """Phase 8c (the MoE) and 9c (the recurrent decoders): the JAX
-    reference's fixture of ``arch``'s smoke config in fp32 through the
+    """Phase 8c (the MoE), 9c (the recurrent decoders) and 10c (MLA): the
+    JAX reference's fixture of ``arch``'s smoke config in fp32 through the
     kernels and generate's graphs: the next token equal, prefill and decode
-    logits within 1e-5 relative L2."""
+    logits within 1e-5 relative L2; where the fixture holds calibration
+    stats (MLA's), the forward quantized with them within 1e-3, as 7d."""
     import numpy as np
 
     from repro_torch.configs import smoke_config
+    from repro_torch.core.act_sparsity import ActStats
     from repro_torch.interop import params_from_numpy, unflatten
     from repro_torch.launch import serve
     from repro_torch.models.model import LM
@@ -1501,8 +1551,18 @@ def smoke_golden(dev, arch=MOE_ARCH) -> None:
     if pre > 1e-5 or dec > 1e-5:
         raise AssertionError(f"{arch} fixture: prefill {pre}, decode {dec} rel L2 against JAX "
                              "(<= 1e-5)")
+    quant = ""
+    if "stats" in g:
+        model.quantize([ActStats(name=str(n), absmax=float(a))
+                        for n, a in zip(g["stats"]["names"], g["stats"]["absmax"])])
+        with torch.no_grad():
+            qnt = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["quant"]).to(dev))
+        if qnt > 1e-3:
+            raise AssertionError(f"{arch} fixture: quantized forward {qnt} rel L2 against JAX "
+                                 "(<= 1e-3)")
+        quant = f", quantized forward {qnt:.3e}"
     log(f"[golden] JAX fixture ({arch} smoke, fp32, {rec['captures']} graphs): next "
-        f"token equal; rel L2 prefill {pre:.3e}, decode {dec:.3e}")
+        f"token equal; rel L2 prefill {pre:.3e}, decode {dec:.3e}{quant}")
 
 
 # ---------------------------------------------------------------- phase 9
@@ -1521,9 +1581,11 @@ RECURRENT_SHAPES = {
     "rwkv6-3b": {"tm w_*, cm w_r": (2560, 2560, 32 * 6), "cm w_k": (2560, 8960, 32),
                  "cm w_v": (8960, 2560, 32)},
 }
+MLA_ARCH = "deepseek-v3-671b"
 SMOKE_FIXTURES = {MOE_ARCH: MOE_FIXTURE,
                   "recurrentgemma-2b": ROOT / "tests" / "data" / "torch_parity_rglru.npz",
-                  "rwkv6-3b": ROOT / "tests" / "data" / "torch_parity_rwkv.npz"}
+                  "rwkv6-3b": ROOT / "tests" / "data" / "torch_parity_rwkv.npz",
+                  MLA_ARCH: ROOT / "tests" / "data" / "torch_parity_mla.npz"}
 
 
 def recurrent_phase(gen, dev) -> dict:
@@ -1543,6 +1605,78 @@ def recurrent_phase(gen, dev) -> dict:
         out[arch] = dict(kernels=kernels, generate=generated, plan=planned,
                          seconds=time.time() - t0)
     return out
+
+
+# --------------------------------------------------------------- phase 10
+
+MLA_LAYERS = 2  # the published width at two layers: 24.87 B weights on one 80 GB card
+# one layer's compressed projections by shape (K, N, projections of the
+# shape in a layer): MLA's q LoRA (wq_a, wq_b: 128 heads of 192), the latent
+# (wkv_a: 512 + 64; wkv_b: 128 heads of 128 + 128) and wo, then the one
+# shared expert of d_ff 2048 (w_up, w_gate; w_down)
+MLA_SHAPES = {"wq_a": (7168, 1536, 1), "wq_b": (1536, 24576, 1), "wkv_a": (7168, 576, 1),
+              "wkv_b": (512, 32768, 1), "wo": (16384, 7168, 1),
+              "shared w_up/w_gate": (7168, 2048, 2), "shared w_down": (2048, 7168, 1)}
+
+
+def mla_config():
+    """Phase 10's config: deepseek-v3-671b at published width cut to
+    ``MLA_LAYERS`` layers (its smoke config for a CPU rehearsal)."""
+    from repro_torch.configs import get_config, smoke_config
+
+    if LM_SMOKE:
+        return smoke_config(MLA_ARCH)
+    return dataclasses.replace(get_config(MLA_ARCH), num_layers=MLA_LAYERS)
+
+
+def mla_mixer_gate(model, prompt, label) -> dict:
+    """Phase 10b's gate in place of a fresh forward: layer 0's
+    ``MLAttention`` on an fp32 copy of its weights (TF32 off), its absorbed
+    decode fed the prompt's positions one at a time against its
+    full-sequence forward over the same input (layer 0's normed embeddings
+    of the prompt) within 1e-4 relative L2; the same in the served dtype,
+    logged. Returns {"fp32": …, "served": …}."""
+    from repro_torch.models.attention import MLAttention
+    from repro_torch.models.common import tree_slice
+
+    c = model.cfg
+    block = tree_slice(model.state()["layers"], 0)["b0"]
+    b, s = prompt.shape
+    positions = torch.arange(s, device=prompt.device).expand(b, s)
+    out = {}
+    with torch.no_grad():
+        h = model._apply_norm(block["norm1"], model._embed(prompt))
+        for key, dt in (("fp32", torch.float32), ("served", c.compute_dtype)):
+            cfg = dataclasses.replace(c, param_dtype=dt, compute_dtype=dt)
+            p = as_fp32(block["mixer"]) if dt == torch.float32 else block["mixer"]
+            mla, x = MLAttention(cfg), h.to(dt)
+            absorbed = mla.absorbed(p["wkv_b"], dt)
+            want, _ = mla(p, x, positions)
+            cache = mla.init_cache(b, s, dt, prompt.device)
+            got = torch.cat([mla.decode(p, x[:, i:i + 1], cache, positions[0, i], absorbed)[0]
+                             for i in range(s)], dim=1)
+            out[key] = rel_l2(got, want)
+    if out["fp32"] > 1e-4:
+        raise AssertionError(f"{label}: layer 0's MLA decode is {out['fp32']} from its forward "
+                             "in fp32 (rel L2 > 1e-4)")
+    log(f"[mla mixer] {label}: layer 0's absorbed decode over {s} positions against its "
+        f"forward, rel L2 fp32 {out['fp32']:.3e} (<= 1e-4), {c.compute_dtype} {out['served']:.3e}")
+    return out
+
+
+def mla_phase(gen, dev) -> dict:
+    """Phase 10: deepseek-v3-671b at published width, two layers: the tc
+    matmul's bf16 and int8 instantiations at its projection shapes (10a),
+    generation compressed then dense through generate's graphs with the
+    mixer gate (10b), its JAX fixture (10c), the INT8 prefill plan (10d).
+    Returns {"kernels", "generate", "plan", "seconds"}."""
+    t0 = time.time()
+    cfg = mla_config()
+    kernels = lm_kernels(gen, dev, MLA_SHAPES, layers=cfg.num_layers)
+    generated = lm_generate(dev, cfg, fresh_gate=None, tag=f"{MLA_ARCH} generate")
+    smoke_golden(dev, MLA_ARCH)
+    planned = lm_plan(dev, cfg, tag=f"{MLA_ARCH} plan")
+    return dict(kernels=kernels, generate=generated, plan=planned, seconds=time.time() - t0)
 
 
 # ------------------------------------------------------------------- main
@@ -1648,6 +1782,8 @@ def main() -> int:
     phase_done("8d MoE plan")
     recurrent = recurrent_phase(gen, dev)
     phase_done("9 recurrent decoders")
+    decoders = {**recurrent, MLA_ARCH: mla_phase(gen, dev)}
+    phase_done("10 MLA")
 
     line = []
     conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
@@ -1691,7 +1827,7 @@ def main() -> int:
                 "library_device_ms": total(moe, "library_device_ms"),
                 "graph_replay_launches_per_step":
                     moe_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"]}
-            for arch, r in recurrent.items():  # the recurrent decoders' shapes, phase 9
+            for arch, r in decoders.items():  # the recurrent decoders' and MLA's, phases 9, 10
                 rs = list(r["kernels"]["bf16"].values())
                 gen_c = r["generate"]["compressed"]
                 line[-1][arch] = {
@@ -1719,7 +1855,7 @@ def main() -> int:
                                       if p == "prefill"], k)
                             for k in ("ms", "device_ms", "library_ms", "library_device_ms")},
                 "graph_replay_launches_per_prefill": lm_planned["replay_launches"]["vdbb_matmul_tc"]}
-            for arch, r in recurrent.items():  # the recurrent decoders' shapes and plans
+            for arch, r in decoders.items():  # the recurrent decoders' and MLA's shapes and plans
                 rs = list(r["kernels"]["int8"].values())
                 line[-1][arch] = {
                     "shapes": [f"{s}:{p}" for s, p in r["kernels"]["int8"]],
@@ -1739,7 +1875,7 @@ def main() -> int:
     log(f"[lm] plan: {json.dumps(lm_planned, default=str)}")
     log(f"[moe] generate: {json.dumps(moe_gen)}")
     log(f"[moe] plan: {json.dumps(moe_planned, default=str)}")
-    for arch, r in recurrent.items():
+    for arch, r in decoders.items():
         log(f"[{arch}] generate: {json.dumps(r['generate'])}")
         log(f"[{arch}] plan: {json.dumps(r['plan'], default=str)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")

@@ -57,6 +57,7 @@ config, through the kernels' plain versions.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
 
 import torch
@@ -66,6 +67,7 @@ from repro_torch.configs import (ARCHS, CNN_ARCHS, get_cnn_config, get_config, m
                                  smoke_cnn_config, smoke_config)
 from repro_torch.kernels import build
 from repro_torch.models.cnn import SparseCNN
+from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM
 from repro_torch.train.step import make_prefill, make_serve_step
 
@@ -196,26 +198,31 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
 # ---------------------------------------------------------------- the LM
 
 
-KV_KEYS = ("k", "v")
+# the sequence caches, by key, and the axis each grows along: K/V (…, S,
+# kv, hd), MLA's latent c_kv (…, S, r) and k_rope (…, S, qk_rope_dim)
+SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
 
 
 def pad_cache(cache, plen: int, max_len: int):
     """The prefill's cache (sequence length ``plen``) as the decode cache
-    of capacity ``max_len``, allocated once. Leaves are told apart by key:
-    K/V (``k``, ``v``) get the prefill's entries in slots 0 … plen - 1 and
-    zeros after, the layout of the reference's ``pad_to_cap``; a recurrent
-    block's state (fixed-size: ``h``, ``conv``, ``s``, ``shift``,
-    ``cm_shift``) is copied as it is. The reference pads by shape, which
-    also pads a state leaf whose axis happens to equal ``plen``."""
+    of capacity ``max_len``, allocated once. Leaves are told apart by key
+    (``SEQ_AXIS``): a sequence cache (K/V, MLA's ``c_kv`` and ``k_rope``)
+    gets the prefill's entries in slots 0 … plen - 1 of its sequence axis
+    and zeros after, the layout of the reference's ``pad_to_cap``; a
+    recurrent block's state (fixed-size: ``h``, ``conv``, ``s``,
+    ``shift``, ``cm_shift``) is copied as it is. The reference pads by
+    shape, which also pads a state leaf whose axis happens to equal
+    ``plen``, and the batch axis of a ``c_kv`` when the batch does."""
     out = {}
     for k, v in cache.items():
         if isinstance(v, dict):
             out[k] = pad_cache(v, plen, max_len)
-        elif k in KV_KEYS:
+        elif k in SEQ_AXIS:
+            axis = v.dim() + SEQ_AXIS[k]
             shape = list(v.shape)
-            shape[-3] = max_len
+            shape[axis] = max_len
             out[k] = v.new_zeros(shape)
-            out[k][..., :plen, :, :] = v
+            out[k].narrow(axis, 0, plen).copy_(v)
         else:
             out[k] = v.clone()
     return out
@@ -223,12 +230,12 @@ def pad_cache(cache, plen: int, max_len: int):
 
 def restore_state(cache, prefill_cache) -> None:
     """Set every recurrent state leaf of ``cache`` back to the prefill's,
-    in place (a decode step advances it; K/V slots are rewritten by the
-    step at their position)."""
+    in place (a decode step advances it; a sequence cache's slots are
+    rewritten by the step at their position)."""
     for k, v in cache.items():
         if isinstance(v, dict):
             restore_state(v, prefill_cache[k])
-        elif k not in KV_KEYS:
+        elif k not in SEQ_AXIS:
             v.copy_(prefill_cache[k])
 
 
@@ -352,13 +359,19 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
             "graph_launches": graph_launches}
 
 
-def lm_config(arch: str, *, smoke: bool = False, sparsity=0.625, dense: bool = False):
+def lm_config(arch, *, smoke: bool = False, sparsity=0.625, dense: bool = False):
+    """The config of ``arch``: a registry name (its ``smoke`` variant on
+    request), or a ``ModelConfig`` taken as it is (a depth cut, say), its
+    DBB format dropped for ``dense``."""
+    if isinstance(arch, ModelConfig):
+        return dataclasses.replace(arch, dbb=None) if dense else arch
     return (smoke_config if smoke else get_config)(arch, sparsity=None if dense else sparsity)
 
 
-def build_lm(arch: str, *, device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
+def build_lm(arch, *, device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
              dense: bool = False) -> LM:
-    """Seeded LM on ``device``: weights drawn there from one
+    """Seeded LM of ``arch`` (a name or a ``ModelConfig``, as
+    :func:`lm_config`) on ``device``: weights drawn there from one
     ``torch.Generator``, each DBB-tagged leaf compressed as soon as it is
     drawn (``dense``: the dense baseline)."""
     dev = resolve_device(device)
@@ -373,11 +386,11 @@ def prompt_tokens(model: LM, *, batch: int, seq: int, seed: int = 0) -> dict:
     return make_batch(model.cfg, batch=batch, seq=seq, generator=gen, kind="serve")
 
 
-def serve_lm(arch: str, *, batch: int = 4, prompt_len: int = 32, gen: int = 16, device=None,
+def serve_lm(arch, *, batch: int = 4, prompt_len: int = 32, gen: int = 16, device=None,
              seed: int = 0, smoke: bool = False, sparsity=0.625, dense: bool = False,
              keep=(), log=print) -> dict:
-    """Build ``arch`` and generate ``gen`` tokens greedily after a
-    ``prompt_len`` prompt. Returns :func:`generate`'s record with the
+    """Build ``arch`` (a name or a ``ModelConfig``) and generate ``gen``
+    tokens greedily after a ``prompt_len`` prompt. Returns :func:`generate`'s record with the
     ``model`` and the ``prompt`` tokens."""
     model = build_lm(arch, device=device, seed=seed, smoke=smoke, sparsity=sparsity,
                      dense=dense)
@@ -413,10 +426,11 @@ def time_in_turns(fns: dict, order, reps: int, device) -> dict:
     return out
 
 
-def serve_lm_plan(arch: str, *, batch: int = 4, prompt_len: int = 32, steps: int = 16,
+def serve_lm_plan(arch, *, batch: int = 4, prompt_len: int = 32, steps: int = 16,
                   device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
                   tune: str = "off", log=print) -> dict:
-    """LM prefill served through a frozen plan: compress, calibrate (one
+    """LM prefill of ``arch`` (a name or a ``ModelConfig``) served through a
+    frozen plan: compress, calibrate (one
     forward recording every projection's input), INT8-quantize,
     ``LM.plan``, validate each request row against the plan's sample spec,
     then check that the plan's logits equal the unplanned INT8 forward's bit

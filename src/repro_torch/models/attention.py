@@ -1,5 +1,5 @@
-"""GQA attention (port of ``repro/models/attention.py``: ``GQAttention``,
-``_attend`` and ``attend_chunked``).
+"""Attention mixers (port of ``repro/models/attention.py``: ``GQAttention``,
+``MLAttention``, ``_attend`` and ``attend_chunked``).
 
 Attention is plain jnp in the reference, not a Pallas kernel, so it is plain
 torch here, in the reference's dtypes: the score product in the activation
@@ -7,7 +7,11 @@ dtype, then fp32 scores, the ``NEG_INF`` mask and an fp32 softmax, the
 probabilities cast back for the value product. The full-sequence path
 repeats K/V to the query heads before attention (q-chunked when S exceeds
 ``q_chunk``); decode reads the compact KV cache, a ring buffer for a local
-``window``. ``MLAttention`` and cross-attention are not ported.
+``window``. ``MLAttention`` (deepseek's multi-head latent attention) caches
+the latent ``c_kv`` and one shared ``k_rope`` instead of K/V, and decodes in
+the absorbed form: scores and context in the latent space, each einsum
+rounded to the activation dtype as the reference's. Cross-attention is not
+ported (ROADMAP queue 1, item 12e).
 """
 from __future__ import annotations
 
@@ -16,17 +20,24 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.models.common import Param, apply_linear, linear_def, rope
+from repro_torch.core.quant import QuantDBBWeight, dequantize_dbb
+from repro_torch.core.vdbb import DBBWeight, dbb_decode
+from repro_torch.models.common import Param, apply_linear, linear_def, rms_norm, rope
 
 NEG_INF = -1e30
 _NO_POS = 2**31 - 1  # an unfilled ring slot: later than every query
 
 
+def _scale(d: int) -> float:
+    """1 / sqrt(d) in fp32, as the reference computes it."""
+    return float(np.float32(1.0) / np.sqrt(np.float32(d)))
+
+
 def _attend(q, k, v, q_pos, k_pos, *, window: int = 0, kv_valid_len=None):
-    """q: (B,Sq,Kv,G,D); k/v: (B,Sk,Kv,D); positions for causal masking.
-    Returns (B,Sq,Kv,G,D)."""
-    d = q.shape[-1]
-    scale = float(np.float32(1.0) / np.sqrt(np.float32(d)))  # fp32, as the reference's
+    """q: (B,Sq,Kv,G,D); k/v: (B,Sk,Kv,D), v's D may differ (MLA: 192 for
+    q and k, 128 for v); positions for causal masking. Returns
+    (B,Sq,Kv,G,Dv)."""
+    scale = _scale(q.shape[-1])
     s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
     mask = q_pos[:, None] >= k_pos[None, :]  # causal
     if window:
@@ -139,8 +150,137 @@ class GQAttention:
         return y, cache
 
 
+@dataclasses.dataclass(frozen=True)
 class MLAttention:
-    """Multi-head latent attention (deepseek-style): not ported."""
+    """Multi-head latent attention (deepseek-style). The query goes through
+    a LoRA (``wq_a``, ``q_norm``, ``wq_b``) when ``q_lora_rank`` is set;
+    ``wkv_a`` gives the latent ``c_kv`` (``kv_lora_rank`` wide, normed) and
+    one RoPE key ``k_rope`` shared by all heads, and ``wkv_b`` expands the
+    latent to each head's ``k_nope`` and ``v``. The cache holds ``c_kv``
+    and ``k_rope`` (B, S, r) and (B, S, qk_rope_dim)."""
 
-    def __init__(self, cfg):
-        raise NotImplementedError("MLAttention is not ported (ROADMAP queue 1, item 12)")
+    cfg: "ModelConfig"  # noqa: F821
+
+    def defs(self):
+        c = self.cfg
+        dbb = c.dbb
+        qd = c.qk_nope_dim + c.qk_rope_dim
+        d = {}
+        if c.q_lora_rank:
+            d["wq_a"] = linear_def(c.d_model, c.q_lora_rank, "embed", None, dbb=dbb)
+            d["q_norm"] = Param((c.q_lora_rank,), (None,), "ones")
+            d["wq_b"] = linear_def(c.q_lora_rank, c.num_heads * qd, None, "heads", dbb=dbb)
+        else:
+            d["wq"] = linear_def(c.d_model, c.num_heads * qd, "embed", "heads", dbb=dbb)
+        d["wkv_a"] = linear_def(c.d_model, c.kv_lora_rank + c.qk_rope_dim, "embed", None,
+                                dbb=dbb)
+        d["kv_norm"] = Param((c.kv_lora_rank,), (None,), "ones")
+        d["wkv_b"] = linear_def(c.kv_lora_rank, c.num_heads * (c.qk_nope_dim + c.v_head_dim),
+                                None, "heads", dbb=dbb)
+        d["wo"] = linear_def(c.num_heads * c.v_head_dim, c.d_model, "heads", "embed", dbb=dbb)
+        return d
+
+    def _proj(self, p, x, name):
+        return apply_linear(x, p[name], aq=p.get(f"{name}_aq"), name=name)
+
+    def _q(self, p, x):
+        """(B, S, H, qk_nope_dim + qk_rope_dim), before RoPE."""
+        c = self.cfg
+        b, s, _ = x.shape
+        if c.q_lora_rank:
+            q = self._proj(p, rms_norm(self._proj(p, x, "wq_a"), p["q_norm"]), "wq_b")
+        else:
+            q = self._proj(p, x, "wq")
+        return q.reshape(b, s, c.num_heads, c.qk_nope_dim + c.qk_rope_dim)
+
+    def _latent(self, p, x, positions):
+        """The normed latent ``c_kv`` (B, S, r) and the roped ``k_rope``
+        (B, S, 1, qk_rope_dim), RoPE applied to it as one head."""
+        c = self.cfg
+        b, s, _ = x.shape
+        kv_a = self._proj(p, x, "wkv_a")
+        c_kv = rms_norm(kv_a[..., : c.kv_lora_rank], p["kv_norm"])
+        k_rope = rope(kv_a[..., c.kv_lora_rank:].reshape(b, s, 1, c.qk_rope_dim), positions,
+                      c.rope_theta)
+        return c_kv, k_rope
+
+    # -------------------------------------------------------------- full
+    def __call__(self, p, x, positions):
+        """Full-sequence forward. x: (B,S,d). Returns (out, {"c_kv",
+        "k_rope"}). K is ``k_nope`` beside ``k_rope`` broadcast to every
+        head, so the scores run over qk_nope_dim + qk_rope_dim and are
+        scaled by its root; the context is v_head_dim wide."""
+        c = self.cfg
+        b, s, _ = x.shape
+        q = self._q(p, x)
+        q_nope, q_rope = q[..., : c.qk_nope_dim], rope(q[..., c.qk_nope_dim:], positions,
+                                                       c.rope_theta)
+        c_kv, k_rope = self._latent(p, x, positions)
+        kv = self._proj(p, c_kv, "wkv_b").reshape(b, s, c.num_heads,
+                                                  c.qk_nope_dim + c.v_head_dim)
+        k_nope, v = kv[..., : c.qk_nope_dim], kv[..., c.qk_nope_dim:]
+        k = torch.cat([k_nope, k_rope.expand(b, s, c.num_heads, c.qk_rope_dim)], dim=-1)
+        qf = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, c.num_heads, 1, -1)
+        pos1 = positions[0] if positions.dim() == 2 else positions
+        out = attend_chunked(qf, k, v, pos1, pos1, q_chunk=c.q_chunk)
+        y = self._proj(p, out.reshape(b, s, c.num_heads * c.v_head_dim), "wo")
+        return y, {"c_kv": c_kv, "k_rope": k_rope[:, :, 0, :]}
+
+    # ------------------------------------------------------------ decode
+    def init_cache(self, batch, max_len, dtype, device=None):
+        c = self.cfg
+        return {"c_kv": torch.zeros((batch, max_len, c.kv_lora_rank), dtype=dtype, device=device),
+                "k_rope": torch.zeros((batch, max_len, c.qk_rope_dim), dtype=dtype,
+                                      device=device)}
+
+    def absorbed(self, wkv_b, dtype):
+        """The absorbed decode's weights from one layer's ``wkv_b``: (w_uk
+        (r, H, qk_nope_dim), w_uv (r, H, v_head_dim)) in ``dtype``, each
+        contiguous. A compressed weight is decoded to dense first (an int8
+        one dequantized to fp32 values before), as the reference does
+        inside every decode step: these are its values, bit for bit."""
+        c = self.cfg
+        if isinstance(wkv_b, QuantDBBWeight):
+            wkv_b = dequantize_dbb(wkv_b)
+        if isinstance(wkv_b, DBBWeight):
+            wkv_b = dbb_decode(wkv_b)
+        w = wkv_b.reshape(c.kv_lora_rank, c.num_heads, c.qk_nope_dim + c.v_head_dim)
+        return (w[..., : c.qk_nope_dim].to(dtype).contiguous(),
+                w[..., c.qk_nope_dim:].to(dtype).contiguous())
+
+    def decode(self, p, x, cache, pos, absorbed=None):
+        """Absorbed decode: x (B,1,d), ``pos`` a 0-d int64 tensor on x's
+        device. Writes the new ``c_kv`` and ``k_rope`` into ``cache`` in
+        place at slot ``pos`` (clamped to the capacity, as the reference's
+        ``dynamic_update_slice``), then scores the latent cache with the
+        query absorbed through ``w_uk`` and contracts the context through
+        ``w_uv``; every einsum rounds to x's dtype, and the two scores are
+        summed in it before the fp32 scale, mask and softmax. The mask is
+        ``slot <= pos`` over the whole capacity. ``absorbed`` is
+        :meth:`absorbed` of ``p["wkv_b"]`` decoded once by the caller;
+        None decodes it here. Returns (y, cache)."""
+        c = self.cfg
+        b = x.shape[0]
+        dt = x.dtype
+        posv = pos.reshape(1, 1).expand(b, 1)
+        q = self._q(p, x)
+        q_nope, q_rope = q[..., : c.qk_nope_dim], rope(q[..., c.qk_nope_dim:], posv,
+                                                       c.rope_theta)
+        c_kv, k_rope = self._latent(p, x, posv)
+        cap = cache["c_kv"].shape[1]
+        slot = pos.clamp(max=cap - 1).reshape(1)
+        cache["c_kv"].index_copy_(1, slot, c_kv.to(cache["c_kv"].dtype))
+        cache["k_rope"].index_copy_(1, slot, k_rope[:, :, 0].to(cache["k_rope"].dtype))
+        w_uk, w_uv = absorbed if absorbed is not None else self.absorbed(p["wkv_b"], dt)
+        ckv, krp = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
+        q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk.to(dt))
+        s_lat = torch.einsum("bqhr,bsr->bhqs", q_c, ckv)
+        s_rope = torch.einsum("bqhp,bsp->bhqs", q_rope, krp)
+        s = (s_lat + s_rope).float() * _scale(c.qk_nope_dim + c.qk_rope_dim)
+        kpos = torch.arange(cap, dtype=torch.int64, device=x.device)
+        s = s.masked_fill(~(kpos <= pos), NEG_INF)
+        pr = torch.softmax(s, dim=-1).to(dt)
+        ctx = torch.einsum("bhqs,bsr->bqhr", pr, ckv)
+        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.to(dt))
+        y = self._proj(p, out.reshape(b, 1, c.num_heads * c.v_head_dim), "wo")
+        return y, cache

@@ -128,9 +128,22 @@ class ModelConfig:
         return "attn" not in set(self.pattern)
 
     def param_count(self) -> int:
-        """Weights in the parameter tree (``LM.defs()``) of a family the
-        port builds."""
+        """Weights in the parameter tree (``models.model.lm_defs``)."""
         from repro_torch.models.common import param_leaves
-        from repro_torch.models.model import LM
+        from repro_torch.models.model import lm_defs
 
-        return sum(math.prod(p.shape) for _, p in param_leaves(LM(self).defs()))
+        return sum(math.prod(p.shape) for _, p in param_leaves(lm_defs(self)))
+
+    def active_param_count(self) -> int:
+        """Weights a token touches: a MoE's routed expert stacks (the
+        ``we_*`` leaves) at ``top_k / num_experts`` of their size, the rest
+        whole; every weight of a dense model."""
+        from repro_torch.models.common import param_leaves
+        from repro_torch.models.model import lm_defs
+
+        total = self.param_count()
+        if not self.is_moe:
+            return total
+        routed = sum(math.prod(p.shape) for path, p in param_leaves(lm_defs(self))
+                     if any("we_" in k for k in path))
+        return total - routed + routed * self.top_k // self.num_experts

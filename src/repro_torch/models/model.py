@@ -1,12 +1,14 @@
 """The decoder LM (port of ``repro/models/model.py:LM``).
 
 Covers ``family='dense'`` and ``family='moe'`` (``MoEMLP``) with
-``mixer='gqa'``, ``family='hybrid'`` (RG-LRU ``rec`` blocks beside ``local``
-attention, recurrentgemma's tied embeddings, embedding scale and logit
-soft-cap) and ``family='ssm'`` (``mixer='rwkv6'``: RWKV6 blocks of time and
-channel mix), with no modality frontend and no cross-attention; MLA and
-those raise ``NotImplementedError`` from the constructor (ROADMAP queue 1,
-item 12).
+``mixer='gqa'`` or ``mixer='mla'`` (``MLAttention``: deepseek's latent
+cache and absorbed decode), ``family='hybrid'`` (RG-LRU ``rec`` blocks
+beside ``local`` attention, recurrentgemma's tied embeddings, embedding
+scale and logit soft-cap) and ``family='ssm'`` (``mixer='rwkv6'``: RWKV6
+blocks of time and channel mix), with no modality frontend and no
+cross-attention; those raise ``NotImplementedError`` from the constructor
+(ROADMAP queue 1, item 12e). :func:`lm_defs` describes the parameter tree
+of every registry config, theirs included, for counting.
 
 The parameter tree is the reference's: ``embed``, ``layers`` stacked over
 layer groups (a leading axis on every leaf, compressed ones included),
@@ -15,7 +17,10 @@ layer groups (a leading axis on every leaf, compressed ones included),
 siblings that :meth:`LM.quantize` adds. The model holds it (:meth:`state`)
 and converts it in place (:meth:`compress`, :meth:`quantize`). Layer groups
 run as a Python loop, as the reference's unscanned forward does; nothing is
-trained, so ``remat`` is ignored.
+trained, so ``remat`` is ignored. Beside the tree, never in it, the model
+keeps each MLA block's ``wkv_b`` decoded to dense for the absorbed decode
+(the reference decodes it inside every step), rebuilt whenever the tree is
+set or converted.
 
 The paper's technique runs end to end: every projection is DBB-tagged,
 :meth:`compress` encodes each into the compressed layout (values (L, nb,
@@ -37,7 +42,7 @@ from torch import nn
 from repro_torch.core.act_sparsity import act_scope, collect_activations
 from repro_torch.core.quant import QMAX, as_f32, quantize_dbb
 from repro_torch.core.vdbb import DBBWeight, dbb_encode
-from repro_torch.models.attention import GQAttention
+from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_params,
                                        layer_norm, rms_norm, sharded_embed_lookup, stage_linear,
                                        tree_get, tree_set, tree_slice)
@@ -48,15 +53,68 @@ from repro_torch.models.recurrent import RGLRUBlock, RWKV6Block
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's LM does not build."""
-    why = None
-    if cfg.mixer not in ("gqa", "rwkv6"):
-        why = f"mixer={cfg.mixer!r} (MLAttention)"
-    elif cfg.frontend is not None or cfg.cross_attn:
-        why = f"family={cfg.family!r}: modality frontends and cross-attention"
-    if why is not None:
+    if cfg.frontend is not None or cfg.cross_attn:
         raise NotImplementedError(
-            f"{cfg.name}: {why} not ported; the port's LM is the GQA dense, MoE, "
-            "hybrid RG-LRU and RWKV6 decoder (ROADMAP queue 1, item 12)")
+            f"{cfg.name}: family={cfg.family!r}: modality frontends and cross-attention not "
+            "ported; the port's LM is the GQA and MLA dense and MoE, hybrid RG-LRU and RWKV6 "
+            "decoder (ROADMAP queue 1, item 12e)")
+
+
+def mixer_for(cfg: ModelConfig, kind: str):
+    """The mixer of a block of ``kind``: MLA for ``attn`` blocks of an MLA
+    config, as the reference's ``LM._mixer``."""
+    if kind == "attn":
+        return MLAttention(cfg) if cfg.mixer == "mla" else GQAttention(cfg)
+    if kind == "local":
+        return GQAttention(cfg, window=cfg.local_window)
+    if kind == "rec":
+        return RGLRUBlock(cfg)
+    if kind == "rwkv":
+        return RWKV6Block(cfg)
+    raise ValueError(kind)
+
+
+def lm_defs(cfg: ModelConfig) -> dict:
+    """The parameter defs tree of ``cfg``'s LM, the reference's
+    ``LM.defs()``, for every registry config: also the cross-attention
+    blocks' ``norm_x`` and ``cross`` and the audio codebooks' embedding and
+    head, which :class:`LM` does not build yet (item 12e)."""
+    def norm():
+        d = {"g": Param((cfg.d_model,), (None,), "ones")}
+        if cfg.norm == "layernorm":
+            d["b"] = Param((cfg.d_model,), (None,), "zeros")
+        return d
+
+    def block(kind):
+        d = {"norm1": norm(), "mixer": mixer_for(cfg, kind).defs(), "norm2": norm()}
+        if kind == "rwkv":  # RWKV6's channel mix is its MLP
+            return d
+        d["mlp"] = (MoEMLP(cfg) if cfg.is_moe else DenseMLP(cfg)).defs()
+        if cfg.cross_attn:  # the same leaves as self-attention's
+            d["norm_x"], d["cross"] = norm(), GQAttention(cfg).defs()
+        return d
+
+    def stack(d):
+        if isinstance(d, Param):
+            return dataclasses.replace(d, shape=(cfg.num_groups,) + d.shape,
+                                       axes=("layers",) + d.axes)
+        return {k: stack(v) for k, v in d.items()}
+
+    out = {
+        "embed": Param((cfg.padded_vocab, cfg.d_model), ("vocab", "embed"), "scaled"),
+        "layers": stack({f"b{i}": block(k) for i, k in enumerate(cfg.pattern)}),
+        "final_norm": norm(),
+    }
+    if cfg.tail_pattern:
+        out["tail"] = {f"t{i}": block(k) for i, k in enumerate(cfg.tail_pattern)}
+    audio = cfg.frontend == "audio"
+    if not cfg.tie_embeddings:
+        vocab = cfg.num_codebooks * cfg.codebook_vocab if audio else cfg.padded_vocab
+        out["lm_head"] = Param((cfg.d_model, vocab), ("embed", "vocab"), "scaled")
+    if audio:
+        out["embed"] = Param((cfg.num_codebooks, cfg.codebook_vocab, cfg.d_model),
+                             (None, "vocab", "embed"), "scaled")
+    return out
 
 
 class LM(nn.Module):
@@ -65,59 +123,22 @@ class LM(nn.Module):
         check_supported(cfg)
         self.cfg = cfg
         self.params: Optional[dict] = None
+        self._absorbed: dict = {}  # MLA blocks' decoded wkv_b (:meth:`_absorb`)
 
     # ------------------------------------------------------------- defs
     def _mixer(self, kind):
-        if kind == "attn":
-            return GQAttention(self.cfg)
-        if kind == "local":
-            return GQAttention(self.cfg, window=self.cfg.local_window)
-        if kind == "rec":
-            return RGLRUBlock(self.cfg)
-        if kind == "rwkv":
-            return RWKV6Block(self.cfg)
-        raise ValueError(kind)
+        return mixer_for(self.cfg, kind)
 
     def _mlp(self):
         return MoEMLP(self.cfg) if self.cfg.is_moe else DenseMLP(self.cfg)
-
-    def _norm_def(self):
-        d = {"g": Param((self.cfg.d_model,), (None,), "ones")}
-        if self.cfg.norm == "layernorm":
-            d["b"] = Param((self.cfg.d_model,), (None,), "zeros")
-        return d
 
     def _apply_norm(self, p, x):
         if self.cfg.norm == "layernorm":
             return layer_norm(x, p["g"], p["b"])
         return rms_norm(x, p["g"])
 
-    def _block_defs(self, kind):
-        d = {"norm1": self._norm_def(), "mixer": self._mixer(kind).defs(),
-             "norm2": self._norm_def()}
-        if kind != "rwkv":  # RWKV6's channel mix is its MLP
-            d["mlp"] = self._mlp().defs()
-        return d
-
     def defs(self):
-        c = self.cfg
-
-        def stack(d):
-            if isinstance(d, Param):
-                return dataclasses.replace(d, shape=(c.num_groups,) + d.shape,
-                                           axes=("layers",) + d.axes)
-            return {k: stack(v) for k, v in d.items()}
-
-        out = {
-            "embed": Param((c.padded_vocab, c.d_model), ("vocab", "embed"), "scaled"),
-            "layers": stack({f"b{i}": self._block_defs(k) for i, k in enumerate(c.pattern)}),
-            "final_norm": self._norm_def(),
-        }
-        if c.tail_pattern:
-            out["tail"] = {f"t{i}": self._block_defs(k) for i, k in enumerate(c.tail_pattern)}
-        if not c.tie_embeddings:
-            out["lm_head"] = Param((c.d_model, c.padded_vocab), ("embed", "vocab"), "scaled")
-        return out
+        return lm_defs(self.cfg)
 
     # ------------------------------------------------------------ state
     def init(self, generator: torch.Generator, device, *, compress: bool = False) -> "LM":
@@ -131,11 +152,30 @@ class LM(nn.Module):
                 return self._encode(w, p.dbb) if p.dbb is not None else w
         self.params = init_params(self.defs(), generator, self.cfg.param_dtype, device,
                                   leaf_fn=fn)
-        return self
+        return self._absorb()
 
     def load_params(self, tree: dict) -> "LM":
         """Adopt a parameter tree (``interop.params_from_numpy``'s output)."""
         self.params = tree
+        return self._absorb()
+
+    def _absorb(self) -> "LM":
+        """Decode every MLA block's ``wkv_b`` once for the absorbed decode:
+        ``MLAttention.absorbed`` of each layer group's weight in the
+        compute dtype, kept beside the tree (``self._absorbed``: (``b{i}``,
+        group) -> (w_uk, w_uv)), so the tree stays the reference's. Every
+        change of the tree calls it. (A tail block, which no MLA config
+        has, would decode its weight inside each step, as the reference.)"""
+        c = self.cfg
+        self._absorbed = {}
+        if c.mixer != "mla":
+            return self
+        mla = MLAttention(c)
+        for i, kind in enumerate(c.pattern):
+            if kind == "attn":
+                w = self.params["layers"][f"b{i}"]["mixer"]["wkv_b"]
+                for g in range(c.num_groups):
+                    self._absorbed[f"b{i}", g] = mla.absorbed(w[g], c.compute_dtype)
         return self
 
     def state(self) -> dict:
@@ -183,14 +223,20 @@ class LM(nn.Module):
             y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
         return x + y2, cache
 
-    def _apply_block_decode(self, kind, p, x, cache, pos):
+    def _apply_block_decode(self, kind, p, x, cache, pos, absorbed=None):
+        """One block's decode step; ``absorbed``: an MLA block's decoded
+        ``wkv_b`` (:meth:`_absorb`)."""
         h = self._apply_norm(p["norm1"], x)
         if kind == "rwkv":
             mixer = self._mixer(kind)
             x = x + mixer.time_mix_decode(p["mixer"]["tm"], h, cache)[0]
             return x + mixer.channel_mix_decode(p["mixer"]["cm"],
                                                 self._apply_norm(p["norm2"], x), cache), cache
-        y, cache = self._mixer(kind).decode(p["mixer"], h, cache, pos)
+        mixer = self._mixer(kind)
+        if isinstance(mixer, MLAttention):
+            y, cache = mixer.decode(p["mixer"], h, cache, pos, absorbed)
+        else:
+            y, cache = mixer.decode(p["mixer"], h, cache, pos)
         x = x + y
         y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
         return x + y2, cache
@@ -200,8 +246,8 @@ class LM(nn.Module):
         """Full-sequence forward (prefill) of (B, S) tokens -> logits (B, S,
         padded_vocab); with ``return_cache`` also every block's cache
         (``{"groups": {"b{i}": …}, "tail": …}``, groups stacked): K/V
-        (``k``, ``v``) of an attention block, ``h`` and ``conv`` of an
-        RG-LRU block, ``s``, ``shift`` and ``cm_shift`` of an RWKV6 one.
+        (``k``, ``v``) of an attention block, the latent ``c_kv`` and
+        ``k_rope`` of an MLA one, ``h`` and ``conv`` of an RG-LRU block, ``s``, ``shift`` and ``cm_shift`` of an RWKV6 one.
         ``collect_act_stats=True`` appends the per-GEMM ``ActStats`` that
         ``apply_linear`` records: ``(logits[, cache], stats)``."""
         if collect_act_stats:
@@ -240,7 +286,9 @@ class LM(nn.Module):
     def init_cache(self, batch_size: int, max_len: int):
         """Zero caches, stacked over groups for the pattern's blocks: K/V
         (G, B, cap, kv, hd), ``cap`` being ``max_len`` or a ``local``
-        block's window (a ring); a recurrent block's fixed-size state."""
+        block's window (a ring); an MLA block's ``c_kv`` (G, B, max_len, r)
+        and ``k_rope`` (G, B, max_len, qk_rope_dim); a recurrent block's
+        fixed-size state."""
         c = self.cfg
         dt, dev = c.compute_dtype, self.device
 
@@ -268,7 +316,8 @@ class LM(nn.Module):
             gp = tree_slice(params["layers"], g)
             gc = tree_slice(cache["groups"], g)
             for i, kind in enumerate(c.pattern):
-                h, _ = self._apply_block_decode(kind, gp[f"b{i}"], h, gc[f"b{i}"], pos)
+                h, _ = self._apply_block_decode(kind, gp[f"b{i}"], h, gc[f"b{i}"], pos,
+                                                self._absorbed.get((f"b{i}", g)))
         for i, kind in enumerate(c.tail_pattern):
             h, _ = self._apply_block_decode(kind, params["tail"][f"t{i}"], h,
                                             cache["tail"][f"t{i}"], pos)
@@ -287,7 +336,7 @@ class LM(nn.Module):
         for path, pdef in dbb_leaves(self.defs()):
             self.params = tree_set(self.params, path,
                                    self._encode(tree_get(self.params, path), pdef.dbb))
-        return self
+        return self._absorb()
 
     @staticmethod
     def _stat_absmax(stats) -> dict:
@@ -332,7 +381,7 @@ class LM(nn.Module):
             aq = self._leaf_act_scales(path, absmax)
             if aq is not None:
                 self.params = tree_set(self.params, path[:-1] + (path[-1] + "_aq",), aq)
-        return self
+        return self._absorb()
 
     # -------------------------------------------------------------- plan
     def _staged(self, tree, m: int, dynamic: bool = False):

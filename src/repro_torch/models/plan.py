@@ -157,10 +157,13 @@ class ModelPlan:
     # ((64, 64, 3), 'float32'): the serving tier validates every request
     # against it at admission.
     sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None
-    device: torch.device = torch.device("cpu")
+    device: Optional[torch.device] = None  # where the staged tensors lie: required
     pool: Optional[GraphPool] = None  # shared by a PlanSet's buckets
 
     def __post_init__(self):
+        if self.device is None:
+            raise ValueError(f"plan {self.model!r}: no device; a plan runs where its staged "
+                             "tensors lie, so pass the model's device")
         object.__setattr__(self, "device", torch.device(self.device))
         if self.device.type == "cuda" and self.pool is None:
             object.__setattr__(self, "pool", GraphPool())
@@ -376,10 +379,12 @@ class PlanBuilder:
     One builder per (model, state, batch): the fingerprint is taken at
     construction and every :meth:`stage` call hands ``tune`` to the
     layer's ``make_plan``. Stages without tiles (pooling) use :meth:`raw`.
+    ``device`` is where the staged tensors lie, and it has no default: a
+    plan told the CPU around card tensors would replay nothing.
     """
 
     def __init__(self, model: str, params, *, batch: Optional[int] = None, tune: str = "off",
-                 sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None, device="cpu",
+                 sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None, device,
                  pool: Optional[GraphPool] = None):
         self.model = model
         self.batch = batch

@@ -334,10 +334,37 @@ def test_recurrent_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     build.reset_launches()
 
 
+def test_mla_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 10 end to end on the CPU at deepseek-v3-671b's smoke config:
+    the kernels at (stubbed, small) shapes, generation compressed and dense
+    with the mixer gate in place of a fresh forward, the JAX fixture with
+    its quantized forward, and the INT8 plan."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    cpu = _rehearse(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "MLA_SHAPES", {"square": (128, 128, 1), "up": (128, 256, 1)})
+    out = smoke.mla_phase(torch.Generator().manual_seed(1), cpu)
+    assert len(out["kernels"]["bf16"]) == len(out["kernels"]["int8"]) == 4
+    gen = out["generate"]
+    # 2 layers of wq_a, wq_b, wkv_a, wkv_b, wo and the shared expert's up,
+    # gate, down at prefill (two prefills); decode (eight steps) skips wkv_b
+    assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == 16 * 2 + 14 * 8
+    assert gen["compressed"]["consistency_rel_l2"] == {}
+    for label in ("compressed", "dense"):
+        mixer = gen[label]["mixer_consistency_rel_l2"]
+        assert mixer["fp32"] < 1e-6 and mixer["served"] < 2e-2
+    assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
+    assert out["plan"]["captures"] == 1
+    build.reset_launches()
+
+
 def test_decode_bound_counts_the_tied_table_and_the_state(smoke, monkeypatch):
     """The bytes of a decode step: recurrentgemma reads its whole tied
     table and only its local blocks hold K/V; rwkv6 reads and writes its
-    state; starcoder2 reads B rows of its table and every layer's K/V."""
+    state; starcoder2 reads B rows of its table and every layer's K/V;
+    deepseek reads its decoded wkv_b and the latent cache."""
     import torch
 
     from repro_torch.configs import smoke_config
@@ -365,3 +392,12 @@ def test_decode_bound_counts_the_tied_table_and_the_state(smoke, monkeypatch):
     cfg, weights, total = bound_bytes("starcoder2-7b")
     kv = 2 * cfg.num_layers * 2 * 24 * cfg.num_kv_heads * cfg.hd * 2
     assert total == weights + 2 * cfg.d_model * 2 + kv
+    # MLA: wkv_b read decoded to dense (r x H x (nope + v) bf16) in place of
+    # its compressed leaf; c_kv and k_rope read whole, one slot written
+    cfg, weights, total = bound_bytes("deepseek-v3-671b")
+    model = LM(cfg).init(torch.Generator().manual_seed(0), "cpu", compress=True)
+    leaf = smoke.tensor_bytes({"w": model.state()["layers"]["b0"]["mixer"]["wkv_b"]})
+    decoded = cfg.num_layers * cfg.kv_lora_rank * cfg.num_heads * (cfg.qk_nope_dim
+                                                                   + cfg.v_head_dim) * 2
+    latent = cfg.num_layers * 2 * (24 + 1) * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    assert total == weights - leaf + decoded + 2 * cfg.d_model * 2 + latent

@@ -824,12 +824,38 @@ def test_tc_matmul_bf16_at_recurrent_shapes(card, m, k, n):
     _bf16_matches_plain(card, m, k, n, 3)
 
 
+# deepseek-v3-671b's: MLA's wq_a, wq_b, wkv_a (N = 576, a ragged edge on
+# the 128- and 256-wide tiles), wkv_b, wo; the shared expert's up/gate, down
+MLA_SHAPES = [(7168, 1536), (1536, 24576), (7168, 576), (512, 32768), (16384, 7168),
+              (7168, 2048), (2048, 7168)]
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+@pytest.mark.parametrize("k,n", MLA_SHAPES)
+def test_tc_matmul_bf16_at_mla_shapes(card, m, k, n):
+    """The bf16 instantiation at every deepseek-v3-671b projection shape,
+    decode and prefill rows, with every flush."""
+    _bf16_matches_plain(card, m, k, n, 3)
+
+
 @pytest.mark.parametrize("m", [4, 1024])
 @pytest.mark.parametrize("k,n", LM_SHAPES + RECURRENT_SHAPES)
 def test_tc_matmul_int8_at_lm_shapes(card, m, k, n):
     """The int8 tensor-core path at every starcoder2-7b, recurrentgemma-2b
     and rwkv6-3b projection shape, decode and prefill rows: int32 and the
     fp32 dequant flush exact."""
+    _int8_matches_plain(card, m, k, n)
+
+
+@pytest.mark.parametrize("m", [4, 1024])
+@pytest.mark.parametrize("k,n", MLA_SHAPES)
+def test_tc_matmul_int8_at_mla_shapes(card, m, k, n):
+    """The int8 path at every deepseek-v3-671b projection shape, as the
+    INT8 plan runs them: int32 and the fp32 dequant flush exact."""
+    _int8_matches_plain(card, m, k, n)
+
+
+def _int8_matches_plain(card, m, k, n):
     rng = np.random.default_rng(k + n + m)
     nb = k // 8
     vals = torch.from_numpy(rng.integers(-127, 128, (nb, 3, n), dtype=np.int8)).to(card)
@@ -992,6 +1018,106 @@ def test_recurrent_plan_dynamic_scales_replay_without_host_sync(card, arch):
     assert rec["bit_identical"] and rec["captures"] == 1
     launches = next(iter(rec["plan"].graph_launches.values()))
     assert launches["vdbb_matmul_tc"] > 0 and launches["vdbb_matmul_tc_bf16"] == 0
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = rec["plan"].serve(rec["tokens"])
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert torch.equal(got, rec["logits"])
+
+
+def test_mla_generate_graph_replays_equal_eager_bit_for_bit(card):
+    """The smoke deepseek-v3-671b (MLA, MoE): generate's replayed prefill
+    and absorbed decode steps give the eager run's tokens and kept logits
+    bit for bit; a replayed prefill launches the bf16 tc matmul for every
+    projection (8 a layer), a replayed step for all but ``wkv_b``, which it
+    reads decoded."""
+    from repro_torch.launch import serve
+
+    rec = serve.serve_lm("deepseek-v3-671b", batch=2, prompt_len=16, gen=6, device=card,
+                         smoke=True, keep=(0, 2, 4), log=lambda *_: None)
+    model = rec["model"]
+    eager = serve.generate(model, {"tokens": rec["prompt"]}, gen_len=6, max_len=22,
+                           keep=(0, 2, 4), graph=False)
+    assert torch.equal(rec["tokens"], eager["tokens"])
+    for i in (0, 2, 4):
+        assert torch.equal(rec["logits"][i], eager["logits"][i]), i
+    assert rec["captures"] == 2 and rec["replays"] == {"prefill": 5, "decode": 5}
+    layers = model.cfg.num_layers
+    assert rec["graph_launches"]["prefill"]["vdbb_matmul_tc_bf16"] == 8 * layers
+    assert rec["graph_launches"]["decode"]["vdbb_matmul_tc_bf16"] == 7 * layers
+
+
+@pytest.mark.parametrize("full", [False, True], ids=["smoke", "full-width"])
+def test_mla_mixer_replay_equals_eager_without_host_sync(card, full):
+    """One ``MLAttention`` (the smoke config's, and deepseek-v3-671b's at
+    full width: 128 heads, ranks 1536 and 512) on compressed bf16 weights:
+    its absorbed decode at a tensor position, captured and replayed with no
+    host sync, equals the eager step bit for bit, cache writes included;
+    and in fp32 the decode over 16 positions is within 1e-5 of the
+    forward."""
+    from repro_torch.configs import get_config, smoke_config
+    from repro_torch.models.attention import MLAttention
+    from repro_torch.models.common import init_params
+    from repro_torch.models.plan import GraphPool, capture
+
+    cfg = (get_config if full else smoke_config)("deepseek-v3-671b")
+    mla = MLAttention(cfg)
+    gen = torch.Generator(device=card).manual_seed(0)
+    p = init_params(mla.defs(), gen, torch.bfloat16, card,
+                    leaf_fn=lambda path, d, w: tv.dbb_encode(w, d.dbb) if d.dbb else w)
+    x = torch.randn(4, 16, cfg.d_model, device=card, generator=gen).bfloat16()
+    with torch.no_grad():
+        _, prefill = mla(p, x, torch.arange(16, device=card).expand(4, 16))
+        absorbed = mla.absorbed(p["wkv_b"], torch.bfloat16)
+        caches = []
+        for _ in range(2):
+            c = mla.init_cache(4, 20, torch.bfloat16, card)
+            c["c_kv"][:, :16], c["k_rope"][:, :16] = prefill["c_kv"], prefill["k_rope"]
+            caches.append(c)
+        step = x[:, 15:16].clone()
+        want, _ = mla.decode(p, step, caches[0], torch.tensor(16, device=card), absorbed)
+        pos = torch.tensor(16, device=card)
+        g, got, _ = capture(lambda: mla.decode(p, step, caches[1], pos, absorbed)[0],
+                            GraphPool(), card)
+        caches[1]["c_kv"][:, 16:].zero_()
+        caches[1]["k_rope"][:, 16:].zero_()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        g.replay()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    for name in ("c_kv", "k_rope"):
+        assert torch.equal(caches[1][name], caches[0][name])
+    cfg32 = dataclasses.replace(cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
+    p32 = {k: dataclasses.replace(v, values=v.values.float()) if hasattr(v, "fmt") else v.float()
+           for k, v in p.items()}
+    mla32, x32 = MLAttention(cfg32), x.float()
+    with torch.no_grad():
+        full_out, _ = mla32(p32, x32, torch.arange(16, device=card).expand(4, 16))
+        c = mla32.init_cache(4, 16, torch.float32, card)
+        dec = torch.cat([mla32.decode(p32, x32[:, i:i + 1], c, torch.tensor(i, device=card))[0]
+                         for i in range(16)], dim=1)
+    assert float((dec - full_out).norm() / full_out.norm()) <= 1e-5
+
+
+def test_mla_plan_replays_without_host_sync(card):
+    """The smoke deepseek-v3-671b, INT8-calibrated and planned at (2, 32):
+    one capture, every MLA and shared-expert projection staged with its
+    calibrated scale on the int8 tc matmul (8 a layer), a replay with no
+    host sync equal to the unplanned forward bit for bit."""
+    from repro_torch.launch import serve
+
+    rec = serve.serve_lm_plan("deepseek-v3-671b", batch=2, prompt_len=32, steps=2,
+                              device=card, smoke=True, log=lambda *_: None)
+    assert rec["bit_identical"] and rec["captures"] == 1
+    launches = next(iter(rec["plan"].graph_launches.values()))
+    assert launches["vdbb_matmul_tc"] == 8 * rec["model"].cfg.num_layers
+    assert launches["vdbb_matmul_tc_bf16"] == 0
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:

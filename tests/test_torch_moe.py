@@ -235,7 +235,14 @@ def test_aux_loss_matches_the_reference(router, value):
 def test_moe_lm_is_built_and_other_families_still_raise():
     LM(treg.smoke_config(ARCH))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(treg.smoke_config("deepseek-v3-671b"))  # MoE, but MLA
+        LM(treg.smoke_config("internvl2-2b"))  # a frontend
+
+
+@pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])
+def test_the_mla_moe_lm_is_built(smoke):
+    """deepseek-v3-671b (MoE with MLA, 256 experts at full size) builds."""
+    cfg = (treg.smoke_config if smoke else treg.get_config)("deepseek-v3-671b")
+    assert LM(cfg).cfg.mixer == "mla"
 
 
 def _jax_leaves(defs):
@@ -387,16 +394,17 @@ def test_quantized_forward_and_plan():
 # ------------------------------------------------- the position as a tensor
 
 
-@pytest.mark.parametrize("arch", ["qwen2-tiny", "local", ARCH])
+@pytest.mark.parametrize("arch", ["qwen2-tiny", "local", ARCH, "deepseek-v3-671b"])
 def test_decode_step_takes_a_tensor_position(arch):
     """The same step at an int position and at a 0-d int64 tensor gives the
     same bits and the same cache, for global, windowed (a ring of 8 slots,
-    written past its capacity) and MoE blocks."""
+    written past its capacity), MoE and MLA blocks."""
     if arch == "local":
         cfg = dataclasses.replace(treg.get_config("qwen2-tiny"), block_pattern=("attn", "local"),
                                   num_layers=3, local_window=8)
     else:
-        cfg = treg.smoke_config(arch) if arch == ARCH else treg.get_config(arch)
+        cfg = (treg.smoke_config(arch) if arch in (ARCH, "deepseek-v3-671b")
+               else treg.get_config(arch))
     model = LM(cfg).init(torch.Generator().manual_seed(0), "cpu", compress=True)
     toks = torch.from_numpy(np.random.default_rng(4).integers(0, 512, (2, 12)).astype(np.int32))
     a, b = model.init_cache(2, 12), model.init_cache(2, 12)

@@ -15,8 +15,11 @@ computed in fp32 on weights rounded to bf16 values, which the file keeps as
 bf16 bits, compressed: a token batch, the prefill's last-position logits,
 the next token and one decode step's logits), and the same for the
 recurrent decoders' smoke configs (``tests/data/torch_parity_rglru.npz``,
-``recurrentgemma-2b``; ``tests/data/torch_parity_rwkv.npz``, ``rwkv6-3b``).
-Regenerate all six with
+``recurrentgemma-2b``; ``tests/data/torch_parity_rwkv.npz``, ``rwkv6-3b``)
+and for MLA's (``tests/data/torch_parity_mla.npz``, ``deepseek-v3-671b``,
+with the calibration stats and the quantized forward as the LM's, and its
+routed expert stacks kept as numpy seeds, ``interop.seeded_bf16``).
+Regenerate all seven with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -39,12 +42,13 @@ from repro.configs.cnn import smoke_cnn_config  # noqa: E402
 from repro.core.quant import QuantDBBWeight  # noqa: E402
 from repro.core.vdbb import DBBWeight  # noqa: E402
 from repro.models.cnn import SparseCNN  # noqa: E402
-from repro_torch.interop import bf16_bits, flatten  # noqa: E402
+from repro_torch.interop import bf16_bits, flatten, seeded_bf16  # noqa: E402
 
 FIXTURE = ROOT / "tests" / "data" / "torch_parity_cnn.npz"
 FIXTURE_BW = ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"
 FIXTURE_LM = ROOT / "tests" / "data" / "torch_parity_lm.npz"
 FIXTURE_MOE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
+FIXTURE_MLA = ROOT / "tests" / "data" / "torch_parity_mla.npz"
 LM_BATCH, LM_SEQ = 2, 32
 CHAIN_BATCH = 8
 CHAIN_SEED = 0
@@ -127,17 +131,23 @@ def jax_chain(seed: int = CHAIN_SEED, batch: int = CHAIN_BATCH, pattern="matrix"
                 pooled=np.array(inter[-1].mean(axis=(1, 2))), logits=np.array(logits))
 
 
+# the reference's sequence caches by key, and the axis each grows along
+SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
+
+
 def jax_pad_cache(cache, plen: int, max_len: int):
-    """The reference's prefill cache with its K/V leaves (by key: ``k``,
-    ``v``) padded to ``max_len`` slots, the layout ``pad_to_cap`` gives
-    them; recurrent state leaves as they are. ``pad_to_cap`` itself pads by
-    shape and also pads a state leaf whose axis equals the prompt length
-    (ROADMAP queue 3)."""
+    """The reference's prefill cache with its sequence caches (by key: K/V
+    ``k``, ``v``; MLA's ``c_kv``, ``k_rope``) padded to ``max_len`` slots on
+    their sequence axis, the layout ``pad_to_cap`` gives K/V; recurrent
+    state leaves as they are. ``pad_to_cap`` itself pads by shape: it also
+    pads a state leaf whose axis equals the prompt length, and a ``c_kv``'s
+    batch axis when the batch does (ROADMAP queue 3)."""
     def pad(path, a):
-        if path[-1].key not in ("k", "v"):
+        axis = SEQ_AXIS.get(path[-1].key)
+        if axis is None:
             return a
         widths = [(0, 0)] * a.ndim
-        widths[-3] = (0, max_len - plen)
+        widths[axis] = (0, max_len - plen)
         return jnp.pad(a, widths)
 
     return jax.tree_util.tree_map_with_path(pad, cache)
@@ -235,6 +245,64 @@ def jax_moe_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> d
     return jax_smoke_golden(MOE_ARCH, seed, batch, seq)
 
 
+MLA_ARCH = "deepseek-v3-671b"
+
+
+def seeded_experts(model, seed: int) -> dict:
+    """The routed expert stacks (``we_*``) of ``model``'s tree as
+    :func:`interop.seeded_bf16` recipes: normal noise at the fan-in scale,
+    one seed a leaf."""
+    from repro.models.common import Param
+
+    flat, _ = jax.tree_util.tree_flatten_with_path(model.defs(),
+                                                   is_leaf=lambda x: isinstance(x, Param))
+    out = {}
+    for i, (path, p) in enumerate(flat):
+        keys = tuple(k.key for k in path)
+        if keys[-1].startswith("we_"):
+            out[keys] = dict(seed=np.int64(seed * 1000 + i), shape=np.array(p.shape),
+                             std=np.float32(1.0 / np.sqrt(p.shape[-2])))
+    return out
+
+
+def _tree_set(tree, path, val):
+    return {**tree, path[0]: val if len(path) == 1 else _tree_set(tree[path[0]], path[1:], val)}
+
+
+def jax_mla_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """:func:`jax_smoke_golden` of ``deepseek-v3-671b`` (MLA, 8 routed
+    experts, top-2, one shared), plus the calibration stats of a forward
+    over the batch and the last-position logits of the model quantized with
+    them, as :func:`jax_lm_golden` keeps. The routed expert stacks, 80 % of
+    the weights, are drawn from the numpy seeds of :func:`seeded_experts`
+    and the file keeps the seeds, which holds it under 1 MB."""
+    model = fp32_smoke_model(MLA_ARCH)
+    dense = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype),
+                                   model.init(jax.random.PRNGKey(seed)))
+    experts = seeded_experts(model, seed)
+    for path, spec in experts.items():
+        bits = seeded_bf16(**spec)["bf16"]
+        dense = _tree_set(dense, path, jnp.asarray(bits.view(jnp.bfloat16)).astype(jnp.float32))
+    params = model.compress(dense)
+    tokens = np.random.default_rng(seed).integers(0, model.cfg.vocab_size, (batch, seq))
+    tokens = jnp.asarray(tokens.astype(np.int32))
+    logits = model.forward(params, {"tokens": tokens})
+    _, stats = model.forward(params, {"tokens": tokens}, collect_act_stats=True)
+    nxt = jnp.argmax(logits[:, -1:], axis=-1).astype(jnp.int32)
+    step, _ = model.decode_step(params, jax_cache_after(model, params, tokens, seq + 1),
+                                {"tokens": nxt}, jnp.int32(seq))
+    qlogits = model.forward(model.quantize(params, stats), {"tokens": tokens})
+    bits = to_numpy(jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a, params))
+    for path, spec in experts.items():
+        bits = _tree_set(bits, path, spec)
+    return dict(params=bits, tokens=np.array(tokens), prefill=np.array(logits[:, -1:]),
+                next=np.array(nxt), decode=np.array(step),
+                stats={"names": np.array([st.name for st in stats]),
+                       "absmax": np.array([st.absmax for st in stats], np.float64)},
+                quant=np.array(qlogits[:, -1:]))
+
+
 def fixture_bytes(chain: dict) -> bytes:
     buf = io.BytesIO()
     np.savez_compressed(buf, **flatten(chain))
@@ -253,3 +321,5 @@ if __name__ == "__main__":
     for arch, path in FIXTURE_RECURRENT.items():
         path.write_bytes(fixture_bytes(jax_smoke_golden(arch)))
         print(f"wrote {path} ({path.stat().st_size} bytes)")
+    FIXTURE_MLA.write_bytes(fixture_bytes(jax_mla_golden()))
+    print(f"wrote {FIXTURE_MLA} ({FIXTURE_MLA.stat().st_size} bytes)")
