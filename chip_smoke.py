@@ -158,7 +158,36 @@ Phases, each of which fails the run:
         within 1e-3, as 7d;
      d. the INT8 prefill plan as 7c (every MLA projection staged with its
         calibrated scale), bit for bit against the unplanned forward;
- 11. one JSON line of the six kernels (launches, errors, times, bounds).
+ 11. the frontends and cross-attention at full width and depth, each model
+     in turn and freed before the next is built: musicgen-medium (48
+     layers, d_model 1536, 24 heads of 64, d_ff 6144 GELU, LayerNorm, 4
+     codebooks of 2048 summed at the input and a 4 x 2048 head, cross-
+     attention after every self-attention to a 128-slot text memory; 1.84 B
+     weights; a 256-frame prompt, ~5 s of EnCodec frames at 50 Hz) and
+     internvl2-2b (24 layers, d_model 2048, 16 query and 8 KV heads of 128,
+     d_ff 8192, vocab 92553; 1.89 B weights; a 512-token prompt: one 448 x
+     448 tile's 256 vision embeddings over the first positions, then 256
+     text tokens); the encoders' outputs are seeded stand-ins, as in the
+     reference:
+     a. the tc matmul's bf16 and int8 instantiations at each model's
+        projection shapes (1536->1536, 1536->6144, 6144->1536; 2048->2048,
+        2048->1024, 2048->8192, 8192->2048) at 4 rows and the prefill's
+        (1024; 2048), the cross wk/wv at the memory's 512 rows, as 7a;
+     b. generation as 7b, compressed then dense, with peak GB, the side
+        inputs static buffers of the prefill's graph: a musicgen prefill
+        runs 10 compressed projections a layer, a decode step 8 (the cross
+        K/V are the prefill's, read from the cache), audio tokens (4, 32,
+        4); the fresh-forward gate (2e-2) on the served model, the forward
+        fed the same memory and vision embeddings; the decode bound reads
+        the cross K/V and not the cross wk/wv;
+     c. each model's JAX fixture (tests/data/torch_parity_audio.npz,
+        torch_parity_vlm.npz: the smoke config, fp32) through generate's
+        graphs, as 8c, and its quantized forward within 1e-3, as 7d;
+     d. ``LM.plan`` and ``serve_lm_plan`` refuse both (the reference's
+        ``LM.plan`` does), so the calibrated INT8 prefill runs unplanned:
+        one int8 launch per projection per forward, timed, its logits'
+        distance from the bf16 forward's logged;
+ 12. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -1134,12 +1163,17 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
 
 
 def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32,
-               unit="one layer's") -> dict:
-    """Phase 7a (8a at moonshot's shapes, bf16 only; 9a at the recurrent
-    decoders'): {dtype name: {(shape, rows): record}} at each of ``shapes``
-    (default ``LM_SHAPES``: (K, N, projections of the shape in ``unit``)),
-    decode and prefill rows."""
+               unit="one layer's", rows=None) -> dict:
+    """Phase 7a (8a at moonshot's shapes, bf16 only; 9a–11a at the other
+    models'): {dtype name: {(shape, phase): record}} at each of ``shapes``
+    (default ``LM_SHAPES``: (K, N, projections of the shape in ``unit``[,
+    the phases it runs at])) and each phase's rows (``rows``, default
+    ``LM_ROWS``: decode and prefill)."""
     shapes = LM_SHAPES if shapes is None else shapes
+    rows = LM_ROWS if rows is None else rows
+
+    def phases(spec):
+        return spec[3] if len(spec) > 3 else tuple(rows)
     kinds = {"bf16": torch.bfloat16, "int8": torch.int8}
     out = {key: {} for key in dtypes}
     log(f"[lm kernels] shape              rows  dtype  ms        device_ms  plain_ms  "
@@ -1148,8 +1182,10 @@ def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32,
     def ms(v):
         return "None" if v is None else f"{v:.4f}"
 
-    for name, (k, n, _) in shapes.items():
-        for phase, m in LM_ROWS.items():
+    for name, spec in shapes.items():
+        k, n = spec[:2]
+        for phase in phases(spec):
+            m = rows[phase]
             for key in dtypes:
                 dtype = kinds[key]
                 r = lm_kernel(k, n, m, dtype, gen, dev, f"{name} {k}->{n} at M={m}")
@@ -1160,15 +1196,16 @@ def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32,
                     + (f"; plan {json.dumps(r['plan'])}; max diff {r['err']:.3g}, "
                        f"{r['beyond_plain_ulp']} entries beyond one ulp of |plain|"
                        if key == "bf16" else "") + f"  [{r['library_call']}]")
-    per = sum(v[2] for v in shapes.values())
     for key in out:
-        for phase in LM_ROWS:
+        for phase in rows:
+            at = [s for s, spec in shapes.items() if phase in phases(spec)]
+            per = sum(shapes[s][2] for s in at)
             per_layer = {}
             for f in ("device_ms", "bound_ms", "library_device_ms"):
                 # None where the profiler delivered no record of a shape's call
-                vals = [out[key][(s, phase)][f] for s in shapes]
+                vals = [out[key][(s, phase)][f] for s in at]
                 per_layer[f] = (None if None in vals else
-                                sum(v * shapes[s][2] for s, v in zip(shapes, vals)))
+                                sum(v * shapes[s][2] for s, v in zip(at, vals)))
             dev_ms = per_layer["device_ms"]
             log(f"[lm kernels] {key} {phase}: {unit} {per} projections, device "
                 f"{ms(dev_ms)} ms, library {ms(per_layer['library_device_ms'])} ms, "
@@ -1194,42 +1231,64 @@ def tensor_bytes(tree, skip=()) -> int:
     return total
 
 
+def decode_skips(model, path) -> bool:
+    """Whether a decode step leaves the DBB leaf at ``path`` unread: an
+    MLA block's ``wkv_b`` (the absorbed decode reads it decoded) and a
+    cross block's ``wk``/``wv`` (the memory's K/V are the prefill's, in
+    the cache)."""
+    return ((model.cfg.mixer == "mla" and path[-1] == "wkv_b")
+            or (len(path) > 1 and path[-2] == "cross" and path[-1] in ("wk", "wv")))
+
+
 def projections(model, kind: str = "prefill") -> int:
     """The compressed projections one forward of ``kind`` runs: each DBB
-    leaf once per layer group it is stacked over; at ``"decode"`` an MLA
-    block's ``wkv_b`` drops out (the absorbed decode reads it decoded)."""
+    leaf once per layer group it is stacked over; at ``"decode"`` without
+    those :func:`decode_skips` names."""
     from repro_torch.models.common import dbb_leaves
 
-    absorbed = kind == "decode" and model.cfg.mixer == "mla"
     return sum(model.cfg.num_groups if path[0] == "layers" else 1
                for path, _ in dbb_leaves(model.defs())
-               if not (absorbed and path[-1] == "wkv_b"))
+               if not (kind == "decode" and decode_skips(model, path)))
 
 
-def decode_bound(model) -> tuple:
+def decode_bound(model, prompt_len=None) -> tuple:
     """The least time a decode step could take, from the bytes it must move:
-    every weight but the embedding table, of which it reads B rows, or all
-    of it when the logits are tied to it, and an MLA block's ``wkv_b`` as
-    the step reads it, decoded to dense (``LM._absorb``) in place of the
-    leaf; each attention block's K/V at its cache's full length (a local
-    block's ring at most its window), read; an MLA block's ``c_kv`` and
-    ``k_rope``, read, and one slot of each written; each recurrent block's
-    state, read and written. Returns (ms, bytes)."""
+    every weight but the embedding table, of which it reads B rows (B rows
+    of each codebook's for audio), or all of it when the logits are tied to
+    it, an MLA block's ``wkv_b`` as the step reads it, decoded to dense
+    (``LM._absorb``) in place of the leaf, and no cross block's ``wk`` or
+    ``wv`` (:func:`decode_skips`); each attention block's K/V at its cache's
+    full length, ``prompt_len`` (default ``LM_PROMPT``) + ``LM_GEN`` (a
+    local block's ring at most its window), and a cross block's memory K/V
+    (``cross_len`` slots), read; an MLA block's ``c_kv`` and ``k_rope``,
+    read, and one slot of each written; each recurrent block's state, read
+    and written. Returns (ms, bytes)."""
+    from repro_torch.models.attention import GQAttention
+    from repro_torch.models.common import dbb_leaves, tree_get
+
     c = model.cfg
+    plen = LM_PROMPT if prompt_len is None else prompt_len
     state = model.state()
     table = state["embed"]
-    rows = table.shape[0] if c.tie_embeddings else LM_BATCH
+    rows = (table.shape[0] if c.tie_embeddings else
+            LM_BATCH * (c.num_codebooks if c.frontend == "audio" else 1))
     weights = tensor_bytes(state, skip=("embed",)) + rows * c.d_model * table.element_size()
     for (block, g), pair in model._absorbed.items():
         weights += sum(w.numel() * w.element_size() for w in pair)
         weights -= tensor_bytes({"wkv_b": state["layers"][block]["mixer"]["wkv_b"][g]})
+    for path, _ in dbb_leaves(model.defs()):
+        if c.mixer != "mla" and decode_skips(model, path):
+            weights -= tensor_bytes({"w": tree_get(state, path)})
     cache = 0
     for kind in list(c.pattern) * c.num_groups + list(c.tail_pattern):
-        leaves = model._mixer(kind).init_cache(LM_BATCH, LM_PROMPT + LM_GEN, c.compute_dtype,
-                                               "meta")
+        leaves = model._mixer(kind).init_cache(LM_BATCH, plen + LM_GEN, c.compute_dtype, "meta")
+        if c.cross_attn and kind != "rwkv":
+            leaves = dict(leaves, **{f"cross_{k}": v for k, v in GQAttention(
+                c, cross=True).init_cache(LM_BATCH, plen + LM_GEN, c.compute_dtype,
+                                          "meta").items()})
         for k, v in leaves.items():
             n = v.numel() * v.element_size()
-            if k in ("k", "v"):
+            if k in ("k", "v", "cross_k", "cross_v"):
                 cache += n
             elif k in ("c_kv", "k_rope"):  # and one slot written
                 cache += n + v[:, 0].numel() * v.element_size()
@@ -1276,27 +1335,39 @@ def as_fp32(tree) -> dict:
     return out
 
 
-def fp32_consistency(model, prompt) -> dict:
+def side_inputs(inputs) -> dict:
+    """A prompt batch's side inputs (``memory``, ``vision_embeds``): what a
+    forward takes beside the tokens."""
+    return {k: v for k, v in inputs.items() if k != "tokens"}
+
+
+def fp32_consistency(model, inputs) -> dict:
     """The model's weights in fp32 (the fp32 instantiation of the tc
-    kernel): generate from ``prompt`` through graphs, then each kept decode
-    step's logits against a fresh fp32 forward over the prompt and the
-    tokens fed. {step: relative L2}."""
+    kernel): generate from the prompt batch ``inputs`` (tokens and side
+    inputs) through graphs, then each kept decode step's logits against a
+    fresh fp32 forward over the prompt and the tokens fed, with the same
+    side inputs. {step: relative L2}."""
     from repro_torch.launch import serve
     from repro_torch.models.model import LM
 
     cfg = dataclasses.replace(model.cfg, param_dtype=torch.float32, compute_dtype=torch.float32)
     m32 = LM(cfg).load_params(as_fp32(model.state()))
-    rec = serve.generate(m32, {"tokens": prompt}, gen_len=LM_GEN, max_len=LM_PROMPT + LM_GEN,
+    prompt = inputs["tokens"]
+    rec = serve.generate(m32, inputs, gen_len=LM_GEN, max_len=prompt.shape[1] + LM_GEN,
                          keep=LM_KEEP)
     with torch.no_grad():
-        return {i: rel_l2(lg, m32.forward(torch.cat([prompt, rec["tokens"][:, : i + 1]], 1))[:, -1:])
+        return {i: rel_l2(lg, m32.forward(torch.cat([prompt, rec["tokens"][:, : i + 1]], 1),
+                                          **side_inputs(inputs))[:, -1:])
                 for i, lg in rec["logits"].items()}
 
 
-def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> dict:
+def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate",
+                prompt_len=None) -> dict:
     """Phase 7b (``starcoder2-7b``), 8b (the MoE), 9b (the recurrent
-    decoders) and 10b (MLA; ``arch`` a name or a ``ModelConfig``, here
-    deepseek-v3-671b cut to two layers): full-width generation through ``generate``'s CUDA graphs,
+    decoders), 10b (MLA; ``arch`` a name or a ``ModelConfig``, here
+    deepseek-v3-671b cut to two layers) and 11b (the frontends; a prompt of
+    ``prompt_len`` tokens, default ``LM_PROMPT``, with its side inputs):
+    full-width generation through ``generate``'s CUDA graphs,
     compressed then dense, each against an eager run of the same model
     (``graph=False``) bit for bit. Returns the record: the compressed run's
     launches and both runs' times and bounds.
@@ -1316,6 +1387,7 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
 
     out = {}
     name = getattr(arch, "name", arch)
+    plen = LM_PROMPT if prompt_len is None else prompt_len
     for dense in (False, True):
         label = "dense" if dense else "compressed"
         gc.collect()  # the previous build's graphs, caches and weights
@@ -1323,13 +1395,16 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
         torch.cuda.reset_peak_memory_stats()
         t0 = time.time()
         build.reset_launches()
-        rec = serve.serve_lm(arch, batch=LM_BATCH, prompt_len=LM_PROMPT, gen=LM_GEN, device=dev,
+        rec = serve.serve_lm(arch, batch=LM_BATCH, prompt_len=plen, gen=LM_GEN, device=dev,
                              seed=0, dense=dense, smoke=LM_SMOKE, keep=LM_KEEP, log=log)
         counts = main_path_launches(rec)
         model = rec["model"]
         c = model.cfg
+        side = side_inputs(rec["inputs"])
         toks = rec["tokens"]
-        if toks.shape != (LM_BATCH, LM_GEN) or int(toks.min()) < 0 or int(toks.max()) >= c.padded_vocab:
+        books = (c.num_codebooks,) if c.frontend == "audio" else ()
+        vocab = c.codebook_vocab if books else c.padded_vocab
+        if toks.shape != (LM_BATCH, LM_GEN) + books or int(toks.min()) < 0 or int(toks.max()) >= vocab:
             raise AssertionError(f"{label}: generated tokens {tuple(toks.shape)} out of range")
         # every forward generate enqueued (eager warm-ups, the one each
         # capture records, replays), each through every projection it runs
@@ -1342,8 +1417,8 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
         if rec["captures"] != 2 or graphs != bool(rec["graph_launches"]):
             raise AssertionError(f"{label}: {rec['captures']} captures, graph launches "
                                  f"{rec['graph_launches']}: want the prefill's and the step's")
-        eager = serve.generate(model, {"tokens": rec["prompt"]}, gen_len=LM_GEN,
-                               max_len=LM_PROMPT + LM_GEN, keep=LM_KEEP, graph=False)
+        eager = serve.generate(model, rec["inputs"], gen_len=LM_GEN, max_len=plen + LM_GEN,
+                               keep=LM_KEEP, graph=False)
         if not torch.equal(eager["tokens"], toks) or any(
                 not torch.equal(eager["logits"][i], lg) for i, lg in rec["logits"].items()):
             raise AssertionError(f"{label}: replayed decode differs from the eager decode")
@@ -1355,19 +1430,19 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
                     raise AssertionError(f"{label}: decode step {i} logits not finite")
                 if fresh_gate:
                     seq = torch.cat([rec["prompt"], toks[:, : i + 1]], dim=1)
-                    served[i] = rel_l2(lg, model.forward(seq)[:, -1:])
-        errs = fp32_consistency(model, rec["prompt"]) if fresh_gate == "fp32" else served
+                    served[i] = rel_l2(lg, model.forward(seq, **side)[:, -1:])
+        errs = fp32_consistency(model, rec["inputs"]) if fresh_gate == "fp32" else served
         if any(e > 2e-2 for e in errs.values()):
             raise AssertionError(f"{label}: decode logits rel L2 {errs} against fresh "
                                  f"{'fp32 ' if fresh_gate == 'fp32' else ''}forwards > 2e-2")
         mixer = mla_mixer_gate(model, rec["prompt"], label) if c.mixer == "mla" else None
-        b_ms, b_bytes = decode_bound(model)
+        b_ms, b_bytes = decode_bound(model, plen)
         # where a replayed decode step's time goes: the device's busy and
         # idle share over 4 replays at the last position of a full-length
         # cache, and each kernel's share; then a replayed prefill's
-        cache = model.init_cache(LM_BATCH, LM_PROMPT + LM_GEN)
+        cache = model.init_cache(LM_BATCH, plen + LM_GEN)
         last = toks[:, -1:].contiguous()
-        pos = torch.tensor(LM_PROMPT + LM_GEN - 1, device=dev)
+        pos = torch.tensor(plen + LM_GEN - 1, device=dev)
         per_step = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model, "decode")}
         per_prefill = {"vdbb_matmul_tc_bf16": 0 if dense else projections(model)}
         with torch.no_grad():
@@ -1381,7 +1456,7 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
             step()
             prof["replay_enqueue_ms"] = (time.perf_counter() - t_enq) * 1e3
             del step
-            prefill = graphed(lambda: model.forward(rec["prompt"]), dev)
+            prefill = graphed(lambda: model.forward(rec["prompt"], **side), dev)
             prefill_prof = profile_forwards(prefill, rec["prompt"], per_prefill, reps=2)
             del prefill
         out[label] = dict(prefill_ms=rec["prefill_ms"], ms_per_step=rec["ms_per_step"],
@@ -1415,7 +1490,7 @@ def lm_generate(dev, arch=LM_ARCH, fresh_gate="served", tag="lm generate") -> di
         log(f"[profile] {name} {label} replayed prefill: {json.dumps(prefill_prof)}")
         if c.is_moe:
             log(f"[profile] {name} {label} routed experts: {json.dumps(out[label]['experts'])}")
-        del rec, model, cache, eager
+        del rec, model, cache, eager, side
     return out
 
 
@@ -1522,11 +1597,13 @@ MOE_FIXTURE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
 
 
 def smoke_golden(dev, arch=MOE_ARCH) -> None:
-    """Phase 8c (the MoE), 9c (the recurrent decoders) and 10c (MLA): the
-    JAX reference's fixture of ``arch``'s smoke config in fp32 through the
-    kernels and generate's graphs: the next token equal, prefill and decode
-    logits within 1e-5 relative L2; where the fixture holds calibration
-    stats (MLA's), the forward quantized with them within 1e-3, as 7d."""
+    """Phase 8c (the MoE), 9c (the recurrent decoders), 10c (MLA) and 11c
+    (the frontends, fed the fixture's side inputs): the JAX reference's
+    fixture of ``arch``'s smoke config in fp32 through the kernels and
+    generate's graphs: the next token equal, prefill and decode logits
+    within 1e-5 relative L2; where the fixture holds calibration stats
+    (MLA's, the frontends'), the forward quantized with them within 1e-3,
+    as 7d."""
     import numpy as np
 
     from repro_torch.configs import smoke_config
@@ -1541,12 +1618,13 @@ def smoke_golden(dev, arch=MOE_ARCH) -> None:
                               compute_dtype=torch.float32)
     model = LM(cfg).load_params(params_from_numpy(g["params"], dev))
     tokens = torch.as_tensor(g["tokens"]).to(dev)
-    rec = serve.generate(model, {"tokens": tokens}, gen_len=2, max_len=tokens.shape[1] + 1,
-                         keep=(0,))
+    side = {k: torch.as_tensor(g[k]).to(dev) for k in ("memory", "vision_embeds") if k in g}
+    rec = serve.generate(model, {"tokens": tokens, **side}, gen_len=2,
+                         max_len=tokens.shape[1] + 1, keep=(0,))
     if not torch.equal(rec["tokens"][:, :1].cpu(), torch.as_tensor(g["next"])):
         raise AssertionError(f"{arch} fixture: the greedy next token differs from JAX's")
     with torch.no_grad():
-        pre = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["prefill"]).to(dev))
+        pre = rel_l2(model.forward(tokens, **side)[:, -1:], torch.as_tensor(g["prefill"]).to(dev))
     dec = rel_l2(rec["logits"][0], torch.as_tensor(g["decode"]).to(dev))
     if pre > 1e-5 or dec > 1e-5:
         raise AssertionError(f"{arch} fixture: prefill {pre}, decode {dec} rel L2 against JAX "
@@ -1556,7 +1634,8 @@ def smoke_golden(dev, arch=MOE_ARCH) -> None:
         model.quantize([ActStats(name=str(n), absmax=float(a))
                         for n, a in zip(g["stats"]["names"], g["stats"]["absmax"])])
         with torch.no_grad():
-            qnt = rel_l2(model.forward(tokens)[:, -1:], torch.as_tensor(g["quant"]).to(dev))
+            qnt = rel_l2(model.forward(tokens, **side)[:, -1:],
+                         torch.as_tensor(g["quant"]).to(dev))
         if qnt > 1e-3:
             raise AssertionError(f"{arch} fixture: quantized forward {qnt} rel L2 against JAX "
                                  "(<= 1e-3)")
@@ -1679,6 +1758,207 @@ def mla_phase(gen, dev) -> dict:
     return dict(kernels=kernels, generate=generated, plan=planned, seconds=time.time() - t0)
 
 
+# --------------------------------------------------------------- phase 11
+
+AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "internvl2-2b"
+SIDE_ARCHS = (AUDIO_ARCH, VLM_ARCH)
+SMOKE_FIXTURES.update({AUDIO_ARCH: ROOT / "tests" / "data" / "torch_parity_audio.npz",
+                       VLM_ARCH: ROOT / "tests" / "data" / "torch_parity_vlm.npz"})
+# one layer's compressed projections by shape (K, N, projections of the
+# shape in a layer[, the phases whose rows it runs at]). musicgen: self
+# wq, wk, wv, wo and cross wq, wo (24 heads of 64) at the tokens' rows, the
+# cross wk, wv at the memory's (prefill only), the GELU MLP's w_up, w_down;
+# internvl2: wq, wo (16 heads of 128), wk, wv (8 KV heads), SwiGLU w_up,
+# w_gate, w_down
+SIDE_SHAPES = {
+    AUDIO_ARCH: {"self w*, cross wq/wo": (1536, 1536, 6, ("decode", "prefill")),
+                 "cross wk/wv": (1536, 1536, 2, ("memory",)),
+                 "mlp w_up": (1536, 6144, 1, ("decode", "prefill")),
+                 "mlp w_down": (6144, 1536, 1, ("decode", "prefill"))},
+    VLM_ARCH: {"wq/wo": (2048, 2048, 2), "wk/wv": (2048, 1024, 2),
+               "mlp w_up/w_gate": (2048, 8192, 2), "mlp w_down": (8192, 2048, 1)},
+}
+
+
+def side_prompt(cfg) -> int:
+    """Phase 11's prompt length: ``LM_PROMPT`` tokens, after the vision
+    embeddings' positions for a vision model (256 + 256 at full size)."""
+    return LM_PROMPT + (cfg.num_vision_tokens if cfg.frontend == "vision" else 0)
+
+
+def side_int8(dev, arch, prompt_len, tag) -> dict:
+    """Phase 11d: ``serve_lm_plan`` and ``LM.plan`` refuse a frontend or
+    cross-attention model, as the reference's ``LM.plan`` does, so the
+    INT8 prefill runs unplanned: the compressed model calibrated on the
+    prompt batch (side inputs included) through the bf16 kernel, quantized,
+    then its forward over the same batch: the int8 kernel's launches (one
+    per projection per forward, none of the bf16's), the logits finite and
+    their distance from the bf16 forward's logged, ms by CUDA events."""
+    from repro_torch.kernels import build
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.launch import serve
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    try:
+        serve.serve_lm_plan(arch, batch=LM_BATCH, prompt_len=prompt_len, device=dev,
+                            smoke=LM_SMOKE, log=log)
+    except NotImplementedError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"{arch}: serve_lm_plan planned a model with side inputs")
+    model = serve.build_lm(arch, device=dev, seed=0, smoke=LM_SMOKE)
+    inputs = serve.prompt_tokens(model, batch=LM_BATCH, seq=prompt_len, seed=0)
+    tokens, side = inputs["tokens"], side_inputs(inputs)
+    with torch.no_grad():
+        bf16, stats = model.forward(tokens, **side, collect_act_stats=True)
+    model.quantize(stats)
+    try:
+        model.plan(batch=LM_BATCH, seq=prompt_len)
+    except NotImplementedError:
+        pass
+    else:
+        raise AssertionError(f"{arch}: LM.plan froze a model with side inputs")
+    forwards = []
+
+    def forward():
+        forwards.append(1)
+        return model.forward(tokens, **side)
+
+    build.reset_launches()
+    with torch.no_grad():
+        logits = forward()
+        ms = event_ms(forward, reps=3, warmup=1, device=dev)
+    counts = build.launch_counts()
+    want = projections(model) * len(forwards)  # the checked forward, the warm-up and 3 timed
+    if counts["vdbb_matmul_tc"] != want or any(n for k, n in counts.items()
+                                               if k != "vdbb_matmul_tc"):
+        raise AssertionError(f"{arch} int8: launches {counts}, want {want} of the int8 tc matmul")
+    if not bool(torch.isfinite(logits).all()) or logits.shape != bf16.shape:
+        raise AssertionError(f"{arch} int8: logits {tuple(logits.shape)} not finite")
+    dist = rel_l2(logits, bf16)
+    out = dict(refused=refused, calibrated=len(stats), ms=ms, launches=counts,
+               per_forward=projections(model), rel_l2_to_bf16=dist, seconds=time.time() - t0)
+    log(f"[{tag}] LM.plan and serve_lm_plan refuse it ({refused}); the calibrated INT8 prefill "
+        f"unplanned: {ms:.3f} ms ({LM_BATCH}x{prompt_len}), launches {counts} "
+        f"({projections(model)} a forward), logits rel L2 {dist:.4f} from the bf16 forward's "
+        f"({time.time() - t0:.1f} s)")
+    del model, logits, bf16, inputs, tokens, side
+    return out
+
+
+def side_phase(gen, dev) -> dict:
+    """Phase 11: each frontend or cross-attention model in turn at full
+    width and depth, the one freed before the next is built: its projection
+    shapes on the bf16 and int8 tc matmul at its phases' rows (11a),
+    generation compressed then dense through generate's graphs with the
+    fresh-forward gate (11b), its JAX fixture (11c), the INT8 prefill
+    unplanned (11d). Returns {arch: {"kernels", "generate", "int8"}}."""
+    from repro_torch.launch.serve import lm_config
+
+    out = {}
+    for arch in SIDE_ARCHS:
+        t0 = time.time()
+        cfg = lm_config(arch, smoke=LM_SMOKE)
+        plen = side_prompt(cfg)
+        rows = {"decode": LM_BATCH, "prefill": LM_BATCH * plen}
+        if cfg.cross_attn:
+            rows["memory"] = LM_BATCH * cfg.cross_len
+        kernels = lm_kernels(gen, dev, SIDE_SHAPES[arch], layers=cfg.num_layers, rows=rows)
+        generated = lm_generate(dev, arch, fresh_gate="served", tag=f"{arch} generate",
+                                prompt_len=plen)
+        smoke_golden(dev, arch)
+        int8 = side_int8(dev, arch, plen, tag=f"{arch} int8")
+        out[arch] = dict(kernels=kernels, generate=generated, int8=int8, prompt_len=plen,
+                         seconds=time.time() - t0)
+    return out
+
+
+# --------------------------------------------------------------- phase 12
+
+
+def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
+                 decoders, frontends) -> list:
+    """Phase 12: the kernels' JSON line, one entry per counted kernel from
+    phase 2's records (``recs``: {kernel: [record]}; the bf16 tc matmul's
+    from 7a) and the main paths' launches (``counts``), each with the same
+    kernel at the LM models' shapes beside it (phases 7–11's records)."""
+    from repro_torch.kernels import build
+
+    line = []
+    conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
+    head_library = "torch._int_mm on the decoded int8 weight"
+    library_call = {"im2col_conv": "F.conv2d fp32 (TF32 off)",
+                    "vdbb_conv_tc": conv_library, "vdbb_matmul_tc": head_library,
+                    "vdbb_matmul_tc_bf16": "torch.matmul bf16 on the decoded dense weight",
+                    "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library}
+
+    def total(rs, key):
+        vals = [r[key] for r in rs]
+        return None if None in vals else sum(vals)
+
+    def at_shapes(by_shape, launches) -> dict:
+        """A kernel's records {(shape, phase): record} at one model's shapes,
+        summed, beside its launches on that model's main path."""
+        rs = list(by_shape.values())
+        return {"shapes": [f"{s}:{p}" for s, p in by_shape], "launches": launches,
+                "max_abs_err": max(r["err"] for r in rs),
+                **{k: total(rs, k) for k in ("ms", "plain_ms", "device_ms", "bound_ms",
+                                             "library_ms", "library_device_ms")}}
+
+    for name, rs in recs.items():
+        k = build.kernel_of(name)
+        line.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{k.source}",
+            "replaces": k.replaces, "launches": counts[name],
+            "max_abs_err": max(r["err"] for r in rs),
+            "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
+            "device_ms": (None if any(r["device_ms"] is None for r in rs)
+                          else sum(r["device_ms"] for r in rs)),
+            "bound_ms": sum(r["bound_ms"] for r in rs),
+            "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": total(rs, "library_ms"),
+            "library_device_ms": total(rs, "library_device_ms"),
+            "library_call": library_call[name], "layers": len(rs),
+            "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
+        })
+        if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
+            line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
+                            main_path="LM generate (phase 7b)")
+            # the same kernel at moonshot's shapes (phase 8), the recurrent
+            # decoders' and MLA's (9, 10) and the frontends' (11)
+            moe_c = moe_gen["compressed"]
+            line[-1]["moe"] = dict(
+                at_shapes(moe_recs, moe_c["launches"][name]),
+                graph_replay_launches_per_step=moe_c["replay_launches"]["decode"][name])
+            for arch, r in {**decoders, **frontends}.items():
+                gen_c = r["generate"]["compressed"]
+                line[-1][arch] = dict(
+                    at_shapes(r["kernels"]["bf16"], gen_c["launches"][name]),
+                    graph_replay_launches={kind: per[name] for kind, per
+                                           in gen_c["replay_launches"].items()})
+            line[-1]["graph_replay_launches"] = (
+                lm_gen["compressed"]["replay_launches"]["decode"][name])
+        if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
+            line[-1]["lm"] = dict(
+                at_shapes(lm_recs["int8"], lm_planned["launches"][name]),
+                # torch._int_mm refuses 4 rows: the library call at prefill rows only
+                prefill={k: total([r for (_, p), r in lm_recs["int8"].items()
+                                   if p == "prefill"], k)
+                         for k in ("ms", "device_ms", "library_ms", "library_device_ms")},
+                graph_replay_launches_per_prefill=lm_planned["replay_launches"][name])
+            for arch, r in decoders.items():  # the recurrent decoders' and MLA's plans
+                line[-1][arch] = dict(
+                    at_shapes(r["kernels"]["int8"], r["plan"]["launches"][name]),
+                    graph_replay_launches_per_prefill=r["plan"]["replay_launches"][name])
+            for arch, r in frontends.items():  # phase 11d: the INT8 prefill, unplanned
+                line[-1][arch] = dict(at_shapes(r["kernels"]["int8"], r["int8"]["launches"][name]),
+                                      launches_per_unplanned_prefill=r["int8"]["per_forward"])
+    return line
+
+
 # ------------------------------------------------------------------- main
 
 
@@ -1784,88 +2064,11 @@ def main() -> int:
     phase_done("9 recurrent decoders")
     decoders = {**recurrent, MLA_ARCH: mla_phase(gen, dev)}
     phase_done("10 MLA")
+    frontends = side_phase(gen, dev)
+    phase_done("11 frontends and cross-attention")
 
-    line = []
-    conv_library = "F.conv2d fp32 on decoded weights (TF32 off)"
-    head_library = "torch._int_mm on the decoded int8 weight"
-    library_call = {"im2col_conv": "F.conv2d fp32 (TF32 off)",
-                    "vdbb_conv_tc": conv_library, "vdbb_matmul_tc": head_library,
-                    "vdbb_matmul_tc_bf16": "torch.matmul bf16 on the decoded dense weight",
-                    "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library}
-
-    def total(rs, key):
-        vals = [r[key] for r in rs]
-        return None if None in vals else sum(vals)
-
-    for name, rs in recs.items():
-        k = build.kernel_of(name)
-        line.append({
-            "name": name, "route": "cuda",
-            "source": f"src/repro_torch/kernels/csrc/{k.source}",
-            "replaces": k.replaces, "launches": counts[name],
-            "max_abs_err": max(r["err"] for r in rs),
-            "ms": sum(r["ms"] for r in rs), "plain_ms": sum(r["plain_ms"] for r in rs),
-            "device_ms": (None if any(r["device_ms"] is None for r in rs)
-                          else sum(r["device_ms"] for r in rs)),
-            "bound_ms": sum(r["bound_ms"] for r in rs),
-            "bound_by": max(rs, key=lambda r: r["bound_ms"])["bound_by"],
-            "library_ms": total(rs, "library_ms"),
-            "library_device_ms": total(rs, "library_device_ms"),
-            "library_call": library_call[name], "layers": len(rs),
-            "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
-        })
-        if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
-            line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
-                            main_path="LM generate (phase 7b)")
-            moe = list(moe_recs.values())
-            line[-1]["moe"] = {  # the same kernel at moonshot's shapes, phase 8
-                "shapes": [f"{s}:{p}" for s, p in moe_recs],
-                "launches": moe_gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"],
-                "max_abs_err": max(r["err"] for r in moe), "ms": total(moe, "ms"),
-                "plain_ms": total(moe, "plain_ms"), "device_ms": total(moe, "device_ms"),
-                "bound_ms": total(moe, "bound_ms"), "library_ms": total(moe, "library_ms"),
-                "library_device_ms": total(moe, "library_device_ms"),
-                "graph_replay_launches_per_step":
-                    moe_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"]}
-            for arch, r in decoders.items():  # the recurrent decoders' and MLA's, phases 9, 10
-                rs = list(r["kernels"]["bf16"].values())
-                gen_c = r["generate"]["compressed"]
-                line[-1][arch] = {
-                    "shapes": [f"{s}:{p}" for s, p in r["kernels"]["bf16"]],
-                    "launches": gen_c["launches"]["vdbb_matmul_tc_bf16"],
-                    "max_abs_err": max(x["err"] for x in rs), "ms": total(rs, "ms"),
-                    "plain_ms": total(rs, "plain_ms"), "device_ms": total(rs, "device_ms"),
-                    "bound_ms": total(rs, "bound_ms"), "library_ms": total(rs, "library_ms"),
-                    "library_device_ms": total(rs, "library_device_ms"),
-                    "graph_replay_launches_per_step":
-                        gen_c["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"]}
-            line[-1]["graph_replay_launches"] = (
-                lm_gen["compressed"]["replay_launches"]["decode"]["vdbb_matmul_tc_bf16"])
-        if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
-            lm8 = list(lm_recs["int8"].values())
-            line[-1]["lm"] = {
-                "shapes": [f"{s}:{p}" for s, p in lm_recs["int8"]],
-                "launches": lm_planned["launches"]["vdbb_matmul_tc"],
-                "max_abs_err": 0.0, "ms": total(lm8, "ms"), "plain_ms": total(lm8, "plain_ms"),
-                "device_ms": total(lm8, "device_ms"), "bound_ms": total(lm8, "bound_ms"),
-                "library_ms": total(lm8, "library_ms"),
-                "library_device_ms": total(lm8, "library_device_ms"),
-                # torch._int_mm refuses 4 rows: the library call at prefill rows only
-                "prefill": {k: total([r for (_, p), r in lm_recs["int8"].items()
-                                      if p == "prefill"], k)
-                            for k in ("ms", "device_ms", "library_ms", "library_device_ms")},
-                "graph_replay_launches_per_prefill": lm_planned["replay_launches"]["vdbb_matmul_tc"]}
-            for arch, r in decoders.items():  # the recurrent decoders' and MLA's shapes and plans
-                rs = list(r["kernels"]["int8"].values())
-                line[-1][arch] = {
-                    "shapes": [f"{s}:{p}" for s, p in r["kernels"]["int8"]],
-                    "launches": r["plan"]["launches"]["vdbb_matmul_tc"], "max_abs_err": 0.0,
-                    "ms": total(rs, "ms"), "plain_ms": total(rs, "plain_ms"),
-                    "device_ms": total(rs, "device_ms"), "bound_ms": total(rs, "bound_ms"),
-                    "library_ms": total(rs, "library_ms"),
-                    "library_device_ms": total(rs, "library_device_ms"),
-                    "graph_replay_launches_per_prefill":
-                        r["plan"]["replay_launches"]["vdbb_matmul_tc"]}
+    line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
+                        decoders, frontends)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -1878,6 +2081,9 @@ def main() -> int:
     for arch, r in decoders.items():
         log(f"[{arch}] generate: {json.dumps(r['generate'])}")
         log(f"[{arch}] plan: {json.dumps(r['plan'], default=str)}")
+    for arch, r in frontends.items():
+        log(f"[{arch}] generate: {json.dumps(r['generate'])}")
+        log(f"[{arch}] int8: {json.dumps(r['int8'], default=str)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

@@ -10,9 +10,11 @@ scales], bz, nnz, group, shape}`` (``scales`` makes it a
 an int, or the strings ``'none'`` / ``'<int>'`` as an ``.npz`` file stores
 them. numpy has no bf16, so a bf16 array travels as its raw bits: a dict
 ``{"bf16": uint16 array}`` (:func:`bf16_bits`), read back bit for bit. A
-bf16 leaf of seeded noise may travel as its recipe instead, ``{"seed",
-"shape", "std"}``: :func:`seeded_bf16` draws it again, the same bits on
-both sides (a fixture keeps a MoE's expert stacks so, not their values).
+leaf of seeded noise may travel as its recipe instead, ``{"seed", "shape",
+"std"}`` for bf16 (:func:`seeded_bf16`) or ``{"seed", "shape", "std",
+"fp32"}`` for fp32 (:func:`seeded_fp32`): drawn again, the same bits on
+both sides (a fixture keeps a MoE's expert stacks so, and the audio
+model's codebook tables and head, not their values).
 
 ``flatten`` / ``unflatten`` map a tree to and from the ``'/'``-joined keys of
 an ``.npz`` archive. Nothing here imports JAX.
@@ -43,19 +45,27 @@ def bf16_bits(bits) -> dict:
 
 
 SEEDED = {"seed", "shape", "std"}
+SEEDED_FP32 = SEEDED | {"fp32"}
+
+
+def seeded_fp32(seed, shape, std, fp32=True) -> np.ndarray:
+    """Normal noise of ``std`` from numpy's ``default_rng(seed)``, in fp32.
+    (``fp32`` is the recipe's tag, :data:`SEEDED_FP32`.)"""
+    shape = tuple(int(s) for s in np.asarray(shape).reshape(-1))
+    x = np.random.default_rng(int(np.asarray(seed))).standard_normal(shape, dtype=np.float32)
+    return x * np.float32(np.asarray(std))
 
 
 def seeded_bf16(seed, shape, std) -> dict:
-    """Normal noise of ``std`` from numpy's ``default_rng(seed)``, drawn in
-    fp32 and rounded to bf16 (to nearest, ties to even) in numpy, as
-    :func:`bf16_bits` carries it."""
-    shape = tuple(int(s) for s in np.asarray(shape).reshape(-1))
-    x = np.random.default_rng(int(np.asarray(seed))).standard_normal(shape, dtype=np.float32)
-    bits = (x * np.float32(np.asarray(std))).view(np.uint32)
+    """:func:`seeded_fp32`'s noise rounded to bf16 (to nearest, ties to
+    even) in numpy, as :func:`bf16_bits` carries it."""
+    bits = seeded_fp32(seed, shape, std).view(np.uint32)
     return bf16_bits(((bits + 0x7FFF + ((bits >> 16) & 1)) >> 16).astype(np.uint16))
 
 
 def _tensor(v, device):
+    if isinstance(v, dict) and set(v) == SEEDED_FP32:
+        v = seeded_fp32(**v)
     if isinstance(v, dict) and set(v) == SEEDED:
         v = seeded_bf16(**v)
     if isinstance(v, dict) and set(v) == {"bf16"}:
@@ -74,7 +84,7 @@ def _leaf(v, device):
             scales = torch.from_numpy(np.array(v["scales"], np.float32)).to(device)
             return QuantDBBWeight(values, indices, scales, fmt, shape)
         return DBBWeight(values, indices, fmt, shape)
-    if isinstance(v, dict) and set(v) not in ({"bf16"}, SEEDED):
+    if isinstance(v, dict) and set(v) not in ({"bf16"}, SEEDED, SEEDED_FP32):
         return {k: _leaf(x, device) for k, x in v.items()}
     return _tensor(v, device)
 

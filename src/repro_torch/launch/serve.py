@@ -38,16 +38,23 @@ KV cache; on a card the prefill and the decode step are each captured once
 into a CUDA graph and replayed. A MoE arch (``moonshot-v1-16b-a3b``) runs
 the same way, its expert stacks dense, and so do the recurrent decoders
 (``recurrentgemma-2b``: RG-LRU and local attention; ``rwkv6-3b``), whose
-decode carries a fixed-size state beside (or instead of) the KV cache. It
-prints prefill ms, ms per decode step and decode steps/s:
+decode carries a fixed-size state beside (or instead of) the KV cache, and
+the frontends' models: ``internvl2-2b`` takes 256 vision embeddings over
+the first positions of a longer prompt, ``musicgen-medium`` 4 codebooks a
+position and cross-attends to a 128-slot text memory; both inputs are
+seeded stand-ins for the encoders, as in the reference. It prints prefill
+ms, ms per decode step and decode steps/s:
 
   python -m repro_torch.launch.serve --arch starcoder2-7b --batch 4 --prompt-len 256 --gen 32
   python -m repro_torch.launch.serve --arch rwkv6-3b --batch 4 --prompt-len 256 --gen 32
+  python -m repro_torch.launch.serve --arch musicgen-medium --batch 4 --prompt-len 256 --gen 32
+  python -m repro_torch.launch.serve --arch internvl2-2b --batch 4 --prompt-len 512 --gen 32
 
 ``--lm-plan`` serves LM prefill through a frozen plan instead: compress,
 calibrate (a bf16 forward through the same kernel), INT8-quantize, then
 ``LM.plan`` (one CUDA graph), checked bit for bit against the unplanned
-INT8 forward and timed in turns with it (``--steps`` calls each):
+INT8 forward and timed in turns with it (``--steps`` calls each); a
+frontend or cross-attention model refuses it, as the reference:
 
   python -m repro_torch.launch.serve --arch starcoder2-7b --lm-plan --batch 4 --prompt-len 256
 
@@ -68,8 +75,8 @@ from repro_torch.configs import (ARCHS, CNN_ARCHS, get_cnn_config, get_config, m
 from repro_torch.kernels import build
 from repro_torch.models.cnn import SparseCNN
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.model import LM
-from repro_torch.train.step import make_prefill, make_serve_step
+from repro_torch.models.model import LM, check_plannable
+from repro_torch.train.step import SIDE_INPUTS, make_prefill, make_serve_step
 
 
 def build_model(arch: str, *, calib_batch: int, device, seed: int = 0,
@@ -201,6 +208,8 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
 # the sequence caches, by key, and the axis each grows along: K/V (…, S,
 # kv, hd), MLA's latent c_kv (…, S, r) and k_rope (…, S, qk_rope_dim)
 SEQ_AXIS = {"k": -3, "v": -3, "c_kv": -2, "k_rope": -2}
+# a cross block's memory K/V: cross_len slots that decode reads whole
+CROSS = "cross"
 
 
 def pad_cache(cache, plen: int, max_len: int):
@@ -210,12 +219,17 @@ def pad_cache(cache, plen: int, max_len: int):
     gets the prefill's entries in slots 0 … plen - 1 of its sequence axis
     and zeros after, the layout of the reference's ``pad_to_cap``; a
     recurrent block's state (fixed-size: ``h``, ``conv``, ``s``,
-    ``shift``, ``cm_shift``) is copied as it is. The reference pads by
-    shape, which also pads a state leaf whose axis happens to equal
-    ``plen``, and the batch axis of a ``c_kv`` when the batch does."""
+    ``shift``, ``cm_shift``) and a cross block's memory K/V (the ``cross``
+    subtree: padding would add zero keys to every cross softmax) are
+    copied as they are. The reference pads by shape, which also pads a
+    state leaf whose axis happens to equal ``plen``, the batch axis of a
+    ``c_kv`` when the batch does, and the cross K/V when ``plen`` equals
+    ``cross_len``."""
     out = {}
     for k, v in cache.items():
-        if isinstance(v, dict):
+        if k == CROSS:
+            out[k] = {name: t.clone() for name, t in v.items()}
+        elif isinstance(v, dict):
             out[k] = pad_cache(v, plen, max_len)
         elif k in SEQ_AXIS:
             axis = v.dim() + SEQ_AXIS[k]
@@ -231,8 +245,11 @@ def pad_cache(cache, plen: int, max_len: int):
 def restore_state(cache, prefill_cache) -> None:
     """Set every recurrent state leaf of ``cache`` back to the prefill's,
     in place (a decode step advances it; a sequence cache's slots are
-    rewritten by the step at their position)."""
+    rewritten by the step at their position; a cross block's memory K/V
+    are never written)."""
     for k, v in cache.items():
+        if k == CROSS:
+            continue
         if isinstance(v, dict):
             restore_state(v, prefill_cache[k])
         elif k not in SEQ_AXIS:
@@ -259,7 +276,13 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
     bit. On the CPU nothing is captured: ``graph=True`` runs them eagerly
     too and counts each as a staged signature, as ``ModelPlan`` does.
 
-    Returns ``{"tokens": (B, gen_len) int32, "steps_per_s", "prefill_ms",
+    The prompt batch's ``memory`` and ``vision_embeds`` ride beside its
+    tokens as static buffers of the prefill; the step reads no side input.
+    An audio model feeds the argmax's index within a codebook to every
+    codebook, as the reference.
+
+    Returns ``{"tokens": (B, gen_len) int32 ((B, gen_len, num_codebooks)
+    for audio), "steps_per_s", "prefill_ms",
     "ms_per_step", "prefill_host_ms", "host_ms_per_step", "logits": {i: the
     logits of decode step i for i in keep}, "forwards": {"prefill": n,
     "decode": n}, "captures", "replays": {"prefill": n, "decode": n},
@@ -281,21 +304,34 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
     from repro_torch.models.plan import GraphPool, capture
 
     prefill, step = make_prefill(model), make_serve_step(model)
+    c = model.cfg
     dev = model.device
     graphed = graph and dev.type == "cuda"
-    prompt = prompt_batch["tokens"].to(dev).clone()
-    b, plen = prompt.shape
-    tok = torch.zeros((b, 1), dtype=torch.int32, device=dev)  # the token fed to the step
-    pos = torch.zeros((), dtype=torch.int64, device=dev)  # its position
-    out = torch.zeros((b, gen_len), dtype=torch.int32, device=dev)  # the generated tokens
+    # static buffers: the prompt and its side inputs, the token fed to the
+    # step (audio: one per codebook), its position, the generated tokens
+    prompt = {k: v.to(dev).clone() for k, v in prompt_batch.items()
+              if k == "tokens" or k in SIDE_INPUTS}
+    b, plen = prompt["tokens"].shape[:2]
+    books = (c.num_codebooks,) if c.frontend == "audio" else ()
+    tok = torch.zeros((b, 1) + books, dtype=torch.int32, device=dev)
+    pos = torch.zeros((), dtype=torch.int64, device=dev)
+    out = torch.zeros((b, gen_len) + books, dtype=torch.int32, device=dev)
     forwards = {"prefill": 0, "decode": 0}
     replays = {"prefill": 0, "decode": 0}
     graph_launches = {}
 
+    def greedy(logits):
+        """The argmax token (B, 1); audio: its index within a codebook's
+        vocabulary, fed to every codebook, as the reference."""
+        nxt = logits.argmax(dim=-1).to(torch.int32)
+        if books:
+            nxt = (nxt % c.codebook_vocab)[..., None].expand(b, 1, *books)
+        return nxt
+
     def prefill_fn():
         forwards["prefill"] += 1
-        last, kv = prefill({"tokens": prompt})
-        nxt = last.argmax(dim=-1).to(torch.int32)
+        last, kv = prefill(prompt)
+        nxt = greedy(last)
         tok.copy_(nxt)
         out[:, :1].copy_(nxt)
         pos.fill_(plen)
@@ -326,7 +362,7 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
         def step_fn():
             forwards["decode"] += 1
             logits, _ = step(cache, {"tokens": tok}, pos)
-            nxt = logits.argmax(dim=-1).to(torch.int32)
+            nxt = greedy(logits)
             tok.copy_(nxt)
             out.index_copy_(1, pos.reshape(1) - (plen - 1), nxt)
             pos.add_(1)
@@ -381,7 +417,9 @@ def build_lm(arch, *, device=None, seed: int = 0, smoke: bool = False, sparsity=
 
 
 def prompt_tokens(model: LM, *, batch: int, seq: int, seed: int = 0) -> dict:
-    """A seeded prompt batch, drawn on the model's device."""
+    """A seeded prompt batch, drawn on the model's device: its tokens and
+    the side inputs the model takes (``memory``, ``vision_embeds``;
+    ``configs.make_batch``)."""
     gen = torch.Generator(device=model.device).manual_seed(seed + 1)
     return make_batch(model.cfg, batch=batch, seq=seq, generator=gen, kind="serve")
 
@@ -391,7 +429,8 @@ def serve_lm(arch, *, batch: int = 4, prompt_len: int = 32, gen: int = 16, devic
              keep=(), log=print) -> dict:
     """Build ``arch`` (a name or a ``ModelConfig``) and generate ``gen``
     tokens greedily after a ``prompt_len`` prompt. Returns :func:`generate`'s record with the
-    ``model`` and the ``prompt`` tokens."""
+    ``model``, the ``prompt`` tokens and the whole prompt batch as
+    ``inputs`` (the tokens and their side inputs)."""
     model = build_lm(arch, device=device, seed=seed, smoke=smoke, sparsity=sparsity,
                      dense=dense)
     c = model.cfg
@@ -402,11 +441,14 @@ def serve_lm(arch, *, batch: int = 4, prompt_len: int = 32, gen: int = 16, devic
     log(f"[serve] {c.name}: {c.param_count() / 1e6:.2f} M weights, {weights}, "
         f"{str(c.compute_dtype).replace('torch.', '')}, on {where}")
     prompt = prompt_tokens(model, batch=batch, seq=prompt_len, seed=seed)
+    side = ", ".join(f"{k} {tuple(prompt[k].shape)}" for k in SIDE_INPUTS if k in prompt)
+    if side:
+        log(f"[serve] side inputs: {side}")
     rec = generate(model, prompt, gen_len=gen, max_len=prompt_len + gen, keep=keep)
     log(f"[serve] generated {tuple(rec['tokens'].shape)} tokens: prefill "
         f"({batch}x{prompt_len}) {rec['prefill_ms']:.3f} ms, {rec['ms_per_step']:.3f} ms per "
         f"decode step, {rec['steps_per_s']:.2f} decode steps/s")
-    return dict(rec, model=model, prompt=prompt["tokens"])
+    return dict(rec, model=model, prompt=prompt["tokens"], inputs=prompt)
 
 
 def time_in_turns(fns: dict, order, reps: int, device) -> dict:
@@ -434,11 +476,15 @@ def serve_lm_plan(arch, *, batch: int = 4, prompt_len: int = 32, steps: int = 16
     forward recording every projection's input), INT8-quantize,
     ``LM.plan``, validate each request row against the plan's sample spec,
     then check that the plan's logits equal the unplanned INT8 forward's bit
-    for bit and time both in turns. Returns ``{"bit_identical", "plan",
+    for bit and time both in turns. A model with a frontend or
+    cross-attention raises ``NotImplementedError`` first, as ``LM.plan``.
+    Returns ``{"bit_identical", "plan",
     "model", "tokens", "logits", "timing", "captures", "graph_launches"}``."""
     from repro_torch.launch.server import validate_request
 
-    if lm_config(arch, smoke=smoke, sparsity=sparsity).dbb is None:
+    cfg = lm_config(arch, smoke=smoke, sparsity=sparsity)
+    check_plannable(cfg)  # before the build: a frontend or cross-attention cannot be planned
+    if cfg.dbb is None:
         raise SystemExit("--lm-plan needs a DBB config (drop --dense)")
     model = build_lm(arch, device=device, seed=seed, smoke=smoke, sparsity=sparsity)
     tokens = prompt_tokens(model, batch=batch, seq=prompt_len, seed=seed)["tokens"]

@@ -10,8 +10,10 @@ repeats K/V to the query heads before attention (q-chunked when S exceeds
 ``window``. ``MLAttention`` (deepseek's multi-head latent attention) caches
 the latent ``c_kv`` and one shared ``k_rope`` instead of K/V, and decodes in
 the absorbed form: scores and context in the latent space, each einsum
-rounded to the activation dtype as the reference's. Cross-attention is not
-ported (ROADMAP queue 1, item 12e).
+rounded to the activation dtype as the reference's. Cross-attention
+(``GQAttention(cross=True)``) takes K/V from an encoder ``memory`` without
+RoPE or a mask; its cache is the memory's K/V, computed once at prefill and
+only read by decode.
 """
 from __future__ import annotations
 
@@ -49,6 +51,13 @@ def _attend(q, k, v, q_pos, k_pos, *, window: int = 0, kv_valid_len=None):
     return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
 
 
+def _cross_positions(sq: int, sk: int, device):
+    """The reference's cross-attention positions: every query at 1, every
+    memory slot at 0, so the causal mask keeps every pair."""
+    return (torch.ones(sq, dtype=torch.int64, device=device),
+            torch.zeros(sk, dtype=torch.int64, device=device))
+
+
 def attend_chunked(q, k, v, q_pos, k_pos, *, window=0, q_chunk=1024, kv_valid_len=None):
     b, sq, kvh, g, d = q.shape
     if sq <= q_chunk:
@@ -64,11 +73,7 @@ def attend_chunked(q, k, v, q_pos, k_pos, *, window=0, q_chunk=1024, kv_valid_le
 class GQAttention:
     cfg: "ModelConfig"  # noqa: F821
     window: int = 0  # 0 = global causal
-    cross: bool = False
-
-    def __post_init__(self):
-        if self.cross:
-            raise NotImplementedError("cross-attention is not ported (ROADMAP queue 1, item 12)")
+    cross: bool = False  # K/V from an encoder memory, every slot attended
 
     def defs(self):
         c = self.cfg
@@ -91,24 +96,32 @@ class GQAttention:
                             name=name)
 
     # -------------------------------------------------------------- full
-    def __call__(self, p, x, positions):
-        """Full-sequence forward. x: (B,S,d). Returns (out, cache_kv)."""
+    def __call__(self, p, x, positions, memory=None):
+        """Full-sequence forward. x: (B,S,d); a cross block takes K/V from
+        ``memory`` (B, L, d). Returns (out, cache_kv)."""
         c = self.cfg
         hd = c.hd
         b, s, _ = x.shape
+        kv_src = memory if self.cross else x
+        sk = kv_src.shape[1]
         q = self._proj(p, x, "wq", "bq").reshape(b, s, c.num_heads, hd)
-        k = self._proj(p, x, "wk", "bk").reshape(b, s, c.num_kv_heads, hd)
-        v = self._proj(p, x, "wv", "bv").reshape(b, s, c.num_kv_heads, hd)
-        q = rope(q, positions, c.rope_theta)
-        k = rope(k, positions, c.rope_theta)
+        k = self._proj(p, kv_src, "wk", "bk").reshape(b, sk, c.num_kv_heads, hd)
+        v = self._proj(p, kv_src, "wv", "bv").reshape(b, sk, c.num_kv_heads, hd)
+        if not self.cross:
+            q = rope(q, positions, c.rope_theta)
+            k = rope(k, positions, c.rope_theta)
         k_cache, v_cache = k, v  # the cache keeps the compact kv-head layout
         g = c.num_heads // c.num_kv_heads
         if g > 1:  # expand KV to the query heads before attention, as the reference
             k = torch.repeat_interleave(k, g, dim=2)
             v = torch.repeat_interleave(v, g, dim=2)
         qg = q.reshape(b, s, c.num_heads, 1, hd)
-        pos1 = positions[0] if positions.dim() == 2 else positions
-        out = attend_chunked(qg, k, v, pos1, pos1, window=self.window, q_chunk=c.q_chunk)
+        if self.cross:  # every query sees every memory slot
+            qp, kp = _cross_positions(s, sk, x.device)
+            out = attend_chunked(qg, k, v, qp, kp, q_chunk=c.q_chunk)
+        else:
+            pos1 = positions[0] if positions.dim() == 2 else positions
+            out = attend_chunked(qg, k, v, pos1, pos1, window=self.window, q_chunk=c.q_chunk)
         y = self._proj(p, out.reshape(b, s, c.num_heads * hd), "wo")
         return y, {"k": k_cache, "v": v_cache}
 
@@ -116,6 +129,8 @@ class GQAttention:
     def init_cache(self, batch, max_len, dtype, device=None):
         c = self.cfg
         cap = min(self.window, max_len) if self.window else max_len
+        if self.cross:
+            cap = c.cross_len
         shape = (batch, cap, c.num_kv_heads, c.hd)
         return {"k": torch.zeros(shape, dtype=dtype, device=device),
                 "v": torch.zeros(shape, dtype=dtype, device=device)}
@@ -125,10 +140,18 @@ class GQAttention:
         x's device. The slot, the ring's positions and the valid length are
         device ops on it, so a CUDA graph of the step replays at any
         position. Writes the new K/V into ``cache`` in place (the reference
-        returns an updated copy) and returns (y, cache)."""
+        returns an updated copy) and returns (y, cache). A cross block runs
+        only ``wq`` and ``wo``: it reads the memory's K/V from ``cache``
+        whole and does not depend on ``pos``."""
         c = self.cfg
         hd = c.hd
         b = x.shape[0]
+        if self.cross:  # K/V were computed at prefill: read, never written
+            q = self._proj(p, x, "wq", "bq")
+            qg = q.reshape(b, 1, c.num_kv_heads, c.num_heads // c.num_kv_heads, hd)
+            out = _attend(qg, cache["k"], cache["v"],
+                          *_cross_positions(1, cache["k"].shape[1], x.device))
+            return self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo"), cache
         posv = pos.reshape(1, 1).expand(b, 1)
         q = rope(self._proj(p, x, "wq", "bq").reshape(b, 1, c.num_heads, hd), posv, c.rope_theta)
         k_new = rope(self._proj(p, x, "wk", "bk").reshape(b, 1, c.num_kv_heads, hd), posv,

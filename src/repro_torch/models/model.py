@@ -1,14 +1,17 @@
 """The decoder LM (port of ``repro/models/model.py:LM``).
 
-Covers ``family='dense'`` and ``family='moe'`` (``MoEMLP``) with
-``mixer='gqa'`` or ``mixer='mla'`` (``MLAttention``: deepseek's latent
-cache and absorbed decode), ``family='hybrid'`` (RG-LRU ``rec`` blocks
-beside ``local`` attention, recurrentgemma's tied embeddings, embedding
-scale and logit soft-cap) and ``family='ssm'`` (``mixer='rwkv6'``: RWKV6
-blocks of time and channel mix), with no modality frontend and no
-cross-attention; those raise ``NotImplementedError`` from the constructor
-(ROADMAP queue 1, item 12e). :func:`lm_defs` describes the parameter tree
-of every registry config, theirs included, for counting.
+Covers every family of the registry: ``family='dense'`` and ``'moe'``
+(``MoEMLP``) with ``mixer='gqa'`` or ``mixer='mla'`` (``MLAttention``:
+deepseek's latent cache and absorbed decode), ``'hybrid'`` (RG-LRU ``rec``
+blocks beside ``local`` attention, recurrentgemma's tied embeddings,
+embedding scale and logit soft-cap), ``'ssm'`` (``mixer='rwkv6'``: RWKV6
+blocks of time and channel mix), ``'vlm'`` (``frontend='vision'``:
+precomputed vision embeddings written over the first positions) and
+``'audio'`` (``frontend='audio'``: the sum of ``num_codebooks`` codebook
+embeddings a position, a head over every codebook's vocabulary, and
+cross-attention to a text ``memory`` after each block's self-attention).
+The frontends are stubs in the reference too: their encoders' outputs are
+inputs. :func:`lm_defs` describes each config's parameter tree.
 
 The parameter tree is the reference's: ``embed``, ``layers`` stacked over
 layer groups (a leading axis on every leaf, compressed ones included),
@@ -27,8 +30,10 @@ The paper's technique runs end to end: every projection is DBB-tagged,
 nnz, N)), and ``apply_linear`` runs the tc kernel over the compressed K
 (bf16 or fp32 operands), or on the int8 tensor cores after
 :meth:`quantize`. The MoE's 4-D expert stacks carry no DBB tag and stay
-dense, as in the reference. :meth:`plan` freezes int8 prefill into a
-:class:`~repro_torch.models.plan.ModelPlan`, one CUDA graph per signature.
+dense, as in the reference. :meth:`plan` freezes int8 prefill of a text
+decoder into a :class:`~repro_torch.models.plan.ModelPlan`, one CUDA graph
+per signature; it refuses a frontend or cross-attention, as the
+reference's does.
 """
 from __future__ import annotations
 
@@ -51,13 +56,15 @@ from repro_torch.models.mlp import DenseMLP, MoEMLP
 from repro_torch.models.recurrent import RGLRUBlock, RWKV6Block
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's LM does not build."""
-    if cfg.frontend is not None or cfg.cross_attn:
+def check_plannable(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for a config :meth:`LM.plan` cannot
+    freeze, as the reference's ``LM.plan``: a frontend's or a cross
+    block's side inputs (vision embeddings, memory) have no place in a
+    single-input chain."""
+    if cfg.cross_attn or cfg.frontend:
         raise NotImplementedError(
-            f"{cfg.name}: family={cfg.family!r}: modality frontends and cross-attention not "
-            "ported; the port's LM is the GQA and MLA dense and MoE, hybrid RG-LRU and RWKV6 "
-            "decoder (ROADMAP queue 1, item 12e)")
+            f"LM.plan supports decoder-only text models; {cfg.name}: cross_attn or "
+            f"frontend={cfg.frontend!r} needs per-call side inputs")
 
 
 def mixer_for(cfg: ModelConfig, kind: str):
@@ -76,9 +83,9 @@ def mixer_for(cfg: ModelConfig, kind: str):
 
 def lm_defs(cfg: ModelConfig) -> dict:
     """The parameter defs tree of ``cfg``'s LM, the reference's
-    ``LM.defs()``, for every registry config: also the cross-attention
-    blocks' ``norm_x`` and ``cross`` and the audio codebooks' embedding and
-    head, which :class:`LM` does not build yet (item 12e)."""
+    ``LM.defs()``, for every registry config, the cross-attention blocks'
+    ``norm_x`` and ``cross`` and the audio codebooks' embedding and head
+    included."""
     def norm():
         d = {"g": Param((cfg.d_model,), (None,), "ones")}
         if cfg.norm == "layernorm":
@@ -120,7 +127,6 @@ def lm_defs(cfg: ModelConfig) -> dict:
 class LM(nn.Module):
     def __init__(self, cfg: ModelConfig):
         super().__init__()
-        check_supported(cfg)
         self.cfg = cfg
         self.params: Optional[dict] = None
         self._absorbed: dict = {}  # MLA blocks' decoded wkv_b (:meth:`_absorb`)
@@ -188,11 +194,29 @@ class LM(nn.Module):
         return e.device
 
     # -------------------------------------------------------- embeddings
-    def _embed(self, tokens):
+    def _embed(self, tokens, vision_embeds=None):
+        """(B, S) tokens, or (B, S, num_codebooks) audio tokens, -> (B, S,
+        d) in the compute dtype. Audio sums the codebooks' rows in codebook
+        order in the table's dtype, then casts, as the reference's
+        ``sum(embs).astype(...)``; ``vision_embeds`` (B, nv, d) are cast
+        and written over positions 0 … nv - 1 after the embedding scale."""
         c = self.cfg
-        h = sharded_embed_lookup(self.params["embed"], tokens.to(self.device), c.compute_dtype)
+        table, tokens = self.params["embed"], tokens.to(self.device)
+        if c.frontend == "audio":
+            h = table[0].index_select(0, tokens[..., 0].reshape(-1))
+            for i in range(1, c.num_codebooks):
+                h = h + table[i].index_select(0, tokens[..., i].reshape(-1))
+            h = h.reshape(*tokens.shape[:-1], table.shape[-1]).to(c.compute_dtype)
+        else:
+            h = sharded_embed_lookup(table, tokens, c.compute_dtype)
         if c.embed_scale:  # sqrt(d_model) in fp32, rounded to the activation dtype
             h = h * float(torch.tensor(math.sqrt(c.d_model), dtype=torch.float32).to(h.dtype))
+        if c.frontend == "vision" and vision_embeds is not None:
+            nv = vision_embeds.shape[1]
+            if nv > h.shape[1]:
+                raise ValueError(f"{c.name}: {nv} vision embeddings do not fit a prompt of "
+                                 f"{h.shape[1]} tokens")
+            h = torch.cat([vision_embeds.to(h.device, c.compute_dtype), h[:, nv:]], dim=1)
         return h
 
     def _logits(self, x):
@@ -206,9 +230,10 @@ class LM(nn.Module):
         return logits
 
     # ------------------------------------------------------------ blocks
-    def _apply_block(self, kind, p, x, positions):
+    def _apply_block(self, kind, p, x, positions, memory=None):
         """Full-sequence block. Returns (x, the block's cache: K/V, or the
-        recurrent state)."""
+        recurrent state; with cross-attention ``{"self": …, "cross": the
+        memory's K/V}``)."""
         h = self._apply_norm(p["norm1"], x)
         if kind == "rwkv":  # no act scope of its own, as the reference
             mixer, zero = self._mixer(kind), x.new_zeros((x.shape[0], x.shape[-1]))
@@ -219,6 +244,12 @@ class LM(nn.Module):
         with act_scope("mixer"):
             y, cache = self._mixer(kind)(p["mixer"], h, positions)
         x = x + y
+        if self.cfg.cross_attn:
+            with act_scope("cross"):
+                y, cross = GQAttention(self.cfg, cross=True)(
+                    p["cross"], self._apply_norm(p["norm_x"], x), positions, memory=memory)
+            x = x + y
+            cache = {"self": cache, "cross": cross}
         with act_scope("mlp"):
             y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
         return x + y2, cache
@@ -233,32 +264,46 @@ class LM(nn.Module):
             return x + mixer.channel_mix_decode(p["mixer"]["cm"],
                                                 self._apply_norm(p["norm2"], x), cache), cache
         mixer = self._mixer(kind)
+        own = cache["self"] if self.cfg.cross_attn else cache
         if isinstance(mixer, MLAttention):
-            y, cache = mixer.decode(p["mixer"], h, cache, pos, absorbed)
+            y, _ = mixer.decode(p["mixer"], h, own, pos, absorbed)
         else:
-            y, cache = mixer.decode(p["mixer"], h, cache, pos)
+            y, _ = mixer.decode(p["mixer"], h, own, pos)
         x = x + y
+        if self.cfg.cross_attn:
+            x = x + GQAttention(self.cfg, cross=True).decode(
+                p["cross"], self._apply_norm(p["norm_x"], x), cache["cross"], pos)[0]
         y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
         return x + y2, cache
 
     # ----------------------------------------------------------- forward
-    def forward(self, tokens, *, return_cache: bool = False, collect_act_stats: bool = False):
-        """Full-sequence forward (prefill) of (B, S) tokens -> logits (B, S,
-        padded_vocab); with ``return_cache`` also every block's cache
-        (``{"groups": {"b{i}": …}, "tail": …}``, groups stacked): K/V
-        (``k``, ``v``) of an attention block, the latent ``c_kv`` and
-        ``k_rope`` of an MLA one, ``h`` and ``conv`` of an RG-LRU block, ``s``, ``shift`` and ``cm_shift`` of an RWKV6 one.
-        ``collect_act_stats=True`` appends the per-GEMM ``ActStats`` that
-        ``apply_linear`` records: ``(logits[, cache], stats)``."""
+    def forward(self, tokens, *, memory=None, vision_embeds=None, return_cache: bool = False,
+                collect_act_stats: bool = False):
+        """Full-sequence forward (prefill) of (B, S) tokens ((B, S,
+        num_codebooks) for audio) -> logits (B, S, padded_vocab; audio:
+        num_codebooks · codebook_vocab); ``memory`` (B, cross_len, d) feeds
+        the cross blocks, cast to the compute dtype once; ``vision_embeds``
+        (B, nv, d) replace the first nv positions' embeddings. With
+        ``return_cache`` also every block's cache (``{"groups": {"b{i}":
+        …}, "tail": …}``, groups stacked): K/V (``k``, ``v``) of an
+        attention block (``{"self": K/V, "cross": the memory's K/V}`` with
+        cross-attention), the latent ``c_kv`` and ``k_rope`` of an MLA one,
+        ``h`` and ``conv`` of an RG-LRU block, ``s``, ``shift`` and
+        ``cm_shift`` of an RWKV6 one. ``collect_act_stats=True`` appends
+        the per-GEMM ``ActStats`` that ``apply_linear`` records:
+        ``(logits[, cache], stats)``."""
         if collect_act_stats:
             with collect_activations() as col:
-                out = self.forward(tokens, return_cache=return_cache)
+                out = self.forward(tokens, memory=memory, vision_embeds=vision_embeds,
+                                   return_cache=return_cache)
             out = out if isinstance(out, tuple) else (out,)
             return (*out, col.stats)
         c = self.cfg
         params = self.params
-        h = self._embed(tokens)
+        h = self._embed(tokens, vision_embeds)
         b, s, _ = h.shape
+        if memory is not None:
+            memory = memory.to(h.device, c.compute_dtype)
         positions = torch.arange(s, device=h.device).expand(b, s)
         groups = []
         for g in range(c.num_groups):
@@ -267,13 +312,14 @@ class LM(nn.Module):
             with act_scope(f"g{g}"):
                 for i, kind in enumerate(c.pattern):
                     with act_scope(f"b{i}"):
-                        h, caches[f"b{i}"] = self._apply_block(kind, gp[f"b{i}"], h, positions)
+                        h, caches[f"b{i}"] = self._apply_block(kind, gp[f"b{i}"], h, positions,
+                                                               memory)
             groups.append(caches)
         tails = {}
         for i, kind in enumerate(c.tail_pattern):
             with act_scope("tail"), act_scope(f"t{i}"):
                 h, tails[f"t{i}"] = self._apply_block(kind, params["tail"][f"t{i}"], h,
-                                                      positions)
+                                                      positions, memory)
         logits = self._logits(self._apply_norm(params["final_norm"], h))
         if not return_cache:
             return logits
@@ -288,12 +334,17 @@ class LM(nn.Module):
         (G, B, cap, kv, hd), ``cap`` being ``max_len`` or a ``local``
         block's window (a ring); an MLA block's ``c_kv`` (G, B, max_len, r)
         and ``k_rope`` (G, B, max_len, qk_rope_dim); a recurrent block's
-        fixed-size state."""
+        fixed-size state; with cross-attention an attention block's is
+        ``{"self": …, "cross": K/V of cross_len slots}``."""
         c = self.cfg
         dt, dev = c.compute_dtype, self.device
 
         def block(kind):
-            return self._mixer(kind).init_cache(batch_size, max_len, dt, dev)
+            own = self._mixer(kind).init_cache(batch_size, max_len, dt, dev)
+            if not c.cross_attn or kind == "rwkv":
+                return own
+            return {"self": own,
+                    "cross": GQAttention(c, cross=True).init_cache(batch_size, max_len, dt, dev)}
 
         out = {"groups": _stack([{f"b{i}": block(k) for i, k in enumerate(c.pattern)}
                                  for _ in range(c.num_groups)])}
@@ -302,12 +353,14 @@ class LM(nn.Module):
         return out
 
     def decode_step(self, cache, tokens, pos):
-        """One-token decode: tokens (B, 1), ``pos`` their position, a 0-d
-        int64 tensor on the model's device (the reference's traced
-        ``jnp.int32``), or an int turned into one. Every use of it is a
-        device op, so a CUDA graph of the step replays at any position.
-        Returns (logits (B, 1, padded_vocab), cache), the cache (K/V and
-        recurrent state) updated in place."""
+        """One-token decode: tokens (B, 1) ((B, 1, num_codebooks) for
+        audio), ``pos`` their position, a 0-d int64 tensor on the model's
+        device (the reference's traced ``jnp.int32``), or an int turned into
+        one. Every use of it is a device op, so a CUDA graph of the step
+        replays at any position. Returns (logits (B, 1, vocab), cache), the
+        cache (K/V and recurrent state) updated in place; cross blocks read
+        the memory's K/V that the prefill left in the cache, so the step
+        takes no memory."""
         c = self.cfg
         params = self.params
         pos = torch.as_tensor(pos, dtype=torch.int64, device=self.device)
@@ -421,10 +474,13 @@ class LM(nn.Module):
         fills on the card from its batch).
         The sample is one row of int32 tokens. On a card the chain is
         captured into one CUDA graph per input signature at its first
-        ``serve``. Only ``tune='off'`` exists (ROADMAP queue 1, item 10)."""
+        ``serve``. Only ``tune='off'`` exists (ROADMAP queue 1, item 10).
+        A frontend or cross-attention raises ``NotImplementedError``
+        (:func:`check_plannable`), as the reference's."""
         from repro_torch.models.plan import PlanBuilder
 
         c = self.cfg
+        check_plannable(c)
         params = self.params
         dev = self.device
         m = batch * seq

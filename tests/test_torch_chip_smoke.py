@@ -401,3 +401,128 @@ def test_decode_bound_counts_the_tied_table_and_the_state(smoke, monkeypatch):
                                                                    + cfg.v_head_dim) * 2
     latent = cfg.num_layers * 2 * (24 + 1) * (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
     assert total == weights - leaf + decoded + 2 * cfg.d_model * 2 + latent
+
+
+def test_side_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 11 end to end on the CPU at the smoke configs' size: each
+    model's kernels at (stubbed, small) shapes and its phases' rows (the
+    memory's for musicgen's cross wk/wv), generation compressed and dense
+    with side inputs and the fresh-forward gate, its JAX fixture, and the
+    INT8 prefill unplanned after the plan's refusal."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    cpu = _rehearse(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "SIDE_SHAPES", {
+        smoke.AUDIO_ARCH: {"square": (128, 128, 6, ("decode", "prefill")),
+                           "cross wk/wv": (128, 128, 2, ("memory",))},
+        smoke.VLM_ARCH: {"square": (128, 128, 2), "up": (128, 256, 1)}})
+    out = smoke.side_phase(torch.Generator().manual_seed(1), cpu)
+    audio, vlm = out[smoke.AUDIO_ARCH], out[smoke.VLM_ARCH]
+    assert set(audio["kernels"]["bf16"]) == {("square", "decode"), ("square", "prefill"),
+                                             ("cross wk/wv", "memory")}
+    assert len(vlm["kernels"]["int8"]) == 4
+    # the vision prompt: LM_PROMPT text tokens after the 8 vision positions
+    assert (audio["prompt_len"], vlm["prompt_len"]) == (16, 24)
+    # musicgen's 2 layers: 10 projections a prefill (two), 8 a decode step
+    # (eight: the cross wk/wv run at prefill only); internvl2's 7 and 7
+    for r, prefill, step in ((audio, 20, 16), (vlm, 14, 14)):
+        gen = r["generate"]
+        assert gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"] == 2 * prefill + 8 * step
+        assert set(gen["compressed"]["consistency_rel_l2"]) == {0, 6}
+        assert max(gen["compressed"]["consistency_rel_l2"].values()) <= 2e-2
+        assert gen["dense"]["decode_bound_ms"] > gen["compressed"]["decode_bound_ms"]
+        int8 = r["int8"]
+        assert int8["per_forward"] == prefill and "side inputs" in int8["refused"]
+        assert int8["launches"]["vdbb_matmul_tc"] % prefill == 0
+        assert int8["launches"]["vdbb_matmul_tc"] and not int8["launches"]["vdbb_matmul_tc_bf16"]
+    build.reset_launches()
+
+
+def test_projections_and_decode_bound_of_the_frontends(smoke, monkeypatch):
+    """A musicgen decode step runs 8 of a layer's 10 compressed
+    projections: the cross wk/wv ran at prefill. Its bound reads neither,
+    reads B rows of each codebook's table, the self K/V at the phase's own
+    prompt length and the cross K/V at cross_len slots, whatever the
+    prompt. internvl2's step runs every projection."""
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models.model import LM
+
+    monkeypatch.setattr(smoke, "LM_BATCH", 2)
+    monkeypatch.setattr(smoke, "LM_PROMPT", 16)
+    monkeypatch.setattr(smoke, "LM_GEN", 8)
+    cfg = smoke_config("musicgen-medium")
+    model = LM(cfg).init(torch.Generator().manual_seed(0), "cpu", compress=True)
+    assert smoke.projections(model) == 10 * cfg.num_layers
+    assert smoke.projections(model, "decode") == 8 * cfg.num_layers
+    state = model.state()
+    weights = smoke.tensor_bytes(state, skip=("embed",))
+    cross_w = sum(smoke.tensor_bytes({"w": state["layers"]["b0"]["cross"][n]})
+                  for n in ("wk", "wv"))
+    table = 2 * cfg.num_codebooks * cfg.d_model * 2
+    kv = cfg.num_kv_heads * cfg.hd * 2  # a slot's K or V, bf16
+    for plen in (16, 40):
+        total = smoke.decode_bound(model, plen)[1]
+        own = cfg.num_layers * 2 * 2 * (plen + 8) * kv
+        cross = cfg.num_layers * 2 * 2 * cfg.cross_len * kv
+        assert total == weights - cross_w + table + own + cross
+    assert smoke.decode_bound(model)[1] == smoke.decode_bound(model, 16)[1]
+    cfg = smoke_config("internvl2-2b")
+    model = LM(cfg).init(torch.Generator().manual_seed(0), "cpu", compress=True)
+    assert smoke.projections(model) == smoke.projections(model, "decode") == 7 * cfg.num_layers
+
+
+def test_kernels_line_carries_every_key_for_every_kernel(smoke):
+    """Phase 12's JSON line from records shaped as phases 2–11 give them:
+    one entry per counted kernel with every key the line promises, its
+    source in the checkout, and the bf16 and int8 tc matmul's records at
+    each LM model's shapes, the frontends' included, beside their
+    launches."""
+    import json
+
+    from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
+
+    def rec(err=0.0):
+        return dict(err=err, ms=0.1, plain_ms=0.2, device_ms=0.05, bound_ms=0.01,
+                    bound_by="bytes", library_ms=0.1, library_device_ms=None)
+
+    def shapes():
+        return {("wq", "decode"): rec(), ("wq", "prefill"): rec(0.01)}
+
+    def generated(n):
+        return {"compressed": {"launches": {"vdbb_matmul_tc_bf16": n},
+                               "replay_launches": {"prefill": {"vdbb_matmul_tc_bf16": 10},
+                                                   "decode": {"vdbb_matmul_tc_bf16": 8}}}}
+
+    kernels = list(build.launch_counts())
+    plan = {"launches": {"vdbb_matmul_tc": 7}, "replay_launches": {"vdbb_matmul_tc": 7}}
+    decoders = {"rwkv6-3b": {"kernels": {"bf16": shapes(), "int8": shapes()},
+                             "generate": generated(3), "plan": plan}}
+    frontends = {arch: {"kernels": {"bf16": shapes(), "int8": shapes()},
+                        "generate": generated(5),
+                        "int8": {"launches": {"vdbb_matmul_tc": 40}, "per_forward": 8}}
+                 for arch in smoke.SIDE_ARCHS}
+    line = smoke.kernels_line(
+        recs={k: [rec(), rec()] for k in kernels}, counts=dict.fromkeys(kernels, 2),
+        planned={"matrix": {"replayed": {"vdbb_conv_tc": 7}}}, lm_recs={"bf16": shapes(),
+                                                                        "int8": shapes()},
+        lm_gen=generated(9), lm_planned=plan, moe_recs=shapes(), moe_gen=generated(4),
+        decoders=decoders, frontends=frontends)
+    keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
+            "bound_ms", "bound_by", "library_ms"}
+    assert [e["name"] for e in line] == kernels
+    for e in line:
+        assert keys <= set(e) and e["route"] == "cuda" and (ROOT / e["source"]).is_file()
+    by = {e["name"]: e for e in line}
+    bf16, int8 = by["vdbb_matmul_tc_bf16"], by["vdbb_matmul_tc"]
+    for arch in smoke.SIDE_ARCHS:
+        assert bf16[arch]["launches"] == 5 and bf16[arch]["max_abs_err"] == 0.01
+        assert bf16[arch]["graph_replay_launches"] == {"prefill": 10, "decode": 8}
+        assert int8[arch]["launches"] == 40 and int8[arch]["launches_per_unplanned_prefill"] == 8
+        assert int8[arch]["library_device_ms"] is None
+    assert int8["rwkv6-3b"]["graph_replay_launches_per_prefill"] == 7
+    assert bf16["moe"]["graph_replay_launches_per_step"] == 8
+    json.loads(json.dumps({"kernels": line}))

@@ -159,14 +159,11 @@ def test_registry_copies_every_field(arch, smoke):
 @pytest.mark.parametrize("arch", ["deepseek-v3-671b", "recurrentgemma-2b", "internvl2-2b",
                                   "musicgen-medium", "rwkv6-3b"])
 def test_unported_families_raise_from_the_constructor(arch):
-    """The frontends raise, naming their ROADMAP item; MLA and the recurrent
-    decoders (ported since) build, at full and at smoke size."""
-    if arch in ("deepseek-v3-671b", "recurrentgemma-2b", "rwkv6-3b"):
-        for cfg in (get_config(arch), smoke_config(arch)):
-            assert LM(cfg).cfg is cfg
-        return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 12e"):
-        LM(smoke_config(arch))
+    """The families once refused by the constructor, MLA, the recurrent
+    decoders and (since item 12e) the frontends, all build, at full and at
+    smoke size; none raises any more."""
+    for cfg in (get_config(arch), smoke_config(arch)):
+        assert LM(cfg).cfg is cfg
 
 
 @pytest.mark.parametrize("arch", sorted(jreg.ARCHS))

@@ -294,13 +294,15 @@ def test_full_size_counts():
 
 def test_lm_defs_names_the_frontends_leaves_the_lm_refuses():
     """``lm_defs`` describes a cross-attention block and the audio
-    codebooks for counting; ``LM`` still refuses to build them."""
+    codebooks; ``LM`` now builds both frontends' models (item 12e), at full
+    and at smoke size, on exactly those defs."""
     tl = dict(param_leaves(lm_defs(treg.get_config("musicgen-medium"))))
     assert ("layers", "b0", "cross", "wq") in tl and ("layers", "b0", "norm_x", "g") in tl
     assert tl[("embed",)].shape == (4, 2048, 1536)
     for arch in ("musicgen-medium", "internvl2-2b"):
-        with pytest.raises(NotImplementedError, match="12e"):
-            LM(treg.get_config(arch))
+        for cfg in (treg.get_config(arch), treg.smoke_config(arch)):
+            model = LM(cfg)
+            assert dict(param_leaves(model.defs())) == dict(param_leaves(lm_defs(cfg)))
 
 
 # ------------------------------------------------------------ the LM

@@ -233,9 +233,11 @@ def test_aux_loss_matches_the_reference(router, value):
 
 
 def test_moe_lm_is_built_and_other_families_still_raise():
-    LM(treg.smoke_config(ARCH))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        LM(treg.smoke_config("internvl2-2b"))  # a frontend
+    """The MoE builds, and so does the family this test once held refused,
+    a frontend's (internvl2-2b, item 12e), at full and at smoke size."""
+    assert LM(treg.smoke_config(ARCH)).cfg.is_moe
+    for cfg in (treg.get_config("internvl2-2b"), treg.smoke_config("internvl2-2b")):
+        assert LM(cfg).cfg.frontend == "vision"
 
 
 @pytest.mark.parametrize("smoke", [True, False], ids=["smoke", "full"])

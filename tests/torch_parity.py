@@ -18,8 +18,13 @@ recurrent decoders' smoke configs (``tests/data/torch_parity_rglru.npz``,
 ``recurrentgemma-2b``; ``tests/data/torch_parity_rwkv.npz``, ``rwkv6-3b``)
 and for MLA's (``tests/data/torch_parity_mla.npz``, ``deepseek-v3-671b``,
 with the calibration stats and the quantized forward as the LM's, and its
-routed expert stacks kept as numpy seeds, ``interop.seeded_bf16``).
-Regenerate all seven with
+routed expert stacks kept as numpy seeds, ``interop.seeded_bf16``), and
+for the frontends' (``tests/data/torch_parity_audio.npz``,
+``musicgen-medium``: audio codebooks and cross-attention to a memory, its
+codebook tables and head kept as fp32 seeds, ``interop.seeded_fp32``;
+``tests/data/torch_parity_vlm.npz``, ``internvl2-2b``: vision embeddings),
+each with its side inputs, calibration stats and quantized forward.
+Regenerate all nine with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -42,7 +47,7 @@ from repro.configs.cnn import smoke_cnn_config  # noqa: E402
 from repro.core.quant import QuantDBBWeight  # noqa: E402
 from repro.core.vdbb import DBBWeight  # noqa: E402
 from repro.models.cnn import SparseCNN  # noqa: E402
-from repro_torch.interop import bf16_bits, flatten, seeded_bf16  # noqa: E402
+from repro_torch.interop import bf16_bits, flatten, seeded_bf16, seeded_fp32  # noqa: E402
 
 FIXTURE = ROOT / "tests" / "data" / "torch_parity_cnn.npz"
 FIXTURE_BW = ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"
@@ -139,12 +144,15 @@ def jax_pad_cache(cache, plen: int, max_len: int):
     """The reference's prefill cache with its sequence caches (by key: K/V
     ``k``, ``v``; MLA's ``c_kv``, ``k_rope``) padded to ``max_len`` slots on
     their sequence axis, the layout ``pad_to_cap`` gives K/V; recurrent
-    state leaves as they are. ``pad_to_cap`` itself pads by shape: it also
-    pads a state leaf whose axis equals the prompt length, and a ``c_kv``'s
-    batch axis when the batch does (ROADMAP queue 3)."""
+    state leaves and a cross block's memory K/V (under ``cross``, read
+    whole by decode) as they are. ``pad_to_cap`` itself pads by shape: it
+    also pads a state leaf whose axis equals the prompt length, a
+    ``c_kv``'s batch axis when the batch does, and the cross K/V when the
+    prompt is ``cross_len`` long (ROADMAP queue 3)."""
     def pad(path, a):
-        axis = SEQ_AXIS.get(path[-1].key)
-        if axis is None:
+        keys = [k.key for k in path]
+        axis = SEQ_AXIS.get(keys[-1])
+        if axis is None or "cross" in keys:
             return a
         widths = [(0, 0)] * a.ndim
         widths[axis] = (0, max_len - plen)
@@ -153,8 +161,9 @@ def jax_pad_cache(cache, plen: int, max_len: int):
     return jax.tree_util.tree_map_with_path(pad, cache)
 
 
-def jax_cache_after(model, params, tokens, max_len: int):
-    """The reference's decode cache after the prompt ``tokens`` (B, S), at
+def jax_cache_after(model, params, tokens, max_len: int, side=None):
+    """The reference's decode cache after the prompt ``tokens`` (B, S) and
+    its side inputs ``side`` (``memory``, ``vision_embeds``), at
     capacity ``max_len``: the prefill's cache through :func:`jax_pad_cache`,
     or, for a model with RG-LRU blocks, the cache its ``decode_step`` builds
     from ``init_cache`` one prompt token at a time (the sequential form its
@@ -165,7 +174,8 @@ def jax_cache_after(model, params, tokens, max_len: int):
     would be traced anew at every token)."""
     tokens = jnp.asarray(tokens)
     if "rec" not in model.cfg.pattern:
-        _, cache = model.forward(params, {"tokens": tokens}, return_cache=True)
+        batch = {"tokens": tokens, **{k: jnp.asarray(v) for k, v in (side or {}).items()}}
+        _, cache = model.forward(params, batch, return_cache=True)
         return jax_pad_cache(cache, tokens.shape[1], max_len)
     step = jax.jit(model.decode_step)
     cache = model.init_cache(tokens.shape[0], max_len)
@@ -303,6 +313,109 @@ def jax_mla_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> d
                 quant=np.array(qlogits[:, -1:]))
 
 
+AUDIO_ARCH, VLM_ARCH = "musicgen-medium", "internvl2-2b"
+FIXTURE_SIDE = {AUDIO_ARCH: ROOT / "tests" / "data" / "torch_parity_audio.npz",
+                VLM_ARCH: ROOT / "tests" / "data" / "torch_parity_vlm.npz"}
+
+
+def side_batch(cfg, seed: int, batch: int, seq: int) -> dict:
+    """A numpy prompt batch of a frontend or cross-attention config, laid
+    out as ``make_batch``'s: tokens (B, S), or (B, S, num_codebooks) from
+    ``codebook_vocab`` for audio; ``vision_embeds`` (B, nv, d) when S > nv
+    and ``memory`` (B, cross_len, d), 0.02 · N(0, 1) rounded to bf16 values
+    and kept as fp32 arrays. Drawn from ``default_rng(seed)``."""
+    rng = np.random.default_rng(seed)
+    audio = cfg.frontend == "audio"
+    shape = (batch, seq, cfg.num_codebooks) if audio else (batch, seq)
+    out = {"tokens": rng.integers(0, cfg.codebook_vocab if audio else cfg.vocab_size,
+                                  shape).astype(np.int32)}
+
+    def embeds(rows):
+        x = np.float32(0.02) * rng.standard_normal((batch, rows, cfg.d_model), dtype=np.float32)
+        return np.asarray(jnp.asarray(x).astype(jnp.bfloat16).astype(jnp.float32))
+
+    if cfg.frontend == "vision" and seq > cfg.num_vision_tokens:
+        out["vision_embeds"] = embeds(cfg.num_vision_tokens)
+    if cfg.cross_attn:
+        out["memory"] = embeds(cfg.cross_len)
+    return out
+
+
+def seeded_tables(model, seed: int) -> dict:
+    """An audio model's codebook tables (``embed``, (ncb, codebook_vocab,
+    d)) and head (``lm_head``, (d, ncb · codebook_vocab)) as
+    :func:`interop.seeded_fp32` recipes at the fan-in scale; none for
+    another model."""
+    if model.cfg.frontend != "audio":
+        return {}
+    defs = model.defs()
+    return {(name,): dict(seed=np.int64(seed * 1000 + i), shape=np.array(defs[name].shape),
+                          std=np.float32(1.0 / np.sqrt(defs[name].shape[-2])),
+                          fp32=np.bool_(True))
+            for i, name in enumerate(("embed", "lm_head"))}
+
+
+def greedy_next(cfg, logits):
+    """The reference ``generate``'s next token from logits (B, 1, V): the
+    argmax, for audio taken within a codebook's vocabulary and fed to every
+    codebook (B, 1, num_codebooks)."""
+    tok = jnp.argmax(logits, axis=-1).astype(jnp.int32)
+    if cfg.frontend == "audio":
+        tok = jnp.broadcast_to(tok[..., None] % cfg.codebook_vocab,
+                               tok.shape + (cfg.num_codebooks,))
+    return tok
+
+
+def jax_side_golden(arch: str, seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """:func:`jax_smoke_golden` of a frontend or cross-attention model at
+    its smoke config in fp32, fed :func:`side_batch`'s side inputs (kept in
+    the file beside the tokens), plus the calibration stats of a forward
+    over the batch and the last-position logits of the model quantized with
+    them, as :func:`jax_mla_golden` keeps. The next token is ``generate``'s
+    (:func:`greedy_next`); the decode step reads the cache of
+    :func:`jax_cache_after`, the cross K/V unpadded. An audio model's
+    codebook tables and head (8 MB in fp32 at the smoke config) are drawn
+    from :func:`seeded_tables`' seeds and the file keeps the seeds."""
+    model = fp32_smoke_model(arch)
+    dense = jax.tree_util.tree_map(lambda a: a.astype(jnp.bfloat16).astype(a.dtype),
+                                   model.init(jax.random.PRNGKey(seed)))
+    tables = seeded_tables(model, seed)
+    for path, spec in tables.items():
+        dense = _tree_set(dense, path, jnp.asarray(seeded_fp32(**spec)))
+    params = model.compress(dense)
+    inputs = side_batch(model.cfg, seed, batch, seq)
+    side = {k: v for k, v in inputs.items() if k != "tokens"}
+    jb = {k: jnp.asarray(v) for k, v in inputs.items()}
+    logits = model.forward(params, jb)
+    _, stats = model.forward(params, jb, collect_act_stats=True)
+    nxt = greedy_next(model.cfg, logits[:, -1:])
+    step, _ = model.decode_step(params, jax_cache_after(model, params, inputs["tokens"], seq + 1,
+                                                        side),
+                                {"tokens": nxt}, jnp.int32(seq))
+    qlogits = model.forward(model.quantize(params, stats), jb)
+    bits = to_numpy(jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.bfloat16) if a.dtype == jnp.float32 else a, params))
+    for path, spec in tables.items():
+        bits = _tree_set(bits, path, spec)
+    return dict(params=bits, **inputs, prefill=np.array(logits[:, -1:]), next=np.array(nxt),
+                decode=np.array(step),
+                stats={"names": np.array([st.name for st in stats]),
+                       "absmax": np.array([st.absmax for st in stats], np.float64)},
+                quant=np.array(qlogits[:, -1:]))
+
+
+def jax_audio_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """:func:`jax_side_golden` of ``musicgen-medium`` (4 codebooks of 2048,
+    cross-attention to a 16-slot memory)."""
+    return jax_side_golden(AUDIO_ARCH, seed, batch, seq)
+
+
+def jax_vlm_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> dict:
+    """:func:`jax_side_golden` of ``internvl2-2b`` (8 vision embeddings over
+    the first positions of a 32-token prompt)."""
+    return jax_side_golden(VLM_ARCH, seed, batch, seq)
+
+
 def fixture_bytes(chain: dict) -> bytes:
     buf = io.BytesIO()
     np.savez_compressed(buf, **flatten(chain))
@@ -323,3 +436,7 @@ if __name__ == "__main__":
         print(f"wrote {path} ({path.stat().st_size} bytes)")
     FIXTURE_MLA.write_bytes(fixture_bytes(jax_mla_golden()))
     print(f"wrote {FIXTURE_MLA} ({FIXTURE_MLA.stat().st_size} bytes)")
+    for path, golden in ((FIXTURE_SIDE[AUDIO_ARCH], jax_audio_golden),
+                         (FIXTURE_SIDE[VLM_ARCH], jax_vlm_golden)):
+        path.write_bytes(fixture_bytes(golden()))
+        print(f"wrote {path} ({path.stat().st_size} bytes)")
