@@ -187,7 +187,45 @@ Phases, each of which fails the run:
         ``LM.plan`` does), so the calibrated INT8 prefill runs unplanned:
         one int8 launch per projection per forward, timed, its logits'
         distance from the bf16 forward's logged;
- 12. one JSON line of the six kernels (launches, errors, times, bounds).
+ 12. the self-healing serving tier (``launch/supervisor.py``,
+     ``checkpoint/store.py``, the server's swap and demotion) on
+     sparse-cnn-s at full size, shared patterns, buckets 1 … 64, with the
+     launch counts at 0 just before:
+     a. the quantized state saved by the port's store and restored onto the
+        card into a fresh model, every leaf equal bit for bit (save and
+        restore ms, bytes); the checkpoint the JAX package wrote
+        (tests/data/torch_parity_ckpt) restored bit for bit, its logits
+        within the fixture's 1e-3 of torch_parity_cnn.npz's; each of the
+        four corruptions (a flipped byte, a torn write, an edited manifest,
+        a missing archive) raises CorruptCheckpointError and
+        ``fallback=True`` walks back one step;
+     b. 8192 Poisson requests of 1–8 images at half the throughput a
+        saturated run of 1024 requests measured (~5 s of arrivals; half
+        the host-path capacity, phase 5's rate, saturates the server)
+        through ``serve_continuous`` under the Supervisor, without reloads
+        and with a reload every 2048 requests (3 hot reloads mid-traffic:
+        restore, rebuild, 7 captures, swap, each timed): every request equal to its own plan serve bit for bit,
+        nothing dropped, no capture after warmup, 3 reloads, each swap back
+        before the last arrival and followed by batches on the new set, the
+        memory reserved after the last no more than after the first plus
+        one plan set's pool, p50/p99 beside the run without; then a
+        corrupted checkpoint's reload raises while the old set serves the
+        same logits (``reload_failures`` 1);
+     c. over the first 4096 requests, a transient dispatcher kill
+        (``kills=1`` at the first tick with work after the 2nd dispatch:
+        one restart, every admitted request completed, the rest refused at
+        submit in the restart's gap), a kill
+        inside the 8th dispatch (its requests fail with ServerCrashed, the
+        rest served or refused) and a crash loop over 256 requests
+        (``max_restarts=2``: the breaker opens, health 'failed', no hang),
+        the restart's ms;
+     d. ``fallback_plan_set`` (the same kernels staged without graphs),
+        bucket 8 failed at the injector's ``pre_bucket``: two strikes
+        demote it, its dispatches launch the kernels eagerly and equal its
+        graph's bit for bit, its plan's replays stop; healed, the 4th
+        dispatch promotes it (``promotions`` 1); bucket 8's ms eager beside
+        its graph's; a fresh run of 256 requests shows no demotion;
+ 13. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -1877,13 +1915,368 @@ def side_phase(gen, dev) -> dict:
 
 # --------------------------------------------------------------- phase 12
 
+SELFHEAL_ARCH = "sparse-cnn-s"
+SELFHEAL_SMOKE = False  # the arch's reduced config (a CPU rehearsal of this phase)
+SELFHEAL_MAX_BATCH = BATCH
+# enough arrivals (~5 s at half the server's throughput) that each
+# reload's restore, captures and swap land while requests still arrive and
+# leave batches to the set it swapped in
+SELFHEAL_REQUESTS = 32 * SERVER_REQUESTS
+SELFHEAL_RELOAD_EVERY = SELFHEAL_REQUESTS // 4
+SELFHEAL_BUCKET = 8  # the bucket 12d fails
+SELFHEAL_DIR = ROOT / "build" / "selfheal"  # the phase's checkpoints (git-ignored)
+CKPT_FIXTURE = ROOT / "tests" / "data" / "torch_parity_ckpt"
+CNN_TC = ("im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc")
+CORRUPTIONS = ("flip", "truncate", "manifest", "missing")
+
+
+def same_bits(a, b) -> bool:
+    """Equal dtype, shape and bits (NaN payloads and signed zeros too)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    ints = {1: torch.uint8, 2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+    return torch.equal(a.contiguous().view(ints), b.contiguous().view(ints))
+
+
+def check_leaves(got, want, what: str) -> int:
+    """Every leaf of two state trees equal bit for bit, in flatten order;
+    returns the leaves."""
+    from repro_torch.checkpoint.store import flatten
+
+    (gl, paths), (wl, _) = flatten(got), flatten(want)
+    if len(gl) != len(wl):
+        raise AssertionError(f"{what}: {len(gl)} leaves against {len(wl)}")
+    for g, w, path in zip(gl, wl, paths):
+        if not same_bits(g, w.to(g.device)):
+            raise AssertionError(f"{what}: leaf {path} differs")
+    return len(gl)
+
+
+def selfheal_checkpoints(dev, model, root) -> dict:
+    """12a: the port's store on the card, the reference's committed
+    checkpoint, and the four corruptions."""
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.configs import smoke_cnn_config
+    from repro_torch.interop import params_from_numpy, unflatten
+    from repro_torch.launch.faults import corrupt_checkpoint
+    from repro_torch.models.cnn import SparseCNN
+
+    t0 = time.perf_counter()
+    path = store.save(root / "a", 1, model.state())
+    save_ms = (time.perf_counter() - t0) * 1e3
+    size = sum(f.stat().st_size for f in path.iterdir())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tree, _ = store.restore(root / "a", model.state())
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    leaves = check_leaves(SparseCNN(model.cfg).load_state(tree).state(), model.state(),
+                          "12a: the restored model")
+    # the reference's checkpoint of torch_parity_cnn.npz's params
+    with np.load(FIXTURES["matrix"]) as z:
+        fx = unflatten(z)
+    cfg = dataclasses.replace(smoke_cnn_config("sparse-cnn-tiny"), convs_per_stage=2)
+    template = SparseCNN(cfg).init(torch.Generator().manual_seed(5), dev).compress()
+    with torch.no_grad():
+        _, stats = template(torch.randn(4, cfg.image_size, cfg.image_size, 3).to(dev),
+                            collect_act_stats=True)
+    template.quantize(stats)
+    tree, manifest = store.restore(CKPT_FIXTURE, template.state())
+    check_leaves(tree, params_from_numpy(fx["params"], dev), "12a: the reference's checkpoint")
+    with torch.no_grad():
+        logits = SparseCNN(cfg).load_state(tree)(torch.as_tensor(fx["input"]).to(dev))
+    err = rel_l2(logits, torch.as_tensor(fx["logits"]).to(dev))
+    if err > 1e-3:
+        raise AssertionError(f"12a: the reference's checkpoint serves logits {err} from the "
+                             "fixture's, beyond 1e-3")
+    for mode in CORRUPTIONS:
+        d = root / f"corrupt-{mode}"
+        store.save(d, 1, model.state())
+        store.save(d, 2, model.state())
+        corrupt_checkpoint(d, step=2, mode=mode)
+        try:
+            store.restore(d, model.state())
+            raise AssertionError(f"12a: a checkpoint damaged by {mode!r} restored")
+        except store.CorruptCheckpointError:
+            pass
+        if store.restore(d, model.state(), fallback=True)[1]["step"] != 1:
+            raise AssertionError(f"12a: fallback=True past a {mode!r} damage did not load step 1")
+    rec = {"save_ms": save_ms, "restore_ms": restore_ms, "bytes": size, "leaves": leaves,
+           "reference_rel_l2": err}
+    log(f"[selfheal] 12a checkpoints: {leaves} leaves, {size} bytes, save {save_ms:.1f} ms, "
+        f"restore onto {dev} {restore_ms:.1f} ms, restored bit for bit; the reference's "
+        f"checkpoint (step {manifest['step']}) restored bit for bit, its logits {err:.3e} from "
+        f"the fixture's; {', '.join(CORRUPTIONS)} each raised CorruptCheckpointError and "
+        "fallback=True loaded step 1")
+    return rec
+
+
+def served_as_planned(run, requests, ps, what: str) -> int:
+    """Every request served in ``run`` equals its own plan serve bit for
+    bit; returns how many were served."""
+    served = 0
+    for i, (req, got) in enumerate(zip(requests, run["results"])):
+        if got is not None:
+            check_exact(torch.from_numpy(got), torch.from_numpy(ps.serve(req)),
+                        f"{what}: request {i} against its own plan serve")
+            served += 1
+    if run["summary"]["demotions"]:
+        raise AssertionError(f"{what}: {run['summary']['demotions']} demotions in a served run")
+    return served
+
+
+def selfheal_phase(dev) -> dict:
+    """Phase 12: the self-healing serving tier on ``SELFHEAL_ARCH`` at full
+    size (shared patterns, buckets 1 … 64), the launch counts at 0 just
+    before it. Returns its record."""
+    import shutil
+
+    import numpy as np
+
+    from repro_torch.checkpoint import store
+    from repro_torch.kernels import build
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.launch import serve
+    from repro_torch.launch.faults import FaultInjected, FaultInjector, corrupt_checkpoint
+    from repro_torch.launch.server import CNNServer, auto_rate
+    from repro_torch.launch.supervisor import Supervisor
+    from repro_torch.models.cnn import SparseCNN
+
+    t_phase = time.time()
+    shutil.rmtree(SELFHEAL_DIR, ignore_errors=True)
+    build.reset_launches()
+    model, x = serve.build_model(SELFHEAL_ARCH, calib_batch=SELFHEAL_MAX_BATCH, device=dev,
+                                 seed=0, smoke=SELFHEAL_SMOKE)
+    ps = model.plan_set(max_batch=SELFHEAL_MAX_BATCH)
+    # one plan set's graphs: what its warmup keeps reserved (each capture
+    # empties the allocator's cache, so measure with the cache empty)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    ps.warmup()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    pool_bytes = torch.cuda.memory_reserved() - before
+    rec = {"checkpoint": selfheal_checkpoints(dev, model, SELFHEAL_DIR)}
+
+    def rebuild(tree):
+        return SparseCNN(model.cfg).load_state(tree).plan_set(buckets=ps.buckets)
+
+    # 12b: hot reload under traffic, beside a run without
+    rng = np.random.default_rng(7)
+    pool = torch.randn(100, *x.shape[1:], generator=torch.Generator().manual_seed(2)).numpy()
+    sizes = rng.integers(1, 9, SELFHEAL_REQUESTS)
+    starts = [int(rng.integers(0, pool.shape[0] - n + 1)) for n in sizes]
+    requests = [pool[a: a + n] for a, n in zip(starts, sizes)]
+    # auto_rate's half of the largest bucket's host-path capacity saturates
+    # the server (its batching and futures cost host time too), and a queue
+    # that only grows would hide what a reload costs: offer half of what a
+    # saturated run of the server completes
+    rate, _ = auto_rate(ps, x.shape[1:])
+    probe = serve.serve_continuous(ps, requests[:SELFHEAL_REQUESTS // 8],
+                                   rate=rate / float(sizes.mean()), max_wait_ms=5.0, seed=3,
+                                   log=log)
+    served_rate = probe["summary"]["throughput_rps"]
+    rate_rps = 0.5 * served_rate / float(sizes.mean())
+    log(f"[selfheal] 12b: auto_rate {rate:.0f} images/s saturates the server at "
+        f"{served_rate} images/s; offering half of that, {rate_rps:.1f} requests/s")
+    kw = dict(rate=rate_rps, max_wait_ms=5.0, seed=3, log=log)
+    plain_run = serve.serve_continuous(ps, requests, **kw)
+    run = serve.serve_continuous(ps, requests, model=model, reload_every=SELFHEAL_RELOAD_EVERY,
+                                 ckpt_dir=SELFHEAL_DIR / "reload", **kw)
+    want = (SELFHEAL_REQUESTS - 1) // SELFHEAL_RELOAD_EVERY
+    for r in (plain_run, run):
+        if r["failures"] or r["retraces_after_warmup"]:
+            raise AssertionError(f"12b: failures {r['failures']}, "
+                                 f"{r['retraces_after_warmup']} captures after warmup")
+        if served_as_planned(r, requests, ps, "12b") != SELFHEAL_REQUESTS:
+            raise AssertionError("12b: a request was not served")
+    reloads = run["reloads"]
+    if run["summary"]["reloads"] != want or len(reloads) != want or any(
+            r["retraces_before_swap"] for r in reloads):
+        raise AssertionError(f"12b: {run['summary']['reloads']} reloads, want {want}; {reloads}")
+    # each swap returned while requests still arrived, and more than one
+    # batch (so at least one begun after the swap) ran before the next swap
+    # or the end: every swapped-in set served traffic
+    marks = [r["batches_at_swap"] for r in reloads] + [run["summary"]["batches"]]
+    late = [r["submitted_at_swap"] for r in reloads if r["submitted_at_swap"] >= SELFHEAL_REQUESTS]
+    if late or any(b - a < 2 for a, b in zip(marks, marks[1:])):
+        raise AssertionError(f"12b: swaps after the last arrival {late} or a swapped-in set "
+                             f"that served no batch (batches at each swap and at the end "
+                             f"{marks})")
+    reserved = [r.get("reserved_bytes", 0) for r in reloads]
+    if reserved[-1] > reserved[0] + pool_bytes:
+        raise AssertionError(f"12b: {reserved[-1]} bytes reserved after the last reload, above "
+                             f"{reserved[0]} after the first plus one plan set's {pool_bytes}")
+    sup = Supervisor(CNNServer(ps, max_wait_ms=1.0), rebuild=rebuild, template=model.state())
+    bad = SELFHEAL_DIR / "corrupt-reload"
+    store.save(bad, 1, model.state())
+    corrupt_checkpoint(bad, mode="flip")
+    with sup:
+        sup.warmup()
+        y0 = sup.submit(requests[0]).result(timeout=60)
+        try:
+            sup.reload(bad)
+            raise AssertionError("12b: a corrupted checkpoint reloaded")
+        except store.CorruptCheckpointError:
+            pass
+        y1 = sup.submit(requests[0]).result(timeout=60)
+    check_exact(torch.from_numpy(y1), torch.from_numpy(y0), "12b: served after a failed reload")
+    if sup.reload_failures != 1 or sup.server.plan_set is not ps:
+        raise AssertionError(f"12b: reload_failures {sup.reload_failures}, the old set replaced")
+    s0, s1 = plain_run["summary"], run["summary"]
+    rec["reload"] = {"reloads": reloads, "pool_bytes": pool_bytes,
+                     "saturated_images_per_s": served_rate, "offered_requests_per_s": rate_rps,
+                     "p50_us": [s0["p50_us"], s1["p50_us"]],
+                     "p99_us": [s0["p99_us"], s1["p99_us"]],
+                     "images_per_s": [s0["throughput_rps"], s1["throughput_rps"]]}
+    phases = [[round(r[f"{k}_ms"], 3) for k in ("restore", "rebuild", "capture", "swap")]
+              for r in reloads]
+    log(f"[selfheal] 12b: {want} reloads under {SELFHEAL_REQUESTS} Poisson requests, every "
+        f"request equal to its own plan serve, no capture after warmup; swaps at request "
+        f"{[r['submitted_at_swap'] for r in reloads]}, batches at each swap and at the end "
+        f"{marks}; ms (restore, rebuild, capture, swap) {phases}; "
+        f"reserved after each {reserved} (one plan set's pool {pool_bytes}); p50 "
+        f"{s0['p50_us']} -> {s1['p50_us']} us, p99 {s0['p99_us']} -> {s1['p99_us']} us without "
+        "and with reloads; a corrupted checkpoint raised with the old set serving the same logits")
+
+    # 12c: a transient kill, a kill inside a dispatch, a crash loop. A kill
+    # fires at the first tick with new work after its dispatch count; after
+    # the 2nd dispatch one always comes (the arrivals outlast two batches),
+    # after the 8th a backlogged run may have taken every request already.
+    # The kill inside a dispatch fires at the 8th dispatch.
+    class DispatcherDeath(BaseException):
+        """Not an Exception: the dispatch's isolation lets it through."""
+
+    class KillInDispatch(FaultInjector):
+        def pre_serve(self, pendings, xb):
+            xb = super().pre_serve(pendings, xb)
+            if self.dispatches == 8:
+                raise DispatcherDeath("the dispatcher died inside a dispatch")
+            return xb
+
+    restart, n_restart = {}, SELFHEAL_REQUESTS // 2
+    for name, inj in (("kill", FaultInjector(kill_after_dispatches=2, kills=1)),
+                      ("in-dispatch", KillInDispatch())):
+        r = serve.serve_continuous(ps, requests[:n_restart], faults=inj, **kw)
+        s = r["summary"]
+        if s["restarts"] != 1 or inj.restarts != 1 or set(r["failures"]) - {"ServerCrashed"}:
+            raise AssertionError(f"12c {name}: {s}, failures {r['failures']}")
+        completed = served_as_planned(r, requests, ps, f"12c {name}")
+        lost = r["failures"].get("ServerCrashed", 0) - r["refused"]  # admitted, then failed
+        if completed + r["refused"] + lost != n_restart:
+            raise AssertionError(f"12c {name}: {completed} served, {r['refused']} refused, "
+                                 f"{lost} failed of {n_restart}")
+        if name == "kill" and (not s["requeued"] or s["failed"] or lost):
+            raise AssertionError(f"12c: a kill with work in hand requeued {s['requeued']} "
+                                 f"samples and failed {s['failed']}: every admitted request "
+                                 "must complete")
+        if name == "in-dispatch" and not (s["failed"] and lost):
+            raise AssertionError("12c: the request inside the dying dispatch did not fail")
+        restart[name] = {"completed": completed, "refused": r["refused"], "failed": lost,
+                         "requeued_samples": s["requeued"], "failed_samples": s["failed"],
+                         **{f"{k}_ms": v for k, v in r["last_restart"].items()}}
+    t0 = time.time()
+    loop = serve.serve_continuous(ps, requests[:SERVER_REQUESTS],
+                                  faults=FaultInjector(kill_after_dispatches=2), max_restarts=2,
+                                  **kw)
+    if loop["health"]["status"] != "failed" or loop["summary"]["restarts"] != 2:
+        raise AssertionError(f"12c: a crash loop left {loop['health']}")
+    restart["loop"] = {"seconds": time.time() - t0, "reason": loop["health"]["reason"],
+                       "failures": loop["failures"]}
+    rec["restart"] = restart
+    log(f"[selfheal] 12c: {json.dumps(restart)}")
+
+    # 12d: bucket SELFHEAL_BUCKET demoted to the same kernels without graphs
+    b = SELFHEAL_BUCKET
+    t0 = time.perf_counter()
+    fb = model.fallback_plan_set(ps)
+    fallback_ms = (time.perf_counter() - t0) * 1e3
+    eager_plan = fb[b].__self__
+    if any(fn.__self__.graphs or fn.__self__.graph_launches for fn in fb.values()):
+        raise AssertionError("12d: the fallback captured graphs")
+    reqs = [pool[i * b: (i + 1) * b] for i in range(pool.shape[0] // b)]
+    inj = FaultInjector()
+    srv = CNNServer(ps, max_wait_ms=1.0, faults=inj, fallback=fb, demote_after=2,
+                    probe_every=4)
+    served = []  # (logits, request), checked once the bucket is back
+    with srv:
+        srv.warmup()
+        inj.fail_bucket(b)
+        try:
+            srv.submit(reqs[0]).result(timeout=60)
+            raise AssertionError("12d: the first strike served")
+        except FaultInjected:
+            pass
+        replays = ps.plans[b].replays
+        launched = build.launch_counts()
+        for i in range(1, 8):  # the second strike demotes; a failed probe at the 4th after
+            served.append((srv.submit(reqs[i]).result(timeout=60), reqs[i]))
+            if i == 1:
+                health = srv.health()
+        if health["status"] != "degraded" or list(health["demoted"]) != [b]:
+            raise AssertionError(f"12d: health {health} after the second strike")
+        if ps.plans[b].replays != replays:
+            raise AssertionError("12d: the demoted bucket's plan kept replaying")
+        counts = build.launch_counts()
+        demoted_launches = {k: counts[k] - launched[k] for k in CNN_TC}
+        if dev.type == "cuda" and not all(demoted_launches.values()):
+            raise AssertionError(f"12d: the demoted bucket launched {demoted_launches}: "
+                                 "the fallback must run the kernels")
+        inj.heal_bucket(b)
+        for i in range(8, 12):
+            served.append((srv.submit(reqs[i]).result(timeout=60), reqs[i]))
+            if not srv.demoted_buckets():
+                break
+        back = srv.submit(reqs[0]).result(timeout=60)
+    for got, req in served:
+        check_exact(torch.from_numpy(got), torch.from_numpy(ps.serve(req)),
+                    "12d: a demoted dispatch against the bucket's graph")
+    check_exact(torch.from_numpy(back), torch.from_numpy(ps.serve(reqs[0])),
+                "12d: promoted back to the graphs")
+    s = srv.stats.summary()
+    if (s["demotions"], s["promotions"]) != (1, 1) or srv.demoted_buckets():
+        raise AssertionError(f"12d: demotions {s['demotions']}, promotions {s['promotions']}")
+    ms = {}  # the demoted bucket and the largest, eager and through the graphs
+    for bb in (b, ps.buckets[-1]):
+        xb = torch.from_numpy(np.resize(pool, (bb,) + pool.shape[1:])).to(dev)
+        ms[bb] = {"eager": event_ms(lambda: fb[bb](xb), 20, device=dev),
+                  "graphs": event_ms(lambda: ps.plans[bb].serve(xb), 20, device=dev)}
+    fresh = serve.serve_continuous(ps, requests[:SERVER_REQUESTS], **kw)
+    served_as_planned(fresh, requests, ps, "12d: a fresh run after the promotion")
+    rec["demotion"] = {"bucket": b, "fallback_build_ms": fallback_ms, "bucket_ms": ms,
+                       "served_equal": len(served), "demoted_launches": demoted_launches,
+                       "reason": health["demoted"][b]}
+    log(f"[selfheal] 12d: bucket {b} demoted after 2 strikes ({health['demoted'][b]}), served "
+        f"by the same kernels without graphs ({json.dumps(demoted_launches)} launches), its "
+        f"{len(served)} dispatches equal to the graph's bit for bit, its plan's replays "
+        f"unchanged, promoted at a probe after the heal; the fallback's build and "
+        f"verification {fallback_ms:.0f} ms; ms per dispatch (eager, graphs) "
+        f"{json.dumps(ms)}; a fresh run: no demotion")
+    del fb, eager_plan, srv
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    idle = [k for k in CNN_TC if not counts[k]]
+    if idle:
+        raise AssertionError(f"phase 12: kernels {idle} never launched on its path")
+    rec["launches"] = counts
+    shutil.rmtree(SELFHEAL_DIR, ignore_errors=True)
+    log(f"[selfheal] launches (captures and eager runs) {counts} ({time.time() - t_phase:.1f} s)")
+    return rec
+
+
+# --------------------------------------------------------------- phase 13
+
 
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                 decoders, frontends) -> list:
-    """Phase 12: the kernels' JSON line, one entry per counted kernel from
+                 decoders, frontends, selfheal) -> list:
+    """Phase 13: the kernels' JSON line, one entry per counted kernel from
     phase 2's records (``recs``: {kernel: [record]}; the bf16 tc matmul's
     from 7a) and the main paths' launches (``counts``), each with the same
-    kernel at the LM models' shapes beside it (phases 7–11's records)."""
+    kernel at the LM models' shapes beside it (phases 7–11's records) and
+    its launches on phase 12's path (``selfheal``)."""
     from repro_torch.kernels import build
 
     line = []
@@ -1923,6 +2316,7 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
             "library_device_ms": total(rs, "library_device_ms"),
             "library_call": library_call[name], "layers": len(rs),
             "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
+            "selfheal_launches": selfheal["launches"].get(name, 0),
         })
         if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
             line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
@@ -2066,9 +2460,11 @@ def main() -> int:
     phase_done("10 MLA")
     frontends = side_phase(gen, dev)
     phase_done("11 frontends and cross-attention")
+    selfheal = selfheal_phase(dev)
+    phase_done("12 self-healing tier")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                        decoders, frontends)
+                        decoders, frontends, selfheal)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -2084,6 +2480,7 @@ def main() -> int:
     for arch, r in frontends.items():
         log(f"[{arch}] generate: {json.dumps(r['generate'])}")
         log(f"[{arch}] int8: {json.dumps(r['int8'], default=str)}")
+    log(f"[selfheal] {json.dumps(selfheal)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

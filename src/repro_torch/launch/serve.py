@@ -21,13 +21,18 @@ paper's per-column patterns through the bw kernels; the default
 kernels).
 
 ``--server`` runs the continuous-batching tier (``launch/server.py``)
-instead: a plan set of buckets 1, 2, 4, … ``--max-batch``, the request
-queue and micro-batcher, and Poisson arrivals of ``--requests``
+instead, under the self-healing ``launch/supervisor.py`` (a crashed
+dispatcher restarts): a plan set of buckets 1, 2, 4, … ``--max-batch``, the
+request queue and micro-batcher, and Poisson arrivals of ``--requests``
 single-image requests at ``--rate`` requests/s (by default half the
-measured capacity of the largest bucket). It reports p50/p99 latency,
-images/s, the aggregation shape and the captures after warmup:
+measured capacity of the largest bucket). ``--reload-every N`` saves the
+quantized weights as a verified checkpoint at startup and hot-reloads them
+every N requests mid-traffic. It reports p50/p99 latency, images/s, the
+aggregation shape, the captures after warmup and the supervisor's
+restarts, requeued samples, reloads and demoted buckets:
 
   python -m repro_torch.launch.serve --arch sparse-cnn-s --server --requests 512
+  python -m repro_torch.launch.serve --arch sparse-cnn-s --server --reload-every 64
 
 An LM arch (``configs/registry.py``) runs batched greedy generation: seeded
 weights drawn on the device and compressed leaf by leaf into the VDBB layout
@@ -158,48 +163,137 @@ def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
 
 def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.0,
                      max_queue=None, shed: str = "reject", deadline_s=None, seed: int = 0,
-                     log=print) -> dict:
+                     model=None, reload_every=None, ckpt_dir=None, faults=None,
+                     max_restarts: int = 5, log=print) -> dict:
     """Offer ``requests`` (numpy arrays of one or more images) to a
-    :class:`~repro_torch.launch.server.CNNServer` over ``plan_set`` at
-    Poisson arrivals of ``rate`` requests/s, after its warmup. Shed, expired
-    and failed requests are tallied, not raised. Returns ``{"results"}``
-    (logits or None per request), ``"failures"`` (a tally by error),
-    ``"summary"`` (``ServerStats.summary()``, accounting checked),
-    ``"retraces_after_warmup"`` and ``"health"``."""
-    from repro_torch.launch.server import CNNServer, Overloaded, poisson_arrivals
+    :class:`~repro_torch.launch.server.CNNServer` over ``plan_set`` under a
+    :class:`~repro_torch.launch.supervisor.Supervisor` (``max_restarts``
+    crashes within its window open the breaker), at Poisson arrivals of
+    ``rate`` requests/s after its warmup; ``faults`` installs an injector.
 
+    ``reload_every`` (with ``model``, the quantized ``SparseCNN`` the plan
+    set was built from) saves ``model.state()`` as a verified checkpoint at
+    startup (in ``ckpt_dir``, by default a temporary directory removed
+    afterwards) and hot-reloads it every ``reload_every`` requests
+    mid-traffic: restore, a fresh ``SparseCNN`` on the device loaded with
+    the restored state, its plan set (``tune='off'``) warmed and swapped in,
+    on a thread of its own while the arrivals go on.
+
+    Shed, expired and failed requests, and submits refused in a restart's
+    gap, are tallied, not raised. Returns ``{"results"}`` (logits or None
+    per request), ``"failures"`` (a tally by error), ``"refused"`` (the
+    requests whose submit raised, also in ``"failures"``), ``"summary"``
+    (``ServerStats.summary()``, accounting checked),
+    ``"retraces_after_warmup"``, ``"health"``, ``"reloads"`` (per reload:
+    the request it started at, the step, the phases' ms, the captures
+    after warmup of the set it replaced, the requests submitted and the
+    batches dispatched when the swap returned and, on a card,
+    ``torch.cuda.memory_reserved()`` once the batch in flight at the swap
+    has ended, after a ``gc.collect()`` and an ``empty_cache()``: what the
+    live plan sets hold), ``"last_restart"`` (the
+    supervisor's) and ``"checkpoint"`` (save ms and bytes, with
+    ``reload_every``)."""
+    import gc
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from pathlib import Path
+
+    from repro_torch.checkpoint.store import save
+    from repro_torch.launch.server import (CNNServer, Overloaded, ServerCrashed,
+                                           poisson_arrivals)
+    from repro_torch.launch.supervisor import Supervisor
+
+    if reload_every is not None and model is None:
+        raise ValueError("reload_every needs the model the plan set was built from")
     arrivals = poisson_arrivals(rate, len(requests), seed=seed)
-    srv = CNNServer(plan_set, max_wait_ms=max_wait_ms, max_queue=max_queue, shed=shed)
-    results, failures, futures = [], {}, []
-    with srv:
-        srv.warmup()
-        t0 = time.monotonic()
-        for x, t_arr in zip(requests, arrivals):
-            lag = t_arr - (time.monotonic() - t0)
-            if lag > 0:
-                time.sleep(lag)
-            try:
-                futures.append(srv.submit(x, deadline_s=deadline_s))
-            except Overloaded:
-                failures["Overloaded"] = failures.get("Overloaded", 0) + 1
-                futures.append(None)
-        timeout_s = srv.request_timeout_s()
-        for f in futures:
-            try:
-                results.append(None if f is None else f.result(timeout=timeout_s))
-            except Exception as e:  # noqa: BLE001 -- tallied; the run goes on
-                failures[type(e).__name__] = failures.get(type(e).__name__, 0) + 1
-                results.append(None)
-        health = srv.health()
-    srv.stats.assert_accounting()
-    s = srv.stats.summary()
+    srv = CNNServer(plan_set, max_wait_ms=max_wait_ms, max_queue=max_queue, shed=shed,
+                    faults=faults)
+
+    def rebuild(tree):  # a fresh model on the device, loaded with the restored state
+        return SparseCNN(model.cfg).load_state(tree).plan_set(buckets=plan_set.buckets)
+
+    sup = Supervisor(srv, max_restarts=max_restarts,
+                     rebuild=None if model is None else rebuild,
+                     template=None if model is None else model.state())
+    cuda = next(iter(plan_set.plans.values())).device.type == "cuda"
+    own_dir = reload_every is not None and ckpt_dir is None
+    checkpoint = None
+    if reload_every is not None:
+        ckpt_dir = Path(tempfile.mkdtemp(prefix="serve-ckpt-") if own_dir else ckpt_dir)
+        t0 = time.perf_counter()
+        path = save(ckpt_dir, 1, model.state())
+        checkpoint = {"save_ms": (time.perf_counter() - t0) * 1e3,
+                      "bytes": sum(f.stat().st_size for f in path.iterdir())}
+        log(f"[serve] hot reload every {reload_every} requests from the verified checkpoint "
+            f"{path} ({checkpoint['bytes']} bytes, saved in {checkpoint['save_ms']:.1f} ms)")
+    results, failures, futures, pending = [], {}, [], []
+    refused = 0
+
+    def tally(name):
+        failures[name] = failures.get(name, 0) + 1
+
+    def reload(i):
+        before = sup.retraces_after_warmup
+        step, fp = sup.reload(ckpt_dir)
+        rec = {"at": i, "step": step, **{f"{k}_ms": v for k, v in sup.last_reload.items()},
+               "retraces_before_swap": before, "submitted_at_swap": len(futures),
+               "batches_at_swap": sup.stats.batches}
+        if cuda:  # what the live plan sets hold: the pools of released sets returned
+            # the batch in flight at the swap holds the replaced set until it
+            # ends, which the next batch's start shows (or a quiet second)
+            quiet = time.monotonic() + 1.0
+            while sup.stats.batches <= rec["batches_at_swap"] and time.monotonic() < quiet:
+                time.sleep(1e-3)
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["reserved_bytes"] = torch.cuda.memory_reserved()
+        log(f"[serve] hot reload from request {i}: step {step}, plan set {fp[:12]} swapped "
+            f"in; ms restore {rec['restore_ms']:.1f}, rebuild {rec['rebuild_ms']:.1f}, capture "
+            f"{rec['capture_ms']:.1f}, swap {rec['swap_ms']:.3f}")
+        return rec
+
+    try:
+        # a reload runs on its own thread, so arrivals go on while it captures
+        with sup, ThreadPoolExecutor(max_workers=1, thread_name_prefix="reload") as reloader:
+            sup.warmup()
+            t0 = time.monotonic()
+            for i, (x, t_arr) in enumerate(zip(requests, arrivals)):
+                lag = t_arr - (time.monotonic() - t0)
+                if lag > 0:
+                    time.sleep(lag)
+                if reload_every is not None and i and i % reload_every == 0:
+                    pending.append(reloader.submit(reload, i))
+                try:
+                    futures.append(sup.submit(x, deadline_s=deadline_s))
+                except (Overloaded, ServerCrashed) as e:  # shed, or a restart's gap
+                    tally(type(e).__name__)
+                    refused += 1
+                    futures.append(None)
+            reloads = [f.result() for f in pending]
+            timeout_s = sup.request_timeout_s()
+            for f in futures:
+                try:
+                    results.append(None if f is None else f.result(timeout=timeout_s))
+                except Exception as e:  # noqa: BLE001 -- tallied; the run goes on
+                    tally(type(e).__name__)
+                    results.append(None)
+            health = sup.health()
+    finally:
+        if own_dir:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+    sup.stats.assert_accounting()
+    s = sup.stats.summary()
     log(f"[serve] {s['completed']}/{s['offered']} images of {len(requests)} requests in "
         f"{s['batches']} batches {s['bucket_counts']} (padded_frac {s['padded_frac']}); "
         f"failures {failures or 'none'}")
+    log(f"[serve] supervisor: restarts {s['restarts']}, requeued {s['requeued']}, reloads "
+        f"{s['reloads']}, demoted buckets {sorted(health['demoted']) or 'none'}")
     log(f"[serve] p50 {s['p50_us']} us, p99 {s['p99_us']} us, {s['throughput_rps']} images/s, "
-        f"captures after warmup {srv.retraces_after_warmup}, health {health['status']}")
-    return {"results": results, "failures": failures, "summary": s,
-            "retraces_after_warmup": srv.retraces_after_warmup, "health": health}
+        f"captures after warmup {sup.retraces_after_warmup}, health {health['status']}")
+    return {"results": results, "failures": failures, "refused": refused, "summary": s,
+            "retraces_after_warmup": sup.retraces_after_warmup, "health": health,
+            "reloads": reloads, "last_restart": sup.last_restart, "checkpoint": checkpoint}
 
 
 # ---------------------------------------------------------------- the LM
@@ -551,6 +645,9 @@ def main(argv=None):
                     help="server: at --max-queue, reject (Overloaded) or block the submitter")
     ap.add_argument("--deadline-ms", type=float, default=None,
                     help="server: per-request deadline (DeadlineExceeded past it)")
+    ap.add_argument("--reload-every", type=int, default=None,
+                    help="server: checkpoint the quantized weights at startup and hot-reload "
+                         "them (verify, rebuild, capture, swap) every N requests mid-traffic")
     args = ap.parse_args(argv)
     if args.arch in ARCHS:
         batch = args.batch[0] if args.batch else 4
@@ -583,7 +680,7 @@ def main(argv=None):
     serve_continuous(plan_set, requests, rate=rate, max_wait_ms=args.max_wait_ms,
                      max_queue=args.max_queue, shed=args.shed,
                      deadline_s=args.deadline_ms / 1e3 if args.deadline_ms else None,
-                     seed=args.seed)
+                     seed=args.seed, model=model, reload_every=args.reload_every)
 
 
 if __name__ == "__main__":

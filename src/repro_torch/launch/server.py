@@ -37,8 +37,16 @@ Robustness:
   to be requeued across a restart; :meth:`CNNServer.health` reports
   ready / degraded / stopped; :meth:`CNNServer.stop` drains within
   ``timeout_s``.
+- **Degradation**: with ``fallback=`` (per-bucket closures from
+  ``SparseCNN.fallback_plan_set``: the same kernels without graphs),
+  ``demote_after`` consecutive failed dispatches of one bucket's plan
+  demote that bucket to its fallback, and every ``probe_every``-th
+  dispatch of a demoted bucket tries the plan again and promotes it back
+  on success. :meth:`CNNServer.swap_plan_set` replaces
+  the plan set between dispatches (the hot reload of
+  :class:`~repro_torch.launch.supervisor.Supervisor`).
 - **Faults**: ``faults=`` installs a deterministic injector
-  (:class:`repro_torch.launch.faults.FaultInjector`) at four seams.
+  (:class:`repro_torch.launch.faults.FaultInjector`) at five seams.
 
 :class:`ServerStats` closes the books: ``completed + rejected + failed +
 expired == submitted`` once the server has stopped. Every time the server
@@ -47,13 +55,17 @@ reads comes from ``clock`` (``time.monotonic`` unless a test injects one).
 from __future__ import annotations
 
 import dataclasses
+import logging
 import queue as _queue
 import threading
 import time
+from collections import deque
 from concurrent.futures import Future
 from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+log = logging.getLogger(__name__)
 
 
 class ServeError(RuntimeError):
@@ -201,8 +213,11 @@ class ServerStats:
     admission), ``expired`` (deadline missed while queued) and ``failed``
     (a dispatch or output fault, a crash, or cancelled by a stop that did
     not drain): ``completed + rejected + failed + expired == submitted``
-    once the server has stopped. ``requeued`` counts samples handed back
-    by a crash and queued again (not offered twice)."""
+    once the server has stopped, across supervised restarts too.
+    ``requeued`` counts samples handed back by a crash and queued again (not
+    offered twice); ``restarts`` the supervised restarts, ``reloads`` the
+    plan-set swaps, ``demotions`` and ``promotions`` the buckets moved to
+    their fallback and back."""
 
     submitted: int = 0
     completed: int = 0
@@ -218,6 +233,10 @@ class ServerStats:
     last_done: Optional[float] = None
     warmup_traces: int = 0
     requeued: int = 0
+    restarts: int = 0
+    reloads: int = 0
+    demotions: int = 0
+    promotions: int = 0
 
     @property
     def accounted(self) -> int:
@@ -256,7 +275,11 @@ class ServerStats:
             "bucket_counts": {str(k): v for k, v in sorted(self.bucket_counts.items())},
             "padded_frac": (round(self.padded_samples / self.served_samples, 4)
                             if self.served_samples else 0.0),
+            "restarts": self.restarts,
             "requeued": self.requeued,
+            "reloads": self.reloads,
+            "demotions": self.demotions,
+            "promotions": self.promotions,
         }
 
 
@@ -282,16 +305,37 @@ class CNNServer:
     after a restart) instead of their failing. The dispatcher serves each
     batch to completion before it resolves the futures, so a latency runs
     from arrival to logits on the host.
+
+    ``fallback`` (``{bucket: serve}``, ``SparseCNN.fallback_plan_set``)
+    turns on per-bucket demotion: ``demote_after`` consecutive failed
+    dispatches of a bucket's plan move that bucket to its fallback (counted
+    in ``stats.demotions``, logged, and reported by :meth:`health` as
+    ``'degraded'`` with ``demoted: {bucket: reason}``); every
+    ``probe_every``-th dispatch of a demoted bucket tries its plan again and
+    promotes it on success (None: never). The fallback runs the same
+    kernels without graphs, so demotion rescues only a failure of the
+    bucket's graph path that raises on the host: a capture or a replay that
+    fails, the injector's ``pre_bucket``. A shape a wrapper refuses, or a
+    kernel that fails to build or load, fails the fallback too, and the
+    request fails typed. A fault inside a kernel (an illegal address) is a
+    sticky CUDA error that poisons the process's context, and no fallback
+    on the same card can serve after it. No serving entry point builds a
+    fallback; a caller opts in.
     """
 
     def __init__(self, plan_set, *, max_batch: Optional[int] = None, max_wait_ms: float = 5.0,
                  max_queue: Optional[int] = None, shed: str = "reject", validate: bool = True,
-                 check_outputs: bool = True, faults=None, on_crash=None,
+                 check_outputs: bool = True, faults=None, fallback=None, demote_after: int = 2,
+                 probe_every: Optional[int] = 4, on_crash=None,
                  clock: Callable[[], float] = time.monotonic):
         if shed not in ("reject", "block"):
             raise ValueError(f"shed must be 'reject' or 'block', got {shed!r}")
         if max_queue is not None and max_queue < 1:
             raise ValueError(f"max_queue must be >= 1, got {max_queue}")
+        if demote_after < 1:
+            raise ValueError(f"demote_after must be >= 1, got {demote_after}")
+        if probe_every is not None and probe_every < 2:
+            raise ValueError(f"probe_every must be >= 2, got {probe_every}")
         self.plan_set = plan_set
         self.max_batch = int(max_batch or plan_set.buckets[-1])
         self.max_wait_s = float(max_wait_ms) / 1e3
@@ -303,7 +347,17 @@ class CNNServer:
         self._check_outputs = check_outputs
         self._faults = faults
         self._clock = clock
+        self._fallback = dict(fallback) if fallback is not None else None
+        self._demote_after = int(demote_after)
+        self._probe_every = probe_every
+        self._strikes: dict = {}  # bucket -> consecutive failed plan dispatches
+        self._demoted: dict = {}  # bucket -> {'reason', 'dispatches'}
         self._inflight: dict = {}  # id(p) -> p, dispatcher thread only
+        # dispatcher thread only: requests taken off the queue and not yet
+        # in the batcher, and batches the batcher let go of and not yet
+        # dispatched; a crash hands both back with the batcher's
+        self._held: deque = deque()
+        self._ready: List[List[_Pending]] = []
         self._batcher = MicroBatcher(self.max_batch, self.max_wait_s)
         self._q: _queue.Queue = _queue.Queue()
         self._thread: Optional[threading.Thread] = None
@@ -445,8 +499,12 @@ class CNNServer:
 
     def serve_batch(self, x):
         """Synchronous bucketed serve, no queue (pad, bucket plan, slice):
-        the dispatcher's path, open to direct callers."""
-        return self.plan_set.serve(x, on_dispatch=self._record)
+        the dispatcher's path, open to direct callers, demotion routing
+        included. The plan set and its fallback are read once per batch."""
+        with self._lock:
+            ps, fallback = self.plan_set, self._fallback
+        return ps.serve(x, on_dispatch=self._record,
+                        dispatch=lambda b, xb: self._bucket_dispatch(ps, fallback, b, xb))
 
     def requeue(self, pendings: List[_Pending]) -> int:
         """Queue again the requests a crash handed to ``on_crash``: on a
@@ -475,24 +533,112 @@ class CNNServer:
         for p in pendings:
             self._cancel(p)
 
+    def swap_plan_set(self, new_set, *, fallback=None) -> None:
+        """Replace the serving :class:`PlanSet` (the hot reload). The
+        dispatcher reads the set once per batch, so the swap lands between
+        batches: one in flight finishes on the old set, every later one runs
+        the new. The caller passes a set already warm (``Supervisor.reload``
+        warms it off the dispatcher thread); the capture count's baseline
+        moves to the new set, so :attr:`retraces_after_warmup` carries on.
+        The fallback closures and the demotion state belong to the old
+        weights and are replaced. Refuses another bucket ladder or sample
+        spec."""
+        if tuple(new_set.buckets) != tuple(self.plan_set.buckets):
+            raise ValueError(f"swap buckets {new_set.buckets} != serving ladder "
+                             f"{self.plan_set.buckets}")
+        if (self.plan_set.sample_spec is not None
+                and new_set.sample_spec != self.plan_set.sample_spec):
+            raise ValueError(f"swap sample spec {new_set.sample_spec} != admission contract "
+                             f"{self.plan_set.sample_spec}")
+        with self._lock:
+            self.plan_set = new_set
+            self.stats.warmup_traces = new_set.trace_count
+            self.stats.reloads += 1
+            self._fallback = dict(fallback) if fallback is not None else None
+            self._strikes.clear()
+            self._demoted.clear()
+
+    # ------------------------------------------------------- degradation
+    def _bucket_dispatch(self, ps, fallback, b: int, xb):
+        """One bucket's dispatch: its plan while healthy; its fallback once
+        demoted, except every ``probe_every``-th dispatch, which tries the
+        plan and promotes the bucket when it succeeds."""
+        with self._lock:
+            dem = self._demoted.get(b)
+            probe = False
+            if dem is not None:
+                dem["dispatches"] += 1
+                probe = (self._probe_every is not None
+                         and dem["dispatches"] % self._probe_every == 0)
+        if dem is not None and not probe:
+            return fallback[b](xb)
+        try:
+            if self._faults is not None:
+                self._faults.pre_bucket(b)  # the backend-fault seam
+            y = ps.plans[b].serve(xb)
+        except Exception as e:  # noqa: BLE001 -- strike, demote, or pass it on
+            if dem is not None:  # a failed probe: stay demoted
+                return fallback[b](xb)
+            if self._strike(b, e, fallback):
+                return fallback[b](xb)  # demoted now: the batch is rescued
+            raise  # below the threshold: bisection isolates the batch
+        if dem is not None:
+            self._promote(b)
+        else:
+            with self._lock:
+                self._strikes.pop(b, None)  # a clean dispatch clears the strikes
+        return y
+
+    def _strike(self, b: int, exc: Exception, fallback) -> bool:
+        """One failed plan dispatch of bucket ``b``; True when it demoted."""
+        with self._lock:
+            if b in self._demoted:
+                return False
+            k = self._strikes.get(b, 0) + 1
+            self._strikes[b] = k
+            if fallback is None or b not in fallback or k < self._demote_after:
+                return False
+            reason = f"{type(exc).__name__}: {exc}"
+            self._demoted[b] = {"reason": reason, "dispatches": 0}
+            self._strikes.pop(b, None)
+            self.stats.demotions += 1
+        log.warning("bucket %d demoted to its fallback after %d failed dispatches: %s",
+                    b, k, reason)
+        return True
+
+    def _promote(self, b: int) -> None:
+        with self._lock:
+            if self._demoted.pop(b, None) is None:
+                return
+            self._strikes.pop(b, None)
+            self.stats.promotions += 1
+        log.warning("bucket %d promoted back to its plan", b)
+
+    def demoted_buckets(self) -> dict:
+        """``{bucket: reason}`` of the buckets serving on their fallback."""
+        with self._lock:
+            return {b: d["reason"] for b, d in sorted(self._demoted.items())}
+
     # ---------------------------------------------------------- health
     def health(self) -> dict:
         """``status``: ``'ready'`` (dispatching, the last dispatch clean, the
         queue below its bound), ``'degraded'`` (running, but the last
-        dispatch hit a fault or the queue is at its bound) or
-        ``'stopped'`` (not started, stopped or crashed; ``crashed`` tells)."""
+        dispatch hit a fault, the queue is at its bound or a bucket is
+        demoted; ``demoted`` is ``{bucket: reason}``) or ``'stopped'`` (not
+        started, stopped or crashed; ``crashed`` tells)."""
         with self._lock:
             running = self._thread is not None and not self._closed and self._crashed is None
             at_capacity = self.max_queue is not None and self._depth >= self.max_queue
+            demoted = {b: d["reason"] for b, d in sorted(self._demoted.items())}
             if not running:
                 status = "stopped"
-            elif self._degraded or at_capacity:
+            elif self._degraded or at_capacity or demoted:
                 status = "degraded"
             else:
                 status = "ready"
             return {"status": status, "crashed": self._crashed is not None,
                     "queue_depth": self._depth, "max_queue": self.max_queue,
-                    "service_estimate_s": self._bucket_time_s}
+                    "service_estimate_s": self._bucket_time_s, "demoted": demoted}
 
     def service_estimate_s(self) -> Optional[float]:
         """EMA of the measured batch serve time (seeded by warmup)."""
@@ -552,28 +698,31 @@ class CNNServer:
                 try:
                     self._faults.on_tick(len(items))  # the dispatcher-kill seam
                 except BaseException:
-                    for it in items:  # keep them for _crash to fail
+                    for it in items:  # keep them for _crash to hand back
                         self._q.put(it)
                     raise
-            for item in items:
+            self._held.extend(items)
+            while self._held:
+                item = self._held.popleft()
                 if isinstance(item, tuple) and item[0] is _STOP:
                     stop = item  # submit() refuses after _closed: nothing trails it
                     continue
-                for batch in self._batcher.add(item):
-                    self._dispatch(batch)
+                self._ready = self._batcher.add(item)
+                while self._ready:
+                    self._dispatch(self._ready.pop(0))
             if stop is None and self._batcher.due(self._clock(), est):
                 self._dispatch(self._batcher.take())
-        remainder = self._batcher.take()
+        self._held.extend(self._batcher.take())
         if stop[1]:  # drain: serve what is left so every future resolves
-            while remainder and not self._abandon.is_set():
+            while self._held and not self._abandon.is_set():
                 take, nn = [], 0
-                while remainder and (not take or nn + remainder[0].n <= self.max_batch):
-                    p = remainder.pop(0)
+                while self._held and (not take or nn + self._held[0].n <= self.max_batch):
+                    p = self._held.popleft()
                     take.append(p)
                     nn += p.n
                 self._dispatch(take)
-        for p in remainder:  # no drain, or an abandoned one: cancel
-            self._cancel(p)
+        while self._held:  # no drain, or an abandoned one: cancel
+            self._cancel(self._held.popleft())
 
     def _dispatch(self, batch: List[_Pending]) -> None:
         """Expire what already missed its deadline, then serve the rest."""
@@ -688,7 +837,11 @@ class CNNServer:
         self._inflight.clear()
         for p in inflight:
             self._fail(p, err, kind="failed")
-        stranded = self._batcher.take()
+        # never inside a dispatch: the batches let go of and not yet run, the
+        # batcher's, and those taken off the queue in the tick that died
+        stranded = [p for batch in self._ready for p in batch] + self._batcher.take()
+        stranded += [p for p in self._held if isinstance(p, _Pending)]
+        self._ready, self._held = [], deque()
         while True:  # submit() enqueues under the lock: nothing can trail
             try:
                 item = self._q.get_nowait()

@@ -169,7 +169,7 @@ class SparseCNN(nn.Module):
         return head.quant_serve(x)
 
     # ------------------------------------------------- frozen serving plans
-    def plan(self, *, batch: int, tune: str = "off", pool=None):
+    def plan(self, *, batch: int, tune: str = "off", pool=None, graphs: bool = True):
         """Freeze a serving plan for request batch ``batch`` (port of the
         reference's ``plan``): the stages ``l0 … l{n-1}`` (each conv on the
         path :meth:`forward` takes for the current state, the fused int8
@@ -178,7 +178,8 @@ class SparseCNN(nn.Module):
         first ``serve`` of a signature, from ``pool`` (a
         :class:`~repro_torch.models.plan.GraphPool`; :meth:`plan_set` shares
         one across its buckets). Only ``tune='off'`` exists (ROADMAP item
-        10)."""
+        10). ``graphs=False`` stages the same chain to run eagerly on a card,
+        each kernel launched by its wrapper (:meth:`fallback_plan_set`)."""
         from repro_torch.models.plan import PlanBuilder
 
         layers = self.layers()
@@ -189,7 +190,7 @@ class SparseCNN(nn.Module):
         n = len(convs)
         pb = PlanBuilder(c.name, self.state(), batch=batch, tune=tune,
                          sample_spec=((c.image_size, c.image_size, c.in_channels), "float32"),
-                         device=head.w.device, pool=pool)
+                         device=head.w.device, pool=pool, graphs=graphs)
         for i, m in enumerate(convs):
             out_scale = convs[i + 1].aq if fused and i + 1 < n else None
             pb.stage(f"l{i}", "conv", m.make_plan, batch=batch, h=h, w=w, relu=True,
@@ -199,19 +200,38 @@ class SparseCNN(nn.Module):
         pb.stage(f"l{n}", "linear", head.make_plan, batch=batch, fused=fused)
         return pb.build()
 
-    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, tune: str = "off"):
+    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, tune: str = "off",
+                 graphs: bool = True):
         """Freeze a bucketed serving plan set: one :meth:`plan` per
         batch-size bucket (``make_buckets(max_batch)`` by default), all
         pinned to the same state and, on a card, sharing one graph memory
         pool. ``serve`` takes any batch size and, once every bucket is
-        warm, captures nothing new."""
+        warm, captures nothing new. ``graphs``: see :meth:`plan`."""
         from repro_torch.models.plan import GraphPool, build_plan_set, resolve_tune_cache
 
         resolve_tune_cache(tune)
-        pool = GraphPool() if self.layers()[-1].w.device.type == "cuda" else None
+        pool = GraphPool() if graphs and self.layers()[-1].w.device.type == "cuda" else None
         return build_plan_set(self.cfg.name, self.state(),
-                              lambda b: self.plan(batch=b, tune=tune, pool=pool),
+                              lambda b: self.plan(batch=b, tune=tune, pool=pool, graphs=graphs),
                               max_batch=max_batch, buckets=buckets)
+
+    def fallback_plan_set(self, primary, *, verify: bool = True) -> dict:
+        """The serving tier's per-bucket degradation closures (port of the
+        reference's ``fallback_plan_set``): ``primary``'s bucket ladder
+        staged again from the same state, on the same device, as the
+        ``{bucket: serve}`` mapping ``CNNServer(fallback=)`` takes, verified
+        bucket by bucket. The reference restages in its ``'ref'`` kernel
+        mode; the port never runs a plain version on a card, so its fallback
+        runs the same kernels without graphs (``plan_set(graphs=False)``):
+        each wrapper launches its kernel eagerly, and a demoted bucket
+        serves bit for bit what its graph serves. It rescues what fails in
+        the graph path on the host (a capture or a replay that raises), not
+        a kernel that refuses its inputs. On the CPU both sets run the plain
+        versions, as every CPU plan does."""
+        from repro_torch.models.plan import fallback_closures
+
+        eager = self.plan_set(buckets=primary.buckets, graphs=False)
+        return fallback_closures(primary, eager, verify=verify)
 
     # ---------------------------------------------- the paper's technique
     def constrain(self) -> "SparseCNN":

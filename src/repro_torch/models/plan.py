@@ -34,6 +34,7 @@ Only ``tune='off'`` exists: the tile autotuner is ROADMAP item 10.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import threading
@@ -90,15 +91,23 @@ class LayerPlan:
     run: Callable[[Any], Any]
 
 
+# One lock for every graph in the process. A capture runs in CUDA's global
+# capture mode, in which a call another thread makes meanwhile (a copy from
+# pageable memory, a launch on the default stream, a synchronize) fails
+# that call or the capture. So a capture, and each serve's input copy,
+# replay and output copy, take this lock: a capture on one thread (a hot
+# reload's warmup) holds the dispatcher off for as long as it lasts, and
+# graphs that share a pool never interleave on the stream. Reentrant: a
+# serve captures on a first use while it holds the lock.
+GRAPH_LOCK = threading.RLock()
+
+
 class GraphPool:
-    """A CUDA graph memory pool and the lock that orders the graphs captured
-    from it. Graphs sharing a pool may reuse each other's intermediates, so
-    one graph's capture, or its input copy, replay and output copy, must not
-    interleave with another's on the stream: each takes the lock."""
+    """A CUDA graph memory pool. Graphs sharing a pool may reuse each
+    other's intermediates; :data:`GRAPH_LOCK` orders them."""
 
     def __init__(self):
         self.handle = torch.cuda.graph_pool_handle()
-        self.lock = threading.Lock()
 
 
 def capture(fn: Callable[[], Any], pool: GraphPool, device) -> tuple:
@@ -110,23 +119,24 @@ def capture(fn: Callable[[], Any], pool: GraphPool, device) -> tuple:
     the capture, and its side effects happen once), and nothing it does may
     reach the host. Returns ``(graph, outputs, launches)``: ``launches`` is
     what the kernel wrappers counted during the capture, what one replay
-    launches (the counters do not see replays). The caller holds
-    ``pool.lock`` where other graphs share the pool. Raises while an
-    activation collector is installed: it reads every projection's input on
-    the host."""
+    launches (the counters do not see replays). Both runs hold
+    :data:`GRAPH_LOCK`; so must any other thread's work on the card that
+    could meet a capture. Raises while an activation collector is
+    installed: it reads every projection's input on the host."""
     if act_sparsity.collecting():
         raise RuntimeError("no CUDA graph is captured while activation stats are collected: "
                            "the collector reads each projection's input on the host")
-    stream = torch.cuda.current_stream(device)
-    side = torch.cuda.Stream(device)
-    side.wait_stream(stream)
-    with torch.cuda.stream(side):
-        fn()
-    stream.wait_stream(side)
-    before = build.launch_counts()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph, pool=pool.handle):
-        out = fn()
+    with GRAPH_LOCK:
+        stream = torch.cuda.current_stream(device)
+        side = torch.cuda.Stream(device)
+        side.wait_stream(stream)
+        with torch.cuda.stream(side):
+            fn()
+        stream.wait_stream(side)
+        before = build.launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, pool=pool.handle):
+            out = fn()
     launches = {k: n - before.get(k, 0) for k, n in build.launch_counts().items()}
     return graph, out, launches
 
@@ -145,7 +155,9 @@ class ModelPlan:
 
     ``serve(x)`` (also ``plan(x)``) runs the staged chain: on a card by
     replaying the graph captured for ``x``'s (shape, dtype), capturing it
-    on first use; on the CPU eagerly. ``check(state)`` raises
+    on first use; on the CPU eagerly. ``graphs=False`` runs it eagerly on a
+    card too, each kernel launched by its wrapper (a serving fallback's,
+    ``SparseCNN.fallback_plan_set``). ``check(state)`` raises
     :class:`StalePlanError` on a fingerprint mismatch.
     """
 
@@ -159,13 +171,14 @@ class ModelPlan:
     sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None
     device: Optional[torch.device] = None  # where the staged tensors lie: required
     pool: Optional[GraphPool] = None  # shared by a PlanSet's buckets
+    graphs: bool = True  # on a card: replay captured graphs (else run eagerly)
 
     def __post_init__(self):
         if self.device is None:
             raise ValueError(f"plan {self.model!r}: no device; a plan runs where its staged "
                              "tensors lie, so pass the model's device")
         object.__setattr__(self, "device", torch.device(self.device))
-        if self.device.type == "cuda" and self.pool is None:
+        if self.device.type == "cuda" and self.graphs and self.pool is None:
             object.__setattr__(self, "pool", GraphPool())
         object.__setattr__(self, "_graphs", {})  # signature -> _Graph, on a card
         object.__setattr__(self, "_signatures", set())  # staged on the CPU
@@ -183,7 +196,11 @@ class ModelPlan:
             if self.device.type != "cuda":
                 self._signatures.add((tuple(x.shape), x.dtype))
                 return self._chain(x.to(self.device))
-            with self.pool.lock:
+            if not self.graphs:
+                with GRAPH_LOCK:  # a capture on another thread must not meet its launches
+                    self._signatures.add((tuple(x.shape), x.dtype))
+                    return self._chain(x.to(self.device))
+            with GRAPH_LOCK:
                 g = self._graphs.get((tuple(x.shape), x.dtype)) or self._capture(x)
                 g.static_in.copy_(x)
                 g.graph.replay()
@@ -206,8 +223,8 @@ class ModelPlan:
 
     @property
     def trace_count(self) -> int:
-        """Captures on a card, staged signatures on the CPU: one per
-        distinct (shape, dtype) this plan has served. The serving tier
+        """Captures on a card, staged signatures on the CPU or without
+        graphs: one per distinct (shape, dtype) this plan has served. The serving tier
         snapshots it after warmup to hold its zero-retrace contract."""
         return len(self._graphs) + len(self._signatures)
 
@@ -293,7 +310,9 @@ class PlanSet:
         ``put`` (optional) maps each padded chunk to what the plan serves
         (default: ``torch.from_numpy`` on the host path).
         ``on_dispatch(bucket, n_real)`` observes each plan dispatch;
-        ``dispatch(bucket, xb)`` replaces it.
+        ``dispatch(bucket, xb)`` replaces it. On the host path a chunk's
+        copy in, dispatch and copy back hold :data:`GRAPH_LOCK`, so a
+        capture on another thread never meets them.
         """
         n = x.shape[0]
         if n < 1:
@@ -311,15 +330,16 @@ class PlanSet:
                     xb = np.pad(xb, [(0, b - take)] + [(0, 0)] * (x.ndim - 1))
                 else:
                     xb = torch.cat([xb, xb.new_zeros((b - take,) + tuple(xb.shape[1:]))])
-            if put is not None:
-                xb = put(xb)
-            elif host:
-                xb = torch.from_numpy(np.ascontiguousarray(xb))
             if on_dispatch is not None:
                 on_dispatch(b, take)
-            y = self.plans[b].serve(xb) if dispatch is None else dispatch(b, xb)
-            if host:
-                y = y.cpu().numpy()
+            with GRAPH_LOCK if host else contextlib.nullcontext():
+                if put is not None:
+                    xb = put(xb)
+                elif host:
+                    xb = torch.from_numpy(np.ascontiguousarray(xb))
+                y = self.plans[b].serve(xb) if dispatch is None else dispatch(b, xb)
+                if host:
+                    y = y.cpu().numpy()
             outs.append(y if take == b else y[:take])
             i += take
         if len(outs) == 1:
@@ -363,6 +383,43 @@ class PlanSet:
                 "with model.plan_set()")
 
 
+def fallback_closures(primary: PlanSet, fallback: PlanSet, *, verify: bool = True) -> dict:
+    """Per-bucket closures for the serving tier's degradation,
+    ``{bucket: serve}``, from a second :class:`PlanSet` staged from the
+    same state (``SparseCNN.fallback_plan_set``: the same kernels, run
+    without graphs). When a bucket's plan keeps failing, the server demotes
+    that bucket alone to its closure here; every other bucket keeps its
+    graphs.
+
+    The two sets must share the state's fingerprint, the bucket ladder and
+    the sample spec. With ``verify`` every bucket serves one seeded batch
+    through both, and the outputs must be equal bit for bit (the
+    reference's ``rtol=0``). The pass is also the fallback's warmup.
+    """
+    if primary.fingerprint != fallback.fingerprint:
+        raise StalePlanError("fallback plan set was built from another state than the "
+                             "primary: rebuild both from the same quantized weights")
+    if tuple(primary.buckets) != tuple(fallback.buckets):
+        raise ValueError(f"fallback buckets {fallback.buckets} != primary {primary.buckets}: "
+                         "a demoted bucket keeps its ladder")
+    if primary.sample_spec is not None and fallback.sample_spec != primary.sample_spec:
+        raise ValueError(f"fallback sample spec {fallback.sample_spec} != primary "
+                         f"{primary.sample_spec}")
+    if verify:
+        if primary.sample_spec is None:
+            raise ValueError("verifying a fallback needs a sample_spec")
+        shape, dtype = primary.sample_spec
+        rng = np.random.default_rng(0)
+        for b in primary.buckets:
+            xb = rng.standard_normal((b,) + tuple(shape)).astype(dtype)
+            yp, yf = primary.serve(xb), fallback.serve(xb)
+            if not np.array_equal(yf, yp):
+                err = float(np.abs(yf - yp).max())
+                raise AssertionError(f"fallback bucket {b} is not bit-compatible with the "
+                                     f"primary (max abs diff {err:.3e})")
+    return {b: fallback.plans[b].serve for b in fallback.buckets}
+
+
 def resolve_tune_cache(tune: str, cache=None):
     """The tile-tuning mode of a plan build. Only ``'off'`` (the kernels' own
     tile choices) exists; it passes ``cache`` through. The autotuner and
@@ -385,8 +442,9 @@ class PlanBuilder:
 
     def __init__(self, model: str, params, *, batch: Optional[int] = None, tune: str = "off",
                  sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None, device,
-                 pool: Optional[GraphPool] = None):
+                 pool: Optional[GraphPool] = None, graphs: bool = True):
         self.model = model
+        self.graphs = graphs
         self.batch = batch
         self.sample_spec = sample_spec
         self.device = torch.device(device)
@@ -417,7 +475,7 @@ class PlanBuilder:
         if not self._stages:
             raise ValueError("PlanBuilder has no stages")
         return ModelPlan(self.model, self.fingerprint, tuple(self._stages), self.batch,
-                         self.sample_spec, self.device, self.pool)
+                         self.sample_spec, self.device, self.pool, self.graphs)
 
 
 def build_plan_set(model: str, params, plan_for_batch: Callable[[int], ModelPlan], *,

@@ -510,7 +510,8 @@ def test_kernels_line_carries_every_key_for_every_kernel(smoke):
         planned={"matrix": {"replayed": {"vdbb_conv_tc": 7}}}, lm_recs={"bf16": shapes(),
                                                                         "int8": shapes()},
         lm_gen=generated(9), lm_planned=plan, moe_recs=shapes(), moe_gen=generated(4),
-        decoders=decoders, frontends=frontends)
+        decoders=decoders, frontends=frontends,
+        selfheal={"launches": {"im2col_conv": 6, "vdbb_conv_tc": 42, "vdbb_matmul_tc": 6}})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert [e["name"] for e in line] == kernels
@@ -525,4 +526,39 @@ def test_kernels_line_carries_every_key_for_every_kernel(smoke):
         assert int8[arch]["library_device_ms"] is None
     assert int8["rwkv6-3b"]["graph_replay_launches_per_prefill"] == 7
     assert bf16["moe"]["graph_replay_launches_per_step"] == 8
+    assert int8["selfheal_launches"] == 6 and by["vdbb_conv_tc"]["selfheal_launches"] == 42
+    assert by["vdbb_conv_bw"]["selfheal_launches"] == 0
     json.loads(json.dumps({"kernels": line}))
+
+
+def test_selfheal_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 12 end to end on the CPU at sparse-cnn-s's smoke config
+    (buckets 1 … 8, 96 requests, a reload every 24): the checkpoints and
+    the reference's, three reloads under traffic and a corrupted one, the
+    restarts and the crash loop, the demotion and promotion of bucket 8.
+    The CUDA synchronize and memory calls are stubbed, and the launch counts
+    (the plain versions count nothing) are those of a replay's captures."""
+    import torch
+
+    from repro_torch.kernels import build
+
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    for name in ("memory_reserved", "empty_cache"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(build, "launch_counts",
+                        lambda: {"im2col_conv": 7, "vdbb_conv_tc": 21, "vdbb_matmul_tc": 7,
+                                 "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 0,
+                                 "vdbb_matmul_bw": 0})
+    monkeypatch.setattr(smoke, "SELFHEAL_SMOKE", True)
+    monkeypatch.setattr(smoke, "SELFHEAL_MAX_BATCH", 8)
+    monkeypatch.setattr(smoke, "SELFHEAL_REQUESTS", 96)
+    monkeypatch.setattr(smoke, "SELFHEAL_RELOAD_EVERY", 24)
+    monkeypatch.setattr(smoke, "SELFHEAL_DIR", tmp_path / "selfheal")
+    rec = smoke.selfheal_phase(torch.device("cpu"))
+    assert len(rec["reload"]["reloads"]) == 3 and rec["checkpoint"]["leaves"] == 12
+    assert rec["checkpoint"]["reference_rel_l2"] <= 1e-3
+    assert rec["restart"]["kill"]["requeued_samples"] >= 1
+    assert rec["restart"]["kill"]["failed"] == 0 and rec["restart"]["in-dispatch"]["failed"]
+    assert "crash loop" in rec["restart"]["loop"]["reason"]
+    assert rec["demotion"]["bucket"] == 8 and rec["demotion"]["served_equal"] >= 2
+    assert not (tmp_path / "selfheal").exists()

@@ -157,6 +157,21 @@ def test_plan_stages_and_tiles(served):
     assert plan.batch == 8 and set(ps.tiles) == set(ps.buckets)
 
 
+def test_eager_plan_stages_the_same_kernels(served):
+    """``graphs=False`` (a serving fallback's staging) stages the same chain
+    with the same tile plans, serves what the graphed plan serves, and
+    holds no graph pool; a plan set of such plans shares none either."""
+    model, x, ps = served
+    eager = model.plan(batch=8, graphs=False)
+    assert not eager.graphs and ps.plans[8].graphs
+    assert eager.tiles == ps.plans[8].tiles and eager.pool is None
+    xt = torch.from_numpy(x[:8])
+    assert torch.equal(eager.serve(xt), ps.plans[8].serve(xt))
+    assert eager.trace_count == 1 and eager.replays == 0
+    eager_set = model.plan_set(buckets=ps.buckets, graphs=False)
+    assert all(not p.graphs and p.pool is None for p in eager_set.plans.values())
+
+
 def test_fp_chain_plan_matches_forward():
     """A plan also stages the per-layer chain of a compressed, unquantized
     model (no tiles), equal to its forward."""

@@ -670,3 +670,47 @@ def test_concurrent_submitters_keep_the_books(served):
     s = srv.stats.summary()
     assert s["completed"] == s["offered"] == 96 and srv.health()["queue_depth"] == 0
     srv.stats.assert_accounting()
+
+
+# ------------------------------------------------------------- hot swap
+
+
+def test_swap_plan_set_checks_ladder_and_spec_and_reanchors(served):
+    """A swap refuses another bucket ladder or sample spec; an accepted one
+    counts a reload, moves the capture baseline to the new set (so a warm
+    set swapped in shows no capture after warmup) and serves the new set."""
+    model, x, ps = served
+    srv = CNNServer(ps, max_wait_ms=1.0)
+    with srv:
+        srv.warmup()
+        with pytest.raises(ValueError, match="ladder"):
+            srv.swap_plan_set(model.plan_set(max_batch=2))
+        other = model.plan_set(max_batch=4)
+        object.__setattr__(other, "sample_spec", ((8, 8, 3), "float32"))
+        with pytest.raises(ValueError, match="sample spec"):
+            srv.swap_plan_set(other)
+        new = model.plan_set(max_batch=4)
+        new.warmup()
+        srv.swap_plan_set(new)
+        assert srv.plan_set is new and srv.retraces_after_warmup == 0
+        np.testing.assert_array_equal(srv.submit(x[:3]).result(timeout=WAIT_S), ps.serve(x[:3]))
+    assert srv.stats.reloads == 1 and srv.retraces_after_warmup == 0
+    srv.stats.assert_accounting()
+
+
+def test_stats_summary_carries_the_lifecycle_counters():
+    from repro_torch.launch.server import ServerStats
+
+    s = ServerStats(submitted=3, completed=3, restarts=1, requeued=2, reloads=3, demotions=1,
+                    promotions=1).summary()
+    assert {k: s[k] for k in ("restarts", "requeued", "reloads", "demotions", "promotions")} \
+        == {"restarts": 1, "requeued": 2, "reloads": 3, "demotions": 1, "promotions": 1}
+    assert ServerStats().summary()["reloads"] == 0
+
+
+@pytest.mark.parametrize("kw,match", [(dict(demote_after=0), "demote_after"),
+                                      (dict(probe_every=1), "probe_every")])
+def test_server_validates_demotion_knobs(served, kw, match):
+    _, _, ps = served
+    with pytest.raises(ValueError, match=match):
+        CNNServer(ps, **kw)

@@ -23,8 +23,10 @@ for the frontends' (``tests/data/torch_parity_audio.npz``,
 ``musicgen-medium``: audio codebooks and cross-attention to a memory, its
 codebook tables and head kept as fp32 seeds, ``interop.seeded_fp32``;
 ``tests/data/torch_parity_vlm.npz``, ``internvl2-2b``: vision embeddings),
-each with its side inputs, calibration stats and quantized forward.
-Regenerate all nine with
+each with its side inputs, calibration stats and quantized forward; and
+``tests/data/torch_parity_ckpt/step_00000001``, the reference's checkpoint
+of ``torch_parity_cnn.npz``'s quantized params (:func:`write_ckpt_fixture`).
+Regenerate all ten with
 
     PYTHONPATH=src python tests/torch_parity.py
 """
@@ -54,6 +56,7 @@ FIXTURE_BW = ROOT / "tests" / "data" / "torch_parity_cnn_bw.npz"
 FIXTURE_LM = ROOT / "tests" / "data" / "torch_parity_lm.npz"
 FIXTURE_MOE = ROOT / "tests" / "data" / "torch_parity_moe.npz"
 FIXTURE_MLA = ROOT / "tests" / "data" / "torch_parity_mla.npz"
+FIXTURE_CKPT = ROOT / "tests" / "data" / "torch_parity_ckpt"
 LM_BATCH, LM_SEQ = 2, 32
 CHAIN_BATCH = 8
 CHAIN_SEED = 0
@@ -416,6 +419,19 @@ def jax_vlm_golden(seed: int = 0, batch: int = LM_BATCH, seq: int = LM_SEQ) -> d
     return jax_side_golden(VLM_ARCH, seed, batch, seq)
 
 
+def write_ckpt_fixture(path: Path = FIXTURE_CKPT) -> Path:
+    """The reference's ``checkpoint.store.save`` of the quantized params
+    ``torch_parity_cnn.npz`` carries (the chain test's model at
+    ``FIXTURE_BATCH``), as step 1 under ``path``: a checkpoint the card,
+    which has no JAX, restores into the port."""
+    import shutil
+
+    from repro.checkpoint.store import save
+
+    shutil.rmtree(path, ignore_errors=True)
+    return save(path, 1, from_numpy(jax_chain(batch=FIXTURE_BATCH)["params"]))
+
+
 def fixture_bytes(chain: dict) -> bytes:
     buf = io.BytesIO()
     np.savez_compressed(buf, **flatten(chain))
@@ -440,3 +456,4 @@ if __name__ == "__main__":
                          (FIXTURE_SIDE[VLM_ARCH], jax_vlm_golden)):
         path.write_bytes(fixture_bytes(golden()))
         print(f"wrote {path} ({path.stat().st_size} bytes)")
+    print(f"wrote {write_ckpt_fixture()}")
