@@ -225,7 +225,27 @@ Phases, each of which fails the run:
         graph's bit for bit, its plan's replays stop; healed, the 4th
         dispatch promotes it (``promotions`` 1); bucket 8's ms eager beside
         its graph's; a fresh run of 256 requests shows no demotion;
- 13. one JSON line of the six kernels (launches, errors, times, bounds).
+ 13. tuning (``kernels/autotune.py``, ``kernels/calibrate.py``), on a cache
+     file in a temporary directory (``REPRO_AUTOTUNE_CACHE``, set for the
+     whole run, so phases 2–12 run on an empty cache and the rules'
+     choices, as before the autotuner; each run searches afresh):
+     a. ``calibrate(force=True)``: the roofline constants fitted to the
+        probes (bf16 launches), each finite and positive, and the residual;
+     b. sparse-cnn-s, both patterns, ``plan_set(tune='search')`` over
+        buckets 1 … 64: every launch choice a search times is first held
+        against the kernel's plain version on the same inputs; every
+        signature's default and tuned device µs, tuned ≤ default; the tuned
+        sets' logits equal the ``'off'`` sets' bit for bit at every bucket;
+        a rebuild with ``'cache'`` (registry cleared) runs no search and
+        makes the same choices;
+     c. starcoder2-7b: its bf16 projections searched at M = 4 and 1024,
+        then ``generate`` (4 × 256 prompt, 32 tokens) in turns untuned,
+        tuned, tuned, untuned (ms per step and prefill ms, beside phase
+        7b's run), the tuned replay equal to an eager run bit for bit; then
+        the calibrated INT8 prefill plan at 4 × 256 (M = 1024) with
+        ``tune='search'`` equal to the ``'off'`` plan bit for bit, both
+        timed in turns;
+ 14. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -233,13 +253,17 @@ nonzero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
 import math
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from pathlib import Path
@@ -2269,10 +2293,198 @@ def selfheal_phase(dev) -> dict:
 
 # --------------------------------------------------------------- phase 13
 
+TUNE_SMOKE = False  # the models' reduced configs (a CPU rehearsal of this phase)
+TUNE_BUCKETS = (1, 2, 4, 8, 16, 32, 64)
+
+
+@contextlib.contextmanager
+def temporary_tune_cache():
+    """``REPRO_AUTOTUNE_CACHE`` names a file in a fresh temporary directory
+    for the duration (every plan's default cache), removed after: the run
+    reads no cache it did not write. Yields the path."""
+    d = tempfile.mkdtemp(prefix="chip-smoke-tune-")
+    old = os.environ.get("REPRO_AUTOTUNE_CACHE")
+    os.environ["REPRO_AUTOTUNE_CACHE"] = str(Path(d) / "autotune.json")
+    try:
+        yield Path(os.environ["REPRO_AUTOTUNE_CACHE"])
+    finally:
+        if old is None:
+            os.environ.pop("REPRO_AUTOTUNE_CACHE", None)
+        else:
+            os.environ["REPRO_AUTOTUNE_CACHE"] = old
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def searched(path) -> dict:
+    """The signatures the searches measured, read back from the cache file:
+    {key: {default, default_us, tuned, tuned_us, speedup, candidates}}.
+    Raises unless each tuned time is at most its default's."""
+    from repro_torch.kernels import autotune
+
+    out = {}
+    for key, e in sorted(autotune.TuneCache(path).entries.items()):
+        parsed = autotune.parse_key(key)
+        if parsed is None or parsed[0] != "cuda":
+            continue
+        if e["measured_us"] > e["default_us"]:
+            raise AssertionError(f"{key}: tuned {e['measured_us']} us above the default's "
+                                 f"{e['default_us']}")
+        out[key] = dict(default=e["default_tiles"], default_us=e["default_us"],
+                        tuned=e["tiles"], tuned_us=e["measured_us"],
+                        speedup=e["default_us"] / e["measured_us"],
+                        candidates=e["n_candidates"])
+    return out
+
+
+def rebuild_from_cache(build, want_tiles, what: str):
+    """``build()`` (a ``tune='cache'`` build) with the registry cleared, so
+    every choice comes from the cache file: it must run no search and make
+    the choices ``want_tiles`` records. Returns what it built."""
+    from repro_torch.kernels import autotune, core
+
+    core.clear_tuned()
+    before = autotune.searches()
+    got = build()
+    if autotune.searches() != before or got.tiles != want_tiles:
+        raise AssertionError(f"{what}: the 'cache' rebuild ran {autotune.searches() - before} "
+                             "searches or made other choices than the search")
+    return got
+
+
+def tune_cnn(dev, pattern, path) -> dict:
+    """13b for one pattern."""
+    from repro_torch.kernels import autotune
+    from repro_torch.launch import serve
+
+    t0 = time.time()
+    model, x = serve.build_model("sparse-cnn-s", calib_batch=TUNE_BUCKETS[-1], device=dev,
+                                 seed=0, pattern=pattern, smoke=TUNE_SMOKE)
+    off = model.plan_set(buckets=TUNE_BUCKETS, tune="off")
+    before = autotune.searches()
+    t_search = time.time()
+    tuned = model.plan_set(buckets=TUNE_BUCKETS, tune="search", cache=autotune.TuneCache(path))
+    search_s = time.time() - t_search
+    with torch.no_grad():
+        for b in TUNE_BUCKETS:
+            xb = x[:b].contiguous()
+            check_exact(tuned.plans[b].serve(xb), off.plans[b].serve(xb),
+                        f"pattern={pattern} bucket {b}: the tuned plan's logits against 'off'")
+    rebuild_from_cache(lambda: model.plan_set(buckets=TUNE_BUCKETS, tune="cache", cache=path),
+                       tuned.tiles, f"pattern={pattern}")
+    changed = {b: {name: t for name, t in tiles.items() if t != off.tiles[b].get(name)}
+               for b, tiles in tuned.tiles.items()}
+    rec = dict(searches=autotune.searches() - before, search_s=search_s,
+               changed={b: c for b, c in changed.items() if c}, seconds=time.time() - t0)
+    log(f"[tuning] pattern={pattern}: {rec['searches']} searches in {search_s:.1f} s over buckets "
+        f"{TUNE_BUCKETS}; logits equal to the 'off' plans' at every bucket; the 'cache' rebuild "
+        f"ran no search and made the same choices; stages whose choice moved "
+        f"{json.dumps(rec['changed'])} ({rec['seconds']:.1f} s)")
+    return rec
+
+
+def tune_lm(dev, path, untuned=None) -> dict:
+    """13c: starcoder2-7b's bf16 projections searched at M = 4 and 1024,
+    generate untuned and tuned in turns, graph = eager under the tuned
+    registry; then the INT8 prefill plan searched, equal to 'off'."""
+    from repro_torch.kernels import autotune, core
+    from repro_torch.launch import serve
+
+    t0 = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cache = autotune.TuneCache(path)
+    model = serve.build_lm(LM_ARCH, device=dev, seed=0, smoke=LM_SMOKE)
+    prompt = serve.prompt_tokens(model, batch=LM_BATCH, seq=LM_PROMPT, seed=0)
+    before = autotune.searches()
+    for m in (LM_BATCH, LM_BATCH * LM_PROMPT):
+        model._tune_gemms(m, tune="search", cache=cache)
+    bf16_searches = autotune.searches() - before
+    tuned = core.tuned_entries()
+    runs = {}
+
+    def gen(which, graph=True):
+        core.clear_tuned()
+        if which == "tuned":
+            for (kind, sig), t in tuned.items():
+                core.set_tuned(kind, sig, t)
+        return serve.generate(model, prompt, gen_len=LM_GEN, max_len=LM_PROMPT + LM_GEN,
+                              keep=LM_KEEP, graph=graph)
+
+    for which in ("untuned", "tuned", "tuned", "untuned"):
+        r = gen(which)
+        runs.setdefault(which, []).append(r)
+    eager = gen("tuned", graph=False)
+    first = runs["tuned"][0]
+    if not torch.equal(eager["tokens"], first["tokens"]) or any(
+            not torch.equal(eager["logits"][i], lg) for i, lg in first["logits"].items()):
+        raise AssertionError("tuning: the tuned replayed decode differs from the eager decode")
+    timing = {w: dict(prefill_ms=[r["prefill_ms"] for r in rs],
+                      ms_per_step=[r["ms_per_step"] for r in rs]) for w, rs in runs.items()}
+    del runs, eager, first
+    # the INT8 prefill plan: calibrated on the prompt, quantized, 'off' against 'search'
+    tokens = prompt["tokens"]
+    with torch.no_grad():
+        _, stats = model.forward(tokens, collect_act_stats=True)
+    model.quantize(stats)
+    before = autotune.searches()
+    off = model.plan(batch=LM_BATCH, seq=LM_PROMPT, tune="off")
+    searched_plan = model.plan(batch=LM_BATCH, seq=LM_PROMPT, tune="search", cache=cache)
+    int8_searches = autotune.searches() - before
+    with torch.no_grad():
+        check_exact(searched_plan(tokens), off(tokens), "tuning: the INT8 plan searched "
+                    "against 'off'")
+    plan_timing = serve.time_in_turns({"off": lambda: off(tokens),
+                                       "tuned": lambda: searched_plan(tokens)},
+                                      ("off", "tuned", "tuned", "off"), 5, dev)
+    rec = dict(bf16_searches=bf16_searches, int8_searches=int8_searches,
+               generate=timing, phase_7b=untuned, int8_plan_ms=plan_timing,
+               seconds=time.time() - t0)
+    log(f"[tuning] {LM_ARCH}: {bf16_searches} bf16 searches (M = {LM_BATCH}, "
+        f"{LM_BATCH * LM_PROMPT}); generate in turns (untuned, tuned, tuned, untuned) "
+        f"{json.dumps(timing)}, phase 7b's untuned run {json.dumps(untuned)}; the tuned replay "
+        f"equal to an eager run bit for bit; the INT8 plan at M = {LM_BATCH * LM_PROMPT}: "
+        f"{int8_searches} searches, equal to 'off' bit for bit, ms per prefill in turns "
+        f"{json.dumps(plan_timing)} ({rec['seconds']:.1f} s)")
+    del model, off, searched_plan
+    return rec
+
+
+def tuning_phase(dev, untuned=None) -> dict:
+    """Phase 13 on the run's temporary cache file (``REPRO_AUTOTUNE_CACHE``);
+    ``untuned`` is phase 7b's compressed run, logged beside 13c's. The
+    registry is left empty."""
+    from repro_torch.kernels import autotune, calibrate, core
+
+    t0 = time.time()
+    path = autotune.default_cache_path()
+    core.clear_tuned()
+    cal = calibrate.calibrate(autotune.TuneCache(path), force=True, device=dev)
+    consts = dict(peak_macs=cal.peak_macs, hbm_bw=cal.hbm_bw,
+                  step_overhead_s=cal.step_overhead_s)
+    if not all(math.isfinite(v) and v > 0 for v in consts.values()):
+        raise AssertionError(f"tuning: calibration constants {consts}")
+    log(f"[tuning] calibration ({cal.backend}, {cal.source}): {cal.peak_macs:.4e} MAC/s, "
+        f"{cal.hbm_bw:.4e} B/s, {cal.step_overhead_s * 1e6:.4f} us a step, rms relative "
+        f"residual {cal.residual:.4f} ({time.time() - t0:.1f} s)")
+    cnn = {str(p): tune_cnn(dev, p, path) for p in ("matrix", None)}
+    lm = tune_lm(dev, path, untuned)
+    found = searched(path)
+    for key, r in found.items():
+        log(f"[tuning] {key}: default {r['default']} {r['default_us']:.3f} us, tuned "
+            f"{r['tuned']} {r['tuned_us']:.3f} us ({r['speedup']:.3f}x, {r['candidates']} "
+            "candidates)")
+    core.clear_tuned()
+    calibrate.clear_active()
+    return dict(calibration=dict(consts, residual=cal.residual, source=cal.source), cnn=cnn,
+                lm=lm, searched=found, seconds=time.time() - t0)
+
+
+# ------------------------------------------------------- the kernels line
+
 
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
                  decoders, frontends, selfheal) -> list:
-    """Phase 13: the kernels' JSON line, one entry per counted kernel from
+    """Phase 14: the kernels' JSON line, one entry per counted kernel from
     phase 2's records (``recs``: {kernel: [record]}; the bf16 tc matmul's
     from 7a) and the main paths' launches (``counts``), each with the same
     kernel at the LM models' shapes beside it (phases 7–11's records) and
@@ -2364,6 +2576,11 @@ def main() -> int:
         print(f"chip_smoke: {SRC / 'repro_torch'} not found", file=sys.stderr)
         return 2
     sys.path.insert(0, str(SRC))
+    with temporary_tune_cache():  # phases 2–12 on an empty cache; phase 13 searches into it
+        return run()
+
+
+def run() -> int:
     from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
 
     # full fp32 for the library calls timed beside the kernels (F.conv2d) and
@@ -2462,6 +2679,8 @@ def main() -> int:
     phase_done("11 frontends and cross-attention")
     selfheal = selfheal_phase(dev)
     phase_done("12 self-healing tier")
+    tuning = tuning_phase(dev, {k: lm_gen["compressed"][k] for k in ("prefill_ms", "ms_per_step")})
+    phase_done("13 tuning")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
                         decoders, frontends, selfheal)
@@ -2481,6 +2700,7 @@ def main() -> int:
         log(f"[{arch}] generate: {json.dumps(r['generate'])}")
         log(f"[{arch}] int8: {json.dumps(r['int8'], default=str)}")
     log(f"[selfheal] {json.dumps(selfheal)}")
+    log(f"[tuning] {json.dumps(tuning)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

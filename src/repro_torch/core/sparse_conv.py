@@ -15,7 +15,6 @@ from repro_torch.core.sparse_linear import DBBLayer, trunc_normal
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, DENSE, dbb_encode_conv, dbb_prune
 from repro_torch.kernels import ops
 from repro_torch.kernels.core import _pair, conv_geometry
-from repro_torch.models.plan import resolve_tune_cache
 
 
 class DBBConv2d(DBBLayer):
@@ -49,8 +48,8 @@ class DBBConv2d(DBBLayer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._conv(x, self.w, self.b, self.aq)
 
-    def _conv(self, x, w, b, aq):
-        conv = dict(stride=self.stride, padding=self.padding)
+    def _conv(self, x, w, b, aq, choice=None):
+        conv = dict(stride=self.stride, padding=self.padding, choice=choice)
         if isinstance(w, QuantDBBWeight):
             y = ops.quant_conv(x, w, self.kh, self.kw, aq, **conv)
         elif isinstance(w, DBBWeight):
@@ -62,34 +61,46 @@ class DBBConv2d(DBBLayer):
         return y
 
     def make_plan(self, *, batch: int, h: int, w: int, relu: bool = False, out_scale=None,
-                  fused: bool = False, tune: str = "off"):
+                  fused: bool = False, tune: str = "cache", cache=None, top_k: int = 4,
+                  reps: int = 3):
         """Stage this layer's serving step once for a (batch, h, w) input
-        (port of the reference's ``make_plan``; ``tune='off'`` only). Returns
+        (port of the reference's ``make_plan``). The launch choice is
+        resolved here under ``tune`` (``autotune.tiles_for_conv``: the
+        registry, then ``cache``, then a search for ``'search'``; the rule's
+        otherwise, and always on the CPU) and frozen into the stage. Returns
         ``(run, tiles)``: ``run`` is ``x -> y`` with the layer's current
         state frozen in, on the path :meth:`SparseCNN.forward` takes. With
         ``fused`` (the int8-resident chain) it is :meth:`quant_serve` or, for
-        the dense stem, :meth:`dense_serve`, staged through
-        ``ops.stage_*``, and ``tiles`` is the int8 tile plan or the stem's
-        path; otherwise it is the per-layer conv (+ bias), then ReLU and a
-        requantize at ``out_scale`` when asked, and ``tiles`` is empty."""
-        resolve_tune_cache(tune)
+        the dense stem, :meth:`dense_serve`, staged through ``ops.stage_*``,
+        and ``tiles`` is the int8 tile plan or the stem's path; otherwise it
+        is the per-layer conv (+ bias), then ReLU and a requantize at
+        ``out_scale`` when asked, and ``tiles`` a tuned choice, if any."""
+        from repro_torch.kernels import autotune
+
         wt, b, aq = self.w, self.b, self.aq
         x_shape = (batch, h, w, self.in_channels)
         geom = dict(stride=self.stride, padding=self.padding)
-        if fused and isinstance(wt, QuantDBBWeight):
+        quant = isinstance(wt, QuantDBBWeight)
+        fmt = wt.fmt if isinstance(wt, (DBBWeight, QuantDBBWeight)) else None
+        dtype = torch.int8 if quant else (wt.dtype if fmt is None else wt.values.dtype)
+        choice = autotune.tiles_for_conv(
+            batch, h, w, self.in_channels, self.out_channels, self.kh, self.kw, fmt, dtype,
+            **geom, mode=tune, cache=cache, top_k=top_k, reps=reps,
+            device=(wt if fmt is None else wt.values).device)
+        if fused and quant:
             return ops.stage_quant_conv(wt, self.kh, self.kw, aq, x_shape, bias=b, relu=relu,
-                                        out_scale=out_scale, **geom)
+                                        out_scale=out_scale, **geom, choice=choice)
         if fused:
             return ops.stage_fused_im2col_conv(wt, x_shape, bias=b, relu=relu,
-                                               out_scale=out_scale, **geom)
+                                               out_scale=out_scale, **geom, choice=choice)
 
         def run(x):
-            y = self._conv(x, wt, b, aq)
+            y = self._conv(x, wt, b, aq, choice)
             if relu:
                 y = torch.relu(y)
             return y if out_scale is None else quantize(y, out_scale)
 
-        return run, {}
+        return run, dict(choice)
 
     def quant_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None):
         """One-kernel INT8 conv with the fused epilogue; int8 codes out when

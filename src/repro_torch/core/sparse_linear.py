@@ -18,7 +18,6 @@ from torch import nn
 from repro_torch.core.quant import QuantDBBWeight, quantize, quantize_dbb
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, DENSE, dbb_encode, dbb_prune
 from repro_torch.kernels import ops
-from repro_torch.models.plan import resolve_tune_cache
 
 STATE_KEYS = ("w", "b", "aq")
 
@@ -96,13 +95,13 @@ class DBBLinear(DBBLayer):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self._linear(x, self.w, self.b, self.aq)
 
-    def _linear(self, x, w, b, aq):
+    def _linear(self, x, w, b, aq, choice=None):
         lead = x.shape[:-1]
         x2 = x.reshape(-1, x.shape[-1])
         if isinstance(w, QuantDBBWeight):
-            y = ops.quant_matmul(x2, w, aq)
+            y = ops.quant_matmul(x2, w, aq, choice=choice)
         elif isinstance(w, DBBWeight):
-            y = ops.vdbb_matmul(x2, w)
+            y = ops.vdbb_matmul(x2, w, choice=choice)
         else:
             y = x2 @ w.to(x.dtype)
         if self.use_bias:
@@ -110,25 +109,40 @@ class DBBLinear(DBBLayer):
         return y.reshape(*lead, self.out_features)
 
     def make_plan(self, *, batch: int, relu: bool = False, out_scale=None,
-                  fused: bool = False, tune: str = "off"):
+                  fused: bool = False, tune: str = "cache", cache=None, top_k: int = 4,
+                  reps: int = 3):
         """Stage this layer's serving step once for ``batch`` rows; the GEMM
-        twin of ``DBBConv2d.make_plan``. Returns ``(run, tiles)``: with
-        ``fused`` and a quantized weight, :meth:`quant_serve` staged through
-        ``ops.stage_quant_matmul`` (tiles: the int8 tile plan); otherwise
-        the per-layer product (+ bias), then ReLU and a requantize at
-        ``out_scale`` when asked (no tiles)."""
-        resolve_tune_cache(tune)
+        twin of ``DBBConv2d.make_plan``. The launch choice of a compressed
+        weight is resolved here under ``tune`` (``autotune.tiles_for_matmul``:
+        the registry, then ``cache``, then a search for ``'search'``; the
+        rule's otherwise, and always on the CPU) and frozen into the stage.
+        Returns ``(run, tiles)``: with ``fused`` and a quantized weight,
+        :meth:`quant_serve` staged through ``ops.stage_quant_matmul`` (tiles:
+        the int8 tile plan); otherwise the per-layer product (+ bias), then
+        ReLU and a requantize at ``out_scale`` when asked (tiles: a tuned
+        choice, if any)."""
+        from repro_torch.kernels import autotune
+
         wt, b, aq = self.w, self.b, self.aq
+        choice = {}
+        if isinstance(wt, (DBBWeight, QuantDBBWeight)):
+            dtype = torch.int8 if isinstance(wt, QuantDBBWeight) else wt.values.dtype
+            choice = autotune.tiles_for_matmul(
+                batch, self.in_features, self.out_features, wt.fmt, dtype, mode=tune,
+                cache=cache, top_k=top_k, reps=reps, device=wt.values.device)
+        else:
+            autotune.check_mode(tune)
         if fused and isinstance(wt, QuantDBBWeight):
-            return ops.stage_quant_matmul(wt, aq, batch, bias=b, relu=relu, out_scale=out_scale)
+            return ops.stage_quant_matmul(wt, aq, batch, bias=b, relu=relu, out_scale=out_scale,
+                                          choice=choice)
 
         def run(x):
-            y = self._linear(x, wt, b, aq)
+            y = self._linear(x, wt, b, aq, choice)
             if relu:
                 y = torch.relu(y)
             return y if out_scale is None else quantize(y, out_scale)
 
-        return run, {}
+        return run, dict(choice)
 
     def quant_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None):
         """One-kernel INT8 GEMM with the fused epilogue: dequant, bias,

@@ -227,3 +227,108 @@ def dbb_matmul_gather_ref(a: torch.Tensor, dw: DBBWeight) -> torch.Tensor:
         raise ValueError("gather formulation requires group='matrix'")
     ac = gather_compressed(a, dw.indices[:, :, 0], fmt.bz)
     return ac @ dw.values.reshape(-1, n).to(a.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Cost accounting (the autotuner's roofline terms)
+# ---------------------------------------------------------------------------
+
+
+def _act_sparsity_frac(act) -> Optional[float]:
+    """Scalar activation sparsity from a float or an ``ActStats``-like object
+    (read through ``.sparsity``, so this module needs no import of
+    ``act_sparsity``)."""
+    if act is None:
+        return None
+    return float(getattr(act, "sparsity", act))
+
+
+def dbb_gemm_costs(m: int, k: int, n: int, fmt: DBBFormat, bits: int = 8,
+                   *, act=None, act_bits: Optional[int] = None,
+                   out_bits: int = 32, epilogue_fused: bool = False) -> dict:
+    """Analytic cost of one M×K×N GEMM under VDBB, the paper's accounting,
+    key for key and digit for digit the reference's.
+
+    ``executed_macs`` counts nnz MACs a block (time-unrolled occupancy);
+    ``weight_bytes`` is the compressed stream (values and mask). ``bits`` /
+    ``act_bits`` are the weight / activation widths (``act_bits`` defaults to
+    ``bits``), ``out_bits`` the accumulator flush's. ``epilogue_fused``: the
+    flush writes ``act_bits`` and ``epilogue_bytes`` is 0; unfused, the flush
+    writes ``out_bits`` and ``epilogue_bytes`` charges the standalone bias /
+    ReLU pass over fp32 (plus a requantize pass when ``act_bits <
+    out_bits``). ``act``: the layer's activation sparsity, a scalar or a
+    measured ``ActStats`` (``act_measured``); the paper's 50 % otherwise."""
+    act_bits = bits if act_bits is None else act_bits
+    nb, rem = divmod(k, fmt.bz)
+    if rem and not fmt.is_dense:
+        raise ValueError(f"K={k} not divisible by block size bz={fmt.bz}")
+    dense_macs = m * k * n
+    # a trailing partial block (dense formats only, e.g. the C=3 stem) runs,
+    # and is stored, uncompressed
+    hw_macs = m * (nb * fmt.nnz + rem) * n
+    wbytes = (nb * (fmt.nnz * bits + fmt.bz) + rem * (bits + 1)) * n / 8
+    abytes = m * k * act_bits / 8
+    if epilogue_fused:
+        obytes = m * n * act_bits / 8
+        epi_bytes = 0
+    else:
+        obytes = m * n * out_bits / 8
+        epi_bytes = m * n * (4 + 4)
+        if act_bits < out_bits:
+            epi_bytes += m * n * (4 + act_bits / 8)
+        epi_bytes = int(epi_bytes)
+    act_sp = _act_sparsity_frac(act)
+    measured = hasattr(act, "sparsity")
+    if act_sp is None:
+        act_sp = 0.5
+    return dict(
+        dense_macs=dense_macs,
+        effective_ops=2 * dense_macs,
+        executed_macs=hw_macs,
+        speedup=fmt.bz / fmt.nnz,
+        weight_bits=bits,
+        act_bits=act_bits,
+        weight_bytes=int(wbytes),
+        act_bytes=int(abytes),
+        out_bytes=int(obytes),
+        epilogue_fused=epilogue_fused,
+        epilogue_bytes=epi_bytes,
+        weight_compression=fmt.compression_ratio(bits),
+        act_sparsity=act_sp,
+        act_measured=measured,
+        gated_mac_frac=act_sp,
+        act_nonzero_bytes=int(abytes * (1.0 - act_sp)),
+    )
+
+
+def dbb_conv_costs(n: int, h: int, w: int, c: int, f: int, kh: int, kw: int, fmt: DBBFormat,
+                   *, stride=1, padding="SAME", bits: int = 8, act_bits: Optional[int] = None,
+                   im2col_unit: bool = True, act=None, epilogue_fused: bool = False) -> dict:
+    """Analytic cost of one NHWC conv under VDBB and the IM2COL unit: the
+    GEMM of M = n·ho·wo, K = kh·kw·c, N = f (:func:`dbb_gemm_costs`), with
+    the activation stream read raw once (``im2col_unit``, the paper's unit)
+    or as the stored im2col matrix (the baseline). ``im2col_magnification``
+    is their ratio, ``combined_reduction`` that times the nnz/bz speedup."""
+    from repro_torch.kernels.core import conv_geometry
+
+    sh, sw = (stride, stride) if isinstance(stride, int) else stride
+    _, _, (ho, wo) = conv_geometry(h, w, kh, kw, (sh, sw), padding)
+    m, k = n * ho * wo, kh * kw * c
+    costs = dbb_gemm_costs(m, k, f, fmt, bits, act=act, act_bits=act_bits,
+                           epilogue_fused=epilogue_fused)
+    act_bits = costs["act_bits"]
+    raw_act = n * h * w * c * act_bits / 8
+    expanded_act = m * k * act_bits / 8
+    magnification = expanded_act / raw_act
+    costs.update(
+        out_hw=(ho, wo),
+        act_bytes_raw=int(raw_act),
+        act_bytes_expanded=int(expanded_act),
+        act_bytes=int(raw_act if im2col_unit else expanded_act),
+        act_nonzero_bytes=int(
+            (raw_act if im2col_unit else expanded_act) * (1.0 - costs["act_sparsity"])),
+        im2col_magnification=magnification,
+        dense_weight_bytes=int(k * f * bits / 8),
+        combined_reduction=magnification * costs["speedup"],
+    )
+    return costs

@@ -21,10 +21,11 @@
 //    (A as it lies, B with .trans: the row-major values give the .col
 //    fragment directly, no packing step), the fragments of the next k16
 //    step loaded before the current step's mmas. 8 warps a CTA: a 16 x 128
-//    tile for M <= 16 (decode; warps of 16 x 16, two CTAs an SM), else
-//    128 x 256 (2 x 4 warps of 64 x 64, 32 mmas a warp per k16 step, one
-//    CTA an SM). The wide tile feeds each gathered A element to 256 output
-//    columns; 128 x 128 was slower at every prefill shape (mma_ablation.py).
+//    tile (by the host's rule for M <= 16: decode; warps of 16 x 16, two
+//    CTAs an SM), else 128 x 256 (2 x 4 warps of 64 x 64, 32 mmas a warp
+//    per k16 step, one CTA an SM). The wide tile feeds each gathered A
+//    element to 256 output columns; 128 x 128 was slower at every prefill
+//    shape (mma_ablation.py).
 //  - B (the values) by cp.async in 16-byte chunks along N (`.cg`) into a
 //    ring of STAGES stages of BK = 32 compressed columns: at decode eight
 //    stages keep 7 x 8 KB = 56 KB of values in flight on a CTA. A narrow or
@@ -52,13 +53,15 @@
 //  - K_c is split over a thread block cluster of `split` CTAs along x
 //    where the tiles alone leave SMs idle (decode: tiles x split >= 132 SMs,
 //    at most 16 CTAs a cluster) or end in a short wave (prefill: the split,
-//    at most 8, that balances the waves; `split_of`):
-//    each CTA sums its share of the stages into registers, parks the partial
-//    tile in its own shared memory, and after a cluster barrier every CTA
-//    sums one slice of the tile over the cluster's partials in rank order
-//    through distributed shared memory and runs the flush. Deterministic (the
-//    order is fixed), one launch, no workspace, no atomics; safe inside a
-//    CUDA graph.
+//    at most 8, that balances the waves). The tile and the split are the
+//    host's choice (repro_torch.kernels.core.bf16_mma_plan: that rule, or
+//    an entry the autotuner measured); this header only refuses a choice it
+//    cannot run. Each CTA sums its share of the stages into registers,
+//    parks the partial tile in its own shared memory, and after a cluster
+//    barrier every CTA sums one slice of the tile over the cluster's
+//    partials in rank order through distributed shared memory and runs the
+//    flush. Deterministic (the order is fixed), one launch, no workspace, no
+//    atomics; safe inside a CUDA graph.
 //  - Ragged edges are masked in the kernel: rows past M and columns past the
 //    split's end load as zeros, columns past N are zeros and never stored.
 #pragma once
@@ -76,8 +79,6 @@ namespace cg = cooperative_groups;
 
 constexpr int BK = 32;          // compressed columns a stage, one a warp lane
 constexpr int THREADS = 256;    // 8 warps
-constexpr int SMALL_M = 16;     // M at or below this takes the 16 x 128 tile
-constexpr int SMS = 132;        // the split aims at one CTA an SM of an H100
 constexpr int IN_BF16 = 2;      // the wrappers' operand kind of bf16
 enum OutKind { OUT_FLOAT32 = 1, OUT_INT8 = 2, OUT_BF16 = 3 };
 
@@ -437,40 +438,6 @@ kernel(Gather ga, Args args) {
   cluster.sync();  // no CTA leaves while another reads its partial
 }
 
-// The split: at most MAX_SPLIT and the stages of K_c. The small tile
-// (decode, bound by bytes) splits until tiles x split covers the SMs, so
-// that enough of them pull the values. The large tile (bound by
-// operations, one CTA an SM) splits only under 4 waves of tiles (beyond,
-// a short last wave costs less than a split's ring fills and reduction:
-// w_up's 576 tiles ran 8 % slower split in 2 on an H100), and takes the
-// split whose waves of CTAs over the SMs cost the fewest stage times, a
-// CTA costing its stages plus STAGES (filling the ring, and the flush or
-// the reduction): 144 tiles on 132 SMs would otherwise run a second wave
-// of 12 CTAs as long as the first.
-template <int BM, int BN>
-int split_of(int M, int N, int K) {
-  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
-  const int ktiles = (K + BK - 1) / BK;
-  const int most = Tile<BM, BN>::MAX_SPLIT < ktiles ? Tile<BM, BN>::MAX_SPLIT : ktiles;
-  if (Tile<BM, BN>::SMALL) {
-    if (tiles >= SMS) return 1;
-    const int want = (int)((SMS + tiles - 1) / tiles);
-    return want < most ? want : most;
-  }
-  if (tiles >= 4 * SMS) return 1;
-  int best = 1;
-  long long best_cost = (tiles + SMS - 1) / SMS * (ktiles + Tile<BM, BN>::STAGES);
-  for (int s = 2; s <= most; ++s) {
-    const long long cost =
-        (tiles * s + SMS - 1) / SMS * ((ktiles + s - 1) / s + Tile<BM, BN>::STAGES);
-    if (cost < best_cost) {
-      best = s;
-      best_cost = cost;
-    }
-  }
-  return best;
-}
-
 inline int b_chunk(int N, const void* v) {
   return N % 8 == 0 && reinterpret_cast<uintptr_t>(v) % 16 == 0 ? 16 : 2;
 }
@@ -479,8 +446,11 @@ inline int b_chunk(int N, const void* v) {
 // static of a function with external linkage is one object in the whole
 // process, shared by every library that instantiates it).
 template <int BM, int BN, int BCH, typename Out>
-static cudaError_t launch_typed(const WordGather& ga, const Args& args, cudaStream_t stream) {
+static cudaError_t launch_typed(const WordGather& ga, const Args& args, int split,
+                                cudaStream_t stream) {
   using T = Tile<BM, BN>;
+  if (split < 1 || split > T::MAX_SPLIT || split > (args.K + BK - 1) / BK)
+    return cudaErrorInvalidValue;
   auto fn = kernel<BM, BN, BCH, Out, WordGather>;
   static bool configured = false;  // shared memory above 48 KB and clusters
   if (!configured) {                // above 8 CTAs, once an instance
@@ -491,7 +461,6 @@ static cudaError_t launch_typed(const WordGather& ga, const Args& args, cudaStre
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const int split = split_of<BM, BN>(args.M, args.N, args.K);
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = dim3(split, (args.M + BM - 1) / BM, (args.N + BN - 1) / BN);
   cfg.blockDim = dim3(THREADS);
@@ -509,24 +478,30 @@ static cudaError_t launch_typed(const WordGather& ga, const Args& args, cudaStre
   return cudaGetLastError();
 }
 
-// The tile by M, the same rule as the wrapper's: 16 x 128 for M <= 16
-// (decode), else 128 x 256.
+// The tile and the split the host chose (repro_torch.kernels.core.
+// bf16_mma_plan, a rule by M or a tuned entry): 16 x 128 (rows 16) or
+// 128 x 256 (rows 128), split over at most the tile's MAX_SPLIT CTAs and
+// the stages of K_c; any other is refused.
 template <int BCH, typename Out>
-cudaError_t launch_rows(const WordGather& ga, const Args& args, cudaStream_t stream) {
-  if (args.M <= SMALL_M) return launch_typed<16, 128, BCH, Out>(ga, args, stream);
-  return launch_typed<128, 256, BCH, Out>(ga, args, stream);
+cudaError_t launch_tile(int rows, int split, const WordGather& ga, const Args& args,
+                        cudaStream_t stream) {
+  if (rows == 16) return launch_typed<16, 128, BCH, Out>(ga, args, split, stream);
+  if (rows == 128) return launch_typed<128, 256, BCH, Out>(ga, args, split, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename Out>
-cudaError_t launch_chunk(const WordGather& ga, const Args& args, cudaStream_t stream) {
-  if (b_chunk(args.N, args.v) == 16) return launch_rows<16, Out>(ga, args, stream);
-  return launch_rows<2, Out>(ga, args, stream);
+cudaError_t launch_chunk(int rows, int split, const WordGather& ga, const Args& args,
+                         cudaStream_t stream) {
+  if (b_chunk(args.N, args.v) == 16) return launch_tile<16, Out>(rows, split, ga, args, stream);
+  return launch_tile<2, Out>(rows, split, ga, args, stream);
 }
 
 // out_kind as the Python wrappers pass it: fp32, int8 codes (out_scale
 // required) or bf16. A not 4-byte aligned or an odd K is refused.
-inline cudaError_t launch(int out_kind, const WordGather& ga, const __nv_bfloat16* v, int M,
-                          int N, int Kc, void* out, EpilogueArgs ep, cudaStream_t stream) {
+inline cudaError_t launch(int out_kind, int rows, int split, const WordGather& ga,
+                          const __nv_bfloat16* v, int M, int N, int Kc, void* out,
+                          EpilogueArgs ep, cudaStream_t stream) {
   if (M <= 0 || N <= 0 || Kc <= 0) return cudaErrorInvalidValue;
   if (reinterpret_cast<uintptr_t>(ga.a) % 4 != 0 || ga.lda % 2 != 0) return cudaErrorInvalidValue;
   if (out_kind == OUT_INT8 && ep.out_scale == nullptr) return cudaErrorInvalidValue;
@@ -534,11 +509,11 @@ inline cudaError_t launch(int out_kind, const WordGather& ga, const __nv_bfloat1
             N % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0 ? 1 : 0};
   switch (out_kind) {
     case OUT_BF16:
-      return launch_chunk<__nv_bfloat16>(ga, args, stream);
+      return launch_chunk<__nv_bfloat16>(rows, split, ga, args, stream);
     case OUT_FLOAT32:
-      return launch_chunk<float>(ga, args, stream);
+      return launch_chunk<float>(rows, split, ga, args, stream);
     case OUT_INT8:
-      return launch_chunk<int8_t>(ga, args, stream);
+      return launch_chunk<int8_t>(rows, split, ga, args, stream);
     default:
       return cudaErrorInvalidValue;
   }

@@ -63,7 +63,6 @@ constexpr int MIN_BLOCKS = 3;    // blocks an SM: caps a thread at 85 registers
                                  // beat 16 on an H100, a few bytes of spill aside)
 constexpr int MIN_BLOCKS_REG_A = 2;  // with A's bytes in flight in registers too
 constexpr int WM = 32;
-constexpr int SMALL_M = 64;      // M at or below this takes the BM = 64 instance
 constexpr int MAX_K = 2147483647 / (127 * 127);
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -360,24 +359,25 @@ cudaError_t launch_typed(const StageA& stage_a, const StageB& stage_b, int M, in
   return cudaGetLastError();
 }
 
-// The tile instance by M, the same rule as the wrapper's
-// (repro_torch.kernels.core.mma_plan): BM = 64 for M <= 64, else 128.
+// The tile instance the host chose (repro_torch.kernels.core.mma_plan, a
+// rule by M or a tuned entry): BM = 64 or 128 rows; any other is refused.
 template <int CH, typename Out, typename StageA, typename StageB>
-cudaError_t launch_rows(const StageA& stage_a, const StageB& stage_b, int M, int N, int K,
-                        void* out, EpilogueArgs ep, cudaStream_t stream) {
-  if (M <= SMALL_M)
-    return launch_typed<64, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
-  return launch_typed<128, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+cudaError_t launch_rows(int rows, const StageA& stage_a, const StageB& stage_b, int M, int N,
+                        int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
+  if (rows == 64) return launch_typed<64, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  if (rows == 128) return launch_typed<128, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  return cudaErrorInvalidValue;
 }
 
 template <typename Out, typename StageA, typename StageB>
-cudaError_t launch_chunk(int chunk, const StageA& stage_a, const StageB& stage_b, int M,
-                         int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
+cudaError_t launch_chunk(int chunk, int rows, const StageA& stage_a, const StageB& stage_b,
+                         int M, int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
   // a register-staged A takes only the 8-byte instance
   if constexpr (!StageA::kRegisters) {
-    if (chunk == 16) return launch_rows<16, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+    if (chunk == 16)
+      return launch_rows<16, Out>(rows, stage_a, stage_b, M, N, K, out, ep, stream);
   }
-  if (chunk == 8) return launch_rows<8, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+  if (chunk == 8) return launch_rows<8, Out>(rows, stage_a, stage_b, M, N, K, out, ep, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -392,19 +392,21 @@ inline int chunk_bytes(int run, const void* p) {
   return 0;
 }
 
-// Output kinds as the Python wrappers pass them (os_gemm.cuh's OutKind).
+// Output kinds as the Python wrappers pass them (os_gemm.cuh's OutKind);
+// `rows` the tile rows the host chose.
 template <typename StageA, typename StageB>
-cudaError_t launch(int out_kind, int chunk, const StageA& stage_a, const StageB& stage_b,
-                   int M, int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
+cudaError_t launch(int out_kind, int chunk, int rows, const StageA& stage_a,
+                   const StageB& stage_b, int M, int N, int K, void* out, EpilogueArgs ep,
+                   cudaStream_t stream) {
   if (M <= 0 || N <= 0 || K <= 0 || K > MAX_K || chunk == 0) return cudaErrorInvalidValue;
   if (out_kind == 2 && ep.out_scale == nullptr) return cudaErrorInvalidValue;
   switch (out_kind) {
     case 0:
-      return launch_chunk<int32_t>(chunk, stage_a, stage_b, M, N, K, out, ep, stream);
+      return launch_chunk<int32_t>(chunk, rows, stage_a, stage_b, M, N, K, out, ep, stream);
     case 1:
-      return launch_chunk<float>(chunk, stage_a, stage_b, M, N, K, out, ep, stream);
+      return launch_chunk<float>(chunk, rows, stage_a, stage_b, M, N, K, out, ep, stream);
     case 2:
-      return launch_chunk<int8_t>(chunk, stage_a, stage_b, M, N, K, out, ep, stream);
+      return launch_chunk<int8_t>(chunk, rows, stage_a, stage_b, M, N, K, out, ep, stream);
     default:
       return cudaErrorInvalidValue;
   }

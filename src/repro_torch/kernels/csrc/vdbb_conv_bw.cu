@@ -53,11 +53,12 @@ static cudaError_t run_fp32(const void* x, const void* values, const void* idx,
 static cudaError_t run_int8(const void* x, const void* values, const void* idx,
                             EpilogueArgs ep, void* out, int out_kind, int n, int h, int w,
                             int c, int f, int ho, int wo, int kh, int kw, int sh, int sw,
-                            int pt, int pl, int bz, int nnz, int g, cudaStream_t stream) {
+                            int pt, int pl, int bz, int nnz, int g, int rows,
+                            cudaStream_t stream) {
   TapChunks la{static_cast<const int8_t*>(x), h, w, c, ho, wo, sh, sw, pt, pl, kw};
   ExpandTile lb{static_cast<const int8_t*>(values), static_cast<const int8_t*>(idx), f, bz,
                 nnz, g};
-  return os_mma::launch(out_kind, os_mma::chunk_bytes(c, x), la, lb, n * ho * wo, f,
+  return os_mma::launch(out_kind, os_mma::chunk_bytes(c, x), rows, la, lb, n * ho * wo, f,
                         kh * kw * c, out, ep, stream);
 }
 
@@ -66,7 +67,7 @@ extern "C" int vdbb_conv_bw(const void* x, const void* values, const void* idx,
                             const void* out_scale, int relu, void* out,
                             int in_kind, int out_kind, int n, int h, int w,
                             int c, int f, int ho, int wo, int kh, int kw, int sh,
-                            int sw, int pt, int pl, int bz, int nnz, int g,
+                            int sw, int pt, int pl, int bz, int nnz, int g, int rows,
                             void* stream) {
   if (bz <= 0 || nnz <= 0 || nnz > bz || c % bz != 0 || g <= 0 || f % g != 0)
     return cudaErrorInvalidValue;
@@ -75,7 +76,7 @@ extern "C" int vdbb_conv_bw(const void* x, const void* values, const void* idx,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (in_kind == os_gemm::IN_INT8)
     return run_int8(x, values, idx, ep, out, out_kind, n, h, w, c, f, ho, wo, kh, kw, sh, sw,
-                    pt, pl, bz, nnz, g, s);
+                    pt, pl, bz, nnz, g, rows, s);
   if (in_kind == os_gemm::IN_FLOAT32)
     return run_fp32(x, values, idx, ep, out, out_kind, n, h, w, c, f, ho, wo, kh, kw, sh, sw,
                     pt, pl, bz, nnz, g, s);

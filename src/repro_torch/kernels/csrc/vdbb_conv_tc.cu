@@ -52,7 +52,7 @@ extern "C" int vdbb_conv_tc(const void* x, const void* values, const void* idx,
                             const void* out_scale, int relu, void* out,
                             int in_kind, int out_kind, int n, int h, int w,
                             int c, int f, int ho, int wo, int kh, int kw, int sh,
-                            int sw, int pt, int pl, int bz, int nnz,
+                            int sw, int pt, int pl, int bz, int nnz, int rows,
                             void* stream) {
   if (bz <= 0 || nnz <= 0 || nnz > bz || c % bz != 0) return cudaErrorInvalidValue;
   EpilogueArgs ep{static_cast<const float*>(scale), static_cast<const float*>(bias),
@@ -66,7 +66,7 @@ extern "C" int vdbb_conv_tc(const void* x, const void* values, const void* idx,
               cb, bz, nnz};
     DenseTile lb{static_cast<const int8_t*>(values), f};
     // a gathered A takes the core's 8-byte instance: the chunk width is 8
-    return os_mma::launch(out_kind, 8, la, lb, m, f, kc, out, ep, s);
+    return os_mma::launch(out_kind, 8, rows, la, lb, m, f, kc, out, ep, s);
   }
   if (in_kind == os_gemm::IN_FLOAT32) {
     GatherTap la{static_cast<const float*>(x), pos, h, w, c, ho, wo, sh, sw, pt, pl, kw, cb,

@@ -16,8 +16,8 @@
 // read their slice of both streams once, 8 rows of a column from one read
 // of the block's nnz values and positions (`ExpandTile`, vdbb_expand.cuh),
 // and multiply on the int8 tensor cores with A arriving by cp.async in
-// 16-byte chunks (`RowChunks`); a batch of at most 64 rows takes the
-// BM = 64 tile. fp32 operands keep os_gemm.cuh's CUDA-core loop and the
+// 16-byte chunks (`RowChunks`), in the BM = 64 or 128 tile the host passes
+// (`rows`; by its rule, 64 for a batch of at most 64). fp32 operands keep os_gemm.cuh's CUDA-core loop and the
 // per-element expand.
 #include "os_gemm.cuh"
 #include "os_mma.cuh"
@@ -38,7 +38,7 @@ extern "C" int vdbb_matmul_bw(const void* a, const void* values, const void* idx
                               const void* scale, const void* bias,
                               const void* out_scale, int relu, void* out,
                               int in_kind, int out_kind, int m, int k, int n,
-                              int bz, int nnz, int g, void* stream) {
+                              int bz, int nnz, int g, int rows, void* stream) {
   if (bz <= 0 || nnz <= 0 || nnz > bz || k % bz != 0 || g <= 0 || n % g != 0)
     return cudaErrorInvalidValue;
   EpilogueArgs ep{static_cast<const float*>(scale), static_cast<const float*>(bias),
@@ -48,7 +48,8 @@ extern "C" int vdbb_matmul_bw(const void* a, const void* values, const void* idx
     os_mma::RowChunks la{static_cast<const int8_t*>(a), k};
     ExpandTile lb{static_cast<const int8_t*>(values), static_cast<const int8_t*>(idx), n, bz,
                   nnz, g};
-    return os_mma::launch(out_kind, os_mma::chunk_bytes(k, a), la, lb, m, n, k, out, ep, s);
+    return os_mma::launch(out_kind, os_mma::chunk_bytes(k, a), rows, la, lb, m, n, k, out, ep,
+                          s);
   }
   if (in_kind == os_gemm::IN_FLOAT32) {
     // A is a plain row-major (M, K) matrix: the same read as a dense B's

@@ -18,7 +18,8 @@
 // offsets resolved once for the whole tile, in byte lanes (a warp's 32 lanes
 // on 32 neighbouring columns of one row); B is the values read down each
 // column and packed K-major (`DenseTile`); the loads of stage kt+1 are in
-// flight during stage kt's mmas. M <= 64 takes the 64-row tile. bf16
+// flight during stage kt's mmas. The host passes the tile rows (64 or
+// 128: `rows`) and, for bf16, the split (`split`; 1 for int8). bf16
 // operands (the LM's projections) run on the bf16 tensor cores
 // (bf16_mma.cuh: the gather by 4-byte words, the values by cp.async in a
 // ring, split-K over a thread block cluster at decode), accumulate in fp32
@@ -43,7 +44,7 @@ extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx
                               const void* scale, const void* bias,
                               const void* out_scale, int relu, void* out,
                               int in_kind, int out_kind, int m, int k, int n,
-                              int bz, int nnz, void* stream) {
+                              int bz, int nnz, int rows, int split, void* stream) {
   if (bz <= 0 || nnz <= 0 || nnz > bz || k % bz != 0) return cudaErrorInvalidValue;
   EpilogueArgs ep{static_cast<const float*>(scale), static_cast<const float*>(bias),
                   static_cast<const float*>(out_scale), relu};
@@ -52,8 +53,10 @@ extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx
   if (in_kind == os_gemm::IN_INT8) {
     GatherMux la{static_cast<const int8_t*>(a), static_cast<const int8_t*>(idx), k, bz, nnz};
     DenseTile lb{static_cast<const int8_t*>(values), n};
-    // a gathered A takes the core's 8-byte instance: the chunk width is 8
-    return os_mma::launch(out_kind, 8, la, lb, m, n, kc, out, ep, s);
+    // a gathered A takes the core's 8-byte instance: the chunk width is 8;
+    // the int8 core has no split of K
+    if (split != 1) return cudaErrorInvalidValue;
+    return os_mma::launch(out_kind, 8, rows, la, lb, m, n, kc, out, ep, s);
   }
   if (in_kind == os_gemm::IN_FLOAT32) {
     GatherCols la{static_cast<const float*>(a), static_cast<const int8_t*>(idx), k, bz, nnz};
@@ -63,8 +66,8 @@ extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx
   if (in_kind == bf16_mma::IN_BF16) {
     bf16_mma::WordGather la{static_cast<const __nv_bfloat16*>(a), static_cast<const int8_t*>(idx),
                             k, bz, nnz};
-    return bf16_mma::launch(out_kind, la, static_cast<const __nv_bfloat16*>(values), m, n, kc, out,
-                            ep, s);
+    return bf16_mma::launch(out_kind, rows, split, la,
+                            static_cast<const __nv_bfloat16*>(values), m, n, kc, out, ep, s);
   }
   return cudaErrorInvalidValue;
 }

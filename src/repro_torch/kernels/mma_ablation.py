@@ -35,8 +35,10 @@ sums rank 0's partial alone: the cluster's other partials are parked but
 not read), ``no prefill split`` (the large tile never splits K_c),
 ``decode A in registers`` (the small tile gathers A as the large one does,
 no words), and ``128 x 128 prefill tile`` (the prefill instance's tile of
-128 x 128 in place of 128 x 256; the split as the kernel chooses it for
-that tile), all on bf16 outputs. The copies are built under ``build/kernels/ablation/``.
+128 x 128 in place of 128 x 256, at the split the host's rule takes for
+the 128 x 256 tile), all on bf16 outputs. Every case launches with the
+rules' choices (``core.mma_plan``, ``core.bf16_mma_plan``), passed as the
+kernels' arguments. The copies are built under ``build/kernels/ablation/``.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
 from repro_torch.kernels.build import I, P
+from repro_torch.kernels.core import bf16_mma_plan, mma_plan
 from repro_torch.kernels.timing import device_ms, event_ms
 
 # anchor in os_mma.cuh -> its replacement under each switch
@@ -78,7 +81,8 @@ SOURCE_SWITCHES = {
     "FT16": ("im2col_conv.cu", "constexpr int FT = 8;", "constexpr int FT = 16;"),
     "BLOCKS2": ("im2col_conv.cu", "constexpr int MIN_BLOCKS = 4;", "constexpr int MIN_BLOCKS = 2;"),
 }
-# the bf16 core's switches (bf16_mma.cuh)
+# the bf16 core's switches (bf16_mma.cuh); the large tile's launch line
+_LARGE = "  if (rows == 128) return launch_typed<128, 256, BCH, Out>(ga, args, split, stream);\n"
 SOURCE_SWITCHES.update({
     "NO_B16": ("bf16_mma.cuh",
                "        cp_async<16>(smem_u32(dst), ok ? src_b : args.v, ok);\n", ""),
@@ -101,15 +105,14 @@ SOURCE_SWITCHES.update({
     "NO_REDUCE": ("bf16_mma.cuh",
                   "      if (s < split) sum.x += v[s].x, sum.y += v[s].y, sum.z += v[s].z, sum.w += v[s].w;\n",
                   "      (void)v[s];\n"),
-    # no split of K_c at prefill
-    "NO_PREFILL_SPLIT": ("bf16_mma.cuh", "  int best = 1;\n", "  return 1;\n  int best = 0;\n"),
+    # no split of K_c at prefill (the large tile launched with a split of 1)
+    "NO_PREFILL_SPLIT": ("bf16_mma.cuh", _LARGE, _LARGE.replace("args, split,", "args, 1,")),
     # A through registers at decode too (no words, no compaction)
     "REG_DECODE": ("bf16_mma.cuh",
                    "  static constexpr bool REG_A = !SMALL;          // A through registers, else by words\n",
                    "  static constexpr bool REG_A = true;\n"),
     # the prefill tile of 128 x 128
-    "NARROW": ("bf16_mma.cuh", "  return launch_typed<128, 256, BCH, Out>(ga, args, stream);\n",
-               "  return launch_typed<128, 128, BCH, Out>(ga, args, stream);\n"),
+    "NARROW": ("bf16_mma.cuh", _LARGE, _LARGE.replace("<128, 256,", "<128, 128,")),
 })
 _A_LOADS, _A_STORES = ("NO_GATHER16", "NO_GATHER_REG"), ("NO_COMPACT", "NO_STORE_A")
 BF16_VARIANTS = {"as built": (), "no B loads": ("NO_B16",), "no A loads": _A_LOADS,
@@ -173,6 +176,10 @@ def main(argv=()) -> int:
         return codes(nb, NNZ, f), pos.sort(dim=1).values.to(torch.int8).to(dev)
 
     stream = torch.cuda.current_stream(dev).cuda_stream
+
+    def rows(m):  # the int8 tile rows the rule takes (core.mma_plan)
+        return mma_plan("ablation", m, 8, 8, 0).tile_rows
+
     cases = []
     # the convs as served: dequantize, bias, ReLU, requantize to int8 codes,
     # scaled so the codes spread over about +-40 and half of them are zero
@@ -188,24 +195,24 @@ def main(argv=()) -> int:
             out = torch.empty(n * h * w * f, dtype=torch.int8, device=dev)
             args = (x.data_ptr(), v.data_ptr(), idx.data_ptr(), scale.data_ptr(), bias.data_ptr(),
                     out_scale.data_ptr(), 1, out.data_ptr(), 0, 2, n, h, w, c, f, h, w, 3, 3, 1, 1,
-                    1, 1, 8, NNZ, *((1,) if mode == "bw" else ()), stream)
+                    1, 1, 8, NNZ, *((1,) if mode == "bw" else ()), rows(n * h * w), stream)
             cases.append((f"vdbb_conv_{mode}", args, (x, v, idx, scale, bias, out_scale, out)))
     m, k, n = HEAD
     a, (v, idx) = codes(m, k), weight(k, n)
     out = torch.empty(m * n, dtype=torch.int32, device=dev)
     cases.append(("vdbb_matmul_bw", (a.data_ptr(), v.data_ptr(), idx.data_ptr(), None, None,
-                                     None, 0, out.data_ptr(), 0, 0, m, k, n, 8, NNZ, 1, stream),
+                                     None, 0, out.data_ptr(), 0, 0, m, k, n, 8, NNZ, 1, rows(m),
+                                     stream),
                   (a, v, idx, out)))
     # the tc head: one pattern (nb, nnz) shared by every column
     tc_idx = idx[:, :, 0].contiguous()
     cases.append(("vdbb_matmul_tc", (a.data_ptr(), v.data_ptr(), tc_idx.data_ptr(), None, None,
-                                     None, 0, out.data_ptr(), 0, 0, m, k, n, 8, NNZ, stream),
+                                     None, 0, out.data_ptr(), 0, 0, m, k, n, 8, NNZ, rows(m), 1,
+                                     stream),
                   (a, v, tc_idx, out)))
 
-    argtypes = {"vdbb_conv_bw": [P, P, P, P, P, P, I, P, I, I] + [I] * 16 + [P],
-                "vdbb_conv_tc": [P, P, P, P, P, P, I, P, I, I] + [I] * 15 + [P],
-                "vdbb_matmul_bw": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, I, P],
-                "vdbb_matmul_tc": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P]}
+    argtypes = {name: build.KERNELS[name].argtypes
+                for name in ("vdbb_conv_bw", "vdbb_conv_tc", "vdbb_matmul_bw", "vdbb_matmul_tc")}
     sources = {name: f"{name}.cu" for name in argtypes}
     columns = [f"{mode} {layer}" for mode in ("bw", "tc") for layer in CONVS] + ["bw head", "tc head"]
     csrc, registry = build.CSRC, dict(build.KERNELS)
@@ -256,12 +263,14 @@ def _bf16_table(csrc, gen, dev, stream) -> None:
         for m in LM_ROWS:
             a = torch.randn(m, k, generator=gen).bfloat16().to(dev)
             out = torch.empty(m, n, dtype=torch.bfloat16, device=dev)
+            plan = bf16_mma_plan("ablation", m, n, nb * NNZ, (a.data_ptr(), v.data_ptr()), k=k)
             cases.append(("vdbb_matmul_tc", (a.data_ptr(), v.data_ptr(), idx.data_ptr(), None, None,
-                                             None, 0, out.data_ptr(), 2, 3, m, k, n, 8, NNZ, stream),
+                                             None, 0, out.data_ptr(), 2, 3, m, k, n, 8, NNZ,
+                                             plan.tile_rows, plan.split, stream),
                           (a, v, idx, out)))
     columns = [f"{s}:{m}" for s in LM_SHAPES for m in LM_ROWS]
     sources = {"vdbb_matmul_tc": "vdbb_matmul_tc.cu"}
-    argtypes = {"vdbb_matmul_tc": [P, P, P, P, P, P, I, P, I, I, I, I, I, I, I, P]}
+    argtypes = {"vdbb_matmul_tc": build.KERNELS["vdbb_matmul_tc"].argtypes}
     print(f"{'bf16 variant':<20s} " + " ".join(f"{c:>12s}" for c in columns)
           + "   (device ms; bf16 out)")
     for name, switches in BF16_VARIANTS.items():

@@ -13,6 +13,14 @@ serves the unplanned forward, so one call can time both:
 
   python -m repro_torch.launch.serve --arch sparse-cnn-s --batch 1 8 64 --requests 8
 
+``--tune off|cache|search`` (default ``cache``, as the reference) resolves
+each plan's launch choices (the int8 tile rows, the bf16 tile and split,
+the stem's path): ``cache`` takes what the autotune cache holds
+(``REPRO_AUTOTUNE_CACHE``, else ``~/.cache/repro/autotune.json``) and never
+measures, ``search`` measures a launch the cache lacks on the card and
+persists its winner (``kernels/autotune.py``), ``off`` keeps the kernels'
+rules. With an empty cache every mode makes the rules' choices.
+
 Prints the logits' shape, images/s (CUDA events around ``--requests``
 forwards per batch size) and the kernel launches per forward (a plan's: the
 launches its graph captured). ``serve(..., pattern=None)`` serves the
@@ -125,13 +133,13 @@ def time_requests(fn, x, requests: int) -> tuple:
 
 def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
           device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
-          pattern="matrix", plan: bool = True, log=print) -> tuple:
+          pattern="matrix", plan: bool = True, tune: str = "cache", log=print) -> tuple:
     """Serve ``requests`` batches of each size in ``batches`` on the card,
-    through a plan set whose buckets are ``batches`` (``plan=False``: the
-    unplanned forward). Returns ``(model, inputs, results)``: the quantized
-    model, the seeded input batch (requests of batch b take its first b
-    images) and ``{batch: {"logits", "images_per_s",
-    "launches_per_forward"}}``."""
+    through a plan set whose buckets are ``batches``, its launch choices
+    resolved under ``tune`` (``plan=False``: the unplanned forward).
+    Returns ``(model, inputs, results)``: the quantized model, the seeded
+    input batch (requests of batch b take its first b images) and
+    ``{batch: {"logits", "images_per_s", "launches_per_forward"}}``."""
     dev = resolve_device(device)
     if dev.type != "cuda":
         raise ValueError("serving is timed with CUDA events and runs on a card")
@@ -141,9 +149,9 @@ def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
     shared = "per column" if fmt.group is None else f"shared by group={fmt.group}"
     log(f"[serve] {model.cfg.name}: INT8-calibrated, nnz={fmt.nnz}/{fmt.bz}, pattern {shared}, "
         f"{model.cfg.param_count() / 1e6:.2f} M weights, on {torch.cuda.get_device_name(dev)}")
-    plans = model.plan_set(buckets=batches) if plan else None
+    plans = model.plan_set(buckets=batches, tune=tune) if plan else None
     if plans is not None:
-        log(f"[serve] plan set: buckets {plans.buckets}, one CUDA graph each")
+        log(f"[serve] plan set: buckets {plans.buckets}, one CUDA graph each (tune={tune})")
     out = {}
     for b in batches:
         xb = xcal[:b].contiguous()
@@ -164,7 +172,7 @@ def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
 def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.0,
                      max_queue=None, shed: str = "reject", deadline_s=None, seed: int = 0,
                      model=None, reload_every=None, ckpt_dir=None, faults=None,
-                     max_restarts: int = 5, log=print) -> dict:
+                     max_restarts: int = 5, tune: str = "cache", log=print) -> dict:
     """Offer ``requests`` (numpy arrays of one or more images) to a
     :class:`~repro_torch.launch.server.CNNServer` over ``plan_set`` under a
     :class:`~repro_torch.launch.supervisor.Supervisor` (``max_restarts``
@@ -176,8 +184,11 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
     startup (in ``ckpt_dir``, by default a temporary directory removed
     afterwards) and hot-reloads it every ``reload_every`` requests
     mid-traffic: restore, a fresh ``SparseCNN`` on the device loaded with
-    the restored state, its plan set (``tune='off'``) warmed and swapped in,
-    on a thread of its own while the arrivals go on.
+    the restored state, its plan set warmed and swapped in, on a thread of
+    its own while the arrivals go on. ``tune`` is the mode ``plan_set`` was
+    built with: a reload resolves with ``'cache'`` after a ``'search'``
+    build (it takes what the search persisted, never searches again), else
+    with the same mode, as the reference's.
 
     Shed, expired and failed requests, and submits refused in a restart's
     gap, are tallied, not raised. Returns ``{"results"}`` (logits or None
@@ -210,8 +221,11 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
     srv = CNNServer(plan_set, max_wait_ms=max_wait_ms, max_queue=max_queue, shed=shed,
                     faults=faults)
 
+    retune = "cache" if tune == "search" else tune
+
     def rebuild(tree):  # a fresh model on the device, loaded with the restored state
-        return SparseCNN(model.cfg).load_state(tree).plan_set(buckets=plan_set.buckets)
+        return SparseCNN(model.cfg).load_state(tree).plan_set(buckets=plan_set.buckets,
+                                                              tune=retune)
 
     sup = Supervisor(srv, max_restarts=max_restarts,
                      rebuild=None if model is None else rebuild,
@@ -564,11 +578,12 @@ def time_in_turns(fns: dict, order, reps: int, device) -> dict:
 
 def serve_lm_plan(arch, *, batch: int = 4, prompt_len: int = 32, steps: int = 16,
                   device=None, seed: int = 0, smoke: bool = False, sparsity=0.625,
-                  tune: str = "off", log=print) -> dict:
+                  tune: str = "cache", log=print) -> dict:
     """LM prefill of ``arch`` (a name or a ``ModelConfig``) served through a
     frozen plan: compress, calibrate (one
     forward recording every projection's input), INT8-quantize,
-    ``LM.plan``, validate each request row against the plan's sample spec,
+    ``LM.plan`` (its launch choices under ``tune``), validate each request
+    row against the plan's sample spec,
     then check that the plan's logits equal the unplanned INT8 forward's bit
     for bit and time both in turns. A model with a frontend or
     cross-attention raises ``NotImplementedError`` first, as ``LM.plan``.
@@ -629,6 +644,9 @@ def main(argv=None):
                     help="LM --lm-plan: timed prefill calls per turn")
     ap.add_argument("--lm-plan", action="store_true",
                     help="LM: serve prefill through a frozen INT8 plan instead of generating")
+    ap.add_argument("--tune", choices=("off", "cache", "search"), default="cache",
+                    help="plans' launch choices: the autotune cache's (default), a search "
+                         "on the card for what it lacks, or the kernels' rules")
     ap.add_argument("--plan", action=argparse.BooleanOptionalAction, default=True,
                     help="serve through a frozen plan set (--no-plan: the unplanned forward)")
     ap.add_argument("--server", action="store_true",
@@ -654,22 +672,23 @@ def main(argv=None):
         if args.lm_plan:
             return serve_lm_plan(args.arch, batch=batch, prompt_len=args.prompt_len,
                                  steps=args.steps, device=args.device, seed=args.seed,
-                                 smoke=args.smoke, sparsity=args.sparsity)
+                                 smoke=args.smoke, sparsity=args.sparsity, tune=args.tune)
         return serve_lm(args.arch, batch=batch, prompt_len=args.prompt_len, gen=args.gen,
                         device=args.device, seed=args.seed, smoke=args.smoke,
                         sparsity=args.sparsity, dense=args.dense)
     args.batch = args.batch or [64]
     if not args.server:
         serve(args.arch, batches=args.batch, requests=args.requests, device=args.device,
-              seed=args.seed, smoke=args.smoke, sparsity=args.sparsity, plan=args.plan)
+              seed=args.seed, smoke=args.smoke, sparsity=args.sparsity, plan=args.plan,
+              tune=args.tune)
         return
     from repro_torch.launch.server import auto_rate
 
     model, x = build_model(args.arch, calib_batch=args.max_batch, device=args.device,
                            seed=args.seed, smoke=args.smoke, sparsity=args.sparsity)
-    plan_set = model.plan_set(max_batch=args.max_batch)
-    print(f"[serve] plan set: buckets {plan_set.buckets}, max-wait {args.max_wait_ms} ms, "
-          f"max-queue {args.max_queue} ({args.shed})")
+    plan_set = model.plan_set(max_batch=args.max_batch, tune=args.tune)
+    print(f"[serve] plan set: buckets {plan_set.buckets} (tune={args.tune}), max-wait "
+          f"{args.max_wait_ms} ms, max-queue {args.max_queue} ({args.shed})")
     rate = args.rate
     if rate is None:
         rate, bucket_us = auto_rate(plan_set, x.shape[1:])
@@ -680,7 +699,8 @@ def main(argv=None):
     serve_continuous(plan_set, requests, rate=rate, max_wait_ms=args.max_wait_ms,
                      max_queue=args.max_queue, shed=args.shed,
                      deadline_s=args.deadline_ms / 1e3 if args.deadline_ms else None,
-                     seed=args.seed, model=model, reload_every=args.reload_every)
+                     seed=args.seed, model=model, reload_every=args.reload_every,
+                     tune=args.tune)
 
 
 if __name__ == "__main__":

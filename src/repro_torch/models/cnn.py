@@ -169,17 +169,22 @@ class SparseCNN(nn.Module):
         return head.quant_serve(x)
 
     # ------------------------------------------------- frozen serving plans
-    def plan(self, *, batch: int, tune: str = "off", pool=None, graphs: bool = True):
+    def plan(self, *, batch: int, tune: str = "cache", cache=None, top_k: int = 4, reps: int = 3,
+             pool=None, graphs: bool = True):
         """Freeze a serving plan for request batch ``batch`` (port of the
         reference's ``plan``): the stages ``l0 … l{n-1}`` (each conv on the
         path :meth:`forward` takes for the current state, the fused int8
         chain when calibrated), ``gap`` and the head, each with its tensors
-        frozen in. On a card the chain is captured into a CUDA graph at its
-        first ``serve`` of a signature, from ``pool`` (a
+        frozen in. Every layer's launch choice is resolved under ``tune``
+        (the tuned registry → the autotune ``cache`` → a search when
+        ``'search'``; ``'cache'`` never searches, ``'off'`` keeps the rules;
+        on the CPU the rules) and frozen into its stage, as the reference
+        pins its tiles. On a card the chain is captured into a CUDA graph at
+        its first ``serve`` of a signature, from ``pool`` (a
         :class:`~repro_torch.models.plan.GraphPool`; :meth:`plan_set` shares
-        one across its buckets). Only ``tune='off'`` exists (ROADMAP item
-        10). ``graphs=False`` stages the same chain to run eagerly on a card,
-        each kernel launched by its wrapper (:meth:`fallback_plan_set`)."""
+        one across its buckets). ``graphs=False`` stages the same chain to
+        run eagerly on a card, each kernel launched by its wrapper
+        (:meth:`fallback_plan_set`)."""
         from repro_torch.models.plan import PlanBuilder
 
         layers = self.layers()
@@ -188,7 +193,8 @@ class SparseCNN(nn.Module):
         c = self.cfg
         h = w = c.image_size
         n = len(convs)
-        pb = PlanBuilder(c.name, self.state(), batch=batch, tune=tune,
+        pb = PlanBuilder(c.name, self.state(), batch=batch, tune=tune, cache=cache, top_k=top_k,
+                         reps=reps,
                          sample_spec=((c.image_size, c.image_size, c.in_channels), "float32"),
                          device=head.w.device, pool=pool, graphs=graphs)
         for i, m in enumerate(convs):
@@ -200,19 +206,22 @@ class SparseCNN(nn.Module):
         pb.stage(f"l{n}", "linear", head.make_plan, batch=batch, fused=fused)
         return pb.build()
 
-    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, tune: str = "off",
-                 graphs: bool = True):
+    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, tune: str = "cache",
+                 cache=None, top_k: int = 4, reps: int = 3, graphs: bool = True):
         """Freeze a bucketed serving plan set: one :meth:`plan` per
         batch-size bucket (``make_buckets(max_batch)`` by default), all
-        pinned to the same state and, on a card, sharing one graph memory
+        pinned to the same state, resolving their launch choices against one
+        parse of the autotune cache and, on a card, sharing one graph memory
         pool. ``serve`` takes any batch size and, once every bucket is
-        warm, captures nothing new. ``graphs``: see :meth:`plan`."""
+        warm, captures nothing new. ``tune``, ``graphs``: see :meth:`plan`."""
         from repro_torch.models.plan import GraphPool, build_plan_set, resolve_tune_cache
 
-        resolve_tune_cache(tune)
-        pool = GraphPool() if graphs and self.layers()[-1].w.device.type == "cuda" else None
+        dev = self.layers()[-1].w.device
+        cache = resolve_tune_cache(tune, cache, dev)  # one parse for all buckets
+        pool = GraphPool() if graphs and dev.type == "cuda" else None
         return build_plan_set(self.cfg.name, self.state(),
-                              lambda b: self.plan(batch=b, tune=tune, pool=pool, graphs=graphs),
+                              lambda b: self.plan(batch=b, tune=tune, cache=cache, top_k=top_k,
+                                                  reps=reps, pool=pool, graphs=graphs),
                               max_batch=max_batch, buckets=buckets)
 
     def fallback_plan_set(self, primary, *, verify: bool = True) -> dict:
@@ -227,7 +236,9 @@ class SparseCNN(nn.Module):
         serves bit for bit what its graph serves. It rescues what fails in
         the graph path on the host (a capture or a replay that raises), not
         a kernel that refuses its inputs. On the CPU both sets run the plain
-        versions, as every CPU plan does."""
+        versions, as every CPU plan does. Its launch choices are resolved
+        at this build (``tune='cache'``) and frozen, as any plan's; int8
+        products are exact under any tile rows."""
         from repro_torch.models.plan import fallback_closures
 
         eager = self.plan_set(buckets=primary.buckets, graphs=False)

@@ -208,22 +208,24 @@ class StagedLinear:
     quantized: bool
 
 
-def stage_linear(w, aq, m: int, compute_dtype, *, dynamic: bool = False) -> StagedLinear:
+def stage_linear(w, aq, m: int, compute_dtype, *, dynamic: bool = False,
+                 choice=None) -> StagedLinear:
     """Stage :func:`apply_linear`'s product with a compressed ``w`` at ``m``
     rows: ``ops.stage_quant_matmul`` for an int8 weight (which needs its
     calibrated ``aq``, unless ``dynamic`` lets it quantize each call's batch
     at its own scale when it has none), ``ops.stage_vdbb_matmul`` for a
     floating one, its values in ``compute_dtype`` as the unplanned path
-    casts them."""
+    casts them. The launch choice is frozen at the stage: ``choice``, else
+    the tuned registry's (``None``), ``{}`` the rule's."""
     from repro_torch.kernels import ops
 
     _shared_pattern(w)
     if isinstance(w, QuantDBBWeight):
-        run, _ = ops.stage_quant_matmul(w, aq, m, dynamic=dynamic)
+        run, _ = ops.stage_quant_matmul(w, aq, m, dynamic=dynamic, choice=choice)
         return StagedLinear(run, w.shape, w.fmt, True)
     if w.values.dtype != compute_dtype:
         w = dataclasses.replace(w, values=w.values.to(compute_dtype))
-    run, _ = ops.stage_vdbb_matmul(w, m)
+    run, _ = ops.stage_vdbb_matmul(w, m, choice=choice)
     return StagedLinear(run, w.shape, w.fmt, False)
 
 

@@ -45,7 +45,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.act_sparsity import act_scope, collect_activations
-from repro_torch.core.quant import QMAX, as_f32, quantize_dbb
+from repro_torch.core.quant import QMAX, QuantDBBWeight, as_f32, quantize_dbb
 from repro_torch.core.vdbb import DBBWeight, dbb_encode
 from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_params,
@@ -437,33 +437,61 @@ class LM(nn.Module):
         return self._absorb()
 
     # -------------------------------------------------------------- plan
-    def _staged(self, tree, m: int, dynamic: bool = False):
+    def _staged(self, tree, m: int, dynamic: bool = False, choice=None):
         """``tree`` with every compressed projection staged at ``m`` rows
         (:func:`~repro_torch.models.common.stage_linear`, its ``_aq``
         sibling frozen in; with ``dynamic`` an int8 projection without one
-        computes its activation scale from each call's batch)."""
+        computes its activation scale from each call's batch; ``choice``
+        as ``stage_linear``'s)."""
         out = {}
         for k, v in tree.items():
             if isinstance(v, dict):
-                out[k] = self._staged(v, m, dynamic)
+                out[k] = self._staged(v, m, dynamic, choice)
             elif hasattr(v, "fmt"):
                 out[k] = stage_linear(v, tree.get(f"{k}_aq"), m, self.cfg.compute_dtype,
-                                      dynamic=dynamic)
+                                      dynamic=dynamic, choice=choice)
             else:
                 out[k] = v
         return out
 
-    def _staged_block(self, kind, p, m: int):
+    def _staged_block(self, kind, p, m: int, choice=None):
         """One block's tree staged at ``m`` rows. The recurrent mixers'
         projections are staged dynamic: the reference calls them with no
         name, so calibration never gives them a scale, and its jitted plan
         quantizes them per batch. Every other projection needs its
         calibrated scale."""
-        out = self._staged({k: v for k, v in p.items() if k != "mixer"}, m)
-        out["mixer"] = self._staged(p["mixer"], m, dynamic=kind in ("rec", "rwkv"))
+        out = self._staged({k: v for k, v in p.items() if k != "mixer"}, m, choice=choice)
+        out["mixer"] = self._staged(p["mixer"], m, dynamic=kind in ("rec", "rwkv"),
+                                    choice=choice)
         return out
 
-    def plan(self, *, batch: int, seq: int, tune: str = "off"):
+    def _tune_gemms(self, m: int, *, tune: str, cache=None, top_k: int = 4, reps: int = 3):
+        """Resolve the measured best launch choice of every unique compressed
+        product (m, k, n, fmt, dtype) of the model, int8 for a quantized
+        weight and the compute dtype otherwise: one search each under
+        ``'search'`` (``autotune.tiles_for_matmul``), which installs it in
+        the tuned registry the staged projections and every later launch
+        read. Nothing on the CPU."""
+        from repro_torch.kernels import autotune
+        from repro_torch.models.plan import resolve_tune_cache
+
+        cache = resolve_tune_cache(tune, cache, self.device)
+        seen = set()
+        for path, pdef in dbb_leaves(self.defs()):
+            w = tree_get(self.params, path)
+            if not hasattr(w, "fmt"):
+                continue  # never compressed (the MoE's expert stacks)
+            k, n = pdef.shape[-2:]
+            dtype = torch.int8 if isinstance(w, QuantDBBWeight) else self.cfg.compute_dtype
+            sig = (m, k, n, w.fmt, dtype)
+            if sig in seen:
+                continue
+            seen.add(sig)
+            autotune.tiles_for_matmul(m, k, n, w.fmt, dtype, mode=tune, cache=cache,
+                                      top_k=top_k, reps=reps, device=self.device)
+
+    def plan(self, *, batch: int, seq: int, tune: str = "cache", cache=None, top_k: int = 4,
+             reps: int = 3):
         """Freeze a serving plan of prefill at (``batch``, ``seq``): the
         stages ``embed``, ``g{g}.b{i}`` for every block of every group,
         ``t{i}`` for the tail, ``head`` (final norm and logits), each with
@@ -474,7 +502,10 @@ class LM(nn.Module):
         fills on the card from its batch).
         The sample is one row of int32 tokens. On a card the chain is
         captured into one CUDA graph per input signature at its first
-        ``serve``. Only ``tune='off'`` exists (ROADMAP queue 1, item 10).
+        ``serve``. The projections' launch choices are resolved up front, as
+        the reference's (``_tune_gemms`` under ``'cache'`` or ``'search'``,
+        into the tuned registry), and frozen into the staged projections at
+        the build; ``'off'`` stages the rules' choices.
         A frontend or cross-attention raises ``NotImplementedError``
         (:func:`check_plannable`), as the reference's."""
         from repro_torch.models.plan import PlanBuilder
@@ -484,20 +515,26 @@ class LM(nn.Module):
         params = self.params
         dev = self.device
         m = batch * seq
+        pb = PlanBuilder(c.name, params, batch=batch, tune=tune, cache=cache, top_k=top_k,
+                         reps=reps, sample_spec=((seq,), "int32"), device=dev)
+        if tune != "off":
+            self._tune_gemms(m, **pb.tune_kw)
+        choice = {} if tune == "off" else None  # {}: the rules; None: the registry
         positions = torch.arange(seq, device=dev).expand(batch, seq)
-        pb = PlanBuilder(c.name, params, batch=batch, tune=tune,
-                         sample_spec=((seq,), "int32"), device=dev)
         pb.raw("embed", "embed", self._embed)
 
         def block(kind, p):
             return lambda x: self._apply_block(kind, p, x, positions)[0]
 
+        def staged(kind, p):
+            return block(kind, self._staged_block(kind, p, m, choice))
+
         for g in range(c.num_groups):
             gp = tree_slice(params["layers"], g)
             for i, kind in enumerate(c.pattern):
-                pb.raw(f"g{g}.b{i}", kind, block(kind, self._staged_block(kind, gp[f"b{i}"], m)))
+                pb.raw(f"g{g}.b{i}", kind, staged(kind, gp[f"b{i}"]))
         for i, kind in enumerate(c.tail_pattern):
-            pb.raw(f"t{i}", kind, block(kind, self._staged_block(kind, params["tail"][f"t{i}"], m)))
+            pb.raw(f"t{i}", kind, staged(kind, params["tail"][f"t{i}"]))
         final_norm = params["final_norm"]
         pb.raw("head", "head", lambda x: self._logits(self._apply_norm(final_norm, x)))
         return pb.build()

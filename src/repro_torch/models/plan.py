@@ -30,7 +30,11 @@ batch up to the nearest bucket and slices the padding off, bit-identical to
 serving each request alone (rows are independent through conv, GEMM and
 pooling).
 
-Only ``tune='off'`` exists: the tile autotuner is ROADMAP item 10.
+Each stage's launch choice (the int8 tile rows, the bf16 tile and split,
+the stem's path) is resolved at the build under ``tune`` ('off': the rule's;
+'cache': the tuned registry or the autotune cache; 'search': a measured
+search on a miss, ``kernels/autotune.py``) and frozen into the stage, so a
+later change of the registry reaches no built plan, graphed or eager.
 """
 from __future__ import annotations
 
@@ -420,27 +424,34 @@ def fallback_closures(primary: PlanSet, fallback: PlanSet, *, verify: bool = Tru
     return {b: fallback.plans[b].serve for b in fallback.buckets}
 
 
-def resolve_tune_cache(tune: str, cache=None):
-    """The tile-tuning mode of a plan build. Only ``'off'`` (the kernels' own
-    tile choices) exists; it passes ``cache`` through. The autotuner and
-    its cache are ROADMAP item 10."""
-    if tune != "off":
-        raise ValueError(f"tune={tune!r}: the port's plans take tune='off' only; the tile "
-                         "autotuner is ROADMAP item 10")
-    return cache
+def resolve_tune_cache(tune: str, cache=None, device=None):
+    """Parse the autotune cache once per plan build, so nested builds
+    (``plan_set`` → a plan per bucket) share one parse: a ``TuneCache`` (an
+    already parsed one passes through) for ``'cache'`` and ``'search'`` on a
+    card; ``cache`` as given for ``'off'`` and on the CPU, where nothing is
+    read. Raises on an unknown mode."""
+    from repro_torch.kernels import autotune
+
+    autotune.check_mode(tune)
+    if tune == "off" or (device is not None and torch.device(device).type != "cuda"):
+        return cache
+    return autotune.as_cache(cache)
 
 
 class PlanBuilder:
     """Collects staged serving layers into an immutable :class:`ModelPlan`.
 
     One builder per (model, state, batch): the fingerprint is taken at
-    construction and every :meth:`stage` call hands ``tune`` to the
-    layer's ``make_plan``. Stages without tiles (pooling) use :meth:`raw`.
+    construction, the tuning keywords are normalized once
+    (:func:`resolve_tune_cache`), and every :meth:`stage` call hands
+    ``tune``, ``cache``, ``top_k`` and ``reps`` to the layer's
+    ``make_plan``. Stages without tiles (pooling) use :meth:`raw`.
     ``device`` is where the staged tensors lie, and it has no default: a
     plan told the CPU around card tensors would replay nothing.
     """
 
-    def __init__(self, model: str, params, *, batch: Optional[int] = None, tune: str = "off",
+    def __init__(self, model: str, params, *, batch: Optional[int] = None, tune: str = "cache",
+                 cache=None, top_k: int = 4, reps: int = 3,
                  sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None, device,
                  pool: Optional[GraphPool] = None, graphs: bool = True):
         self.model = model
@@ -451,13 +462,15 @@ class PlanBuilder:
         self.pool = pool
         self.fingerprint = params_fingerprint(params)
         self.tune = tune
-        resolve_tune_cache(tune)
+        self.cache = resolve_tune_cache(tune, cache, self.device)
+        self.top_k = top_k
+        self.reps = reps
         self._stages: list = []
 
     @property
     def tune_kw(self) -> dict:
         """The tuning keywords every ``make_plan`` receives."""
-        return dict(tune=self.tune)
+        return dict(tune=self.tune, cache=self.cache, top_k=self.top_k, reps=self.reps)
 
     def stage(self, name: str, kind: str, make_plan: Callable, *args, **kw):
         """Stage one layer through its ``make_plan(*args, **kw, **tune_kw)``

@@ -562,3 +562,86 @@ def test_selfheal_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     assert "crash loop" in rec["restart"]["loop"]["reason"]
     assert rec["demotion"]["bucket"] == 8 and rec["demotion"]["served_equal"] >= 2
     assert not (tmp_path / "selfheal").exists()
+
+
+def test_tuning_phase_is_in_the_phase_list(smoke):
+    """Phase 13 (tuning) is listed and timed, and runs inside the run's
+    temporary autotune cache."""
+    import inspect
+
+    assert " 13. tuning" in smoke.__doc__ and " 14. one JSON line" in smoke.__doc__
+    assert 'phase_done("13 tuning")' in inspect.getsource(smoke.run)
+    assert "temporary_tune_cache()" in inspect.getsource(smoke.main)
+
+
+def test_temporary_tune_cache_names_a_fresh_file_and_removes_it(smoke, monkeypatch):
+    import os
+
+    monkeypatch.setenv("REPRO_AUTOTUNE_CACHE", "/nowhere/kept.json")
+    with smoke.temporary_tune_cache() as path:
+        assert os.environ["REPRO_AUTOTUNE_CACHE"] == str(path)
+        assert path.parent.is_dir() and not path.exists()
+        path.write_text("{}")
+    assert not path.parent.exists()
+    assert os.environ["REPRO_AUTOTUNE_CACHE"] == "/nowhere/kept.json"
+
+
+def test_searched_holds_every_tuned_time_to_its_default(smoke, tmp_path):
+    import json
+
+    path = tmp_path / "autotune.json"
+    entry = {"tiles": {"tile_rows": 64}, "default_tiles": {"tile_rows": 128},
+             "measured_us": 50.0, "default_us": 60.0, "modeled_best_us": 1.0,
+             "modeled_default_us": 1.0, "n_candidates": 2}
+    key = "cuda|matmul_tc|4x512x72x8x3xint8"
+    path.write_text(json.dumps({"version": 1, "calibration": {}, "entries": {
+        key: entry, "cpu|matmul_tc|4x512x72x8x3xint8": {"tiles": {"bm": 8}}}}))
+    got = smoke.searched(path)
+    assert list(got) == [key] and got[key]["speedup"] == 60.0 / 50.0
+    path.write_text(json.dumps({"version": 1, "calibration": {}, "entries": {
+        key: dict(entry, measured_us=61.0)}}))
+    with pytest.raises(AssertionError, match="above the default"):
+        smoke.searched(path)
+
+
+def test_rebuild_from_cache_refuses_a_search_or_other_choices(smoke):
+    from types import SimpleNamespace
+
+    from repro_torch.kernels import autotune
+
+    built = SimpleNamespace(tiles={1: {"l1": {"tile_rows": 64}}})
+    assert smoke.rebuild_from_cache(lambda: built, built.tiles, "t") is built
+    with pytest.raises(AssertionError, match="other choices"):
+        smoke.rebuild_from_cache(lambda: built, {1: {}}, "t")
+
+    def searching():
+        autotune._SEARCHES[0] += 1
+        return built
+
+    with pytest.raises(AssertionError, match="1 searches"):
+        smoke.rebuild_from_cache(searching, built.tiles, "t")
+
+
+def test_tuning_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 13 end to end on the CPU at the smoke configs (buckets 1 … 4):
+    the calibration's defaults (nothing is measured on the CPU), both
+    patterns' searched sets equal to 'off' and their 'cache' rebuilds
+    search-free, the LM's generate in turns with graph = eager, the INT8
+    plan searched equal to 'off'; the registry left empty."""
+    import torch
+
+    from repro_torch.kernels import core
+
+    _rehearse(smoke, monkeypatch)
+    monkeypatch.setattr(smoke, "TUNE_SMOKE", True)
+    monkeypatch.setattr(smoke, "TUNE_BUCKETS", (1, 2, 4))
+    with smoke.temporary_tune_cache() as path:
+        rec = smoke.tuning_phase(torch.device("cpu"), {"prefill_ms": 1.0, "ms_per_step": 1.0})
+        assert not path.exists()
+    assert rec["calibration"]["source"] == "default" and rec["searched"] == {}
+    assert all(r["searches"] == 0 and r["changed"] == {} for r in rec["cnn"].values())
+    lm = rec["lm"]
+    assert lm["bf16_searches"] == lm["int8_searches"] == 0
+    assert set(lm["generate"]) == {"untuned", "tuned"}
+    assert len(lm["generate"]["tuned"]["ms_per_step"]) == 2
+    assert core.tuned_entries() == {}

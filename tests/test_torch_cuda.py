@@ -1161,3 +1161,214 @@ def test_moe_combine_is_the_same_bits_every_run(card):
         g.replay()
         torch.cuda.synchronize()
         assert torch.equal(got, want), s
+
+
+# ------------------------------------------------------ the launch choices
+#
+# Every choice the autotuner can make (``kernels/core.py:launch_choices``) is
+# held against the plain version, not only the rules' choices: int8 exactly,
+# bf16 within ``ref.check_bf16``, the fp32 stem within rtol = atol = 1e-5.
+
+CHOICE_ROWS = [1, 4, 64, 65, 1024]
+
+
+def _choices(kind, sig):
+    from repro_torch.kernels import core as tcore
+
+    out = tcore.launch_choices(kind, sig)
+    assert tcore.default_choice(kind, sig) in out
+    return out
+
+
+@pytest.mark.parametrize("m", CHOICE_ROWS)
+@pytest.mark.parametrize("mode", ["tc", "bw"])
+def test_int8_matmul_every_tile_choice_matches_plain(card, mode, m):
+    """Both tile instances (64 and 128 rows) of the int8 head at
+    sparse-cnn-tiny's head shape (K = 64, N = 10) and at K = 512, N = 72,
+    each flush, against the plain version."""
+    from repro_torch.kernels import core as tcore
+
+    rng = np.random.default_rng(m)
+    for k, n in ((64, 10), (512, 72)):
+        if mode == "tc":
+            values, idx, fmt = _tc_codes(rng, k // 8, 3, n)
+            kernel, plain = head_k.vdbb_matmul_tc, head_k.vdbb_matmul_tc_plain
+            kind = tcore.KIND_MATMUL_TC
+        else:
+            values, idx, fmt = _bw_codes(rng, k // 8, 3, n, None)
+            kernel, plain = head_k.vdbb_matmul_bw, head_k.vdbb_matmul_bw_plain
+            kind = tcore.KIND_MATMUL_BW
+        a = _act_codes(rng, (m, k), card=card)
+        choices = _choices(kind, tcore.matmul_sig(m, k, n, 8, 3, "int8"))
+        assert choices == [{"tile_rows": 64}, {"tile_rows": 128}]
+        for t in choices:
+            _int8_exact(lambda *a_, **kw: kernel(*a_, **kw, choice=t), plain,
+                        (a, values.to(card), idx.to(card), fmt), n, card, rng)
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("mode", ["tc", "bw"])
+def test_int8_conv_every_tile_choice_matches_plain(card, mode, batch):
+    """Both tile instances of the int8 conv at sparse-cnn-tiny's compressed
+    conv (16 x 16 x 32 -> 64, 3x3, stride 2) and at a stride-1 layer of the
+    same widths, against the plain version."""
+    from repro_torch.kernels import core as tcore
+
+    rng = np.random.default_rng(batch)
+    for h, c, f, stride in ((16, 32, 64, 2), (8, 64, 64, 1)):
+        nb = 9 * c // 8
+        if mode == "tc":
+            values, idx, fmt = _tc_codes(rng, nb, 3, f)
+            kernel, plain = conv_k.vdbb_im2col_conv_tc, conv_k.vdbb_im2col_conv_tc_plain
+            kind = tcore.KIND_CONV_TC
+        else:
+            values, idx, fmt = _bw_codes(rng, nb, 3, f, None)
+            kernel, plain = conv_k.vdbb_im2col_conv_bw, conv_k.vdbb_im2col_conv_bw_plain
+            kind = tcore.KIND_CONV_BW
+        x = _act_codes(rng, (batch, h, h, c), card=card)
+        ho = -(-h // stride)
+        sig = tcore.conv_sig(batch, ho, ho, c, f, 3, 3, stride, stride, 8, 3, "int8")
+        for t in _choices(kind, sig):
+            _int8_exact(lambda *a_, **kw: kernel(*a_, **kw, choice=t), plain,
+                        (x, values.to(card), idx.to(card), fmt, 3, 3), f, card, rng,
+                        stride=stride)
+
+
+@pytest.mark.parametrize("m", CHOICE_ROWS)
+@pytest.mark.parametrize("k,n", [(512, 384), (4608, 512)])
+def test_bf16_matmul_every_tile_and_split_matches_plain(card, k, n, m):
+    """Every bf16 launch choice, the small and the large tile with each legal
+    split (the large tile at decode rows, the small one at prefill), against
+    the plain version within one bf16 ulp plus the reordering bound."""
+    from repro_torch.kernels import core as tcore
+
+    _, a, vals, idx, fmt = _bf16_operands(card, m, k, n, 3)
+    order = tref.bf16_reorder_bound(a, vals, idx, 8)
+    want = head_k.vdbb_matmul_tc_plain(a, vals, idx, fmt)
+    choices = _choices(tcore.KIND_MATMUL_TC, tcore.matmul_sig(m, k, n, 8, 3, "bfloat16"))
+    stages = -(-(k // 8 * 3) // 32)
+    assert len(choices) == min(16, stages) + min(8, stages)
+    for t in choices:
+        tref.check_bf16(head_k.vdbb_matmul_tc(a, vals, idx, fmt, choice=t), want, order,
+                        f"bf16 {t}")
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("batch", [1, 4])
+def test_stem_every_path_matches_plain(card, batch):
+    """Both paths of the dense conv at sparse-cnn-tiny's stem (16 x 16 x 3
+    -> 32) and at sparse-cnn-s's width (F = 64): fp32 out within 1e-5, the
+    requantized codes within one."""
+    from repro_torch.kernels import core as tcore
+
+    rng = np.random.default_rng(90 + batch)
+    for f in (32, 64):
+        x = _rng_tensor(rng, batch, 16, 16, 3).to(card)
+        w, bias = _rng_tensor(rng, 3, 3, 3, f, scale=0.2).to(card), _rng_tensor(rng, f).to(card)
+        sig = tcore.conv_sig(batch, 16, 16, 3, f, 3, 3, 1, 1, 0, 0, "float32")
+        choices = _choices(tcore.KIND_CONV_DENSE, sig)
+        assert choices == [{"path": "direct"}, {"path": "gemm"}]
+        for t in choices:
+            kw = dict(bias=bias, relu=True, choice=t)
+            torch.testing.assert_close(stem_k.im2col_conv(x, w, **kw),
+                                       stem_k.im2col_conv_plain(x, w, bias=bias, relu=True),
+                                       **TOL)
+            _codes_close(stem_k.im2col_conv(x, w, out_scale=0.03, **kw),
+                         stem_k.im2col_conv_plain(x, w, bias=bias, relu=True, out_scale=0.03))
+    torch.cuda.synchronize()
+
+
+def test_kernels_refuse_a_choice_they_cannot_run(card):
+    """The CUDA side validates what the host passes: tile rows other than 64
+    or 128, a bf16 split of 0 or above the tile's cluster or the stages, a
+    split on the int8 core, each returns cudaErrorInvalidValue (raised by the
+    wrapper); the legal neighbours launch."""
+    rng = np.random.default_rng(3)
+    values, idx, fmt = _tc_codes(rng, 8, 3, 72)
+    a = _act_codes(rng, (4, 64), card=card)
+    args = (a, values.to(card), idx.to(card), fmt)
+    for bad in ({"tile_rows": 96}, {"tile_rows": 32}):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            head_k.vdbb_matmul_tc(*args, choice=bad)
+    _, ab, vb, ib, fb = _bf16_operands(card, 4, 512, 384, 3)  # K_c = 192: 6 stages
+    for bad in ({"tile": "small", "split": 0}, {"tile": "small", "split": 7},
+                {"tile": "large", "split": 9}):
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            head_k.vdbb_matmul_tc(ab, vb, ib, fb, choice=bad)
+    head_k.vdbb_matmul_tc(ab, vb, ib, fb, choice={"tile": "small", "split": 6})
+    torch.cuda.synchronize()
+
+
+def test_the_registry_reaches_an_unplanned_launch(card):
+    """A tuned entry changes the instance an unplanned launch runs (the
+    profiler's kernel names), and clearing it restores the rule's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import core as tcore
+
+    rng = np.random.default_rng(4)
+    values, idx, fmt = _tc_codes(rng, 8, 3, 72)
+    a = _act_codes(rng, (4, 64), card=card)
+    args = (a, values.to(card), idx.to(card), fmt)
+    sig = tcore.matmul_sig(4, 64, 72, 8, 3, "int8")
+
+    def names():
+        head_k.vdbb_matmul_tc(*args)
+        torch.cuda.synchronize()
+        for _ in range(5):  # a profiled pass may deliver no kernel records
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    head_k.vdbb_matmul_tc(*args)
+                torch.cuda.synchronize()
+            got = {ev.name for ev in prof.events()
+                   if ev.device_type == torch.autograd.DeviceType.CUDA}
+            if got:
+                return got
+        return set()
+
+    try:
+        tcore.set_tuned(tcore.KIND_MATMUL_TC, sig, {"tile_rows": 128})
+        assert any("os_mma::kernel<128" in n for n in names())
+        tcore.clear_tuned()
+        assert any("os_mma::kernel<64" in n for n in names())
+    finally:
+        tcore.clear_tuned()
+
+
+def test_cnn_search_plans_equal_off_and_rebuild_from_the_cache(card, tmp_path):
+    """sparse-cnn-tiny, both patterns: plan sets searched on the card equal
+    the 'off' sets bit for bit at every bucket; every entry's tuned time is
+    at most its default's; a 'cache' rebuild with the registry cleared runs
+    no search and makes the same choices; a later registry change leaves the
+    built sets' choices as they were."""
+    from repro_torch.kernels import autotune
+    from repro_torch.kernels import core as tcore
+    from repro_torch.launch import serve
+
+    path = tmp_path / "autotune.json"
+    try:
+        for pattern in ("matrix", None):
+            model, x = serve.build_model("sparse-cnn-tiny", calib_batch=8, device=card,
+                                         smoke=True, pattern=pattern)
+            off = model.plan_set(max_batch=8, tune="off")
+            before = autotune.searches()
+            tuned = model.plan_set(max_batch=8, tune="search", cache=path)
+            assert autotune.searches() > before
+            with torch.no_grad():
+                for b in tuned.buckets:
+                    assert torch.equal(tuned.plans[b].serve(x[:b]), off.plans[b].serve(x[:b]))
+            tcore.clear_tuned()
+            before = autotune.searches()
+            again = model.plan_set(max_batch=8, tune="cache", cache=path)
+            assert autotune.searches() == before and again.tiles == tuned.tiles
+            for (kind, sig), t in tcore.tuned_entries().items():
+                flipped = [c for c in tcore.launch_choices(kind, sig) if c != t][0]
+                tcore.set_tuned(kind, sig, flipped)
+            assert again.tiles == tuned.tiles
+            with torch.no_grad():
+                assert torch.equal(again.plans[8].serve(x), off.plans[8].serve(x))
+            tcore.clear_tuned()
+        for e in autotune.TuneCache(path).entries.values():
+            assert e["measured_us"] <= e["default_us"]
+    finally:
+        tcore.clear_tuned()

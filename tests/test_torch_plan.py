@@ -281,14 +281,27 @@ def test_plan_is_immutable(served):
 
 @pytest.mark.parametrize("tune", ["cache", "search"])
 def test_only_tune_off(tune):
-    """The autotuner is not ported: every other mode names ROADMAP item 10."""
+    """On the CPU only the rules' launch choices exist: the plain versions
+    take none, so 'cache' and 'search' resolve to what 'off' stages (nothing
+    read, measured or installed) and serve its logits bit for bit; an
+    unknown mode raises."""
+    from repro_torch.kernels import core
+
     model, _ = _model()
-    with pytest.raises(ValueError, match="item 10"):
-        resolve_tune_cache(tune)
-    with pytest.raises(ValueError, match="item 10"):
-        model.plan(batch=1, tune=tune)
-    with pytest.raises(ValueError, match="item 10"):
-        model.plan_set(max_batch=2, tune=tune)
+    x = torch.from_numpy(np.random.default_rng(2).normal(size=(3, 16, 16, 3)).astype(np.float32))
+    assert resolve_tune_cache(tune, "c", "cpu") == "c"
+    off, tuned = model.plan(batch=3, tune="off"), model.plan(batch=3, tune=tune)
+    assert tuned.tiles == off.tiles
+    assert torch.equal(tuned(x), off(x))
+    set_off, set_tuned = model.plan_set(max_batch=2, tune="off"), model.plan_set(max_batch=2,
+                                                                                  tune=tune)
+    assert set_tuned.tiles == set_off.tiles
+    assert torch.equal(set_tuned.serve(x), set_off.serve(x))
+    assert core._TUNED == {}
+    with pytest.raises(ValueError, match="tune"):
+        resolve_tune_cache("fast")
+    with pytest.raises(ValueError, match="tune"):
+        model.plan(batch=1, tune="fast")
     assert resolve_tune_cache("off", "c") == "c"
 
 
