@@ -245,7 +245,47 @@ Phases, each of which fails the run:
         the calibrated INT8 prefill plan at 4 × 256 (M = 1024) with
         ``tune='search'`` equal to the ``'off'`` plan bit for bit, both
         timed in turns;
- 14. one JSON line of the six kernels (launches, errors, times, bounds).
+ 14. training and accounting, with the earlier phases' models freed and the
+     peak-memory counter reset first:
+     a. parity on the card: codeqwen1.5-7b's smoke config cut as
+        tests/test_substrate.py cuts it (2 layers, d_model 64, d_ff 128,
+        vocab 256) in an fp32 copy, TF32 off: 3 ``train_step``s on the card
+        against the same 3 on the CPU from one parameter set (losses within
+        1e-5 relative; parameters and state within rtol 2e-4, atol 2e-5,
+        but entries whose first gradient is nonzero and below 1e-6, where
+        Adam steps by the sign of rounding noise, which may go beyond it
+        if they moved, on both devices, within AdamW's reach); the
+        kill-resume twin on the card (6 steps straight against 3, a
+        checkpoint at step 2, a resume and 3 more, rtol 2e-4, atol 2e-5);
+        3 steps with int8 error-feedback gradient compression, the residual
+        finite;
+     b. the trainer at full width: starcoder2-7b at published width cut to
+        ``TRAIN_LAYERS`` = 8 (2.19 B parameters, 35.0 GB of training state
+        at 16 bytes a parameter), remat 'full', through ``Trainer`` with the
+        launcher's defaults (seq 256, batch 8, peak lr 3e-4, warm-up 5), 12
+        steps, ``PruneSchedule(0, 8)``, no checkpoint directory. Gates:
+        every loss finite, the last below the first, every DBB leaf on its
+        3/8 bound after the last step. Logged: ms a step end to end (CUDA
+        events from the end of step 2 to the end of step 12, over 10: the
+        batch's copy to the card, the loss read and the loop's host work
+        inside), tokens/s and ``mfu`` (6 × the non-embedding parameters ×
+        tokens plus the attention's products, no recompute, over that step
+        and 989 TFLOP/s) from it; the median of steps 3–12 of the step
+        function, forward and backward, optimizer and ``constrain`` on
+        events; the host's data wait; peak memory;
+     c. the accounting: ``ops.sparse_matmul(a, w, act_fmt=act_fmt(
+        measure_activation(a)))`` at starcoder2's four projection shapes,
+        M = 1024, on the activations the trained model's layer 0 reads (the
+        post-GELU one at w_down) with its weights compressed at 3/8, and at
+        the paper's assumed 4/8, each against its plain version on the card,
+        beside the unpruned call; then sparse-cnn-s at batch 64, both
+        patterns, ``forward(collect_act_stats=True)`` on the card's fp32
+        kernels against the CPU's plain versions (logits within rtol = atol
+        = 1e-5, zero fractions within 1e-4, absmax within 1e-5 relative),
+        ``layer_costs`` and the pareto
+        design's ``model_workload`` at the measured activation sparsity
+        beside the assumed 0.5;
+ 15. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -261,6 +301,7 @@ import math
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -2482,13 +2523,461 @@ def tuning_phase(dev, untuned=None) -> dict:
 # ------------------------------------------------------- the kernels line
 
 
+# --------------------------------------------------------------- phase 14
+
+TRAIN_SMOKE = False  # the reduced configs (a CPU rehearsal of this phase)
+TRAIN_ARCH = "starcoder2-7b"
+TRAIN_LAYERS = 8  # published width at 8 layers: 2.19 B parameters, 35.0 GB of training state
+TRAIN_STEPS = 12
+TRAIN_SEQ, TRAIN_BATCH = 256, 8  # the launcher's defaults
+TRAIN_ANNEAL = 8  # PruneSchedule(0, 8): dense at step 0, the 3/8 bound from step 8
+TRAIN_DIR = ROOT / "build" / "train"  # 14a's checkpoints (git-ignored)
+PARITY_STEPS = 3
+# the small model of tests/test_substrate.py, in an fp32 copy
+PARITY_CUT = dict(num_layers=2, d_model=64, d_ff=128, vocab_size=256)
+ACCT_BATCH = BATCH  # sparse-cnn-s images for the stats forward
+ACCT_ROWS = (4, 256)  # 1024 rows of activations for sparse_matmul
+BYTES_PER_PARAM = 16  # bf16 parameter and gradient, fp32 m, v and master
+
+
+class Stamps:
+    """Points in each training step's stream, by name: CUDA events on a
+    card, the host clock otherwise (a CPU rehearsal)."""
+
+    def __init__(self, dev):
+        self.cuda = dev.type == "cuda"
+        self.steps: list = []
+
+    def start(self) -> None:
+        self.steps.append({})
+        self.mark("start")
+
+    def mark(self, name: str) -> None:
+        if self.cuda:
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+        else:
+            ev = time.perf_counter()
+        self.steps[-1][name] = ev
+
+    def ms(self, step: int, a: str, b: str, last: int = None) -> float:
+        """From point ``a`` of ``step`` to point ``b`` of ``last`` (default
+        the same step)."""
+        e0, e1 = self.steps[step][a], self.steps[step if last is None else last][b]
+        return e0.elapsed_time(e1) if self.cuda else (e1 - e0) * 1e3
+
+
+def parity_config():
+    """14a's model: codeqwen1.5-7b's smoke config cut as tests/test_substrate.py
+    cuts it, computed in fp32."""
+    from repro_torch.configs import smoke_config
+
+    return dataclasses.replace(smoke_config("codeqwen1.5-7b"), **PARITY_CUT,
+                               param_dtype=torch.float32, compute_dtype=torch.float32)
+
+
+def tree_to(tree, dev):
+    from repro_torch.checkpoint import store
+
+    return store.unflatten(tree, [t.detach().to(dev).clone() for t in store.flatten(tree)[0]])
+
+
+def trees_close(got, want, what, *, noise=None, start=None, lrs=(), opt=None, rtol=2e-4,
+                atol=2e-5) -> dict:
+    """Every leaf of ``got`` within (rtol, atol) of ``want`` (on the CPU), and
+    no DBB kept set different. An entry beyond (rtol, atol) must be a
+    ``noise`` entry (its first gradient nonzero and below 1e-6, so Adam's
+    step has the sign of rounding) that moved, in each run, no further
+    from ``start`` than AdamW can move any parameter in ``len(lrs)``
+    updates (``adamw.reach``, plus 1e-7 for fp32 rounding). Returns the
+    worst ratio to (rtol, atol) and the count of entries held to the reach."""
+    from repro_torch.checkpoint import store
+    from repro_torch.optim.adamw import reach
+
+    gl, wl = store.flatten(got)[0], store.flatten(want)[0]
+    noise = noise or [None] * len(wl)
+    start = store.flatten(start)[0] if start is not None else [None] * len(wl)
+    worst, n_reach, flips = 0.0, 0, 0
+    for g, w, nz, w0 in zip(gl, wl, noise, start):
+        g, w = g.detach().float().cpu(), w.detach().float().cpu()
+        flips += int(((g == 0) != (w == 0)).sum())
+        ratio = (g - w).abs() / (atol + rtol * w.abs())
+        beyond = ratio > 1.0
+        if bool(beyond.any()):
+            if nz is None or bool((beyond & ~nz).any()):
+                raise AssertionError(f"{what}: worst ratio {float(ratio.max()):.3g} to rtol "
+                                     f"{rtol}, atol {atol} beyond the noise entries")
+            w0 = w0.detach().float().cpu()[beyond]
+            lim = torch.from_numpy(reach(lrs, w0.numpy(), opt)) + 1e-7
+            if any(bool(((x[beyond] - w0).abs() > lim).any()) for x in (g, w)):
+                raise AssertionError(f"{what}: a noise entry moved beyond AdamW's reach")
+            n_reach += int(beyond.sum())
+            ratio = torch.where(beyond, torch.zeros_like(ratio), ratio)
+        worst = max(worst, float(ratio.max()))
+    if flips:
+        raise AssertionError(f"{what}: {flips} entries zero on one side only")
+    return dict(worst_ratio=worst, held_to_reach=n_reach)
+
+
+def noise_entries(model, batch) -> list:
+    """Entries whose gradient at the model's parameters is nonzero and below
+    1e-6 (a copy of the tree is differentiated)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.train.step import to_device
+
+    saved = model.params
+    model.load_params(tree_to(saved, model.device))
+    try:
+        leaves = store.flatten(model.params)[0]
+        for p in leaves:
+            p.requires_grad_(True)
+        loss, _ = model.loss(to_device(batch, model.device))
+        grads = torch.autograd.grad(loss, leaves, allow_unused=True, materialize_grads=True)
+    finally:
+        model.load_params(saved)
+    return [((g != 0) & (g.abs() < 1e-6)).cpu() for g in grads]
+
+
+def train_parity(dev) -> dict:
+    """14a: the fp32 small model on the card against the CPU: 3 train
+    steps from one parameter set (losses within 1e-5 relative, parameters
+    within rtol 2e-4, atol 2e-5), the kill-resume twin on the card (6
+    steps straight against 3, a checkpoint at step 2, a resume and 3 more,
+    rtol 2e-4, atol 2e-5) and 3 steps with int8 error-feedback gradient
+    compression (the residual finite)."""
+    from repro_torch.checkpoint import store
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import OptConfig, init_state, schedule
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.step import make_train_step, to_device
+
+    t0 = time.time()
+    cfg = parity_config()
+    opt = OptConfig(peak_lr=1e-3, warmup_steps=0, decay_steps=10)
+    data = DataConfig(seq_len=16, global_batch=2)
+    src = SyntheticTokens(cfg, data)
+    cpu = LM(cfg).init(torch.Generator().manual_seed(0), "cpu").constrain()
+    card = LM(cfg).load_params(tree_to(cpu.params, dev))
+    noise, start = noise_entries(cpu, src.batch(0)), tree_to(cpu.params, "cpu")
+    runs = {}
+    for name, m in (("cpu", cpu), ("card", card)):
+        step_fn, st = make_train_step(m, opt), init_state(m.params, opt)
+        runs[name] = []
+        for step in range(PARITY_STEPS):
+            _, st, met = step_fn(m.params, st, to_device(src.batch(step), m.device), step)
+            runs[name].append(float(met["loss"]))
+    loss_err = max(abs(a - b) / abs(b) for a, b in zip(runs["card"], runs["cpu"]))
+    if loss_err > 1e-5:
+        raise AssertionError(f"14a: card losses {runs['card']} against the CPU's {runs['cpu']}")
+    steps = trees_close(card.params, cpu.params, "14a: 3 steps, card against CPU", noise=noise,
+                        start=start, lrs=[schedule(s, opt) for s in range(PARITY_STEPS)], opt=opt)
+
+    # the kill-resume twin, on the card
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    def train(total, sub, every=100):
+        t = Trainer(LM(cfg), opt, data, LoopConfig(total_steps=total, ckpt_dir=str(TRAIN_DIR / sub),
+                                                   ckpt_every=every, log_every=100), device=dev)
+        return t.run(generator=torch.Generator(dev).manual_seed(0))
+
+    try:
+        pa, sa, _ = train(6, "a")
+        train(3, "b", every=2)
+        resumed_from = store.latest_step(TRAIN_DIR / "b")
+        pb, sb, _ = train(6, "b")
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    if resumed_from != 2:
+        raise AssertionError(f"14a: the resume found step {resumed_from}, not 2")
+    diff = max(float((a.detach().float() - b.detach().float()).abs().max())
+               for a, b in zip(store.flatten((pa, sa))[0], store.flatten((pb, sb))[0]))
+    resume = trees_close((pb, sb), (pa, sa), "14a: kill-resume on the card")
+
+    # int8 error-feedback gradient compression
+    ef_opt = dataclasses.replace(opt, grad_compression=True)
+    m = LM(cfg).load_params(tree_to(cpu.params, dev))
+    step_fn, st = make_train_step(m, ef_opt), init_state(m.params, ef_opt)
+    ef_losses = []
+    for step in range(PARITY_STEPS):
+        _, st, met = step_fn(m.params, st, to_device(src.batch(step), dev), step)
+        ef_losses.append(float(met["loss"]))
+    ef_ok = all(bool(torch.isfinite(e).all()) for e in store.flatten(st["ef"])[0])
+    if not ef_ok or not all(math.isfinite(x) for x in ef_losses):
+        raise AssertionError(f"14a: grad compression: losses {ef_losses}, ef finite {ef_ok}")
+    rec = dict(losses=runs, loss_rel_err=loss_err, steps=steps, resume=resume,
+               resume_max_abs_diff=diff, ef_losses=ef_losses, seconds=time.time() - t0)
+    log(f"[train 14a] {json.dumps(rec)}")
+    return rec
+
+
+def train_config():
+    """14b's model: starcoder2-7b at published width cut to TRAIN_LAYERS
+    (remat 'full', the registry's)."""
+    from repro_torch.configs import get_config, smoke_config
+
+    if TRAIN_SMOKE:
+        return smoke_config(TRAIN_ARCH)
+    return dataclasses.replace(get_config(TRAIN_ARCH), num_layers=TRAIN_LAYERS)
+
+
+def model_flops(cfg, tokens: int, seq: int) -> float:
+    """Model FLOPs of a training step (no recompute): 6 × the parameters a
+    token's products read (all but the embedding table, which is looked
+    up) × tokens, plus the attention's scores and context, forward and
+    backward, 12 × layers × seq × heads × head_dim × tokens (the port
+    computes every score and masks them)."""
+    from repro_torch.models.model import lm_defs
+
+    embed = math.prod(lm_defs(cfg)["embed"].shape)
+    return (6 * (cfg.param_count() - embed) * tokens
+            + 12 * cfg.num_layers * seq * cfg.num_heads * cfg.hd * tokens)
+
+
+def train_full(dev) -> tuple:
+    """14b: starcoder2-7b at full width cut to TRAIN_LAYERS through
+    ``Trainer``: the launcher's defaults, PruneSchedule(0, TRAIN_ANNEAL), no
+    checkpoint directory, each step's parts on events. Gates: every loss
+    finite, the last below the first, every DBB leaf on its 3/8 bound after
+    the last step. Returns (record, the trained model)."""
+    from repro_torch.core.sparse_linear import PruneSchedule
+    from repro_torch.core.vdbb import satisfies_dbb
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.models.common import dbb_leaves, tree_get
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import OptConfig
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.step import make_train_step
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    cfg = train_config()
+    model = LM(cfg)
+    sched = PruneSchedule(0, TRAIN_ANNEAL)
+    opt = OptConfig(peak_lr=3e-4, warmup_steps=max(TRAIN_STEPS // 20, 5), decay_steps=TRAIN_STEPS)
+    seq, batch = (16, 2) if TRAIN_SMOKE else (TRAIN_SEQ, TRAIN_BATCH)
+    trainer = Trainer(model, opt, DataConfig(seq_len=seq, global_batch=batch),
+                      LoopConfig(total_steps=TRAIN_STEPS, log_every=1), sched, device=dev)
+    stamps = Stamps(dev)
+    inner = make_train_step(model, opt, sched, mark=stamps.mark)
+
+    def step_fn(*args):
+        stamps.start()
+        return inner(*args)
+
+    trainer.step_fn = step_fn
+    params, _, history = trainer.run(generator=torch.Generator(dev).manual_seed(0))
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    losses = [x for _, x in history]
+    if len(losses) != TRAIN_STEPS or not all(math.isfinite(x) for x in losses):
+        raise AssertionError(f"14b: losses {losses}")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"14b: the last loss {losses[-1]} is not below the first {losses[0]}")
+    for path, pdef in dbb_leaves(model.defs()):
+        w = tree_get(params, path).detach()
+        if not all(satisfies_dbb(sl, pdef.dbb) for sl in w.reshape(-1, *w.shape[-2:])):
+            raise AssertionError(f"14b: {'.'.join(path)} breaks its {pdef.dbb.nnz}/8 bound")
+    steady = range(2, TRAIN_STEPS)  # steps 3 … 12
+    # end to end: from the end of step 2 to the end of step 12, so the batch's
+    # copy to the card, the loss read and the loop's host work are inside
+    ms_step = stamps.ms(1, "constrain", "constrain", last=TRAIN_STEPS - 1) / len(steady)
+    part = {name: statistics.median([stamps.ms(i, a, b) for i in steady])
+            for name, (a, b) in {"step_fn": ("start", "constrain"),
+                                 "forward_backward": ("start", "backward"),
+                                 "optimizer": ("backward", "update"),
+                                 "constrain": ("update", "constrain")}.items()}
+    tokens = seq * batch
+    flops = model_flops(cfg, tokens, seq)
+    n = cfg.param_count()
+    rec = dict(
+        arch=cfg.name, layers=cfg.num_layers, d_model=cfg.d_model, d_ff=cfg.d_ff,
+        params=n, state_bytes_reckoned=BYTES_PER_PARAM * n, remat=cfg.remat, seq=seq,
+        batch=batch, steps=TRAIN_STEPS, losses=losses, ms_per_step=ms_step,
+        ms_parts=part, outside_step_fn_ms=ms_step - part["step_fn"],
+        optimizer_share=part["optimizer"] / ms_step, constrain_share=part["constrain"] / ms_step,
+        tokens_per_s=tokens / (ms_step / 1e3),
+        model_flops_per_step=flops,
+        mfu=flops / (ms_step / 1e3) / BF16_OPS_PER_S,
+        data_wait_ms_median=statistics.median(trainer.data_wait_s[2:]) * 1e3,
+        data_wait_ms_max=max(trainer.data_wait_s) * 1e3,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9, seconds=wall)
+    log(f"[train 14b] {json.dumps(rec)}")
+    return rec, model
+
+
+def projection_inputs(model, tokens) -> dict:
+    """The activations layer 0's projections read in a forward of
+    ``tokens``, by name (``wq`` for the 4608 -> 4608 and 4608 -> 512 shapes,
+    ``w_up``, ``w_down``: the post-GELU hidden activation), caught where
+    ``apply_linear`` hands them to the activation collector."""
+    from repro_torch.core import act_sparsity
+
+    want = {"g0.b0.mixer.wq": "wq", "g0.b0.mlp.w_up": "w_up", "g0.b0.mlp.w_down": "w_down"}
+    got = {}
+
+    def catch(x, name="", macs=0):
+        if name in want and want[name] not in got:
+            got[want[name]] = x.detach().reshape(-1, x.shape[-1]).contiguous()
+
+    with act_sparsity.collect_activations() as col, torch.no_grad():
+        col.add = catch  # keep the tensors instead of measuring them
+        model.forward(tokens)
+    return got
+
+
+def gated_matmuls(model, dev) -> tuple:
+    """14c: ``ops.sparse_matmul(a, w, act_fmt=act_fmt(measure_activation(a)))``
+    at starcoder2's four projection shapes, M = 1024, on the activations the
+    trained model's layer 0 reads (bf16; its weights compressed at 3/8), and
+    at the paper's assumed half-sparse bound (4/8), each against its plain
+    version on the card (one bf16 ulp plus the reordering bound), beside the
+    unpruned call. Returns the records and the launches of the eight gated
+    calls, each read from counts set to 0 just before it (the timing's
+    repeats and the plain versions not counted)."""
+    from repro_torch.core.act_sparsity import ActStats, act_dbb_prune, act_fmt, measure_activation
+    from repro_torch.core.vdbb import dbb_encode
+    from repro_torch.kernels import build
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import vdbb_matmul as mm
+    from repro_torch.kernels.ref import bf16_reorder_bound, check_bf16
+    from repro_torch.kernels.timing import device_ms, event_ms
+
+    cfg = model.cfg
+    gen = torch.Generator(dev).manual_seed(3)
+    b, s = (2, 16) if TRAIN_SMOKE else ACCT_ROWS
+    tokens = torch.randint(0, cfg.vocab_size, (b, s), generator=gen, device=dev)
+    acts = projection_inputs(model, tokens)
+    p = model.params["layers"]["b0"]
+    layer = {k: v[0].detach() for k, v in {**p["mixer"], **p["mlp"]}.items()
+             if isinstance(v, torch.Tensor) and v.dim() == 3}
+    shapes = {"wq/wo": ("wq", "wq"), "wk/wv": ("wq", "wk"), "w_up": ("w_up", "w_up"),
+              "w_down": ("w_down", "w_down")}
+    out, launches = {}, {}
+    for shape, (act_name, w_name) in shapes.items():
+        a = acts[act_name]
+        w = layer[w_name]
+        dw = dbb_encode(w, cfg.dbb, prune=True)
+        stats = measure_activation(a)
+        rec = dict(m=a.shape[0], k=w.shape[0], n=w.shape[1], zero_frac=stats.zero_frac)
+        for label, fmt in (("measured", act_fmt(stats)), ("assumed_0.5", act_fmt(ActStats(zero_frac=0.5)))):
+            build.reset_launches()
+            got = ops.sparse_matmul(a, dw, act_fmt=fmt)
+            for k, n in build.launch_counts().items():
+                if n:
+                    launches[k] = launches.get(k, 0) + n
+            ap = act_dbb_prune(a, fmt)
+            idx = dw.indices[:, :, 0].contiguous()
+            want = mm.vdbb_matmul_tc_plain(ap, dw.values, idx, dw.fmt)
+            err, beyond = check_bf16(got, want, bf16_reorder_bound(ap, dw.values, idx, dw.fmt.bz),
+                                     f"14c sparse_matmul {shape} {label}")
+            run = lambda: ops.sparse_matmul(a, dw, act_fmt=fmt)  # noqa: E731
+            rec[label] = dict(act_fmt=f"{fmt.nnz}/{fmt.bz}", err=err, beyond_plain_ulp=beyond,
+                              ms=event_ms(run, REPS, device=dev),
+                              device_ms=device_ms(run) if dev.type == "cuda" else None)
+        unpruned = lambda: ops.vdbb_matmul(a, dw)  # noqa: E731
+        rec["unpruned"] = dict(ms=event_ms(unpruned, REPS, device=dev),
+                               device_ms=device_ms(unpruned) if dev.type == "cuda" else None)
+        out[shape] = rec
+    return out, launches
+
+
+def cnn_accounting(dev) -> dict:
+    """14c: sparse-cnn-s at batch ACCT_BATCH, both patterns, compressed fp32
+    weights: ``forward(collect_act_stats=True)`` on the card (the stem, the
+    convs and the head on their fp32 kernels, the counts at 0 just before)
+    against the same forward on the CPU's plain versions (logits within
+    rtol = atol = 1e-5, as phase 2 holds an fp32 kernel; zero fractions
+    within 1e-4, absmax within 1e-5 relative); then ``layer_costs`` and the
+    paper's pareto design's ``model_workload`` at the measured activation
+    sparsity beside the assumed 0.5."""
+    from repro_torch.configs import get_cnn_config, smoke_cnn_config
+    from repro_torch.core.energy_model import PARETO_DESIGN, model_workload
+    from repro_torch.kernels import build
+    from repro_torch.models.cnn import SparseCNN
+
+    out = {}
+    for pattern in ("matrix", None):
+        cfg = (smoke_cnn_config if TRAIN_SMOKE else get_cnn_config)("sparse-cnn-s", pattern=pattern)
+        batch = 4 if TRAIN_SMOKE else ACCT_BATCH
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn(batch, cfg.image_size, cfg.image_size, cfg.in_channels, generator=gen)
+        stats, logits = {}, {}
+        for where in ("cpu", "card"):
+            d = torch.device("cpu") if where == "cpu" else dev
+            model = SparseCNN(cfg).init(torch.Generator().manual_seed(0), d).compress()
+            build.reset_launches()
+            with torch.no_grad():
+                logits[where], stats[where] = model(x.to(d), collect_act_stats=True)
+            if where == "card":
+                counts = {k: n for k, n in build.launch_counts().items() if n}
+            if not bool(torch.isfinite(logits[where]).all()):
+                raise AssertionError(f"14c: pattern={pattern} {where} logits not finite")
+        got, want = logits["card"].cpu(), logits["cpu"]
+        logit_err = check_close(got, want, f"14c: pattern={pattern} logits, card against CPU")
+        logit_rel_l2 = float((got - want).norm() / want.norm())
+        zf = max(abs(a.zero_frac - b.zero_frac) for a, b in zip(stats["card"], stats["cpu"]))
+        am = max(abs(a.absmax - b.absmax) / max(b.absmax, 1e-30)
+                 for a, b in zip(stats["card"], stats["cpu"]))
+        if zf > 1e-4 or am > 1e-5:
+            raise AssertionError(f"14c: pattern={pattern} stats on the card against the CPU: "
+                                 f"zero fractions {zf}, absmax {am}")
+        costs = model.layer_costs(batch, stats=stats["card"])
+        measured = model_workload(PARETO_DESIGN, [(c, f, None) for _, c, f in costs])
+        assumed = model_workload(PARETO_DESIGN, [(c, f, None) for _, c, f in model.layer_costs(batch)])
+        out[str(pattern)] = dict(
+            launches=counts, logits_max_abs_diff=logit_err, logits_rel_l2=logit_rel_l2,
+            zero_frac_max_diff=zf, absmax_max_rel_diff=am,
+            zero_frac={s.name: s.zero_frac for s in stats["card"]},
+            measured_tops_per_w=measured["tops_per_w"], assumed_tops_per_w=assumed["tops_per_w"],
+            measured_mean_act_sparsity=measured["mean_act_sparsity"],
+            measured_effective_tops=measured["effective_tops"])
+        del model
+    return out
+
+
+def train_phase(dev) -> dict:
+    """Phase 14: training and accounting. The earlier phases' models are
+    freed and the peak-memory counter reset first."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    rec = {"parity": train_parity(dev)}
+    full, model = train_full(dev)
+    rec["train"] = full
+    rec["sparse_matmul"], rec["sparse_matmul_launches"] = gated_matmuls(model, dev)
+    if dev.type == "cuda" and rec["sparse_matmul_launches"] != {"vdbb_matmul_tc_bf16": 8}:
+        raise AssertionError(f"14c: sparse_matmul launched {rec['sparse_matmul_launches']}, "
+                             "want the bf16 tc kernel once a call")
+    log(f"[train 14c] sparse_matmul {json.dumps(rec['sparse_matmul'])}; launches "
+        f"{rec['sparse_matmul_launches']}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["cnn"] = cnn_accounting(dev)
+    log(f"[train 14c] accounting {json.dumps(rec['cnn'])}")
+    launched = {k for r in rec["cnn"].values() for k in r["launches"]}
+    want = {"im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc", "vdbb_conv_bw", "vdbb_matmul_bw"}
+    if dev.type == "cuda" and not want <= launched:
+        raise AssertionError(f"phase 14: kernels {sorted(want - launched)} never launched on "
+                             "the stats forwards")
+    rec["seconds"] = time.time() - t0
+    log(f"[train] phase 14 {rec['seconds']:.1f} s")
+    return rec
+
+
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                 decoders, frontends, selfheal) -> list:
-    """Phase 14: the kernels' JSON line, one entry per counted kernel from
-    phase 2's records (``recs``: {kernel: [record]}; the bf16 tc matmul's
-    from 7a) and the main paths' launches (``counts``), each with the same
-    kernel at the LM models' shapes beside it (phases 7–11's records) and
-    its launches on phase 12's path (``selfheal``)."""
+                 decoders, frontends, selfheal, training=None) -> list:
+    """The kernels' JSON line, one entry per counted kernel from phase 2's
+    records (``recs``: {kernel: [record]}; the bf16 tc matmul's from 7a) and
+    the main paths' launches (``counts``), each with the same kernel at the
+    LM models' shapes beside it (phases 7–11's records), its launches on
+    phase 12's path (``selfheal``) and on phase 14c's (``training``: the
+    stats forwards and ``sparse_matmul``; the trainer runs no kernel)."""
     from repro_torch.kernels import build
 
     line = []
@@ -2529,6 +3018,9 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
             "library_call": library_call[name], "layers": len(rs),
             "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
             "selfheal_launches": selfheal["launches"].get(name, 0),
+            "accounting_launches": None if training is None else (
+                sum(r["launches"].get(name, 0) for r in training["cnn"].values())
+                + training["sparse_matmul_launches"].get(name, 0)),
         })
         if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
             line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
@@ -2681,9 +3173,11 @@ def run() -> int:
     phase_done("12 self-healing tier")
     tuning = tuning_phase(dev, {k: lm_gen["compressed"][k] for k in ("prefill_ms", "ms_per_step")})
     phase_done("13 tuning")
+    training = train_phase(dev)
+    phase_done("14 training and accounting")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                        decoders, frontends, selfheal)
+                        decoders, frontends, selfheal, training)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -2701,6 +3195,7 @@ def run() -> int:
         log(f"[{arch}] int8: {json.dumps(r['int8'], default=str)}")
     log(f"[selfheal] {json.dumps(selfheal)}")
     log(f"[tuning] {json.dumps(tuning)}")
+    log(f"[training] {json.dumps(training)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

@@ -1,8 +1,9 @@
 """PyTorch/CUDA port of the sparse systolic tensor array reproduction.
 
 The JAX package ``repro`` is the reference; this package re-implements its
-INT8 sparse-CNN serving path for an NVIDIA Hopper card. Every TPU kernel on
-that path is a hand-written CUDA C++ kernel (``repro_torch/kernels/csrc``),
+INT8 sparse-CNN and LM serving paths, its trainer and its accounting for an
+NVIDIA Hopper card. Every TPU kernel is a hand-written CUDA C++ kernel
+(``repro_torch/kernels/csrc``),
 built with ``nvcc`` at first use and bound with ``ctypes``. Each kernel's
 plain PyTorch version sits beside it and is what runs for CPU tensors.
 

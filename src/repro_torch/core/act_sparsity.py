@@ -1,13 +1,23 @@
-"""Activation statistics and their collection (port of
-``repro/core/act_sparsity.py``: ``ActStats``, ``measure_activation``,
-``combine``, and the thread-local collector with its hierarchical names).
+"""Activation sparsity: measure, gate, collect (port of
+``repro/core/act_sparsity.py``).
 
-``measure_activation`` gives the zero fraction and the ``absmax`` that
-``quant.act_scale_from_stats`` turns into a static scale. While a collector
-is installed (:func:`collect_activations`, ``LM.forward(...,
-collect_act_stats=True)``) every :func:`record_activation` lands in it under
-the current :func:`act_scope` path, e.g. ``g0.b1.mixer.wq``: the address
-``LM.quantize`` looks a layer's calibrated scale up by.
+* **measure**: :func:`zero_fraction` (what zero-operand clock gating sees),
+  :func:`near_zero_fraction`, the per-block occupancy
+  (:func:`block_nnz_counts`, :func:`block_nnz_histogram`) and
+  :func:`measure_activation`, which gives an :class:`ActStats` with the
+  ``absmax`` that ``quant.act_scale_from_stats`` turns into a static scale;
+  :func:`combine` composes per-layer stats MAC-weighted.
+* **gate**: the paper's DBB structure on the activation K-blocks, one
+  pattern shared across the M tile (the tc co-design): :func:`act_dbb_mask`
+  is ``vdbb.dbb_mask`` on the transposed tile, with its stable-sort tie
+  rule (``jax.lax.top_k``'s), :func:`act_dbb_prune` zeroes the rest,
+  :func:`act_dbb_encode` / :func:`act_dbb_decode` round-trip to it bit for
+  bit, and :func:`act_fmt` picks the bound a measured density supports.
+* **collect**: while a collector is installed (:func:`collect_activations`,
+  ``LM.forward(..., collect_act_stats=True)``) every
+  :func:`record_activation` lands in it under the current :func:`act_scope`
+  path, e.g. ``g0.b1.mixer.wq``: the address ``LM.quantize`` looks a
+  layer's calibrated scale up by.
 """
 from __future__ import annotations
 
@@ -19,7 +29,41 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.core.vdbb import DEFAULT_BZ
+from repro_torch.core.vdbb import (DBBFormat, DBBWeight, DEFAULT_BZ, dbb_decode, dbb_encode,
+                                   dbb_mask)
+
+
+# ---------------------------------------------------------------------------
+# Measurement
+# ---------------------------------------------------------------------------
+
+
+def zero_fraction(x: torch.Tensor) -> torch.Tensor:
+    """Exact fraction of zero entries (a 0-d fp32 tensor): what zero-operand
+    clock gating sees."""
+    return (x == 0).float().mean()
+
+
+def near_zero_fraction(x: torch.Tensor, threshold: float) -> torch.Tensor:
+    """Fraction with |x| <= ``threshold``: what threshold gating would gate."""
+    return (x.abs() <= threshold).float().mean()
+
+
+def block_nnz_counts(x: torch.Tensor, bz: int = DEFAULT_BZ) -> torch.Tensor:
+    """Non-zeros per ``bz``-block along the last axis: (..., K/bz) int32.
+    The feature dim must be blockable (K % bz == 0), as for weights."""
+    k = x.shape[-1]
+    if k % bz != 0:
+        raise ValueError(f"feature dim K={k} not divisible by bz={bz}")
+    return (x.reshape(*x.shape[:-1], k // bz, bz) != 0).sum(dim=-1).to(torch.int32)
+
+
+def block_nnz_histogram(x: torch.Tensor, bz: int = DEFAULT_BZ) -> torch.Tensor:
+    """(bz + 1,) int32 counts of blocks holding 0 … bz non-zeros: bin b is
+    how many activation K-blocks a bound of nnz = b holds exactly."""
+    counts = block_nnz_counts(x, bz).reshape(-1)
+    bins = torch.arange(bz + 1, dtype=counts.dtype, device=counts.device)
+    return (counts[:, None] == bins[None, :]).sum(dim=0).to(torch.int32)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,6 +88,11 @@ class ActStats:
     @property
     def density(self) -> float:
         return 1.0 - self.zero_frac
+
+    def __repr__(self):  # compact: shows up in logs and tables
+        return (f"ActStats({self.name or '?'} {self.shape} zero={self.zero_frac:.3f}"
+                f" |x|<={self.threshold:g}={self.near_zero_frac:.3f}"
+                f" blk_nnz={self.block_nnz_mean:.2f}/{self.bz})")
 
 
 def measure_activation(x: torch.Tensor, *, name: str = "", threshold: float = 0.0,
@@ -90,6 +139,60 @@ def combine(stats: Sequence[ActStats], name: str = "combined") -> ActStats:
                         if bnms else float("nan")),
         macs=sum(s.macs for s in stats), absmax=max(s.absmax for s in stats),
     )
+
+
+# ---------------------------------------------------------------------------
+# Structural activation pruning (gate): the vdbb machinery on the M tile
+# ---------------------------------------------------------------------------
+
+
+def _act_fmt_matrix(fmt: DBBFormat) -> DBBFormat:
+    """The tile-shared constraint: one pattern per K-block across the whole
+    M tile (``group='matrix'`` on the transpose)."""
+    return dataclasses.replace(fmt, group="matrix")
+
+
+def act_dbb_mask(x: torch.Tensor, fmt: DBBFormat) -> torch.Tensor:
+    """Boolean keep-mask of block-wise top-nnz activation pruning: ``x`` is
+    (..., K) with blocks along K, the pattern shared across every leading
+    (M) position, scored by the summed |x| over the tile (``dbb_mask`` on
+    the transposed tile, ties to the lower position)."""
+    k = x.shape[-1]
+    mask_t = dbb_mask(x.reshape(-1, k).t(), _act_fmt_matrix(fmt))  # (K, M)
+    return mask_t.t().reshape(x.shape)
+
+
+def act_dbb_prune(x: torch.Tensor, fmt: DBBFormat) -> torch.Tensor:
+    """Project activations onto the DBB constraint (tile-shared pattern,
+    the rest zeroed). The result feeds the tc kernel unchanged: its
+    compressed-K gather reads only the surviving positions."""
+    if fmt.is_dense:
+        return x
+    return torch.where(act_dbb_mask(x, fmt), x, torch.zeros_like(x))
+
+
+def act_dbb_encode(x: torch.Tensor, fmt: DBBFormat) -> DBBWeight:
+    """Compress an (M, K) activation tile along K: ``dbb_encode`` of the
+    transpose, one pattern across M. :func:`act_dbb_decode` of it equals
+    :func:`act_dbb_prune` of the tile bit for bit."""
+    if x.dim() != 2:
+        raise ValueError(f"activation tile must be (M, K); got {tuple(x.shape)}")
+    return dbb_encode(x.t().contiguous(), _act_fmt_matrix(fmt), prune=True)
+
+
+def act_dbb_decode(ax: DBBWeight) -> torch.Tensor:
+    """Expand compressed activations back to the dense (M, K) tile."""
+    return dbb_decode(ax).t()
+
+
+def act_fmt(stats: ActStats, bz: Optional[int] = None) -> DBBFormat:
+    """The DBB bound a measured activation density supports: the smallest
+    nnz whose density covers the non-zero fraction (a ceil with the
+    reference's 1e-9 slack, clamped to [1, bz]), pattern-shared for the tc
+    contraction. ``bz`` defaults to the block size of the stats."""
+    bz = stats.bz if bz is None else bz
+    nnz = math.ceil((1.0 - stats.sparsity) * bz - 1e-9)
+    return DBBFormat(bz=bz, nnz=max(1, min(bz, nnz)), group="matrix")
 
 
 # ---------------------------------------------------------------------------

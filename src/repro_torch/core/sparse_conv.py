@@ -8,10 +8,12 @@ fp32 or int8 instantiation.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from repro_torch.core.quant import QuantDBBWeight, quantize
-from repro_torch.core.sparse_linear import DBBLayer, trunc_normal
+from repro_torch.core.sparse_linear import DBBLayer, PruneSchedule, scheduled_fmt, trunc_normal
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, DENSE, dbb_encode_conv, dbb_prune
 from repro_torch.kernels import ops
 from repro_torch.kernels.core import _pair, conv_geometry
@@ -32,16 +34,16 @@ class DBBConv2d(DBBLayer):
         self.kh, self.kw = _pair(kernel_size)
         self.stride, self.padding = _pair(stride), padding
 
-    def _project(self, w4: torch.Tensor) -> torch.Tensor:
+    def _project(self, w4: torch.Tensor, fmt: DBBFormat) -> torch.Tensor:
         kh, kw, c, f = w4.shape
-        return dbb_prune(w4.reshape(kh * kw * c, f), self.fmt).reshape(w4.shape)
+        return dbb_prune(w4.reshape(kh * kw * c, f), fmt).reshape(w4.shape)
 
     def init(self, generator: torch.Generator, device) -> None:
         fan_in = self.kh * self.kw * self.in_channels
         w = trunc_normal((self.kh, self.kw, self.in_channels, self.out_channels),
                          generator, 1.0 / fan_in**0.5).to(device)
         if not self.fmt.is_dense:
-            w = self._project(w)
+            w = self._project(w, self.fmt)
         self.put("w", w)
         self._init_bias(self.out_channels, device)
 
@@ -117,9 +119,11 @@ class DBBConv2d(DBBLayer):
                                      out_scale=out_scale, stride=self.stride,
                                      padding=self.padding)
 
-    def constrain(self) -> None:
+    def constrain(self, step=None, schedule: Optional[PruneSchedule] = None) -> None:
+        """In place: project the dense weight onto the DBB constraint, or
+        with a schedule and a step onto its annealed bound."""
         if not self.fmt.is_dense and isinstance(self.w, torch.Tensor):
-            self.put("w", self._project(self.w))
+            self.put("w", self._project(self.w, scheduled_fmt(self.fmt, step, schedule)))
 
     def compress_params(self) -> None:
         if not self.fmt.is_dense and isinstance(self.w, torch.Tensor):

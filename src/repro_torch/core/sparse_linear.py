@@ -12,6 +12,10 @@ does not change).
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Optional
+
+import numpy as np
 import torch
 from torch import nn
 
@@ -28,6 +32,35 @@ def trunc_normal(shape, generator, scale: float) -> torch.Tensor:
     t = torch.empty(shape, dtype=torch.float32)
     nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=generator)
     return t * scale
+
+
+@dataclasses.dataclass(frozen=True)
+class PruneSchedule:
+    """Linear anneal of nnz from bz to the target between ``begin_step`` and
+    ``end_step`` (the paper's progressive DBB pruning). The projection runs
+    after every step; the reference's ``constrain_every`` field, which nothing
+    reads, is not kept."""
+
+    begin_step: int = 0
+    end_step: int = 1
+
+    def nnz_at(self, step: int, fmt: DBBFormat) -> int:
+        """The density bound at ``step``, a host int. Computed in float32 and
+        rounded half to even, as the reference's traced ``jnp`` arithmetic
+        does (a half-way step rounds to the even nnz)."""
+        f32 = np.float32
+        frac = f32(step - self.begin_step) / f32(max(self.end_step - self.begin_step, 1))
+        frac = np.clip(frac, f32(0.0), f32(1.0))
+        return int(np.round(f32(fmt.bz) - frac * f32(fmt.bz - fmt.nnz)))
+
+
+def scheduled_fmt(fmt: DBBFormat, step=None, schedule: Optional[PruneSchedule] = None
+                  ) -> DBBFormat:
+    """The format a constraint projects onto: ``fmt``, or with a schedule
+    and a step its annealed bound ``schedule.nnz_at(step)``."""
+    if schedule is None or step is None:
+        return fmt
+    return dataclasses.replace(fmt, nnz=schedule.nnz_at(step, fmt))
 
 
 class DBBLayer(nn.Module):
@@ -153,10 +186,11 @@ class DBBLinear(DBBLayer):
                              relu=relu, out_scale=out_scale)
         return y.reshape(*lead, self.out_features)
 
-    def constrain(self) -> None:
-        """In place: project the dense weight onto the DBB constraint."""
+    def constrain(self, step=None, schedule: Optional[PruneSchedule] = None) -> None:
+        """In place: project the dense weight onto the DBB constraint, or
+        with a schedule and a step onto its annealed bound."""
         if not self.fmt.is_dense and isinstance(self.w, torch.Tensor):
-            self.put("w", dbb_prune(self.w, self.fmt))
+            self.put("w", dbb_prune(self.w, scheduled_fmt(self.fmt, step, schedule)))
 
     def compress_params(self) -> None:
         """In place: the dense weight becomes a compressed :class:`DBBWeight`."""

@@ -10,6 +10,7 @@ the dequantization into the flush. Every entry point takes ``bias=``,
 Dispatch follows the weight's pattern sharing: a pattern shared across N
 runs the tc kernel, per-column or grouped patterns the bw kernel. Each
 wrapper runs its kernel's plain version for CPU tensors.
+:func:`sparse_matmul` gates the activations onto a DBB bound first.
 
 The ``stage_*`` entries are the frozen plans' (``models/plan.py``): each
 resolves once what its unplanned twin resolves on every call (the dequant
@@ -22,6 +23,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.core.act_sparsity import act_dbb_prune
 from repro_torch.core.quant import QuantDBBWeight, as_f32, resolve_quant_input
 from repro_torch.core.vdbb import DBBWeight
 from repro_torch.kernels import im2col_conv as _im2col
@@ -44,6 +46,17 @@ def vdbb_matmul(a, w: DBBWeight, *, bias=None, relu=False, out_scale=None, choic
     choice (``kernels/core.py``), else the tuned registry's or the rule's."""
     return _matmul_dispatch(a, w, None, bias=bias, relu=relu, out_scale=out_scale,
                             choice=choice)
+
+
+def sparse_matmul(a, w: DBBWeight, *, act_fmt=None, **kw):
+    """:func:`vdbb_matmul` with structural activation gating: ``act_fmt``
+    (a ``DBBFormat``, typically ``act_sparsity.act_fmt(measure_activation(a))``)
+    projects ``a`` onto the block-wise top-|a| constraint, one pattern
+    across the M tile, before the kernel; the pruned activations run the
+    tc kernel's compressed-K contraction unchanged."""
+    if act_fmt is not None:
+        a = act_dbb_prune(a, act_fmt)
+    return vdbb_matmul(a, w, **kw)
 
 
 def quant_matmul(x, qw: QuantDBBWeight, act_scale=None, *, bias=None, relu=False,

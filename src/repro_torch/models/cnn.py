@@ -245,9 +245,11 @@ class SparseCNN(nn.Module):
         return fallback_closures(primary, eager, verify=verify)
 
     # ---------------------------------------------- the paper's technique
-    def constrain(self) -> "SparseCNN":
+    def constrain(self, step=None, schedule=None) -> "SparseCNN":
+        """In place: every dense DBB weight projected onto its constraint
+        (with a ``PruneSchedule`` and a step, onto the annealed bound)."""
         for m in self.layers():
-            m.constrain()
+            m.constrain(step, schedule)
         return self
 
     def compress(self) -> "SparseCNN":
@@ -267,6 +269,31 @@ class SparseCNN(nn.Module):
         for i, m in enumerate(layers):
             m.quantize(act_scale_from_stats(stats[i]) if stats is not None else None)
         return self
+
+    # ------------------------------------------------------------ costs
+    def layer_costs(self, batch: int, *, bits: int = 8, act_bits=None, stats=None,
+                    epilogue_fused: bool = False) -> list:
+        """``(name, costs, fmt)`` for every conv layer: its
+        ``vdbb.dbb_conv_costs`` dict at ``batch`` images. ``stats`` (one
+        :class:`ActStats` per layer, from ``forward(x,
+        collect_act_stats=True)``) records layer i's measured activation
+        sparsity into its dict, ready for ``energy_model.model_workload``;
+        ``bits`` / ``act_bits`` are the operand widths (8: the INT8 serving
+        path) and ``epilogue_fused`` accounts the fused flush."""
+        from repro_torch.core.vdbb import dbb_conv_costs
+
+        h = w = self.cfg.image_size
+        out = []
+        for i, m in enumerate(self.layers()):
+            if not isinstance(m, DBBConv2d):
+                continue
+            act = stats[i] if stats is not None else None
+            out.append((f"l{i}", dbb_conv_costs(
+                batch, h, w, m.in_channels, m.out_channels, m.kh, m.kw, m.fmt,
+                stride=m.stride, padding=m.padding, bits=bits, act_bits=act_bits, act=act,
+                epilogue_fused=epilogue_fused), m.fmt))
+            h, w = m.out_hw(h, w)
+        return out
 
     def flops(self, batch: int) -> int:
         """Executed MACs*2 under the time-unrolled occupancy model."""

@@ -136,6 +136,19 @@ def tree_slice(tree, g: int):
     return tree[g]
 
 
+def tree_unstack(tree, n: int) -> list:
+    """A tree stacked over ``n`` layer groups as ``n`` trees: each tensor
+    unbound along its leading axis (views; under autograd one gradient
+    buffer a leaf, where ``n`` indexings would each add a full-size zero
+    buffer), a compressed weight indexed."""
+    if isinstance(tree, dict):
+        per = {k: tree_unstack(v, n) for k, v in tree.items()}
+        return [{k: v[g] for k, v in per.items()} for g in range(n)]
+    if isinstance(tree, torch.Tensor):
+        return list(tree.unbind(0))
+    return [tree[g] for g in range(n)]
+
+
 # ---------------------------------------------------------------------------
 # Embedding lookup (the reference's sharded lookup, on one card)
 # ---------------------------------------------------------------------------

@@ -18,9 +18,15 @@ layer groups (a leading axis on every leaf, compressed ones included),
 ``tail`` for layers left over by the pattern, ``final_norm``, ``lm_head``
 (none when the embeddings are tied), and the ``<leaf>_aq`` calibration
 siblings that :meth:`LM.quantize` adds. The model holds it (:meth:`state`)
-and converts it in place (:meth:`compress`, :meth:`quantize`). Layer groups
-run as a Python loop, as the reference's unscanned forward does; nothing is
-trained, so ``remat`` is ignored. Beside the tree, never in it, the model
+and converts it in place (:meth:`compress`, :meth:`quantize`,
+:meth:`constrain`). Layer groups run as a Python loop, as the reference's
+unscanned forward does. Training runs the same forward under autograd
+(:meth:`loss`, ``train/step.py``) and honours ``remat`` as the reference's
+scanned body does: ``'full'`` checkpoints each layer group
+(``torch.utils.checkpoint``, non-reentrant), ``'dots'`` keeps the group's
+matmul outputs and recomputes the rest (a selective checkpoint policy, JAX's
+``dots_with_no_batch_dims_saveable``), ``'none'`` keeps everything; the
+values are the same bits either way. Beside the tree, never in it, the model
 keeps each MLA block's ``wkv_b`` decoded to dense for the absorbed decode
 (the reference decodes it inside every step), rebuilt whenever the tree is
 set or converted.
@@ -44,13 +50,14 @@ from typing import Optional
 import torch
 from torch import nn
 
-from repro_torch.core.act_sparsity import act_scope, collect_activations
+from repro_torch.core.act_sparsity import act_scope, collect_activations, collecting
 from repro_torch.core.quant import QMAX, QuantDBBWeight, as_f32, quantize_dbb
-from repro_torch.core.vdbb import DBBWeight, dbb_encode
+from repro_torch.core.sparse_linear import PruneSchedule, scheduled_fmt
+from repro_torch.core.vdbb import DBBWeight, dbb_encode, dbb_mask
 from repro_torch.models.attention import GQAttention, MLAttention
 from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_params,
                                        layer_norm, rms_norm, sharded_embed_lookup, stage_linear,
-                                       tree_get, tree_set, tree_slice)
+                                       tree_get, tree_set, tree_slice, tree_unstack)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import DenseMLP, MoEMLP
 from repro_torch.models.recurrent import RGLRUBlock, RWKV6Block
@@ -65,6 +72,23 @@ def check_plannable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"LM.plan supports decoder-only text models; {cfg.name}: cross_attn or "
             f"frontend={cfg.frontend!r} needs per-call side inputs")
+
+
+REMAT = ("none", "full", "dots")
+# the products without batch dimensions: what ``x @ w`` of a projection lowers to
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _save_dots():
+    """The selective checkpoint context of ``remat='dots'``: save the
+    outputs of the group's matmuls without batch dimensions, recompute
+    everything else, as JAX's ``dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy, create_selective_checkpoint_contexts
+
+    def policy(ctx, op, *args, **kwargs):
+        return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+    return create_selective_checkpoint_contexts(policy)
 
 
 def mixer_for(cfg: ModelConfig, kind: str):
@@ -194,14 +218,15 @@ class LM(nn.Module):
         return e.device
 
     # -------------------------------------------------------- embeddings
-    def _embed(self, tokens, vision_embeds=None):
+    def _embed(self, tokens, vision_embeds=None, params=None):
         """(B, S) tokens, or (B, S, num_codebooks) audio tokens, -> (B, S,
         d) in the compute dtype. Audio sums the codebooks' rows in codebook
         order in the table's dtype, then casts, as the reference's
         ``sum(embs).astype(...)``; ``vision_embeds`` (B, nv, d) are cast
         and written over positions 0 … nv - 1 after the embedding scale."""
         c = self.cfg
-        table, tokens = self.params["embed"], tokens.to(self.device)
+        table = (self.params if params is None else params)["embed"]
+        tokens = tokens.to(table.device)
         if c.frontend == "audio":
             h = table[0].index_select(0, tokens[..., 0].reshape(-1))
             for i in range(1, c.num_codebooks):
@@ -219,12 +244,13 @@ class LM(nn.Module):
             h = torch.cat([vision_embeds.to(h.device, c.compute_dtype), h[:, nv:]], dim=1)
         return h
 
-    def _logits(self, x):
+    def _logits(self, x, params=None):
         c = self.cfg
+        params = self.params if params is None else params
         if c.tie_embeddings:  # a dense product with the table, as the reference's
-            logits = x @ self.params["embed"].t().to(x.dtype)
+            logits = x @ params["embed"].t().to(x.dtype)
         else:
-            logits = apply_linear(x, self.params["lm_head"], name="lm_head")
+            logits = apply_linear(x, params["lm_head"], name="lm_head")
         if c.logit_softcap:  # tanh(l / cap) * cap, each op rounding in l's dtype
             logits = torch.tanh(logits / as_f32(c.logit_softcap, x.device)) * c.logit_softcap
         return logits
@@ -278,7 +304,7 @@ class LM(nn.Module):
 
     # ----------------------------------------------------------- forward
     def forward(self, tokens, *, memory=None, vision_embeds=None, return_cache: bool = False,
-                collect_act_stats: bool = False):
+                collect_act_stats: bool = False, params=None):
         """Full-sequence forward (prefill) of (B, S) tokens ((B, S,
         num_codebooks) for audio) -> logits (B, S, padded_vocab; audio:
         num_codebooks · codebook_vocab); ``memory`` (B, cross_len, d) feeds
@@ -291,42 +317,100 @@ class LM(nn.Module):
         ``h`` and ``conv`` of an RG-LRU block, ``s``, ``shift`` and
         ``cm_shift`` of an RWKV6 one. ``collect_act_stats=True`` appends
         the per-GEMM ``ActStats`` that ``apply_linear`` records:
-        ``(logits[, cache], stats)``."""
+        ``(logits[, cache], stats)``. ``params``: a tree to run in place of
+        the model's (the loss's, under autograd). While autograd records,
+        each layer group runs under the config's ``remat`` policy (not
+        while stats are collected, as the reference)."""
         if collect_act_stats:
             with collect_activations() as col:
                 out = self.forward(tokens, memory=memory, vision_embeds=vision_embeds,
-                                   return_cache=return_cache)
+                                   return_cache=return_cache, params=params)
             out = out if isinstance(out, tuple) else (out,)
             return (*out, col.stats)
         c = self.cfg
-        params = self.params
-        h = self._embed(tokens, vision_embeds)
+        params = self.params if params is None else params
+        h = self._embed(tokens, vision_embeds, params)
         b, s, _ = h.shape
         if memory is not None:
             memory = memory.to(h.device, c.compute_dtype)
         positions = torch.arange(s, device=h.device).expand(b, s)
-        groups = []
-        for g in range(c.num_groups):
-            gp = tree_slice(params["layers"], g)
+
+        def group_body(h, gp):
             caches = {}
+            for i, kind in enumerate(c.pattern):
+                with act_scope(f"b{i}"):
+                    h, caches[f"b{i}"] = self._apply_block(kind, gp[f"b{i}"], h, positions,
+                                                           memory)
+            return h, caches
+
+        body = self._remat(group_body)
+        groups = []
+        for g, gp in enumerate(tree_unstack(params["layers"], c.num_groups)):
             with act_scope(f"g{g}"):
-                for i, kind in enumerate(c.pattern):
-                    with act_scope(f"b{i}"):
-                        h, caches[f"b{i}"] = self._apply_block(kind, gp[f"b{i}"], h, positions,
-                                                               memory)
+                h, caches = body(h, gp)
             groups.append(caches)
         tails = {}
         for i, kind in enumerate(c.tail_pattern):
             with act_scope("tail"), act_scope(f"t{i}"):
                 h, tails[f"t{i}"] = self._apply_block(kind, params["tail"][f"t{i}"], h,
                                                       positions, memory)
-        logits = self._logits(self._apply_norm(params["final_norm"], h))
+        logits = self._logits(self._apply_norm(params["final_norm"], h), params)
         if not return_cache:
             return logits
         cache = {"groups": _stack(groups)}
         if tails:
             cache["tail"] = tails
         return logits, cache
+
+    def _remat(self, body):
+        """``body(h, group_params)`` under the config's remat policy while
+        autograd records; as it is otherwise, and while stats are collected
+        (the recompute would record them twice)."""
+        c = self.cfg
+        if c.remat not in REMAT:
+            raise ValueError(f"remat={c.remat!r}: one of {REMAT}")
+        if c.remat == "none" or not torch.is_grad_enabled() or collecting():
+            return body
+        from torch.utils.checkpoint import checkpoint
+
+        kw = {"context_fn": _save_dots} if c.remat == "dots" else {}
+        return lambda h, gp: checkpoint(body, h, gp, use_reentrant=False, **kw)
+
+    # -------------------------------------------------------------- loss
+    def loss(self, batch: dict, params=None):
+        """The next-token loss of ``batch`` (tensors: ``tokens``, ``labels``,
+        optionally ``loss_mask``, ``memory``, ``vision_embeds``), the
+        reference's: an fp32 logsumexp less the label's logit taken through
+        a one-hot sum; audio logits reshaped to (B, S, num_codebooks,
+        codebook_vocab) and the loss averaged over the codebooks; masked
+        positions out of the mean. ``params``: the tree to differentiate
+        (the model's by default). Returns ``(loss, {"loss", "nll_mean"})``."""
+        c = self.cfg
+        side = {k: batch[k] for k in ("memory", "vision_embeds") if k in batch}
+        logits = self.forward(batch["tokens"], params=params, **side)
+        labels = batch["labels"].to(logits.device)
+        mask = batch.get("loss_mask")
+        if c.frontend == "audio":
+            b, s, _ = logits.shape
+            logits = logits.reshape(b, s, c.num_codebooks, c.codebook_vocab)
+            vocab = c.codebook_vocab
+        else:
+            vocab = logits.shape[-1]
+        logits = logits.float()
+        lse = torch.logsumexp(logits, dim=-1)
+        iota = torch.arange(vocab, dtype=labels.dtype, device=labels.device)
+        onehot = (labels[..., None] == iota).float()
+        nll = lse - (logits * onehot).sum(dim=-1)
+        if c.frontend == "audio":
+            nll = nll.mean(dim=-1)
+        if mask is not None:
+            mask = mask.to(nll.device, torch.float32)
+            nll = nll * mask
+            denom = torch.clamp(mask.sum(), min=1.0)
+        else:
+            denom = float(nll.numel())
+        loss = nll.sum() / denom
+        return loss, {"loss": loss, "nll_mean": loss}
 
     # ------------------------------------------------------------- cache
     def init_cache(self, batch_size: int, max_len: int):
@@ -377,6 +461,27 @@ class LM(nn.Module):
         return self._logits(self._apply_norm(params["final_norm"], h)), cache
 
     # -------------------------------------------- the paper's technique
+    def constrain(self, step=None, schedule: Optional[PruneSchedule] = None) -> "LM":
+        """In place: project every DBB-tagged dense leaf onto its constraint,
+        with a schedule and a step onto the annealed bound
+        ``schedule.nnz_at(step)`` (the reference switches between the bounds
+        with ``lax.switch``). A stacked leaf is projected slice by slice
+        along its leading axes, which is what the reference's ``vmap``
+        computes; a compressed leaf is skipped. The pruned entries become
+        zero in place, so the leaves stay the tensors autograd and the
+        optimizer hold."""
+        with torch.no_grad():
+            for path, pdef in dbb_leaves(self.defs()):
+                w = tree_get(self.params, path)
+                if not isinstance(w, torch.Tensor):
+                    continue  # already compressed
+                fmt = scheduled_fmt(pdef.dbb, step, schedule)
+                if fmt.is_dense:
+                    continue  # nnz == bz keeps every entry
+                for sl in w.view(-1, *w.shape[-2:]):
+                    sl.masked_fill_(~dbb_mask(sl, fmt), 0)
+        return self._absorb()
+
     @staticmethod
     def _encode(w, fmt):
         if not isinstance(w, torch.Tensor) or w.dim() > 3:

@@ -1,1 +1,1 @@
-"""Step functions of the port (the serve side of ``repro/train/step.py``)."""
+"""Step functions and the training loop (port of ``repro/train``)."""

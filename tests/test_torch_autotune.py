@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.kernels import autotune as jat
 from repro.kernels import core as jcore
 from repro.models.cnn import SparseCNN as JSparseCNN

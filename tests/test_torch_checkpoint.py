@@ -26,6 +26,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.checkpoint import store as jstore
 from repro.configs.cnn import smoke_cnn_config as jsmoke
 from repro.core.quant import QuantDBBWeight as JQuant

@@ -8,6 +8,8 @@ from pathlib import Path
 
 import pytest
 
+from torch_parity import one_torch_thread  # noqa: F401  (autouse: the rehearsals' torch ops)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -476,11 +478,11 @@ def test_projections_and_decode_bound_of_the_frontends(smoke, monkeypatch):
 
 
 def test_kernels_line_carries_every_key_for_every_kernel(smoke):
-    """Phase 12's JSON line from records shaped as phases 2–11 give them:
-    one entry per counted kernel with every key the line promises, its
-    source in the checkout, and the bf16 and int8 tc matmul's records at
-    each LM model's shapes, the frontends' included, beside their
-    launches."""
+    """The JSON line from records shaped as phases 2–14 give them: one
+    entry per counted kernel with every key the line promises, its source
+    in the checkout, the bf16 and int8 tc matmul's records at each LM
+    model's shapes, the frontends' included, beside their launches, and
+    the launches of phase 14c's accounting."""
     import json
 
     from repro_torch.kernels import build, ops  # noqa: F401  (registers the kernels)
@@ -511,7 +513,10 @@ def test_kernels_line_carries_every_key_for_every_kernel(smoke):
                                                                         "int8": shapes()},
         lm_gen=generated(9), lm_planned=plan, moe_recs=shapes(), moe_gen=generated(4),
         decoders=decoders, frontends=frontends,
-        selfheal={"launches": {"im2col_conv": 6, "vdbb_conv_tc": 42, "vdbb_matmul_tc": 6}})
+        selfheal={"launches": {"im2col_conv": 6, "vdbb_conv_tc": 42, "vdbb_matmul_tc": 6}},
+        training={"cnn": {"matrix": {"launches": {"vdbb_conv_tc": 7, "vdbb_matmul_tc": 1}},
+                          "None": {"launches": {"vdbb_conv_bw": 7}}},
+                  "sparse_matmul_launches": {"vdbb_matmul_tc_bf16": 8}})
     keys = {"name", "route", "source", "replaces", "launches", "max_abs_err", "ms", "plain_ms",
             "bound_ms", "bound_by", "library_ms"}
     assert [e["name"] for e in line] == kernels
@@ -528,6 +533,8 @@ def test_kernels_line_carries_every_key_for_every_kernel(smoke):
     assert bf16["moe"]["graph_replay_launches_per_step"] == 8
     assert int8["selfheal_launches"] == 6 and by["vdbb_conv_tc"]["selfheal_launches"] == 42
     assert by["vdbb_conv_bw"]["selfheal_launches"] == 0
+    assert by["vdbb_conv_bw"]["accounting_launches"] == 7 and bf16["accounting_launches"] == 8
+    assert by["im2col_conv"]["accounting_launches"] == 0
     json.loads(json.dumps({"kernels": line}))
 
 
@@ -569,7 +576,7 @@ def test_tuning_phase_is_in_the_phase_list(smoke):
     temporary autotune cache."""
     import inspect
 
-    assert " 13. tuning" in smoke.__doc__ and " 14. one JSON line" in smoke.__doc__
+    assert " 13. tuning" in smoke.__doc__ and " 15. one JSON line" in smoke.__doc__
     assert 'phase_done("13 tuning")' in inspect.getsource(smoke.run)
     assert "temporary_tune_cache()" in inspect.getsource(smoke.main)
 
@@ -645,3 +652,84 @@ def test_tuning_phase_rehearses_on_the_cpu(smoke, monkeypatch):
     assert set(lm["generate"]) == {"untuned", "tuned"}
     assert len(lm["generate"]["tuned"]["ms_per_step"]) == 2
     assert core.tuned_entries() == {}
+
+
+def test_training_phase_is_in_the_phase_list(smoke):
+    """Phase 14 (training and accounting) is listed and timed after tuning,
+    and its launches reach the kernels' line."""
+    import inspect
+
+    assert " 14. training and accounting" in smoke.__doc__
+    src = inspect.getsource(smoke.run)
+    assert src.index('phase_done("13 tuning")') < src.index('phase_done("14 training and accounting")')
+    assert "training)" in src[src.index("kernels_line("):]
+
+
+def test_training_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 14 end to end on the CPU at the smoke configs: 14a's parity
+    (the CPU standing in for the card), the kill-resume twin and the
+    compressed-gradient steps; 14b's Trainer on starcoder2-7b's smoke
+    config (12 steps, the gates); 14c's gated products on the trained
+    model's layer-0 activations and sparse-cnn-s's accounting (batch 4).
+    The CUDA memory calls are stubbed; the plain versions count no
+    launches."""
+    import torch
+
+    for name in ("empty_cache", "reset_peak_memory_stats", "max_memory_allocated", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(smoke, "TRAIN_SMOKE", True)
+    monkeypatch.setattr(smoke, "TRAIN_DIR", tmp_path / "train")
+    rec = smoke.train_phase(torch.device("cpu"))
+    par = rec["parity"]
+    assert par["loss_rel_err"] == 0.0 and par["steps"]["worst_ratio"] == 0.0
+    assert par["resume_max_abs_diff"] == 0.0 and len(par["ef_losses"]) == smoke.PARITY_STEPS
+    train = rec["train"]
+    assert len(train["losses"]) == smoke.TRAIN_STEPS and train["losses"][-1] < train["losses"][0]
+    assert 0 < train["optimizer_share"] < 1 and 0 < train["constrain_share"] < 1
+    assert train["tokens_per_s"] == 16 * 2 / (train["ms_per_step"] / 1e3)
+    assert train["params"] == train["state_bytes_reckoned"] // smoke.BYTES_PER_PARAM
+    assert set(rec["sparse_matmul"]) == {"wq/wo", "wk/wv", "w_up", "w_down"}
+    for r in rec["sparse_matmul"].values():
+        assert r["measured"]["err"] == 0.0 and r["assumed_0.5"]["act_fmt"] == "4/8"
+    for r in rec["cnn"].values():
+        assert r["zero_frac_max_diff"] == 0.0 and r["measured_tops_per_w"] > 0
+        assert r["logits_max_abs_diff"] == 0.0 and r["logits_rel_l2"] == 0.0
+        assert r["assumed_tops_per_w"] > 0
+    assert not (tmp_path / "train").exists()
+
+
+def test_train_parity_holds_noise_entries_to_the_learning_rate(smoke):
+    """``trees_close`` passes a noise entry beyond the tolerance that moved,
+    in both runs, within AdamW's reach at the learning rates (one update at
+    1e-3 from 0.5: 1e-3 · (1 + 0.1 · 0.501)), and fails one that moved
+    further, any other entry beyond the tolerance, or an entry zero on one
+    side only."""
+    import torch
+
+    from repro_torch.optim.adamw import OptConfig
+
+    opt = OptConfig()
+    start = {"w": torch.tensor([1.0, 0.5, 0.0])}
+    want = {"w": torch.tensor([1.0, 0.5 + 9e-4, 0.0])}
+    noise = [torch.tensor([False, True, False])]
+    kw = dict(noise=noise, start=start, lrs=[1e-3], opt=opt)
+    got = {"w": torch.tensor([1.0, 0.5 - 9e-4, 0.0])}
+    assert smoke.trees_close(got, want, "t", **kw)["held_to_reach"] == 1
+    with pytest.raises(AssertionError, match="reach"):
+        smoke.trees_close({"w": torch.tensor([1.0, 0.5 - 1.2e-3, 0.0])}, want, "t", **kw)
+    with pytest.raises(AssertionError, match="worst ratio"):
+        smoke.trees_close({"w": torch.tensor([1.001, 0.5 + 9e-4, 0.0])}, want, "t", **kw)
+    with pytest.raises(AssertionError, match="zero on one side"):
+        smoke.trees_close({"w": torch.tensor([1.0, 0.5, 1e-9])}, start, "t")
+
+
+def test_model_flops_counts_the_products_and_the_attention(smoke):
+    from repro_torch.models.model import lm_defs
+
+    cfg = smoke.train_config()  # starcoder2-7b at published width, 8 layers
+    assert abs(cfg.param_count() - 2.19e9) < 0.01e9
+    tokens, seq = 2048, 256
+    embed = 49152 * 4608
+    assert lm_defs(cfg)["embed"].shape == (49152, 4608)
+    want = 6 * (cfg.param_count() - embed) * tokens + 12 * 8 * seq * 36 * 128 * tokens
+    assert smoke.model_flops(cfg, tokens, seq) == want

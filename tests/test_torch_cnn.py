@@ -24,6 +24,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs import cnn as jcfg
 from repro.models.cnn import SparseCNN as JSparseCNN
 from repro_torch import resolve_device

@@ -19,6 +19,7 @@ from repro_torch.core import act_sparsity as tact
 from repro_torch.core import vdbb as tv
 from repro_torch.kernels import autotune as tat
 from repro_torch.kernels import calibrate as tcal
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _fmts(bz=8):

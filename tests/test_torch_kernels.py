@@ -34,6 +34,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import vdbb_im2col_conv as conv_k
 from repro_torch.kernels import vdbb_matmul as head_k
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 # per-column and grouped formats at the paper's densities (bw kernels)

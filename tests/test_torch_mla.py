@@ -31,6 +31,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs import registry as jreg
 from repro.core.quant import dequantize_dbb as jdequantize_dbb
 from repro.core.vdbb import dbb_decode as jdbb_decode

@@ -36,6 +36,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.configs import registry as jreg
 from repro.launch import serve as jserve
 from repro.models.common import Param as JParam

@@ -19,6 +19,7 @@ import pytest
 import torch
 
 import torch_parity as tp
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 from repro.models.cnn import SparseCNN as JSparseCNN
 from repro_torch.configs import smoke_cnn_config
 from repro_torch.interop import params_from_numpy, unflatten

@@ -13,6 +13,7 @@ from repro.core import vdbb as jv
 from repro_torch.core import act_sparsity as tact
 from repro_torch.core import quant as tq
 from repro_torch.core import vdbb as tv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 def _weights(k, n, nnz, group, seed):

@@ -32,6 +32,7 @@ from repro_torch.launch.server import CNNServer, ServerCrashed
 from repro_torch.launch.supervisor import Supervisor
 from repro_torch.models.cnn import SparseCNN
 from repro_torch.models.plan import StalePlanError, fallback_closures
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 WAIT_S = 30  # the longest a test waits for an event it has caused
 

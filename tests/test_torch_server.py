@@ -25,6 +25,7 @@ from repro_torch.launch.server import (CNNServer, DeadlineExceeded, InvalidReque
                                        MicroBatcher, NumericalFault, Overloaded,
                                        ServerCrashed, _Pending, auto_rate, burst_arrivals,
                                        poisson_arrivals, validate_request)
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 WAIT_S = 30  # the longest a test waits for an event it has caused
 

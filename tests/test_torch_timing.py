@@ -15,6 +15,7 @@ from repro.kernels import core as jcore
 from repro_torch.kernels import autotune as tat
 from repro_torch.kernels import core as tcore
 from repro_torch.kernels import timing
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 
 class FakeTime:

@@ -8,6 +8,7 @@ import torch
 
 from repro.core import vdbb as jv
 from repro_torch.core import vdbb as tv
+from torch_parity import one_torch_thread  # noqa: F401  (autouse)
 
 FORMATS = [(8, 3, "matrix"), (8, 2, None), (8, 4, 4), (4, 1, "matrix"), (8, 8, None)]
 

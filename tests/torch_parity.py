@@ -40,6 +40,7 @@ from pathlib import Path
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 ROOT = Path(__file__).resolve().parents[1]
 if str(ROOT / "src") not in sys.path:
@@ -63,6 +64,21 @@ CHAIN_SEED = 0
 # the fixture holds batch 4 (under 200 KB); its head runs at M = 4, below
 # the TPU reference's 8-row tiny-M fallback, which the port does not have
 FIXTURE_BATCH = 4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_torch_thread():
+    """Run a module's torch ops on one thread: when parallel test workers
+    share a machine's cores, torch's default of a thread per core in each of
+    them oversubscribes it (six copies of a 60-step CPU training test at 8
+    threads each took 475 s, at one thread 1.4 s, on 8 cores). Import it
+    into a test module to use it; the count is restored after the module."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _array(x):
