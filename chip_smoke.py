@@ -285,7 +285,28 @@ Phases, each of which fails the run:
         ``layer_costs`` and the pareto
         design's ``model_workload`` at the measured activation sparsity
         beside the assumed 0.5;
- 15. one JSON line of the six kernels (launches, errors, times, bounds).
+ 15. distribution on a one-rank (1, 1) ("data", "model") mesh (NCCL, a
+     rendezvous file under build/dist); the multi-rank numerics are checked
+     on the CPU only (tests/test_torch_distributed.py, 8 gloo ranks):
+     a. the sharded decode step: starcoder2-7b at full width and depth,
+        compressed, its parameters wrapped as DTensors with
+        ``DTensor.from_local`` (no second copy); one prefill, then 8 eager
+        greedy decode steps unsharded and 8 sharded under the decode rules,
+        each from its own copy of the prefill's cache. Gates: the logits
+        equal bit for bit at every step, and the bf16 tc kernel's launches
+        (inside ``local_map``) equal the unsharded run's. Logged: eager ms
+        a step both ways (DTensor's host cost) and the aten ops one more
+        step dispatches each way, those on DTensors apart;
+     b. the sharded training step: starcoder2-7b at published width cut to
+        ``DIST_LAYERS`` = 2, 2 steps of ``Trainer`` on the mesh (the
+        launcher's ``--distributed`` path, training rules) against 2
+        unsharded from the same seeded state; losses and parameters within
+        5e-3 (bit for bit logged), the step counts equal, each leaf's Adam
+        moments within 5e-2 and the fp32 master's update within 0.25 of the
+        unsharded run's, relative;
+     c. 15b's sharded parameters saved and restored with ``shardings=``,
+        equal bit for bit;
+ 16. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -2970,14 +2991,328 @@ def train_phase(dev) -> dict:
     return rec
 
 
+# --------------------------------------------------------------- phase 15
+
+DIST_SMOKE = False  # the reduced configs (a CPU rehearsal of this phase)
+DIST_ARCH = "starcoder2-7b"
+DIST_STEPS = 8  # 15a: eager decode steps each way
+DIST_LAYERS = 2  # 15b: published width at 2 layers, so that the training state fits twice
+DIST_TRAIN_STEPS = 2
+DIST_DIR = ROOT / "build" / "dist"  # the rendezvous file and 15c's checkpoint (git-ignored)
+DIST_TOL = 5e-3  # the reference's tests/test_distributed.py bound for a sharded train step
+# 15b's optimizer state against the unsharded run's, relative (as
+# tests/test_torch_distributed.py:check_state): each leaf's m and v, and the
+# fp32 master's update over the whole tree
+DIST_MOMENT_GAP = 5e-2
+DIST_UPDATE_GAP = 0.25
+
+
+@contextlib.contextmanager
+def one_rank_world(dev):
+    """A one-rank process group (NCCL on a card, gloo on the CPU) joined
+    through a rendezvous file under ``DIST_DIR``, and the (1, 1) ("data",
+    "model") mesh over it; the group is torn down on every path."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import make_mesh
+
+    DIST_DIR.mkdir(parents=True, exist_ok=True)
+    rdv = DIST_DIR / "rendezvous"
+    rdv.unlink(missing_ok=True)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{rdv}", rank=0, world_size=1,
+                            device_id=dev if dev.type == "cuda" else None)
+    try:
+        yield make_mesh((1, 1), ("data", "model"), device_type=dev.type)
+    finally:
+        dist.destroy_process_group()
+        rdv.unlink(missing_ok=True)
+
+
+def stamp(dev):
+    """A point in the stream: a recorded CUDA event on a card, the host
+    clock otherwise; :func:`span_ms` reads two."""
+    if dev.type != "cuda":
+        return time.perf_counter()
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    return ev
+
+
+def span_ms(a, b) -> float:
+    return a.elapsed_time(b) if isinstance(a, torch.cuda.Event) else (b - a) * 1e3
+
+
+def count_ops(step) -> dict:
+    """The aten ops that ``step()`` dispatches: all of them, and those on
+    DTensors (each one DTensor's sharding propagation and redistribution
+    on the host; the local ops they run beneath are not counted again)."""
+    from torch.distributed.tensor import DTensor
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        ops = dtensor = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops += 1
+            self.dtensor += any(issubclass(t, DTensor) for t in types)
+            return func(*args, **(kwargs or {}))
+
+    with Count() as c:
+        step()
+    return {"ops": c.ops, "dtensor_ops": c.dtensor}
+
+
+def dist_decode(dev, mesh) -> dict:
+    """15a: ``DIST_ARCH`` at full width and depth, compressed. One prefill,
+    then ``DIST_STEPS`` eager greedy decode steps unsharded and as many on
+    the model's own tensors wrapped as DTensors on the mesh
+    (``LM.distribute(local=True)``: no second copy) under the decode
+    rules, each from its own copy of the prefill's cache. Gates: the
+    logits equal bit for bit at every step (the same kernel at the same
+    shapes on one rank) and the bf16 tc kernel's launches, counted inside
+    ``local_map``, equal the unsharded run's (on a card: a decode step's
+    projections a step)."""
+    from repro_torch.checkpoint.store import full_tensor as full
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models.common import distribute_tree, sharding_rules
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import make_rules
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = serve.build_lm(DIST_ARCH, device=dev, seed=0, smoke=DIST_SMOKE)
+    cfg = model.cfg
+    prompt = serve.prompt_tokens(model, batch=LM_BATCH, seq=LM_PROMPT, seed=0)
+    with torch.no_grad():
+        logits, prefill = model.forward(prompt["tokens"], return_cache=True)
+    first = logits[:, -1:].argmax(-1)
+    max_len = LM_PROMPT + DIST_STEPS
+    rules = make_rules(cfg, tp=1, mode="decode")
+    sharded = LM(cfg).load_params(model.params).distribute(mesh, rules, local=True)
+    specs = model.cache_pspecs(rules)
+
+    def run(m, cache, rules_ctx):
+        build.reset_launches()
+        tok, out, marks = first, [], []
+        with torch.no_grad(), rules_ctx:
+            for i in range(DIST_STEPS):
+                marks.append(stamp(dev))
+                lg, _ = m.decode_step(cache, tok, LM_PROMPT + i)
+                lg = full(lg)
+                tok = lg[:, -1:].argmax(-1)
+                out.append(lg)
+            marks.append(stamp(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = [span_ms(a, b) for a, b in zip(marks, marks[1:])]
+        return out, build.launch_counts(), ms
+
+    plain_lg, plain_counts, plain_ms = run(
+        model, serve.pad_cache(prefill, LM_PROMPT, max_len), contextlib.nullcontext())
+    cache = distribute_tree(serve.pad_cache(prefill, LM_PROMPT, max_len), specs, mesh, local=True)
+    dist_lg, dist_counts, dist_ms = run(sharded, cache, sharding_rules(rules, mesh))
+    same = [torch.equal(a, b) for a, b in zip(plain_lg, dist_lg)]
+    name = "vdbb_matmul_tc_bf16"
+    want = projections(model, "decode") * DIST_STEPS if dev.type == "cuda" else 0
+    ops = {}  # one more step each way, untimed, from a fresh cache, its ops counted
+    for label, m, ctx, local in (("unsharded", model, contextlib.nullcontext(), False),
+                                 ("sharded", sharded, sharding_rules(rules, mesh), True)):
+        c = serve.pad_cache(prefill, LM_PROMPT, max_len)
+        if local:
+            c = distribute_tree(c, specs, mesh, local=True)
+        with torch.no_grad(), ctx:
+            ops[label] = count_ops(lambda: full(m.decode_step(c, first, LM_PROMPT)[0]))
+        del c
+    extra_ms = statistics.mean(dist_ms[1:]) - statistics.mean(plain_ms[1:])
+    rec = dict(arch=cfg.name, params=cfg.param_count(), steps=DIST_STEPS, batch=LM_BATCH,
+               prompt=LM_PROMPT, bit_equal_steps=sum(same), ops_per_step=ops,
+               extra_us_per_dtensor_op=1e3 * extra_ms / max(ops["sharded"]["dtensor_ops"], 1),
+               max_abs_diff=max(float((a.float() - b.float()).abs().max())
+                                for a, b in zip(plain_lg, dist_lg)),
+               launches={"unsharded": plain_counts[name], "sharded": dist_counts[name],
+                         "want": want},
+               eager_ms_per_step={"unsharded": statistics.mean(plain_ms[1:]),
+                                  "sharded": statistics.mean(dist_ms[1:])},
+               first_step_ms={"unsharded": plain_ms[0], "sharded": dist_ms[0]})
+    if not all(same):
+        raise AssertionError(f"15a: sharded decode logits differ from the unsharded at steps "
+                             f"{[i for i, ok in enumerate(same) if not ok]}: {rec}")
+    if plain_counts[name] != dist_counts[name] or dist_counts[name] != want or any(
+            n for k, n in dist_counts.items() if k != name):
+        raise AssertionError(f"15a: launches {dist_counts} sharded, {plain_counts} unsharded; "
+                             f"want {want} of {name} each")
+    return rec
+
+
+def dist_config():
+    """15b's model: ``DIST_ARCH`` at published width cut to ``DIST_LAYERS``."""
+    from repro_torch.configs import get_config, smoke_config
+
+    if DIST_SMOKE:
+        return smoke_config(DIST_ARCH)
+    return dataclasses.replace(get_config(DIST_ARCH), num_layers=DIST_LAYERS)
+
+
+def dist_train(dev, mesh) -> tuple:
+    """15b: ``DIST_TRAIN_STEPS`` steps of ``Trainer`` sharded on the mesh
+    (the launcher's ``--distributed`` path: the parameters and state as
+    DTensors by ``LM.pspecs`` under the training rules, each step's batch
+    kept by slice) against as many unsharded from the same seeded state and
+    batches (seq and batch as 14b's). Gates: the losses and every parameter
+    within ``DIST_TOL`` (bit for bit is expected on one rank and logged);
+    the step counts equal, each leaf's ``m`` and ``v`` within
+    ``DIST_MOMENT_GAP`` of the unsharded run's and the fp32 master's update
+    (``master - p0``) within ``DIST_UPDATE_GAP`` over the whole tree,
+    relative to their own 2-norms (an update skipped, or one built from
+    unreduced gradients, is as far as its own size). Returns (record, the
+    sharded model, its rules)."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.mesh import tp_degree
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.sharding.rules import make_rules
+    from repro_torch.train.loop import LoopConfig, Trainer
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dist_config()
+    opt = OptConfig(peak_lr=3e-4, warmup_steps=0, decay_steps=DIST_TRAIN_STEPS)
+    seq, batch = (16, 2) if DIST_SMOKE else (TRAIN_SEQ, TRAIN_BATCH)
+    rules = make_rules(cfg, tp=tp_degree(mesh), mode="train")
+    from repro_torch.checkpoint.store import flatten, full_tensor as full
+
+    out, p0 = {}, None
+    for label, on_mesh in (("unsharded", False), ("sharded", True)):
+        model = LM(cfg).init(torch.Generator(dev).manual_seed(0), dev)
+        model.constrain()
+        if p0 is None:
+            p0 = [x.detach().clone() for x in flatten(model.params)[0]]
+        if on_mesh:
+            model.distribute(mesh, rules, local=True)
+        t = Trainer(model, opt, DataConfig(seq_len=seq, global_batch=batch),
+                    LoopConfig(total_steps=DIST_TRAIN_STEPS, log_every=1), device=dev,
+                    mesh=mesh if on_mesh else None, rules=rules if on_mesh else None)
+        a = stamp(dev)
+        _, state, history = t.run(model.params, init_state(model.params, opt), 0)
+        b = stamp(dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        out[label] = (model, [x for _, x in history], span_ms(a, b) / DIST_TRAIN_STEPS, state)
+        del t
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    (m0, l0, ms0, s0), (m1, l1, ms1, s1) = out.pop("unsharded"), out.pop("sharded")
+    gaps = state_gaps(s1, s0, p0)
+    del s0, s1, p0
+    pairs = list(zip(flatten(m0.params)[0], flatten(m1.params)[0]))
+    diff = max(float((a.detach().float() - full(b).detach().float()).abs().max())
+               for a, b in pairs)
+    bits = all(torch.equal(a.detach(), full(b).detach()) for a, b in pairs) and l0 == l1
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(), seq=seq,
+               batch=batch, steps=DIST_TRAIN_STEPS, losses={"unsharded": l0, "sharded": l1},
+               max_param_diff=diff, bit_equal=bits, state_gaps=gaps,
+               ms_per_step={"unsharded": ms0, "sharded": ms1},
+               placements=sorted({str(tuple(x.placements)) for x in flatten(m1.params)[0]}))
+    if len(l1) != DIST_TRAIN_STEPS or any(abs(a - b) > DIST_TOL for a, b in zip(l0, l1)):
+        raise AssertionError(f"15b: losses {l1} sharded against {l0}")
+    if not diff <= DIST_TOL:
+        raise AssertionError(f"15b: parameters {diff} apart, beyond {DIST_TOL}")
+    if gaps["count"] != [DIST_TRAIN_STEPS] * 2 or not (
+            gaps["m"][0] <= DIST_MOMENT_GAP and gaps["v"][0] <= DIST_MOMENT_GAP
+            and gaps["update"] <= DIST_UPDATE_GAP):
+        raise AssertionError(f"15b: the optimizer state differs from the unsharded run's: {gaps}")
+    del m0, pairs
+    return rec, m1, rules
+
+
+def state_gaps(got: dict, want: dict, p0: list) -> dict:
+    """A sharded run's optimizer state against an unsharded one's from the
+    same parameters ``p0``: the step counts, the largest relative 2-norm gap
+    of a leaf's ``m`` and of its ``v`` (and which leaf), and the gap of the
+    fp32 master's update over the whole tree."""
+    from repro_torch.checkpoint.store import flatten, full_tensor as full
+
+    def sq(x):
+        return float(x.double().square().sum())
+
+    out = {"count": [int(full(got["count"])), int(full(want["count"]))]}
+    for key in ("m", "v"):
+        worst = (0.0, "")
+        for path, a, b in zip(flatten(want[key])[1], flatten(got[key])[0], flatten(want[key])[0]):
+            g = math.sqrt(sq(full(a) - b) / max(sq(b), 1e-300))
+            worst = max(worst, (g, path))
+        out[key] = list(worst)
+    num = den = 0.0
+    for a, b, c in zip(flatten(got["master"])[0], flatten(want["master"])[0], p0):
+        num += sq(full(a) - b)
+        den += sq(b - c.float())
+    out["update"] = math.sqrt(num / den)
+    return out
+
+
+def dist_restore(dev, model, mesh, rules) -> dict:
+    """15c: 15b's sharded parameters saved (the logical arrays, by rank 0)
+    and restored with ``shardings=`` on the mesh, equal bit for bit to what
+    was saved. (Its fp32 optimizer state, 6 times the bytes, stays out of
+    the phase's time; the CPU tests restore one.)"""
+    from repro_torch.checkpoint import store
+    from repro_torch.models.common import named_shardings
+
+    full = store.full_tensor
+    ckpt = DIST_DIR / "ckpt"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    t0 = time.time()
+    store.save(ckpt, DIST_TRAIN_STEPS, model.params)
+    t1 = time.time()
+    got, manifest = store.restore(ckpt, model.params,
+                                  shardings=named_shardings(model.pspecs(rules), mesh))
+    t2 = time.time()
+    want, have = store.flatten(model.params)[0], store.flatten(got)[0]
+    same = [torch.equal(full(a).detach(), full(b)) for a, b in zip(want, have)]
+    nbytes = sum(x.numel() * x.element_size() for x in want)
+    placed = all(tuple(a.placements) == tuple(b.placements) for a, b in zip(want, have))
+    shutil.rmtree(ckpt, ignore_errors=True)
+    rec = dict(leaves=len(want), bytes=nbytes, save_s=t1 - t0, restore_s=t2 - t1,
+               bit_equal=all(same), placements_equal=placed, step=manifest["step"])
+    if not all(same) or not placed:
+        raise AssertionError(f"15c: the restore differs from what was saved: {rec}")
+    return rec
+
+
+def dist_phase(dev, smi: str = "") -> dict:
+    """Phase 15: the sharded decode and train steps and the restore on a
+    one-rank mesh. The multi-rank numerics are checked on the CPU only
+    (tests/test_torch_distributed.py, an 8-rank gloo world)."""
+    t0 = time.time()
+    with one_rank_world(dev) as mesh:
+        rec = {"decode": dist_decode(dev, mesh)}
+        log(f"[dist 15a] {smi}: {json.dumps(rec['decode'])}")
+        rec["train"], model, rules = dist_train(dev, mesh)
+        log(f"[dist 15b] {smi}: {json.dumps(rec['train'])}")
+        rec["restore"] = dist_restore(dev, model, mesh, rules)
+        log(f"[dist 15c] {json.dumps(rec['restore'])}")
+        del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t0
+    log(f"[dist] phase 15 {rec['seconds']:.1f} s")
+    return rec
+
+
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                 decoders, frontends, selfheal, training=None) -> list:
+                 decoders, frontends, selfheal, training=None, distributed=None) -> list:
     """The kernels' JSON line, one entry per counted kernel from phase 2's
     records (``recs``: {kernel: [record]}; the bf16 tc matmul's from 7a) and
     the main paths' launches (``counts``), each with the same kernel at the
     LM models' shapes beside it (phases 7–11's records), its launches on
-    phase 12's path (``selfheal``) and on phase 14c's (``training``: the
-    stats forwards and ``sparse_matmul``; the trainer runs no kernel)."""
+    phase 12's path (``selfheal``), on phase 14c's (``training``: the
+    stats forwards and ``sparse_matmul``; the trainer runs no kernel) and
+    on phase 15a's sharded decode (``distributed``, the bf16 tc matmul's)."""
     from repro_torch.kernels import build
 
     line = []
@@ -3039,6 +3374,8 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
                                            in gen_c["replay_launches"].items()})
             line[-1]["graph_replay_launches"] = (
                 lm_gen["compressed"]["replay_launches"]["decode"][name])
+            line[-1]["sharded_decode_launches"] = (
+                None if distributed is None else distributed["decode"]["launches"]["sharded"])
         if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
             line[-1]["lm"] = dict(
                 at_shapes(lm_recs["int8"], lm_planned["launches"][name]),
@@ -3175,9 +3512,11 @@ def run() -> int:
     phase_done("13 tuning")
     training = train_phase(dev)
     phase_done("14 training and accounting")
+    distributed = dist_phase(dev, smi)
+    phase_done("15 distribution on a one-rank mesh")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                        decoders, frontends, selfheal, training)
+                        decoders, frontends, selfheal, training, distributed)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -3196,6 +3535,7 @@ def run() -> int:
     log(f"[selfheal] {json.dumps(selfheal)}")
     log(f"[tuning] {json.dumps(tuning)}")
     log(f"[training] {json.dumps(training)}")
+    log(f"[distributed] {json.dumps(distributed)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

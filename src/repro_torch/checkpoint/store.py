@@ -27,13 +27,23 @@ restores into the other:
   file; ``restore(..., fallback=True)`` walks back to the newest step that
   still verifies (the serving tier's reload path).
 
-``restore`` takes ``device=`` where the reference takes ``shardings=``:
-resharding onto a mesh waits for the port's distribution (ROADMAP item 14).
+- Leaves that are DTensors (a model sharded over a mesh) are written as
+  their logical (global) arrays, so the format stays the reference's
+  whatever the mesh. Only global rank 0 (the writer) builds them: every
+  other rank sends it each distinct shard it holds, one at a time, and
+  rank 0 copies each into its place in a host array, so no card ever holds
+  a whole leaf and no other rank copies anything to its host.
+  ``restore(..., shardings=)`` lays each leaf out on a mesh (a tree of
+  :class:`Sharding`): the elastic reshard on load, onto a mesh of any
+  shape. Each rank reads the archive a leaf at a time, cuts its own shard
+  on the host and moves only that to its card. ``device=`` stays for the
+  unsharded case.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
+import itertools
 import json
 import os
 import pathlib
@@ -132,7 +142,81 @@ def unflatten(tree_like, leaves: list):
     return build(tree_like)
 
 
+@dataclasses.dataclass(frozen=True)
+class Sharding:
+    """Where :func:`restore` lays a leaf: ``mesh`` (a ``DeviceMesh``) and
+    ``spec``, a partition spec (a tuple of mesh axis names, tuples of them
+    or None per dim, ``models/common.py:spec_placements``). A leaf of its
+    own in a tree, where a bare tuple would be an inner node."""
+
+    mesh: Any
+    spec: tuple
+
+
+def _box(shape, mesh_shape, placements, coord) -> tuple:
+    """The slices of a leaf of ``shape`` that the rank at mesh coordinate
+    ``coord`` holds under ``placements``: each mesh dim either replicates
+    or splits one tensor dim evenly, and mesh dims that split the same
+    tensor dim nest in mesh order, as DTensor's do."""
+    lo, size = [0] * len(shape), list(shape)
+    for n, c, p in zip(mesh_shape, coord, placements):
+        if p.is_shard():
+            d = p.dim % len(shape)
+            if size[d] % n:
+                raise ValueError(f"dim {d} of a leaf of shape {tuple(shape)} does not split "
+                                 f"evenly {n} ways")
+            size[d] //= n
+            lo[d] += c * size[d]
+        elif not p.is_replicate():
+            raise ValueError(f"a checkpoint leaf placed {p} is neither split nor replicated")
+    return tuple(slice(a, a + n) for a, n in zip(lo, size))
+
+
+def is_writer() -> bool:
+    """True on the rank that writes a sharded checkpoint: global rank 0, or
+    the only process."""
+    import torch.distributed as dist
+
+    return not dist.is_initialized() or dist.get_rank() == 0
+
+
 # ------------------------------------------------------------ bytes on disk
+
+def full_tensor(x):
+    """A DTensor's logical (global) tensor, gathered on every rank (a
+    collective: every rank calls it); anything else as it is."""
+    from torch.distributed.tensor import DTensor
+
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _gather(x) -> Optional[torch.Tensor]:
+    """DTensor ``x``'s logical tensor on the writer's host, None on every
+    other rank. Each distinct shard (the first of its replicas in mesh
+    order) reaches the writer by a send of its own, into a buffer of one
+    shard on the writer's device, and is copied into its box of the host
+    tensor. Every rank of the mesh calls it."""
+    import torch.distributed as dist
+
+    ranks, pl = x.device_mesh.mesh, tuple(x.placements)
+    local = x.to_local().detach().contiguous()
+    writer, me = is_writer(), dist.get_rank()
+    out = torch.empty(x.shape, dtype=local.dtype) if writer else None
+    for coord in itertools.product(*map(range, ranks.shape)):
+        if any(c and not p.is_shard() for c, p in zip(coord, pl)):
+            continue  # a replica of a shard sent from another coordinate
+        box = _box(x.shape, ranks.shape, pl, coord)
+        src = int(ranks[coord])
+        if writer and src == me:
+            out[box] = local.cpu()
+        elif writer:
+            buf = torch.empty(out[box].shape, dtype=local.dtype, device=local.device)
+            dist.recv(buf, src=src)
+            out[box] = buf.cpu()
+        elif src == me:
+            dist.send(local, dst=0)
+    return out
+
 
 def _host(x) -> Tuple[np.ndarray, str]:
     """A leaf as the array written (bits for a dtype an .npz cannot hold)
@@ -172,14 +256,28 @@ def _manifest_digest(manifest: dict) -> str:
 
 def _snapshot(tree) -> Tuple[List[np.ndarray], List[str], str]:
     """The leaves as written, their dtype names, and the leaves' paths as
-    the manifest's ``treedef`` (a record for readers; nothing parses it)."""
+    the manifest's ``treedef`` (a record for readers; nothing parses it).
+    For a tree holding DTensors every rank calls it and only the writer
+    gets the leaves (:func:`_gather`); the others get empty lists."""
+    from torch.distributed.tensor import DTensor
+
     leaves, paths = flatten(tree)
+    builds = is_writer() or not _sharded(tree)
     host, dtypes = [], []
     for x in leaves:
-        a, name = _host(x)
-        host.append(a)
-        dtypes.append(name)
+        if isinstance(x, DTensor):
+            x = _gather(x)
+        if builds:
+            a, name = _host(x)
+            host.append(a)
+            dtypes.append(name)
     return host, dtypes, " ".join(paths)
+
+
+def _sharded(tree) -> bool:
+    from torch.distributed.tensor import DTensor
+
+    return any(isinstance(x, DTensor) for x in flatten(tree)[0])
 
 
 def _write(ckpt_dir: pathlib.Path, step: int, host, dtypes, treedef: str,
@@ -216,9 +314,21 @@ def _write(ckpt_dir: pathlib.Path, step: int, host, dtypes, treedef: str,
 
 def save(ckpt_dir, step: int, tree, *, extra: Optional[dict] = None) -> pathlib.Path:
     """Synchronous atomic save of ``tree`` (dicts, lists, tensors on any
-    device, numpy arrays, compressed weights). Returns the step's path."""
+    device, numpy arrays, compressed weights, DTensors). Returns the step's
+    path. A tree holding DTensors is saved by every rank of the world
+    together: the shards go to rank 0, which writes, and all wait for the
+    write."""
+    sharded = _sharded(tree)
     host, dtypes, treedef = _snapshot(tree)
-    return _write(pathlib.Path(ckpt_dir), step, host, dtypes, treedef, extra)
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    if not sharded:
+        return _write(ckpt_dir, step, host, dtypes, treedef, extra)
+    import torch.distributed as dist
+
+    if is_writer():
+        _write(ckpt_dir, step, host, dtypes, treedef, extra)
+    dist.barrier()
+    return ckpt_dir / f"step_{step:08d}"
 
 
 class AsyncCheckpointer:
@@ -229,10 +339,17 @@ class AsyncCheckpointer:
         self.ckpt_dir = pathlib.Path(ckpt_dir)
         self.keep = keep
         self._thread: Optional[threading.Thread] = None
+        self._sharded = False
 
     def save_async(self, step: int, tree, *, extra=None) -> None:
+        """Snapshot now, write on a thread (on rank 0 alone when ``tree``
+        holds DTensors: every rank takes the snapshot, a collective, and
+        :meth:`wait` is one too)."""
         self.wait()
+        self._sharded = _sharded(tree)
         host, dtypes, treedef = _snapshot(tree)  # the device->host copy happens here
+        if not is_writer():
+            return
 
         def work():
             _write(self.ckpt_dir, step, host, dtypes, treedef, extra)
@@ -242,9 +359,15 @@ class AsyncCheckpointer:
         self._thread.start()
 
     def wait(self) -> None:
+        """The last write done; after a sharded save, on every rank."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._sharded:
+            import torch.distributed as dist
+
+            dist.barrier()
+            self._sharded = False
 
     def _gc(self) -> None:
         for s in list_steps(self.ckpt_dir)[: -self.keep]:
@@ -268,6 +391,51 @@ def latest_step(ckpt_dir) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _manifest(ckpt_dir: pathlib.Path, step: int) -> dict:
+    """Step ``step``'s manifest, its own digest and leaf count verified."""
+    d = ckpt_dir / f"step_{step:08d}"
+    try:
+        manifest = json.loads((d / "manifest.json").read_text())
+    except (OSError, ValueError) as e:
+        raise CorruptCheckpointError(f"step {step}: manifest.json unreadable: {e}") from e
+    recorded = manifest.get("manifest_sha256")
+    if recorded is not None and recorded != _manifest_digest(manifest):
+        raise CorruptCheckpointError(f"step {step}: manifest digest mismatch (manifest "
+                                     "edited or truncated after save)")
+    n = manifest.get("n_leaves")
+    if not isinstance(n, int) or n < 0:
+        raise CorruptCheckpointError(f"step {step}: manifest has no usable n_leaves ({n!r})")
+    digests = manifest.get("digests")
+    if digests is not None and len(digests) != n:
+        raise CorruptCheckpointError(f"step {step}: {len(digests)} digests for {n} leaves")
+    return manifest
+
+
+def _verified_leaves(ckpt_dir: pathlib.Path, step: int, manifest: dict):
+    """Step ``step``'s leaves as written, read one at a time, each checked
+    against its recorded sha256 as it is read."""
+    digests = manifest.get("digests")
+
+    def unreadable(e):
+        return CorruptCheckpointError(
+            f"step {step}: arrays.npz unreadable ({type(e).__name__}: {e})")
+
+    try:
+        data = np.load(ckpt_dir / f"step_{step:08d}" / "arrays.npz")
+    except Exception as e:  # noqa: BLE001 -- missing or unreadable
+        raise unreadable(e) from e
+    with data:
+        for i in range(manifest["n_leaves"]):
+            try:  # an npz reads lazily: a truncated archive may fail only here
+                a = np.asarray(data[f"a{i}"])
+            except Exception as e:  # noqa: BLE001 -- truncated or unreadable
+                raise unreadable(e) from e
+            if digests is not None and _sha256(a) != digests[i]:
+                raise CorruptCheckpointError(f"step {step}: leaf {i} sha256 mismatch: the "
+                                             "bytes differ from what save() recorded")
+            yield a
+
+
 def read_verified(ckpt_dir, *, step: Optional[int] = None):
     """Read and verify one checkpoint; no template needed.
 
@@ -281,85 +449,84 @@ def read_verified(ckpt_dir, *, step: Optional[int] = None):
     step = step if step is not None else latest_step(ckpt_dir)
     if step is None:
         raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    d = ckpt_dir / f"step_{step:08d}"
-    try:
-        manifest = json.loads((d / "manifest.json").read_text())
-    except (OSError, ValueError) as e:
-        raise CorruptCheckpointError(f"step {step}: manifest.json unreadable: {e}") from e
-    recorded = manifest.get("manifest_sha256")
-    if recorded is not None and recorded != _manifest_digest(manifest):
-        raise CorruptCheckpointError(f"step {step}: manifest digest mismatch (manifest "
-                                     "edited or truncated after save)")
-    n = manifest.get("n_leaves")
-    if not isinstance(n, int) or n < 0:
-        raise CorruptCheckpointError(f"step {step}: manifest has no usable n_leaves ({n!r})")
-    try:
-        with np.load(d / "arrays.npz") as data:
-            # every leaf read inside the try: an npz reads lazily, so a
-            # truncated archive may fail only at a member's access
-            raw = [np.asarray(data[f"a{i}"]) for i in range(n)]
-    except Exception as e:  # noqa: BLE001 -- missing, truncated or unreadable
-        raise CorruptCheckpointError(
-            f"step {step}: arrays.npz unreadable ({type(e).__name__}: {e})") from e
-    digests = manifest.get("digests")
-    if digests is not None:
-        if len(digests) != len(raw):
-            raise CorruptCheckpointError(f"step {step}: {len(digests)} digests for "
-                                         f"{len(raw)} leaves")
-        for i, (a, want) in enumerate(zip(raw, digests)):
-            if _sha256(a) != want:
-                raise CorruptCheckpointError(f"step {step}: leaf {i} sha256 mismatch: the "
-                                             "bytes differ from what save() recorded")
-    return manifest, raw
+    manifest = _manifest(ckpt_dir, step)
+    return manifest, list(_verified_leaves(ckpt_dir, step, manifest))
 
 
-def restore(ckpt_dir, tree_like, *, step: Optional[int] = None, device=None,
-            fallback: bool = False) -> Tuple[Any, dict]:
-    """Restore into the structure of ``tree_like``; returns ``(tree,
-    manifest)``.
+def _place(t: torch.Tensor, sh: Sharding, dtype) -> torch.Tensor:
+    """Logical leaf ``t`` (on the host) as a DTensor on ``sh.mesh``: this
+    rank's shard is cut on the host and only it moves to the device."""
+    from torch.distributed.tensor import DTensor
 
-    Each leaf becomes a tensor of its template leaf's dtype on ``device``
-    (by default where the template leaf lies, the host for a non-tensor).
-    Every read is verified (:func:`read_verified`). ``fallback=True`` walks
-    back from the requested step to the newest one that still verifies;
-    the manifest's ``step`` says which loaded. A leaf count other than the
-    template's raises ``AssertionError``, a leaf shape other than its
-    template leaf's ``ValueError`` with the leaf's path and the step.
-    Resharding onto a mesh (the reference's ``shardings=``) waits for
-    ROADMAP item 14.
-    """
-    ckpt_dir = pathlib.Path(ckpt_dir)
-    step = step if step is not None else latest_step(ckpt_dir)
-    if step is None:
-        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
-    if not fallback:
-        manifest, raw = read_verified(ckpt_dir, step=step)
-    else:
-        candidates = [s for s in reversed(list_steps(ckpt_dir)) if s <= step]
-        first_err: Optional[CorruptCheckpointError] = None
-        manifest = raw = None
-        for s in candidates:
-            try:
-                manifest, raw = read_verified(ckpt_dir, step=s)
-                break
-            except CorruptCheckpointError as e:
-                first_err = first_err or e
-        if manifest is None:
-            raise CorruptCheckpointError(f"no verifiable checkpoint under {ckpt_dir} (tried "
-                                         f"{candidates}); first failure: {first_err}")
+    from repro_torch.models.common import spec_placements
+
+    mesh = sh.mesh
+    pl = spec_placements(sh.spec, mesh, t.shape)
+    box = _box(t.shape, mesh.mesh.shape, pl, mesh.get_coordinate())
+    local = t[box].to(device=torch.device(mesh.device_type), dtype=dtype, copy=True)
+    return DTensor.from_local(local.contiguous(), mesh, pl, run_check=False, shape=t.shape,
+                              stride=t.stride())
+
+
+def _restore_step(ckpt_dir: pathlib.Path, step: int, tree_like, device, shardings):
+    """:func:`restore` of one step, leaf by leaf as the archive is read."""
+    manifest = _manifest(ckpt_dir, step)
+    raw = _verified_leaves(ckpt_dir, step, manifest)
     step = manifest["step"]
     like, paths = flatten(tree_like)
     if manifest["n_leaves"] != len(like):
         raise AssertionError(f"checkpoint/model structure mismatch: step {step} holds "
                              f"{manifest['n_leaves']} leaves, the template {len(like)}")
     dtypes = manifest.get("dtypes") or [None] * len(like)
+    flat_sh = flatten(shardings)[0] if shardings is not None else [None] * len(like)
+    if len(flat_sh) != len(like):
+        raise ValueError(f"{len(flat_sh)} shardings for {len(like)} leaves")
     out = []
-    for i, (a, ref) in enumerate(zip(raw, like)):
+    for i, (a, ref, sh) in enumerate(zip(raw, like, flat_sh)):
         t = _decode(a, dtypes[i])
+        del a
         if hasattr(ref, "shape") and tuple(t.shape) != tuple(ref.shape):
             raise ValueError(f"leaf {i} ({paths[i]}) at step {step}: ckpt {tuple(t.shape)} "
                              f"vs model {tuple(ref.shape)}")
-        dev = device if device is not None else getattr(ref, "device", "cpu")
         dtype = ref.dtype if isinstance(ref, torch.Tensor) else None
+        if sh is not None:
+            out.append(_place(t, sh, dtype))
+            continue
+        dev = device if device is not None else getattr(ref, "device", "cpu")
         out.append(t.to(device=torch.device(dev), dtype=dtype))
     return unflatten(tree_like, out), manifest
+
+
+def restore(ckpt_dir, tree_like, *, step: Optional[int] = None, device=None,
+            shardings=None, fallback: bool = False) -> Tuple[Any, dict]:
+    """Restore into the structure of ``tree_like``; returns ``(tree,
+    manifest)``.
+
+    Each leaf becomes a tensor of its template leaf's dtype on ``device``
+    (by default where the template leaf lies, the host for a non-tensor).
+    ``shardings`` (a tree of :class:`Sharding`, in ``tree_like``'s
+    structure) lays each leaf out on its mesh instead: every rank reads the
+    archive a leaf at a time and moves only its own shard to its device,
+    so a checkpoint saved on one mesh restores onto a mesh of any other
+    shape (the elastic reshard). Every leaf is verified as it is read
+    (:func:`read_verified`'s checks). ``fallback=True`` walks back from the
+    requested step to the newest one that still verifies; the manifest's
+    ``step`` says which loaded. A leaf count other than the template's
+    raises ``AssertionError``, a leaf shape other than its template leaf's
+    ``ValueError`` with the leaf's path and the step.
+    """
+    ckpt_dir = pathlib.Path(ckpt_dir)
+    step = step if step is not None else latest_step(ckpt_dir)
+    if step is None:
+        raise FileNotFoundError(f"no checkpoints under {ckpt_dir}")
+    if not fallback:
+        return _restore_step(ckpt_dir, step, tree_like, device, shardings)
+    candidates = [s for s in reversed(list_steps(ckpt_dir)) if s <= step]
+    first_err: Optional[CorruptCheckpointError] = None
+    for s in candidates:
+        try:
+            return _restore_step(ckpt_dir, s, tree_like, device, shardings)
+        except CorruptCheckpointError as e:
+            first_err = first_err or e
+    raise CorruptCheckpointError(f"no verifiable checkpoint under {ckpt_dir} (tried "
+                                 f"{candidates}); first failure: {first_err}")

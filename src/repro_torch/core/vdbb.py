@@ -89,11 +89,18 @@ def dbb_mask(w: torch.Tensor, fmt: DBBFormat) -> torch.Tensor:
         raise ValueError(f"N={n} not divisible by group={g}")
     ng = n // g
     scores = w.abs().reshape(nb, fmt.bz, ng, g).sum(dim=-1)  # (nb, bz, ng)
+    return mask_from_scores(scores, fmt, g)
+
+
+def mask_from_scores(scores: torch.Tensor, fmt: DBBFormat, g: int) -> torch.Tensor:
+    """The (K, N) keep mask from the block scores (nb, bz, ng) of groups of
+    ``g`` columns: each block's ``nnz`` best positions per group."""
+    nb, _, ng = scores.shape
     idx = _top_positions(scores.transpose(1, 2), fmt.nnz)  # (nb, ng, nnz)
-    keep = torch.zeros(nb, ng, fmt.bz, dtype=torch.bool, device=w.device)
+    keep = torch.zeros(nb, ng, fmt.bz, dtype=torch.bool, device=scores.device)
     keep.scatter_(2, idx, True)
     keep = keep.transpose(1, 2)[..., None].expand(nb, fmt.bz, ng, g)
-    return keep.reshape(k, n)
+    return keep.reshape(nb * fmt.bz, ng * g)
 
 
 def dbb_prune(w: torch.Tensor, fmt: DBBFormat) -> torch.Tensor:

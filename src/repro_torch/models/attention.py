@@ -24,7 +24,8 @@ import torch
 
 from repro_torch.core.quant import QuantDBBWeight, dequantize_dbb
 from repro_torch.core.vdbb import DBBWeight, dbb_decode
-from repro_torch.models.common import Param, apply_linear, linear_def, rms_norm, rope
+from repro_torch.models.common import (Param, apply_linear, linear_def, rms_norm, rope, shard,
+                                       write_slot_)
 
 NEG_INF = -1e30
 _NO_POS = 2**31 - 1  # an unfilled ring slot: later than every query
@@ -41,15 +42,22 @@ def _attend(q, k, v, q_pos, k_pos, *, window: int = 0, kv_valid_len=None):
     (B,Sq,Kv,G,Dv)."""
     scale = _scale(q.shape[-1])
     s = torch.einsum("bqhgd,bkhd->bhgqk", q, k).float() * scale
+    s = shard(s, ("batch", "heads", None, "act_seq", None))
     mask = q_pos[:, None] >= k_pos[None, :]  # causal
     if window:
         mask &= q_pos[:, None] - k_pos[None, :] < window
     if kv_valid_len is not None:
         mask &= k_pos[None, :] < kv_valid_len
     s = s.masked_fill(~mask, NEG_INF)
-    p = torch.softmax(s, dim=-1).to(v.dtype)
-    return torch.einsum("bhgqk,bkhd->bqhgd", p, v)
+    p = shard(torch.softmax(s, dim=-1).to(v.dtype), ("batch", "heads", None, "act_seq", None))
+    return shard(torch.einsum("bhgqk,bkhd->bqhgd", p, v), ("batch", "act_seq", "heads", None, None))
 
+
+def _split(t, axis, *shape):
+    """A projection's (B, S, H·D) output as (B, S, H, D), its feature dim
+    first placed as ``axis`` (heads or kv) wants, so that the split keeps
+    whole heads on a rank."""
+    return shard(t, ("batch", "act_seq", axis)).reshape(*shape)
 
 def _cross_positions(sq: int, sk: int, device):
     """The reference's cross-attention positions: every query at 1, every
@@ -95,6 +103,13 @@ class GQAttention:
         return apply_linear(x, p[name], p.get(bias) if bias else None, aq=p.get(f"{name}_aq"),
                             name=name)
 
+    def _grouped(self, q, b):
+        """(B, 1, H, D) decode queries as (B, 1, kv, H / kv, D), the kv heads
+        placed first so that a split keeps whole groups on a rank."""
+        c = self.cfg
+        q = shard(q, ("batch", None, "kv", None))
+        return q.reshape(b, 1, c.num_kv_heads, c.num_heads // c.num_kv_heads, c.hd)
+
     # -------------------------------------------------------------- full
     def __call__(self, p, x, positions, memory=None):
         """Full-sequence forward. x: (B,S,d); a cross block takes K/V from
@@ -104,9 +119,9 @@ class GQAttention:
         b, s, _ = x.shape
         kv_src = memory if self.cross else x
         sk = kv_src.shape[1]
-        q = self._proj(p, x, "wq", "bq").reshape(b, s, c.num_heads, hd)
-        k = self._proj(p, kv_src, "wk", "bk").reshape(b, sk, c.num_kv_heads, hd)
-        v = self._proj(p, kv_src, "wv", "bv").reshape(b, sk, c.num_kv_heads, hd)
+        q = _split(self._proj(p, x, "wq", "bq"), "heads", b, s, c.num_heads, hd)
+        k = _split(self._proj(p, kv_src, "wk", "bk"), "kv", b, sk, c.num_kv_heads, hd)
+        v = _split(self._proj(p, kv_src, "wv", "bv"), "kv", b, sk, c.num_kv_heads, hd)
         if not self.cross:
             q = rope(q, positions, c.rope_theta)
             k = rope(k, positions, c.rope_theta)
@@ -115,6 +130,9 @@ class GQAttention:
         if g > 1:  # expand KV to the query heads before attention, as the reference
             k = torch.repeat_interleave(k, g, dim=2)
             v = torch.repeat_interleave(v, g, dim=2)
+        q = shard(q, ("batch", "act_seq", "heads", None))
+        k = shard(k, ("batch", "act_seq", "heads", None))
+        v = shard(v, ("batch", "act_seq", "heads", None))
         qg = q.reshape(b, s, c.num_heads, 1, hd)
         if self.cross:  # every query sees every memory slot
             qp, kp = _cross_positions(s, sk, x.device)
@@ -147,21 +165,21 @@ class GQAttention:
         hd = c.hd
         b = x.shape[0]
         if self.cross:  # K/V were computed at prefill: read, never written
-            q = self._proj(p, x, "wq", "bq")
-            qg = q.reshape(b, 1, c.num_kv_heads, c.num_heads // c.num_kv_heads, hd)
-            out = _attend(qg, cache["k"], cache["v"],
+            q = _split(self._proj(p, x, "wq", "bq"), "heads", b, 1, c.num_heads, hd)
+            out = _attend(self._grouped(q, b), cache["k"], cache["v"],
                           *_cross_positions(1, cache["k"].shape[1], x.device))
             return self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo"), cache
         posv = pos.reshape(1, 1).expand(b, 1)
-        q = rope(self._proj(p, x, "wq", "bq").reshape(b, 1, c.num_heads, hd), posv, c.rope_theta)
-        k_new = rope(self._proj(p, x, "wk", "bk").reshape(b, 1, c.num_kv_heads, hd), posv,
+        q = rope(_split(self._proj(p, x, "wq", "bq"), "heads", b, 1, c.num_heads, hd), posv,
+                 c.rope_theta)
+        k_new = rope(_split(self._proj(p, x, "wk", "bk"), "kv", b, 1, c.num_kv_heads, hd), posv,
                      c.rope_theta)
-        v_new = self._proj(p, x, "wv", "bv").reshape(b, 1, c.num_kv_heads, hd)
+        v_new = _split(self._proj(p, x, "wv", "bv"), "kv", b, 1, c.num_kv_heads, hd)
         cap = cache["k"].shape[1]
         slot = pos % cap if self.window else pos.clamp(max=cap - 1)
-        cache["k"].index_copy_(1, slot.reshape(1), k_new.to(cache["k"].dtype))
-        cache["v"].index_copy_(1, slot.reshape(1), v_new.to(cache["v"].dtype))
-        qg = q.reshape(b, 1, c.num_kv_heads, c.num_heads // c.num_kv_heads, hd)
+        write_slot_(cache["k"], slot.reshape(1), k_new)
+        write_slot_(cache["v"], slot.reshape(1), v_new)
+        qg = self._grouped(q, b)
         kpos = torch.arange(cap, dtype=torch.int64, device=x.device)
         if self.window:  # ring buffer: the absolute position of each slot
             base = pos - slot
@@ -214,7 +232,7 @@ class MLAttention:
             q = self._proj(p, rms_norm(self._proj(p, x, "wq_a"), p["q_norm"]), "wq_b")
         else:
             q = self._proj(p, x, "wq")
-        return q.reshape(b, s, c.num_heads, c.qk_nope_dim + c.qk_rope_dim)
+        return _split(q, "heads", b, s, c.num_heads, c.qk_nope_dim + c.qk_rope_dim)
 
     def _latent(self, p, x, positions):
         """The normed latent ``c_kv`` (B, S, r) and the roped ``k_rope``
@@ -239,11 +257,13 @@ class MLAttention:
         q_nope, q_rope = q[..., : c.qk_nope_dim], rope(q[..., c.qk_nope_dim:], positions,
                                                        c.rope_theta)
         c_kv, k_rope = self._latent(p, x, positions)
-        kv = self._proj(p, c_kv, "wkv_b").reshape(b, s, c.num_heads,
-                                                  c.qk_nope_dim + c.v_head_dim)
+        kv = _split(self._proj(p, c_kv, "wkv_b"), "heads", b, s, c.num_heads,
+                    c.qk_nope_dim + c.v_head_dim)
         k_nope, v = kv[..., : c.qk_nope_dim], kv[..., c.qk_nope_dim:]
         k = torch.cat([k_nope, k_rope.expand(b, s, c.num_heads, c.qk_rope_dim)], dim=-1)
-        qf = torch.cat([q_nope, q_rope], dim=-1).reshape(b, s, c.num_heads, 1, -1)
+        qf = shard(torch.cat([q_nope, q_rope], dim=-1), ("batch", "act_seq", "heads", None))
+        k = shard(k, ("batch", "act_seq", "heads", None))
+        qf = qf.reshape(b, s, c.num_heads, 1, -1)
         pos1 = positions[0] if positions.dim() == 2 else positions
         out = attend_chunked(qf, k, v, pos1, pos1, q_chunk=c.q_chunk)
         y = self._proj(p, out.reshape(b, s, c.num_heads * c.v_head_dim), "wo")
@@ -292,10 +312,11 @@ class MLAttention:
         c_kv, k_rope = self._latent(p, x, posv)
         cap = cache["c_kv"].shape[1]
         slot = pos.clamp(max=cap - 1).reshape(1)
-        cache["c_kv"].index_copy_(1, slot, c_kv.to(cache["c_kv"].dtype))
-        cache["k_rope"].index_copy_(1, slot, k_rope[:, :, 0].to(cache["k_rope"].dtype))
+        write_slot_(cache["c_kv"], slot, c_kv)
+        write_slot_(cache["k_rope"], slot, k_rope[:, :, 0])
         w_uk, w_uv = absorbed if absorbed is not None else self.absorbed(p["wkv_b"], dt)
-        ckv, krp = cache["c_kv"].to(dt), cache["k_rope"].to(dt)
+        ckv = shard(cache["c_kv"].to(dt), ("batch", "cache_seq", None))
+        krp = cache["k_rope"].to(dt)
         q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk.to(dt))
         s_lat = torch.einsum("bqhr,bsr->bhqs", q_c, ckv)
         s_rope = torch.einsum("bqhp,bsp->bhqs", q_rope, krp)

@@ -19,7 +19,7 @@ import torch
 
 from repro_torch.core.act_sparsity import act_scope
 from repro_torch.core.quant import quantize
-from repro_torch.models.common import Param, apply_linear, is_quantized, linear_def
+from repro_torch.models.common import Param, apply_linear, is_quantized, linear_def, shard
 
 
 def _in(dtype, value: float) -> float:
@@ -73,6 +73,7 @@ class DenseMLP:
             up = silu(gate) * up
         else:
             up = gelu(up)
+        up = shard(up, ("batch", None, "mlp"))
         aq_down = p.get("w_down_aq")
         if is_quantized(p["w_down"]) and aq_down is not None:
             up = quantize(up, aq_down)  # int8 codes straight into the down GEMM
@@ -148,7 +149,7 @@ class MoEMLP:
         if self.cfg.num_shared_experts:
             with act_scope("shared"):
                 y = y + self._shared()(p["shared"], x)
-        return y
+        return shard(y, ("batch", "seq", "embed"))
 
     def _probs(self, p, x):
         """The router's fp32 probabilities over the experts."""
@@ -169,8 +170,13 @@ class MoEMLP:
         b, s, dm = x.shape
         e = c.num_experts
         cap = max(1, int(s * c.top_k * c.moe_capacity_factor) // e)
+        # the dispatch gathers along seq: leave the sequence-parallel residual
+        x = shard(x, ("batch", None, "embed"))
         gates, idx = top_cap(self._probs(p, x).transpose(1, 2), cap)  # (b, E, cap)
+        idx = shard(idx, ("batch", "experts", None))
+        gates = shard(gates, ("batch", "experts", None))
         disp = x[torch.arange(b, device=x.device)[:, None, None], idx]  # (b, E, cap, d)
+        disp = shard(disp, ("batch", "experts", None, None))
         out = self._experts(p, disp.transpose(0, 1).reshape(e, b * cap, dm))
         out = out.reshape(e, b, cap, dm).transpose(0, 1) * gates[..., None].to(x.dtype)
         return combine(out, idx, s)
@@ -183,7 +189,8 @@ class MoEMLP:
         xf = x.reshape(t, dm)
         cap = max(1, int(t * c.top_k * c.moe_capacity_factor) // e)
         gates, idx = top_cap(self._probs(p, xf).T, cap)  # (E, cap)
-        disp = xf.index_select(0, idx.reshape(-1)).reshape(e, cap, dm)
+        disp = shard(xf.index_select(0, idx.reshape(-1)).reshape(e, cap, dm),
+                     ("experts", None, None))
         out = self._experts(p, disp) * gates[..., None].to(x.dtype)
         return combine(out, idx, t).reshape(b, s, dm)
 

@@ -49,15 +49,18 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor
 
 from repro_torch.core.act_sparsity import act_scope, collect_activations, collecting
 from repro_torch.core.quant import QMAX, QuantDBBWeight, as_f32, quantize_dbb
 from repro_torch.core.sparse_linear import PruneSchedule, scheduled_fmt
 from repro_torch.core.vdbb import DBBWeight, dbb_encode, dbb_mask
 from repro_torch.models.attention import GQAttention, MLAttention
-from repro_torch.models.common import (Param, apply_linear, dbb_leaves, init_params,
-                                       layer_norm, rms_norm, sharded_embed_lookup, stage_linear,
-                                       tree_get, tree_set, tree_slice, tree_unstack)
+from repro_torch.models.common import (Param, abstract_params, apply_linear,
+                                       constrain_shards_, dbb_leaves, distribute_tree,
+                                       init_params, layer_norm, param_pspecs, rms_norm, shard,
+                                       sharded_embed_lookup, stage_linear, tree_get, tree_set,
+                                       tree_slice, tree_unstack)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import DenseMLP, MoEMLP
 from repro_torch.models.recurrent import RGLRUBlock, RWKV6Block
@@ -75,6 +78,7 @@ def check_plannable(cfg: ModelConfig) -> None:
 
 
 REMAT = ("none", "full", "dots")
+RESID = ("batch", "seq", "embed")  # the residual stream's logical axes
 # the products without batch dimensions: what ``x @ w`` of a projection lowers to
 _DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
@@ -170,18 +174,48 @@ class LM(nn.Module):
     def defs(self):
         return lm_defs(self.cfg)
 
+    def abstract(self) -> dict:
+        """The parameter tree as ``meta`` tensors (nothing allocated)."""
+        return abstract_params(self.defs(), self.cfg.param_dtype)
+
+    def pspecs(self, rules: dict) -> dict:
+        """The partition spec of every parameter under ``rules``."""
+        return param_pspecs(self.defs(), rules)
+
     # ------------------------------------------------------------ state
-    def init(self, generator: torch.Generator, device, *, compress: bool = False) -> "LM":
+    def init(self, generator: torch.Generator, device, *, compress: bool = False, mesh=None,
+             rules: Optional[dict] = None) -> "LM":
         """Seeded weights from ``generator``, drawn on ``device`` (the
         generator's own) in the config's param dtype. With ``compress`` every
         DBB-tagged leaf is encoded as soon as it is drawn, so the dense tree
-        never exists whole. In place."""
-        fn = None
-        if compress and self.cfg.dbb is not None and self.cfg.serve_compressed:
-            def fn(path, p, w):
-                return self._encode(w, p.dbb) if p.dbb is not None else w
+        never exists whole. With a ``mesh`` and ``rules`` each leaf is
+        distributed as soon as it is drawn (every rank draws the same leaf
+        and keeps its shard) by :meth:`pspecs`, or :meth:`compressed_pspecs`
+        with ``compress``. In place."""
+        enc = compress and self.cfg.dbb is not None and self.cfg.serve_compressed
+        specs = None
+        if mesh is not None:
+            specs = (self.compressed_pspecs if enc else self.pspecs)(rules)
+
+        def fn(path, p, w):
+            if enc and p.dbb is not None:
+                w = self._encode(w, p.dbb)
+            return w if specs is None else distribute_tree(w, tree_get(specs, path), mesh)
+
         self.params = init_params(self.defs(), generator, self.cfg.param_dtype, device,
-                                  leaf_fn=fn)
+                                  leaf_fn=fn if enc or specs is not None else None)
+        return self._absorb()
+
+    def distribute(self, mesh, rules: dict, *, local: bool = False) -> "LM":
+        """In place: the held tree (every rank holding the same) distributed
+        over ``mesh`` by :meth:`pspecs`, a compressed leaf's values and
+        indices by :meth:`compressed_pspecs`; each rank keeps its shard.
+        With ``local`` the tree already holds this rank's shards and each is
+        wrapped as it is (no copy: on a one-rank mesh, the model itself)."""
+        specs = self.compressed_pspecs(rules) if any(
+            isinstance(tree_get(self.params, path), DBBWeight)
+            for path, _ in dbb_leaves(self.defs())) else self.pspecs(rules)
+        self.params = distribute_tree(self.params, specs, mesh, local=local)
         return self._absorb()
 
     def load_params(self, tree: dict) -> "LM":
@@ -242,7 +276,7 @@ class LM(nn.Module):
                 raise ValueError(f"{c.name}: {nv} vision embeddings do not fit a prompt of "
                                  f"{h.shape[1]} tokens")
             h = torch.cat([vision_embeds.to(h.device, c.compute_dtype), h[:, nv:]], dim=1)
-        return h
+        return shard(h, ("batch", "seq", "embed"))
 
     def _logits(self, x, params=None):
         c = self.cfg
@@ -253,7 +287,9 @@ class LM(nn.Module):
             logits = apply_linear(x, params["lm_head"], name="lm_head")
         if c.logit_softcap:  # tanh(l / cap) * cap, each op rounding in l's dtype
             logits = torch.tanh(logits / as_f32(c.logit_softcap, x.device)) * c.logit_softcap
-        return logits
+        # 'seq' (SP) and 'vocab' both map to 'model': logits keep the vocab
+        # shard and replicate seq
+        return shard(logits, ("batch", None, "vocab"))
 
     # ------------------------------------------------------------ blocks
     def _apply_block(self, kind, p, x, positions, memory=None):
@@ -264,21 +300,21 @@ class LM(nn.Module):
         if kind == "rwkv":  # no act scope of its own, as the reference
             mixer, zero = self._mixer(kind), x.new_zeros((x.shape[0], x.shape[-1]))
             y, cache = mixer.time_mix(p["mixer"]["tm"], h, zero)
-            x = x + y
+            x = shard(x + y, RESID)
             y2, cm_shift = mixer.channel_mix(p["mixer"]["cm"], self._apply_norm(p["norm2"], x), zero)
-            return x + y2, {**cache, "cm_shift": cm_shift}
+            return shard(x + y2, RESID), {**cache, "cm_shift": cm_shift}
         with act_scope("mixer"):
             y, cache = self._mixer(kind)(p["mixer"], h, positions)
-        x = x + y
+        x = shard(x + y, RESID)
         if self.cfg.cross_attn:
             with act_scope("cross"):
                 y, cross = GQAttention(self.cfg, cross=True)(
                     p["cross"], self._apply_norm(p["norm_x"], x), positions, memory=memory)
-            x = x + y
+            x = shard(x + y, RESID)
             cache = {"self": cache, "cross": cross}
         with act_scope("mlp"):
             y2 = self._mlp()(p["mlp"], self._apply_norm(p["norm2"], x))
-        return x + y2, cache
+        return shard(x + y2, RESID), cache
 
     def _apply_block_decode(self, kind, p, x, cache, pos, absorbed=None):
         """One block's decode step; ``absorbed``: an MLA block's decoded
@@ -413,15 +449,16 @@ class LM(nn.Module):
         return loss, {"loss": loss, "nll_mean": loss}
 
     # ------------------------------------------------------------- cache
-    def init_cache(self, batch_size: int, max_len: int):
+    def init_cache(self, batch_size: int, max_len: int, device=None):
         """Zero caches, stacked over groups for the pattern's blocks: K/V
         (G, B, cap, kv, hd), ``cap`` being ``max_len`` or a ``local``
         block's window (a ring); an MLA block's ``c_kv`` (G, B, max_len, r)
         and ``k_rope`` (G, B, max_len, qk_rope_dim); a recurrent block's
         fixed-size state; with cross-attention an attention block's is
-        ``{"self": …, "cross": K/V of cross_len slots}``."""
+        ``{"self": …, "cross": K/V of cross_len slots}``. On ``device``,
+        by default the model's."""
         c = self.cfg
-        dt, dev = c.compute_dtype, self.device
+        dt, dev = c.compute_dtype, (self.device if device is None else device)
 
         def block(kind):
             own = self._mixer(kind).init_cache(batch_size, max_len, dt, dev)
@@ -435,6 +472,40 @@ class LM(nn.Module):
         if c.tail_pattern:
             out["tail"] = {f"t{i}": block(k) for i, k in enumerate(c.tail_pattern)}
         return out
+
+    def cache_abstract(self, batch_size: int, max_len: int) -> dict:
+        """:meth:`init_cache`'s tree as ``meta`` tensors."""
+        return self.init_cache(batch_size, max_len, device="meta")
+
+    _CACHE_AXES = {
+        "k": ("batch", "cache_seq", "kv", None),
+        "v": ("batch", "cache_seq", "kv", None),
+        "c_kv": ("batch", "cache_seq", None),
+        "k_rope": ("batch", "cache_seq", None),
+        "h": ("batch", "mlp"),
+        "conv": ("batch", None, "mlp"),
+        "s": ("batch", None, None, None),
+        "shift": ("batch", None),
+        "cm_shift": ("batch", None),
+    }
+
+    def cache_pspecs(self, rules: dict) -> dict:
+        """The partition spec of every cache leaf, by its key
+        (``_CACHE_AXES``), a stacked leaf's leading group axis replicated."""
+        def spec(tree):
+            out = {}
+            for k, v in tree.items():
+                if isinstance(v, dict):
+                    out[k] = spec(v)
+                    continue
+                axes = self._CACHE_AXES[k]
+                if v.dim() == len(axes) + 1:  # stacked over layer groups
+                    axes = (None,) + axes
+                assert v.dim() == len(axes), (k, tuple(v.shape), axes)
+                out[k] = tuple(rules.get(a) for a in axes)
+            return out
+
+        return spec(self.cache_abstract(2, 4))
 
     def decode_step(self, cache, tokens, pos):
         """One-token decode: tokens (B, 1) ((B, 1, num_codebooks) for
@@ -478,6 +549,9 @@ class LM(nn.Module):
                 fmt = scheduled_fmt(pdef.dbb, step, schedule)
                 if fmt.is_dense:
                     continue  # nnz == bz keeps every entry
+                if isinstance(w, DTensor):
+                    constrain_shards_(w, fmt)
+                    continue
                 for sl in w.view(-1, *w.shape[-2:]):
                     sl.masked_fill_(~dbb_mask(sl, fmt), 0)
         return self._absorb()
@@ -487,6 +561,39 @@ class LM(nn.Module):
         if not isinstance(w, torch.Tensor) or w.dim() > 3:
             return w
         return dbb_encode(w, fmt, prune=True)
+
+    def compressed_abstract(self) -> dict:
+        """:meth:`abstract` as :meth:`compress` leaves it: every DBB leaf of
+        at most 3 dims a :class:`DBBWeight` of ``meta`` values ((L,) nb,
+        nnz, N) and int8 indices ((L,) nb, nnz, N / group)."""
+        tree = self.abstract()
+        for path, pdef in dbb_leaves(self.defs()):
+            if len(pdef.shape) > 3:
+                continue
+            fmt, lead, (k, n) = pdef.dbb, pdef.shape[:-2], pdef.shape[-2:]
+            mid = (k // fmt.bz, fmt.nnz)
+            w = tree_get(tree, path)
+            dw = DBBWeight(torch.empty(lead + mid + (n,), dtype=w.dtype, device="meta"),
+                           torch.empty(lead + mid + (n // fmt.group_size(n),),
+                                       dtype=torch.int8, device="meta"), fmt, (k, n))
+            tree = tree_set(tree, path, dw)
+        return tree
+
+    def compressed_pspecs(self, rules: dict) -> dict:
+        """:meth:`pspecs` matching :meth:`compress`'s tree: a compressed
+        leaf's specs as a :class:`DBBWeight` of specs, values ((L,) K, None,
+        N) and indices ((L,) K, None, None), the blocks taking the K axis's
+        spec, as the reference's."""
+        specs = self.pspecs(rules)
+        for path, pdef in dbb_leaves(self.defs()):
+            if len(pdef.shape) > 3:
+                continue
+            *lead, k_ax, n_ax = tree_get(specs, path)
+            lead = tuple(lead)
+            dw = DBBWeight(lead + (k_ax, None, n_ax), lead + (k_ax, None, None), pdef.dbb,
+                           pdef.shape[-2:])
+            specs = tree_set(specs, path, dw)
+        return specs
 
     def compress(self) -> "LM":
         """In place: every DBB-tagged weight becomes a compressed DBBWeight

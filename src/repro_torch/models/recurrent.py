@@ -33,7 +33,7 @@ import dataclasses
 
 import torch
 
-from repro_torch.models.common import Param, apply_linear, linear_def
+from repro_torch.models.common import Param, apply_linear, linear_def, shard
 from repro_torch.models.mlp import gelu, sigmoid, silu
 
 _C_RGLRU = 8.0  # Griffin's fixed recurrence sharpness
@@ -103,7 +103,7 @@ class RGLRUBlock:
         """Full sequence. x: (B, S, d) -> (y, {"h": (B, d_rnn) fp32, "conv":
         the conv's last W - 1 inputs})."""
         c = self.cfg
-        u_in = apply_linear(x, p["w_x"])
+        u_in = shard(apply_linear(x, p["w_x"]), ("batch", None, "mlp"))
         u = causal_conv1d(u_in, p["conv_k"])
         a, bx = self._gates(p, u)
         h = scan_linear(a, bx).to(x.dtype)
@@ -253,7 +253,7 @@ class RWKV6Block:
         xk = x + xx * p["mu_k"].to(x.dtype)
         xr = x + xx * p["mu_r"].to(x.dtype)
         k = torch.relu(apply_linear(xk, p["w_k"]))
-        k = k * k
+        k = shard(k * k, ("batch", None, "mlp"))
         return sigmoid(apply_linear(xr, p["w_r"])) * apply_linear(k, p["w_v"])
 
     # ------------------------------------------------------------ caches

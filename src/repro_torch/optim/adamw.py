@@ -15,6 +15,14 @@ slice by slice along its leading axis, each elementwise step in the
 reference's order with one rounding each, so the temporaries stay one
 slice wide: a literal port of the reference's ``upd`` would hold about six
 fp32 copies of the largest leaf at once.
+
+On DTensor parameters (a mesh, ``models/common.py:distribute_tree``) the
+state takes each parameter's placements; a gradient is redistributed to
+its parameter's placements (a pending sum reduced), and the update then
+runs elementwise on every rank's local shard, in the same order of
+roundings. The global norm reduces each leaf's sum of squares across the
+shards that split it, so a replicated shard counts once; the error
+feedback's scale is the whole leaf's maximum across its shards.
 """
 from __future__ import annotations
 
@@ -23,6 +31,7 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial
 
 from repro_torch.checkpoint.store import flatten
 
@@ -83,7 +92,7 @@ def init_state(params, cfg: OptConfig) -> dict:
     def zeros(tree):
         if isinstance(tree, dict):
             return {k: zeros(v) for k, v in tree.items()}
-        return torch.zeros(tree.shape, dtype=torch.float32, device=tree.device)
+        return torch.zeros_like(tree, dtype=torch.float32)  # a DTensor keeps its placements
 
     device = _leaves(params)[0].device
     st = {"m": zeros(params), "v": zeros(params),
@@ -107,11 +116,27 @@ def _slices(x: torch.Tensor) -> list:
 
 
 def _global_norm(grads: list) -> torch.Tensor:
-    """sqrt of the fp32 sum of squares, leaf by leaf in the given order."""
+    """sqrt of the fp32 sum of squares, leaf by leaf in the given order
+    (slice by slice within a stacked leaf); a DTensor leaf's sum is reduced
+    across the shards that split it."""
     total = 0
     for g in grads:
-        total = total + sum(s.float().square().sum() for s in _slices(g))
+        leaf = sum(s.float().square().sum() for s in _slices(g))
+        total = total + (leaf.full_tensor() if isinstance(leaf, DTensor) else leaf)
     return torch.sqrt(total)
+
+
+def _local(x):
+    return x.to_local() if isinstance(x, DTensor) else x
+
+
+def _leaf_max(x: torch.Tensor, like) -> torch.Tensor:
+    """The maximum of local ``x`` across the shards of DTensor ``like``."""
+    if not isinstance(like, DTensor):
+        return x
+    mesh = like.device_mesh
+    return DTensor.from_local(x, mesh, [Partial("max")] * mesh.ndim,
+                              run_check=False).full_tensor()
 
 
 def _compress_ef(g: torch.Tensor, ef: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -141,16 +166,21 @@ def apply_updates(params, grads, state: dict, step, cfg: OptConfig):
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-12), max=1.0)
         lr = schedule(step, cfg)
         state["count"] += 1
-        cnt = state["count"].float()
+        cnt = _local(state["count"]).float()  # a restored count may be a replicated DTensor
         b1c = 1 - torch.pow(torch.tensor(cfg.b1, dtype=torch.float32, device=cnt.device), cnt)
         b2c = 1 - torch.pow(torch.tensor(cfg.b2, dtype=torch.float32, device=cnt.device), cnt)
         for p, g, m, v, ma, ef in zip(flat_p, flat_g, flat_m, flat_v, flat_ma, flat_ef):
             decay = p.dim() >= 2  # decoupled weight decay on matrices only
+            like = p
+            if isinstance(p, DTensor):  # the update runs on each rank's shard
+                if isinstance(g, DTensor):
+                    g = g.redistribute(p.device_mesh, p.placements)
+                p, g, m, v, ma, ef = map(_local, (p, g, m, v, ma, ef))
             gsl, masters = _slices(g), (None if ma is None else _slices(ma))
             if ef is not None:  # the int8 scale is the whole leaf's: find it first
                 efs = _slices(ef)
-                amax = torch.stack([(gi.float() * scale + e).abs().max()
-                                    for gi, e in zip(gsl, efs)]).max()
+                amax = _leaf_max(torch.stack([(gi.float() * scale + e).abs().max()
+                                              for gi, e in zip(gsl, efs)]).max(), like)
                 ef_scale = torch.clamp(amax, min=1e-12) / 127.0
             for i, (ps, ms, vs) in enumerate(zip(_slices(p), _slices(m), _slices(v))):
                 gi = gsl[i].float() * scale

@@ -19,7 +19,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from repro_torch.checkpoint.store import flatten
+from repro_torch.checkpoint.store import flatten, full_tensor
 from repro_torch.core.sparse_linear import PruneSchedule
 from repro_torch.models.model import LM
 from repro_torch.optim.adamw import OptConfig, apply_updates
@@ -68,7 +68,7 @@ def make_train_step(model: LM, opt_cfg: OptConfig, schedule: Optional[PruneSched
         if model.cfg.dbb is not None:
             model.constrain(step, schedule)
         note("constrain")
-        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics = {k: full_tensor(v.detach()) for k, v in metrics.items()}
         return model.params, opt_state, {**metrics, **opt_metrics, "step": step}
 
     return train_step

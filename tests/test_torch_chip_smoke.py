@@ -576,7 +576,7 @@ def test_tuning_phase_is_in_the_phase_list(smoke):
     temporary autotune cache."""
     import inspect
 
-    assert " 13. tuning" in smoke.__doc__ and " 15. one JSON line" in smoke.__doc__
+    assert " 13. tuning" in smoke.__doc__ and " 16. one JSON line" in smoke.__doc__
     assert 'phase_done("13 tuning")' in inspect.getsource(smoke.run)
     assert "temporary_tune_cache()" in inspect.getsource(smoke.main)
 
@@ -733,3 +733,52 @@ def test_model_flops_counts_the_products_and_the_attention(smoke):
     assert lm_defs(cfg)["embed"].shape == (49152, 4608)
     want = 6 * (cfg.param_count() - embed) * tokens + 12 * 8 * seq * 36 * 128 * tokens
     assert smoke.model_flops(cfg, tokens, seq) == want
+
+
+def test_dist_phase_is_in_the_phase_list(smoke):
+    """Phase 15 (distribution on a one-rank mesh) is listed and timed after
+    training, and its sharded launches reach the kernels' line."""
+    import inspect
+
+    assert " 15. distribution on a one-rank" in smoke.__doc__
+    src = inspect.getsource(smoke.run)
+    assert src.index('phase_done("14 training and accounting")') < \
+        src.index('phase_done("15 distribution on a one-rank mesh")')
+    assert "distributed)" in src[src.index("kernels_line("):]
+
+
+def test_dist_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 15 on the CPU at the smoke configs, on a one-rank gloo world:
+    15a's 8 sharded decode steps (batch 2, a 16-token prompt) equal to the
+    unsharded ones bit for bit (and its ops counted, DTensor ops on the
+    sharded side only), 15b's sharded ``Trainer`` and its optimizer state
+    equal to the unsharded ones bit for bit, 15c's restore equal to what
+    was saved. The
+    plain versions count no launches; the CUDA memory calls are stubbed."""
+    import torch
+    import torch.distributed as dist
+
+    for name in ("empty_cache", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(smoke, "DIST_SMOKE", True)
+    monkeypatch.setattr(smoke, "DIST_DIR", tmp_path / "dist")
+    monkeypatch.setattr(smoke, "LM_BATCH", 2)
+    monkeypatch.setattr(smoke, "LM_PROMPT", 16)
+    rec = smoke.dist_phase(torch.device("cpu"))
+    assert not dist.is_initialized()  # the world is torn down
+    d = rec["decode"]
+    assert d["bit_equal_steps"] == smoke.DIST_STEPS and d["max_abs_diff"] == 0.0
+    assert d["launches"] == {"unsharded": 0, "sharded": 0, "want": 0}
+    ops = d["ops_per_step"]
+    assert ops["unsharded"]["dtensor_ops"] == 0 < ops["unsharded"]["ops"]
+    assert 0 < ops["sharded"]["dtensor_ops"] <= ops["sharded"]["ops"]
+    t = rec["train"]
+    assert t["bit_equal"] and t["max_param_diff"] == 0.0
+    gaps = t["state_gaps"]  # one rank on the CPU: the same state bit for bit
+    assert gaps["count"] == [smoke.DIST_TRAIN_STEPS] * 2
+    assert gaps["m"][0] == gaps["v"][0] == gaps["update"] == 0.0
+    assert len(t["losses"]["sharded"]) == smoke.DIST_TRAIN_STEPS
+    assert t["placements"] == ["(Replicate(), Replicate())"]  # one rank: a shard is the whole
+    r = rec["restore"]
+    assert r["bit_equal"] and r["placements_equal"] and r["step"] == smoke.DIST_TRAIN_STEPS
+    assert not (tmp_path / "dist" / "ckpt").exists()

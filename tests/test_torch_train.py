@@ -572,14 +572,20 @@ def test_loss_decreases_with_dbb_constraint():
 # ---------------------------------------------------------------- launcher
 
 
-def test_launcher_trains_on_the_cpu(capsys):
+def test_launcher_trains_on_the_cpu(capsys, monkeypatch):
     history = launch_train.main(["--arch", "codeqwen1.5-7b", "--smoke", "--steps", "3",
                                  "--device", "cpu", "--seq-len", "32", "--global-batch", "2"])
     assert [s for s, _ in history] == [0, 2]
     assert "loss:" in capsys.readouterr().out
-    for flag in ("--distributed", "--multi-pod"):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            launch_train.main(["--arch", "codeqwen1.5-7b", "--smoke", flag, "--device", "cpu"])
+    # the mesh needs torchrun's world (tests/test_torch_distributed.py runs one)
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(RuntimeError, match="torchrun"):
+        launch_train.main(["--arch", "codeqwen1.5-7b", "--smoke", "--distributed", "--device",
+                           "cpu"])
+    with pytest.raises(ValueError, match="--distributed"):
+        launch_train.main(["--arch", "codeqwen1.5-7b", "--smoke", "--multi-pod", "--device",
+                           "cpu"])
 
 
 def test_launcher_needs_a_card_unless_asked_for_the_cpu(monkeypatch):
