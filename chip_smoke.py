@@ -306,7 +306,28 @@ Phases, each of which fails the run:
         unsharded run's, relative;
      c. 15b's sharded parameters saved and restored with ``shardings=``,
         equal bit for bit;
- 16. one JSON line of the six kernels (launches, errors, times, bounds).
+ 16. the mesh (phase 16):
+     a. data-parallel serving under one controller: sparse-cnn-s (shared
+        patterns) through ``CNNServer(mesh=make_local_mesh((2, 1), ("data",
+        "model"), [cuda:0, cuda:0]))``, two replicas of ``plan_set(dp=2)``
+        on the card, each bucket split 2 ways; 256 Poisson requests each
+        way in turns (one device, mesh, mesh, one device) and the ragged 5;
+        every logit
+        equal to the one-device plan set's bit for bit, no capture after
+        warmup, each replica frozen to its bucket's launch choices; p50,
+        p99 and images/s both ways; the kernels' launches from 0 just before
+        the mesh server is built (captured, and replayed);
+     b. the dry run (``repro_torch.launch.dryrun``), one process a cell, all
+        at once: starcoder2-7b (context) prefill_32k and decode_32k and
+        qwen2-72b (q-sharded) train_4k on a fake (16, 16) world, qwen2-72b
+        train_4k on (2, 16, 16); each ``ok`` with collectives, and rank 0's
+        argument bytes equal to the specs' count; the records logged
+        (counts and host seconds, no device time);
+     c. 15a's decode in starcoder2-7b's context mode at tp 16 on the
+        one-rank mesh: every attention block through the context decode,
+        whose combine over one rank is the one-device path; the logits equal
+        the unsharded decode's bit for bit;
+ 17. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -3065,22 +3086,23 @@ def count_ops(step) -> dict:
     return {"ops": c.ops, "dtensor_ops": c.dtensor}
 
 
-def dist_decode(dev, mesh) -> dict:
+def dist_decode(dev, mesh, tp: int = 1) -> dict:
     """15a: ``DIST_ARCH`` at full width and depth, compressed. One prefill,
     then ``DIST_STEPS`` eager greedy decode steps unsharded and as many on
     the model's own tensors wrapped as DTensors on the mesh
     (``LM.distribute(local=True)``: no second copy) under the decode
-    rules, each from its own copy of the prefill's cache. Gates: the
-    logits equal bit for bit at every step (the same kernel at the same
-    shapes on one rank) and the bf16 tc kernel's launches, counted inside
-    ``local_map``, equal the unsharded run's (on a card: a decode step's
-    projections a step)."""
+    rules at tensor-parallel degree ``tp`` (16c: 16, starcoder2-7b's
+    context mode, the cache's sequence on 'model'), each from its own copy
+    of the prefill's cache. Gates: the logits equal bit for bit at every
+    step (the same kernel at the same shapes on one rank) and the bf16 tc
+    kernel's launches, counted inside ``local_map``, equal the unsharded
+    run's (on a card: a decode step's projections a step)."""
     from repro_torch.checkpoint.store import full_tensor as full
     from repro_torch.kernels import build
     from repro_torch.launch import serve
     from repro_torch.models.common import distribute_tree, sharding_rules
     from repro_torch.models.model import LM
-    from repro_torch.sharding.rules import make_rules
+    from repro_torch.sharding.rules import attn_mode, make_rules
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3091,7 +3113,7 @@ def dist_decode(dev, mesh) -> dict:
         logits, prefill = model.forward(prompt["tokens"], return_cache=True)
     first = logits[:, -1:].argmax(-1)
     max_len = LM_PROMPT + DIST_STEPS
-    rules = make_rules(cfg, tp=1, mode="decode")
+    rules = make_rules(cfg, tp=tp, mode="decode")
     sharded = LM(cfg).load_params(model.params).distribute(mesh, rules, local=True)
     specs = model.cache_pspecs(rules)
 
@@ -3129,7 +3151,8 @@ def dist_decode(dev, mesh) -> dict:
         del c
     extra_ms = statistics.mean(dist_ms[1:]) - statistics.mean(plain_ms[1:])
     rec = dict(arch=cfg.name, params=cfg.param_count(), steps=DIST_STEPS, batch=LM_BATCH,
-               prompt=LM_PROMPT, bit_equal_steps=sum(same), ops_per_step=ops,
+               prompt=LM_PROMPT, attn_mode=attn_mode(cfg, tp), bit_equal_steps=sum(same),
+               ops_per_step=ops,
                extra_us_per_dtensor_op=1e3 * extra_ms / max(ops["sharded"]["dtensor_ops"], 1),
                max_abs_diff=max(float((a.float() - b.float()).abs().max())
                                 for a, b in zip(plain_lg, dist_lg)),
@@ -3139,11 +3162,11 @@ def dist_decode(dev, mesh) -> dict:
                                   "sharded": statistics.mean(dist_ms[1:])},
                first_step_ms={"unsharded": plain_ms[0], "sharded": dist_ms[0]})
     if not all(same):
-        raise AssertionError(f"15a: sharded decode logits differ from the unsharded at steps "
+        raise AssertionError(f"sharded decode logits differ from the unsharded at steps "
                              f"{[i for i, ok in enumerate(same) if not ok]}: {rec}")
     if plain_counts[name] != dist_counts[name] or dist_counts[name] != want or any(
             n for k, n in dist_counts.items() if k != name):
-        raise AssertionError(f"15a: launches {dist_counts} sharded, {plain_counts} unsharded; "
+        raise AssertionError(f"sharded decode launches {dist_counts}, {plain_counts} unsharded; "
                              f"want {want} of {name} each")
     return rec
 
@@ -3304,15 +3327,215 @@ def dist_phase(dev, smi: str = "") -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- phase 16
+
+MESH_SMOKE = False  # sparse-cnn-s's reduced config (a CPU rehearsal of this phase)
+MESH_DP = 2  # 16a: two replicas of the plan set, both on the one card
+MESH_MAX_BATCH = BATCH
+DRYRUN_CELLS = (("starcoder2-7b", "prefill_32k", False), ("starcoder2-7b", "decode_32k", False),
+                ("qwen2-72b", "train_4k", False), ("qwen2-72b", "train_4k", True))
+DRYRUN_DIR = ROOT / "build" / "dryrun_smoke"  # 16b's records (git-ignored)
+DRYRUN_TIMEOUT_S = 600
+
+
+def replay_launches(ps) -> dict:
+    """What a plan set's graph replays launched: each plan's (each
+    replica's) per-replay launches times its replays."""
+    out = {}
+    for plan in ps.plans.values():
+        for r in getattr(plan, "replicas", (plan,)):
+            for per in r.graph_launches.values():
+                for k, n in per.items():
+                    out[k] = out.get(k, 0) + n * r.replays
+    return out
+
+
+def mesh_serve(dev) -> dict:
+    """16a: sparse-cnn-s (shared patterns) served by ``CNNServer`` over a
+    ``make_local_mesh((2, 1), ("data", "model"))`` of the one card twice,
+    against the one-device server over the same plan set (``plan_set(dp=2)``,
+    buckets 2 … 64): 256 Poisson requests of 1–8 images at half the
+    capacity each way, in turns (one device, mesh, mesh, one device), then
+    the ragged 5 (padded to bucket 8, split 4 + 4).
+    Gates: every request's logits and the ragged batch's equal the
+    one-device plan set's bit for bit, no capture after warmup, every
+    kernel of the path launched. The launch counts are at 0 just before the
+    first mesh server is built: its replicas' captures are counted there,
+    and their replays from the graphs' per-replay counts."""
+    import numpy as np
+
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.launch.mesh import make_local_mesh
+    from repro_torch.launch.server import auto_rate
+    from repro_torch.models.plan import frozen_choices
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, x = serve.build_model("sparse-cnn-s", calib_batch=BATCH, device=dev, seed=0,
+                                 smoke=MESH_SMOKE)
+    ps = model.plan_set(max_batch=MESH_MAX_BATCH, dp=MESH_DP)
+    ps.warmup()
+    rng = np.random.default_rng(7)
+    pool = torch.randn(100, *x.shape[1:], generator=torch.Generator().manual_seed(2)).numpy()
+    sizes = rng.integers(1, 9, SERVER_REQUESTS)
+    starts = [int(rng.integers(0, pool.shape[0] - n + 1)) for n in sizes]
+    requests = [pool[a: a + n] for a, n in zip(starts, sizes)]
+    rate, _ = auto_rate(ps, x.shape[1:])
+    rate_rps = rate / float(sizes.mean())
+    mesh = make_local_mesh((MESH_DP, 1), ("data", "model"), [dev] * MESH_DP)
+    runs = []  # in turns: one device, mesh, mesh, one device
+    for i, name in enumerate(("one_device", "mesh", "mesh", "one_device")):
+        if i == 1:
+            build.reset_launches()
+        r = serve.serve_continuous(ps, requests, rate=rate_rps, max_wait_ms=5.0, seed=3,
+                                   mesh=mesh if name == "mesh" else None, log=log)
+        runs.append((name, r))
+        if i == 1:  # the first mesh run's launches, and the ragged 5 through its replicas
+            sharded = r["plan_set"]
+            captures = sharded.trace_count
+            ragged = sharded.serve(pool[:5])
+            if dev.type == "cuda":
+                torch.cuda.synchronize()
+            counts = build.launch_counts()
+            replayed = replay_launches(sharded)
+    for name, r in runs:
+        if r["failures"] or r["retraces_after_warmup"] or not r["summary"]["accounting_ok"]:
+            raise AssertionError(f"16a {name}: failures {r['failures']}, "
+                                 f"{r['retraces_after_warmup']} captures after warmup")
+        for i, (req, got) in enumerate(zip(requests, r["results"])):
+            check_exact(torch.from_numpy(got), torch.from_numpy(ps.serve(req)),
+                        f"16a {name} request {i}: against the one-device plan set")
+    check_exact(torch.from_numpy(ragged), torch.from_numpy(ps.serve(pool[:5])),
+                "16a ragged 5 over the mesh")
+    if sharded.trace_count != captures:
+        raise AssertionError("16a: the ragged batch captured a new graph")
+    frozen = all(frozen_choices(rep) == frozen_choices(ps.plans[b])
+                 for b, plan in sharded.plans.items() for rep in plan.replicas)
+    if not frozen:
+        raise AssertionError("16a: a replica took other launch choices than its bucket's plan")
+    path = ("im2col_conv", "vdbb_conv_tc", "vdbb_matmul_tc")
+    if dev.type == "cuda" and not all(counts[k] and replayed.get(k) for k in path):
+        raise AssertionError(f"16a: kernels of the path not launched: captured {counts}, "
+                             f"replayed {replayed}")
+    return {"arch": model.cfg.name, "dp": MESH_DP, "buckets": list(ps.buckets),
+            "requests": SERVER_REQUESTS, "images": int(sizes.sum()), "rate_rps": rate_rps,
+            "bit_equal_requests": {k: 2 * SERVER_REQUESTS for k in ("one_device", "mesh")},
+            "ragged_equal": True,
+            "captures": captures, "launches": {k: counts[k] for k in path},
+            "replay_launches": {k: replayed.get(k, 0) for k in path},
+            "summary": {k: [{m: r["summary"][m] for m in ("p50_us", "p99_us", "throughput_rps",
+                                                           "batches", "bucket_counts")}
+                             for name, r in runs if name == k] for k in ("one_device", "mesh")}}
+
+
+def dryrun_cells() -> dict:
+    """16b: the dry run's CLI in a process of its own per cell, all at once
+    (the fake world is a process's default group; the card stays hidden):
+    ``DRYRUN_CELLS`` on the (16, 16) mesh and one on (2, 16, 16). Gates:
+    each record ``ok``, with collectives, and every step's rank-0 argument
+    bytes (its DTensors' local shards) equal to the specs' count."""
+    from repro_torch.launch import dryrun
+
+    env = dict(os.environ, REPRO_DRYRUN_DIR=str(DRYRUN_DIR), CUDA_VISIBLE_DEVICES="",
+               OMP_NUM_THREADS="1", PYTHONPATH=str(SRC))
+    procs = []
+    t0 = time.time()
+    for arch, shape, mp in DRYRUN_CELLS:
+        args = ["--arch", arch, "--shape", shape, "--force"] + (["--multi-pod"] if mp else [])
+        procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
+                                      env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                      text=True))
+    out = {}
+    for (arch, shape, mp), proc in zip(DRYRUN_CELLS, procs):
+        try:
+            stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+        key = dryrun.cell_key(arch, shape, mp, 0.625)
+        path = DRYRUN_DIR / f"{key}.json"
+        if proc.returncode or not path.is_file():
+            raise AssertionError(f"16b {key}: exit {proc.returncode}\n{stdout[-2000:]}\n"
+                                 f"{stderr[-4000:]}")
+        rec = json.loads(path.read_text())
+        checked = rec["memory"]["argument_bytes_checked"]
+        if (rec["status"] != "ok" or not sum(rec["collectives"]["counts"].values())
+                or not rec["cost"]["flops"] or any(c["local"] != c["spec"] for c in checked)):
+            raise AssertionError(f"16b {key}: {json.dumps(rec)[:4000]}")
+        out[key] = {k: rec[k] for k in ("attn_mode", "mesh", "compile_s", "memory", "cost",
+                                        "collectives", "hlo_caveat")}
+        if "micro" in rec:
+            out[key]["micro_seconds"] = [rec["micro"][s]["seconds"] for s in ("l1", "l2")]
+    out["wall_s"] = time.time() - t0
+    return out
+
+
+def context_decode(dev, mesh) -> dict:
+    """16c: 15a's decode in starcoder2-7b's own mode at tp 16, context
+    parallel (the cache split along its sequence on 'model'), on the
+    one-rank mesh: every attention block takes the context decode
+    (``attention.decode_context``; counted here), whose combine over one
+    rank is the one-device path, so the logits equal the unsharded decode's
+    bit for bit."""
+    from repro_torch.models import attention
+
+    calls = [0]
+    inner = attention.decode_context
+
+    def counted(*a, **kw):
+        calls[0] += 1
+        return inner(*a, **kw)
+
+    attention.decode_context = counted
+    try:
+        rec = dist_decode(dev, mesh, tp=16)
+    finally:
+        attention.decode_context = inner
+    from repro_torch.configs import get_config, smoke_config
+
+    cfg = (smoke_config if DIST_SMOKE else get_config)(DIST_ARCH)
+    want = cfg.num_layers * (DIST_STEPS + 1)  # the timed steps and the one whose ops are counted
+    if rec["attn_mode"] != "context" or calls[0] != want:
+        raise AssertionError(f"16c: attention mode {rec['attn_mode']}, {calls[0]} context "
+                             f"decodes, want {want}")
+    rec["context_decodes"] = calls[0]
+    return rec
+
+
+def mesh_phase(dev, smi: str = "") -> dict:
+    """Phase 16: data-parallel CNN serving on a local mesh (16a), the dry
+    run on fake 256- and 512-rank worlds (16b) and the context-parallel
+    decode on the one-rank mesh (16c)."""
+    t0 = time.time()
+    rec = {"serve": mesh_serve(dev)}
+    log(f"[mesh 16a] {smi}: {json.dumps(rec['serve'])}")
+    rec["dryrun"] = dryrun_cells()
+    for key, r in rec["dryrun"].items():
+        log(f"[mesh 16b] {key}: {json.dumps(r)}")
+    with one_rank_world(dev) as mesh:
+        rec["context_decode"] = context_decode(dev, mesh)
+    log(f"[mesh 16c] {smi}: {json.dumps(rec['context_decode'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t0
+    log(f"[mesh] phase 16 {rec['seconds']:.1f} s")
+    return rec
+
+
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                 decoders, frontends, selfheal, training=None, distributed=None) -> list:
+                 decoders, frontends, selfheal, training=None, distributed=None,
+                 meshed=None) -> list:
     """The kernels' JSON line, one entry per counted kernel from phase 2's
     records (``recs``: {kernel: [record]}; the bf16 tc matmul's from 7a) and
     the main paths' launches (``counts``), each with the same kernel at the
     LM models' shapes beside it (phases 7–11's records), its launches on
     phase 12's path (``selfheal``), on phase 14c's (``training``: the
     stats forwards and ``sparse_matmul``; the trainer runs no kernel) and
-    on phase 15a's sharded decode (``distributed``, the bf16 tc matmul's)."""
+    on phase 15a's sharded decode (``distributed``, the bf16 tc matmul's)
+    and on phase 16a's mesh serving (``meshed``: counted at the replicas'
+    captures, and launched by their replays)."""
     from repro_torch.kernels import build
 
     line = []
@@ -3356,6 +3579,10 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
             "accounting_launches": None if training is None else (
                 sum(r["launches"].get(name, 0) for r in training["cnn"].values())
                 + training["sparse_matmul_launches"].get(name, 0)),
+            "mesh_serve_launches": None if meshed is None else (
+                meshed["serve"]["launches"].get(name, 0)),
+            "mesh_serve_replay_launches": None if meshed is None else (
+                meshed["serve"]["replay_launches"].get(name, 0)),
         })
         if name == "vdbb_matmul_tc_bf16":  # the LM shapes, decode and prefill rows
             line[-1].update(shapes=[f"{s}:{p}" for s, p in lm_recs["bf16"]],
@@ -3514,9 +3741,11 @@ def run() -> int:
     phase_done("14 training and accounting")
     distributed = dist_phase(dev, smi)
     phase_done("15 distribution on a one-rank mesh")
+    meshed = mesh_phase(dev, smi)
+    phase_done("16 mesh serving, the dry run and the context decode")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                        decoders, frontends, selfheal, training, distributed)
+                        decoders, frontends, selfheal, training, distributed, meshed)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -3536,6 +3765,7 @@ def run() -> int:
     log(f"[tuning] {json.dumps(tuning)}")
     log(f"[training] {json.dumps(training)}")
     log(f"[distributed] {json.dumps(distributed)}")
+    log(f"[meshed] {json.dumps(meshed)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

@@ -64,10 +64,11 @@ class DBBConv2d(DBBLayer):
 
     def make_plan(self, *, batch: int, h: int, w: int, relu: bool = False, out_scale=None,
                   fused: bool = False, tune: str = "cache", cache=None, top_k: int = 4,
-                  reps: int = 3):
+                  reps: int = 3, choice=None):
         """Stage this layer's serving step once for a (batch, h, w) input
         (port of the reference's ``make_plan``). The launch choice is
-        resolved here under ``tune`` (``autotune.tiles_for_conv``: the
+        ``choice`` when given (a data-parallel replica takes its bucket's),
+        else resolved here under ``tune`` (``autotune.tiles_for_conv``: the
         registry, then ``cache``, then a search for ``'search'``; the rule's
         otherwise, and always on the CPU) and frozen into the stage. Returns
         ``(run, tiles)``: ``run`` is ``x -> y`` with the layer's current
@@ -85,10 +86,12 @@ class DBBConv2d(DBBLayer):
         quant = isinstance(wt, QuantDBBWeight)
         fmt = wt.fmt if isinstance(wt, (DBBWeight, QuantDBBWeight)) else None
         dtype = torch.int8 if quant else (wt.dtype if fmt is None else wt.values.dtype)
-        choice = autotune.tiles_for_conv(
-            batch, h, w, self.in_channels, self.out_channels, self.kh, self.kw, fmt, dtype,
-            **geom, mode=tune, cache=cache, top_k=top_k, reps=reps,
-            device=(wt if fmt is None else wt.values).device)
+        autotune.check_mode(tune)
+        if choice is None:
+            choice = autotune.tiles_for_conv(
+                batch, h, w, self.in_channels, self.out_channels, self.kh, self.kw, fmt, dtype,
+                **geom, mode=tune, cache=cache, top_k=top_k, reps=reps,
+                device=(wt if fmt is None else wt.values).device)
         if fused and quant:
             return ops.stage_quant_conv(wt, self.kh, self.kw, aq, x_shape, bias=b, relu=relu,
                                         out_scale=out_scale, **geom, choice=choice)

@@ -143,12 +143,13 @@ class DBBLinear(DBBLayer):
 
     def make_plan(self, *, batch: int, relu: bool = False, out_scale=None,
                   fused: bool = False, tune: str = "cache", cache=None, top_k: int = 4,
-                  reps: int = 3):
+                  reps: int = 3, choice=None):
         """Stage this layer's serving step once for ``batch`` rows; the GEMM
         twin of ``DBBConv2d.make_plan``. The launch choice of a compressed
-        weight is resolved here under ``tune`` (``autotune.tiles_for_matmul``:
-        the registry, then ``cache``, then a search for ``'search'``; the
-        rule's otherwise, and always on the CPU) and frozen into the stage.
+        weight is ``choice`` when given, else resolved here under ``tune``
+        (``autotune.tiles_for_matmul``: the registry, then ``cache``, then a
+        search for ``'search'``; the rule's otherwise, and always on the
+        CPU), and frozen into the stage.
         Returns ``(run, tiles)``: with ``fused`` and a quantized weight,
         :meth:`quant_serve` staged through ``ops.stage_quant_matmul`` (tiles:
         the int8 tile plan); otherwise the per-layer product (+ bias), then
@@ -157,14 +158,16 @@ class DBBLinear(DBBLayer):
         from repro_torch.kernels import autotune
 
         wt, b, aq = self.w, self.b, self.aq
-        choice = {}
-        if isinstance(wt, (DBBWeight, QuantDBBWeight)):
+        if choice is not None:
+            autotune.check_mode(tune)
+        elif isinstance(wt, (DBBWeight, QuantDBBWeight)):
             dtype = torch.int8 if isinstance(wt, QuantDBBWeight) else wt.values.dtype
             choice = autotune.tiles_for_matmul(
                 batch, self.in_features, self.out_features, wt.fmt, dtype, mode=tune,
                 cache=cache, top_k=top_k, reps=reps, device=wt.values.device)
         else:
             autotune.check_mode(tune)
+            choice = {}
         if fused and isinstance(wt, QuantDBBWeight):
             return ops.stage_quant_matmul(wt, aq, batch, bias=b, relu=relu, out_scale=out_scale,
                                           choice=choice)

@@ -172,12 +172,14 @@ def serve(arch: str = "sparse-cnn-s", *, batches=(64,), requests: int = 8,
 def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.0,
                      max_queue=None, shed: str = "reject", deadline_s=None, seed: int = 0,
                      model=None, reload_every=None, ckpt_dir=None, faults=None,
-                     max_restarts: int = 5, tune: str = "cache", log=print) -> dict:
+                     max_restarts: int = 5, tune: str = "cache", mesh=None,
+                     log=print) -> dict:
     """Offer ``requests`` (numpy arrays of one or more images) to a
     :class:`~repro_torch.launch.server.CNNServer` over ``plan_set`` under a
     :class:`~repro_torch.launch.supervisor.Supervisor` (``max_restarts``
     crashes within its window open the breaker), at Poisson arrivals of
-    ``rate`` requests/s after its warmup; ``faults`` installs an injector.
+    ``rate`` requests/s after its warmup; ``faults`` installs an injector;
+    ``mesh`` serves data-parallel over a ``LocalMesh`` (``CNNServer(mesh=)``).
 
     ``reload_every`` (with ``model``, the quantized ``SparseCNN`` the plan
     set was built from) saves ``model.state()`` as a verified checkpoint at
@@ -202,8 +204,9 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
     ``torch.cuda.memory_reserved()`` once the batch in flight at the swap
     has ended, after a ``gc.collect()`` and an ``empty_cache()``: what the
     live plan sets hold), ``"last_restart"`` (the
-    supervisor's) and ``"checkpoint"`` (save ms and bytes, with
-    ``reload_every``)."""
+    supervisor's), ``"checkpoint"`` (save ms and bytes, with
+    ``reload_every``) and ``"plan_set"`` (the set the server ended on; with
+    ``mesh``, its replicas)."""
     import gc
     import shutil
     import tempfile
@@ -219,7 +222,7 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
         raise ValueError("reload_every needs the model the plan set was built from")
     arrivals = poisson_arrivals(rate, len(requests), seed=seed)
     srv = CNNServer(plan_set, max_wait_ms=max_wait_ms, max_queue=max_queue, shed=shed,
-                    faults=faults)
+                    faults=faults, mesh=mesh)
 
     retune = "cache" if tune == "search" else tune
 
@@ -307,7 +310,8 @@ def serve_continuous(plan_set, requests, *, rate: float, max_wait_ms: float = 5.
         f"captures after warmup {sup.retraces_after_warmup}, health {health['status']}")
     return {"results": results, "failures": failures, "refused": refused, "summary": s,
             "retraces_after_warmup": sup.retraces_after_warmup, "health": health,
-            "reloads": reloads, "last_restart": sup.last_restart, "checkpoint": checkpoint}
+            "reloads": reloads, "last_restart": sup.last_restart, "checkpoint": checkpoint,
+            "plan_set": sup.server.plan_set}
 
 
 # ---------------------------------------------------------------- the LM

@@ -65,6 +65,8 @@ from typing import Callable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from repro_torch.models.plan import shard_plan_set
+
 log = logging.getLogger(__name__)
 
 
@@ -321,11 +323,26 @@ class CNNServer:
     sticky CUDA error that poisons the process's context, and no fallback
     on the same card can serve after it. No serving entry point builds a
     fallback; a caller opts in.
+
+    ``mesh`` (a ``launch.mesh.LocalMesh`` of the devices this process
+    drives) serves data-parallel under one controller: the one queue,
+    batcher, clock, bisection and demotion above. Each coordinate of the
+    data axes (``cnn_serve_rules(multi_pod=)``: 'data', or 'pod' and
+    'data') holds a replica of the plan set on its device, bucket ``b``
+    staged at ``b / dp`` rows with bucket ``b``'s launch choices
+    (``plan.shard_plan_set``; build the set with ``plan_set(dp=)``); the
+    'model' axis only replicates, so it runs once. Each padded bucket is
+    split into ``dp`` slices, each launched on its replica, and the logits
+    gathered in order: equal bit for bit to the unsharded plan's. A replica
+    that raises raises from the bucket's dispatch, so the faults above
+    behave as on one device; ``fallback`` closures serve the whole bucket
+    on one device. ``swap_plan_set`` replicates and warms the new set.
     """
 
     def __init__(self, plan_set, *, max_batch: Optional[int] = None, max_wait_ms: float = 5.0,
-                 max_queue: Optional[int] = None, shed: str = "reject", validate: bool = True,
-                 check_outputs: bool = True, faults=None, fallback=None, demote_after: int = 2,
+                 mesh=None, multi_pod: bool = False, max_queue: Optional[int] = None,
+                 shed: str = "reject", validate: bool = True, check_outputs: bool = True,
+                 faults=None, fallback=None, demote_after: int = 2,
                  probe_every: Optional[int] = 4, on_crash=None,
                  clock: Callable[[], float] = time.monotonic):
         if shed not in ("reject", "block"):
@@ -336,6 +353,12 @@ class CNNServer:
             raise ValueError(f"demote_after must be >= 1, got {demote_after}")
         if probe_every is not None and probe_every < 2:
             raise ValueError(f"probe_every must be >= 2, got {probe_every}")
+        self._devices = None
+        if mesh is not None:
+            from repro_torch.sharding.rules import cnn_serve_rules
+
+            self._devices = mesh.along(cnn_serve_rules(multi_pod=multi_pod)["batch"])
+            plan_set = shard_plan_set(plan_set, self._devices)
         self.plan_set = plan_set
         self.max_batch = int(max_batch or plan_set.buckets[-1])
         self.max_wait_s = float(max_wait_ms) / 1e3
@@ -543,6 +566,10 @@ class CNNServer:
         The fallback closures and the demotion state belong to the old
         weights and are replaced. Refuses another bucket ladder or sample
         spec."""
+        if self._devices is not None:  # replicas of the new weights, warmed here
+            new_set = shard_plan_set(new_set, self._devices)
+            if new_set.sample_spec is not None:
+                new_set.warmup()
         if tuple(new_set.buckets) != tuple(self.plan_set.buckets):
             raise ValueError(f"swap buckets {new_set.buckets} != serving ladder "
                              f"{self.plan_set.buckets}")

@@ -18,14 +18,16 @@ only read by decode.
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.quant import QuantDBBWeight, dequantize_dbb
 from repro_torch.core.vdbb import DBBWeight, dbb_decode
-from repro_torch.models.common import (Param, apply_linear, linear_def, rms_norm, rope, shard,
-                                       write_slot_)
+from repro_torch.models.common import (Param, apply_linear, current_rules, linear_def, rms_norm,
+                                       rope, shard, spec_placements, write_slot_)
 
 NEG_INF = -1e30
 _NO_POS = 2**31 - 1  # an unfilled ring slot: later than every query
@@ -66,7 +68,7 @@ def _cross_positions(sq: int, sk: int, device):
             torch.zeros(sk, dtype=torch.int64, device=device))
 
 
-def attend_chunked(q, k, v, q_pos, k_pos, *, window=0, q_chunk=1024, kv_valid_len=None):
+def _chunked(q, k, v, q_pos, k_pos, *, window=0, q_chunk=1024, kv_valid_len=None):
     b, sq, kvh, g, d = q.shape
     if sq <= q_chunk:
         return _attend(q, k, v, q_pos, k_pos, window=window, kv_valid_len=kv_valid_len)
@@ -75,6 +77,154 @@ def attend_chunked(q, k, v, q_pos, k_pos, *, window=0, q_chunk=1024, kv_valid_le
         _attend(q[:, i: i + q_chunk], k, v, q_pos[i: i + q_chunk], k_pos, window=window,
                 kv_valid_len=kv_valid_len)
         for i in range(0, sq, q_chunk)], dim=1)
+
+
+def attend_chunked(q, k, v, q_pos, k_pos, *, window=0, q_chunk=1024, kv_valid_len=None):
+    """:func:`_attend` over q chunks of ``q_chunk`` queries. On DTensors
+    split by batch and heads (not along a sequence) each rank attends its
+    own heads of its own rows under ``local_map``: the same ops on local
+    tensors, and no DTensor-level einsum, whose strategy search flattens
+    the batch and head splits into strided shards (seconds an op on a 3-D
+    mesh). K and V take q's placements dim for dim, replicated where q
+    splits its group dim; their gradients there are partial sums."""
+    run = functools.partial(_chunked, q_pos=q_pos, k_pos=k_pos, window=window, q_chunk=q_chunk,
+                            kv_valid_len=kv_valid_len)
+    if not isinstance(q, DTensor) or any(
+            pl == Shard(1) for pl in (*q.placements, *getattr(k, "placements", ()))):
+        return run(q, k, v)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    q_pl = tuple(q.placements)
+    kv_pl = tuple(pl if pl in (Shard(0), Shard(2)) else Replicate() for pl in q_pl)
+    kv_grad = tuple(Partial() if pl == Shard(3) else kp for pl, kp in zip(q_pl, kv_pl))
+    fn = local_map(run, out_placements=(q_pl,),
+                   in_placements=(q_pl, kv_pl, kv_pl), in_grad_placements=(q_pl, kv_grad, kv_grad),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# Context parallelism: the sequence split over 'model' where no head count
+# divides it (``sharding/rules.py:attn_mode`` 'context')
+# ---------------------------------------------------------------------------
+
+
+def context_parallel(x, rule: str) -> bool:
+    """Whether attention on ``x`` runs context-parallel: ``x`` a DTensor
+    and the installed rules mapping ``rule`` ('act_seq' at train and
+    prefill, 'cache_seq' at decode) to a mesh axis. On a mesh whose axis
+    has one rank the same path runs and reduces to the one-device one."""
+    rules = current_rules()
+    return rules is not None and isinstance(x, DTensor) and rules.get(rule) is not None
+
+
+def _split_dims(placements, dim: int) -> list:
+    return [j for j, pl in enumerate(placements) if pl == Shard(dim)]
+
+
+def attend_context(q, k, v, positions, *, num_heads, num_kv_heads, hd, theta, window=0,
+                   q_chunk=1024):
+    """Full-sequence attention with the queries split along the sequence
+    ('act_seq' on the mesh). ``q`` (B, S, H·hd), ``k``/``v`` (B, S, kv·hd)
+    are the projections' DTensors. K and V are gathered whole along the
+    sequence (a rank's queries attend to every earlier key) and each rank
+    runs :func:`attend_chunked` on its own queries, at their own positions,
+    under ``local_map``: the head split and RoPE happen on local tensors, so
+    no DTensor view splits a head dim the mesh does not divide. Returns
+    ``(out, k, v)``: ``out`` (B, S, H·hd) split as ``q``; K and V (B, S,
+    kv, hd) roped and whole along the sequence, as a prefill's cache keeps
+    them. Gradients: ``q``'s split as ``q``; K's and V's partial sums over
+    the ranks that split the queries, which the gather's backward
+    reduce-scatters."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = q.device_mesh
+    batch = current_rules().get("batch")
+    q = shard(q, ("batch", "act_seq", None))
+    q_pl = tuple(q.placements)
+    kv_pl = spec_placements((batch, None, None), mesh, k.shape, uneven="replicate")
+    split = _split_dims(q_pl, 1)
+    kv_grad = tuple(Partial() if j in split else pl for j, pl in enumerate(kv_pl))
+    cache_pl = spec_placements((batch, None, None, None), mesh, k.shape + (1,),
+                               uneven="replicate")
+    s = q.shape[1]
+    pos1 = positions[0] if positions.dim() == 2 else positions
+
+    def local(ql, kl, vl):
+        b, sl = ql.shape[:2]
+        off = sum(mesh.get_local_rank(j) * sl for j in split)  # an even split: S % size == 0
+        qpos = pos1[off: off + sl].to(ql.device)
+        kpos = pos1.to(kl.device)
+        ql = ql.reshape(b, sl, num_heads, hd)
+        kl = kl.reshape(b, s, num_kv_heads, hd)
+        vl = vl.reshape(b, s, num_kv_heads, hd)
+        ql, kl = rope(ql, qpos, theta), rope(kl, kpos, theta)
+        kc, vc = kl, vl
+        g = num_heads // num_kv_heads
+        if g > 1:  # K/V to the query heads, as the one-device path
+            kl, vl = torch.repeat_interleave(kl, g, dim=2), torch.repeat_interleave(vl, g, dim=2)
+        out = attend_chunked(ql.reshape(b, sl, num_heads, 1, hd), kl, vl, qpos, kpos,
+                             window=window, q_chunk=q_chunk)
+        return out.reshape(b, sl, num_heads * hd), kc, vc
+
+    fn = local_map(local, out_placements=(q_pl, cache_pl, cache_pl),
+                   in_placements=(q_pl, kv_pl, kv_pl),
+                   in_grad_placements=(q_pl, kv_grad, kv_grad), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(q, k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl))
+
+
+def decode_context(qg, k, v, pos, *, window=0):
+    """One decode step's attention over a cache split along its sequence
+    ('cache_seq' on the mesh): ``qg`` (B, 1, kv, G, hd), the cache's ``k``
+    and ``v`` (B, cap, kv, hd) DTensors. Each rank scores its slice of the
+    cache; the partial maxima, the softmax sums and the weighted values
+    combine over the ranks that split the sequence (three all-reduces of
+    (B, kv, G)-sized and (B, 1, kv, G, hd) tensors; no rank gathers the
+    cache). With one rank along the split it is :func:`_attend` itself, bit
+    for bit. Returns (B, 1, kv, G, hd)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor.experimental import local_map
+
+    if window:
+        raise NotImplementedError("a windowed ring cache split along its sequence (local "
+                                  "attention) has no mesh path")
+    mesh = k.device_mesh
+    batch = current_rules().get("batch")
+    kv_pl = tuple(k.placements)
+    split = _split_dims(kv_pl, 1)
+    q_pl = spec_placements((batch, None, None, None, None), mesh, qg.shape, uneven="replicate")
+    cap = k.shape[1]
+    n = 1
+    for j in split:
+        n *= mesh.size(j)
+    if cap % n:
+        raise ValueError(f"a cache of {cap} slots does not split evenly over {n} ranks")
+
+    def reduce(t, op):
+        for j in split:
+            t = funcol.all_reduce(t, op, (mesh, j))
+        return t
+
+    def local(ql, kl, vl):
+        sl = kl.shape[1]
+        off = sum(mesh.get_local_rank(j) * sl for j in split)  # an even split: cap % n == 0
+        kpos = off + torch.arange(sl, dtype=torch.int64, device=kl.device)
+        p = pos.to(kl.device)
+        if n == 1:
+            return _attend(ql, kl, vl, p.reshape(1), kpos, kv_valid_len=p + 1)
+        sc = torch.einsum("bqhgd,bkhd->bhgqk", ql, kl).float() * _scale(ql.shape[-1])
+        sc = sc.masked_fill(~(kpos <= p), NEG_INF)  # causal, and the valid slots
+        top = reduce(sc.amax(dim=-1, keepdim=True), "max")
+        e = torch.exp(sc - top)
+        total = reduce(e.sum(dim=-1, keepdim=True), "sum")
+        part = torch.einsum("bhgqk,bkhd->bqhgd", (e / total).to(vl.dtype), vl)
+        return reduce(part.float(), "sum").to(vl.dtype)
+
+    fn = local_map(local, out_placements=(q_pl,), in_placements=(q_pl, kv_pl, kv_pl),
+                   device_mesh=mesh, redistribute_inputs=True)
+    return fn(qg, k, v)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -119,9 +269,16 @@ class GQAttention:
         b, s, _ = x.shape
         kv_src = memory if self.cross else x
         sk = kv_src.shape[1]
-        q = _split(self._proj(p, x, "wq", "bq"), "heads", b, s, c.num_heads, hd)
-        k = _split(self._proj(p, kv_src, "wk", "bk"), "kv", b, sk, c.num_kv_heads, hd)
-        v = _split(self._proj(p, kv_src, "wv", "bv"), "kv", b, sk, c.num_kv_heads, hd)
+        q, k, v = (self._proj(p, x, "wq", "bq"), self._proj(p, kv_src, "wk", "bk"),
+                   self._proj(p, kv_src, "wv", "bv"))
+        if not self.cross and context_parallel(q, "act_seq"):
+            out, k_cache, v_cache = attend_context(
+                q, k, v, positions, num_heads=c.num_heads, num_kv_heads=c.num_kv_heads, hd=hd,
+                theta=c.rope_theta, window=self.window, q_chunk=c.q_chunk)
+            return self._proj(p, out, "wo"), {"k": k_cache, "v": v_cache}
+        q = _split(q, "heads", b, s, c.num_heads, hd)
+        k = _split(k, "kv", b, sk, c.num_kv_heads, hd)
+        v = _split(v, "kv", b, sk, c.num_kv_heads, hd)
         if not self.cross:
             q = rope(q, positions, c.rope_theta)
             k = rope(k, positions, c.rope_theta)
@@ -166,8 +323,8 @@ class GQAttention:
         b = x.shape[0]
         if self.cross:  # K/V were computed at prefill: read, never written
             q = _split(self._proj(p, x, "wq", "bq"), "heads", b, 1, c.num_heads, hd)
-            out = _attend(self._grouped(q, b), cache["k"], cache["v"],
-                          *_cross_positions(1, cache["k"].shape[1], x.device))
+            out = attend_chunked(self._grouped(q, b), cache["k"], cache["v"],
+                                 *_cross_positions(1, cache["k"].shape[1], x.device))
             return self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo"), cache
         posv = pos.reshape(1, 1).expand(b, 1)
         q = rope(_split(self._proj(p, x, "wq", "bq"), "heads", b, 1, c.num_heads, hd), posv,
@@ -180,13 +337,16 @@ class GQAttention:
         write_slot_(cache["k"], slot.reshape(1), k_new)
         write_slot_(cache["v"], slot.reshape(1), v_new)
         qg = self._grouped(q, b)
+        if context_parallel(cache["k"], "cache_seq"):
+            out = decode_context(qg, cache["k"], cache["v"], pos, window=self.window)
+            return self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo"), cache
         kpos = torch.arange(cap, dtype=torch.int64, device=x.device)
         if self.window:  # ring buffer: the absolute position of each slot
             base = pos - slot
             kpos = torch.where(kpos <= slot, base + kpos, base - cap + kpos)
             kpos = torch.where(kpos < 0, torch.full_like(kpos, _NO_POS), kpos)
-        out = _attend(qg, cache["k"], cache["v"], pos.reshape(1), kpos, window=self.window,
-                      kv_valid_len=pos + 1)
+        out = attend_chunked(qg, cache["k"], cache["v"], pos.reshape(1), kpos, window=self.window,
+                             kv_valid_len=pos + 1)
         y = self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo")
         return y, cache
 

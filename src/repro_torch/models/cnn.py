@@ -170,7 +170,7 @@ class SparseCNN(nn.Module):
 
     # ------------------------------------------------- frozen serving plans
     def plan(self, *, batch: int, tune: str = "cache", cache=None, top_k: int = 4, reps: int = 3,
-             pool=None, graphs: bool = True):
+             pool=None, graphs: bool = True, choices=None):
         """Freeze a serving plan for request batch ``batch`` (port of the
         reference's ``plan``): the stages ``l0 … l{n-1}`` (each conv on the
         path :meth:`forward` takes for the current state, the fused int8
@@ -184,7 +184,9 @@ class SparseCNN(nn.Module):
         :class:`~repro_torch.models.plan.GraphPool`; :meth:`plan_set` shares
         one across its buckets). ``graphs=False`` stages the same chain to
         run eagerly on a card, each kernel launched by its wrapper
-        (:meth:`fallback_plan_set`)."""
+        (:meth:`fallback_plan_set`). ``choices`` ({stage: choice},
+        ``plan.frozen_choices`` of another plan) freezes each named stage to
+        that launch choice instead of resolving one."""
         from repro_torch.models.plan import PlanBuilder
 
         layers = self.layers()
@@ -197,32 +199,52 @@ class SparseCNN(nn.Module):
                          reps=reps,
                          sample_spec=((c.image_size, c.image_size, c.in_channels), "float32"),
                          device=head.w.device, pool=pool, graphs=graphs)
+        choices = choices or {}
         for i, m in enumerate(convs):
             out_scale = convs[i + 1].aq if fused and i + 1 < n else None
             pb.stage(f"l{i}", "conv", m.make_plan, batch=batch, h=h, w=w, relu=True,
-                     out_scale=out_scale, fused=fused)
+                     out_scale=out_scale, fused=fused, choice=choices.get(f"l{i}"))
             h, w = m.out_hw(h, w)
         pb.raw("gap", "pool", lambda x: x.mean(dim=(1, 2)))
-        pb.stage(f"l{n}", "linear", head.make_plan, batch=batch, fused=fused)
+        pb.stage(f"l{n}", "linear", head.make_plan, batch=batch, fused=fused,
+                 choice=choices.get(f"l{n}"))
         return pb.build()
 
-    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, tune: str = "cache",
-                 cache=None, top_k: int = 4, reps: int = 3, graphs: bool = True):
+    def plan_set(self, *, max_batch: Optional[int] = None, buckets=None, dp: int = 1,
+                 tune: str = "cache", cache=None, top_k: int = 4, reps: int = 3,
+                 graphs: bool = True):
         """Freeze a bucketed serving plan set: one :meth:`plan` per
-        batch-size bucket (``make_buckets(max_batch)`` by default), all
-        pinned to the same state, resolving their launch choices against one
-        parse of the autotune cache and, on a card, sharing one graph memory
-        pool. ``serve`` takes any batch size and, once every bucket is
-        warm, captures nothing new. ``tune``, ``graphs``: see :meth:`plan`."""
+        batch-size bucket (``make_buckets(max_batch, dp=dp)`` by default),
+        all pinned to the same state, resolving their launch choices against
+        one parse of the autotune cache and, on a card, sharing one graph
+        memory pool. ``dp`` (the data-parallel degree the set will be served
+        at, ``CNNServer(mesh=)``) makes every bucket a multiple of it, so a
+        padded batch splits evenly over a mesh's data axes; the set can
+        restage its chain at ``b / dp`` rows on another device for those
+        replicas (``plan.shard_plan_set``; a device other than the model's
+        gets a copy of the state). ``serve`` takes any batch size and, once
+        every bucket is warm, captures nothing new. ``tune``, ``graphs``:
+        see :meth:`plan`."""
         from repro_torch.models.plan import GraphPool, build_plan_set, resolve_tune_cache
 
         dev = self.layers()[-1].w.device
         cache = resolve_tune_cache(tune, cache, dev)  # one parse for all buckets
         pool = GraphPool() if graphs and dev.type == "cuda" else None
+        copies, pools = {dev: self}, {dev: pool}
+
+        def restage(rows, device, choices):
+            device = torch.device(device)
+            if device not in copies:  # the same state on another device
+                copies[device] = SparseCNN(self.cfg).load_state(_tree_to(self.state(), device))
+                pools[device] = GraphPool() if graphs and device.type == "cuda" else None
+            return copies[device].plan(batch=rows, tune=tune, cache=cache, top_k=top_k,
+                                       reps=reps, pool=pools[device], graphs=graphs,
+                                       choices=choices)
+
         return build_plan_set(self.cfg.name, self.state(),
                               lambda b: self.plan(batch=b, tune=tune, cache=cache, top_k=top_k,
                                                   reps=reps, pool=pool, graphs=graphs),
-                              max_batch=max_batch, buckets=buckets)
+                              max_batch=max_batch, buckets=buckets, dp=dp, restage=restage)
 
     def fallback_plan_set(self, primary, *, verify: bool = True) -> dict:
         """The serving tier's per-bucket degradation closures (port of the
@@ -306,3 +328,11 @@ class SparseCNN(nn.Module):
             else:
                 total += m.flops(batch)
         return total
+
+
+def _tree_to(tree, device):
+    """A state tree with every tensor copied to ``device``."""
+    from repro_torch.checkpoint.store import flatten, unflatten
+
+    return unflatten(tree, [x.to(device) if isinstance(x, torch.Tensor) else x
+                            for x in flatten(tree)[0]])

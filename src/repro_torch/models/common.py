@@ -366,17 +366,26 @@ def shard(x, axes: tuple):
 def write_slot_(buf: torch.Tensor, slot: torch.Tensor, new: torch.Tensor) -> None:
     """``buf[:, slot] = new`` along dim 1 (a cache's sequence), in place.
     On a DTensor cache every rank writes its own shard, ``new`` taken to the
-    cache's placements first; a cache split along its sequence is not
-    written this way."""
+    cache's placements first; on a cache split along its sequence the rank
+    whose slice holds ``slot`` writes it and every other rank writes back
+    what it holds (a masked write: nothing reads the slot on the host)."""
     if not isinstance(buf, DTensor):
         buf.index_copy_(1, slot, new.to(buf.dtype))
         return
     mesh = buf.device_mesh
-    if any(p == Shard(1) for p in buf.placements):
-        raise NotImplementedError("a decode step into a cache sharded along its sequence")
-    new = _replicated(new, mesh).redistribute(mesh, buf.placements).to_local()
+    seq = [j for j, pl in enumerate(buf.placements) if pl == Shard(1)]
+    want = tuple(Replicate() if j in seq else pl for j, pl in enumerate(buf.placements))
+    new = _replicated(new, mesh).redistribute(mesh, want).to_local()
     slot = slot.to_local() if isinstance(slot, DTensor) else slot
-    buf.to_local().index_copy_(1, slot, new.to(buf.dtype))
+    local = buf.to_local()
+    if not seq:
+        local.index_copy_(1, slot, new.to(buf.dtype))
+        return
+    sl = local.shape[1]
+    at = slot.to(local.device) - sum(mesh.get_local_rank(j) * sl for j in seq)
+    inside = ((at >= 0) & (at < sl)).reshape((1, -1) + (1,) * (local.dim() - 2))
+    at = at.clamp(0, sl - 1)
+    local.index_copy_(1, at, torch.where(inside, new.to(buf.dtype), local.index_select(1, at)))
 
 
 def _replicated(x, mesh) -> DTensor:
@@ -602,6 +611,55 @@ def _sharded_linear(x, w: DBBWeight):
     return fn(x, w.values, w.indices)
 
 
+def _dense_sharded_linear(x, w: DTensor):
+    """``x @ w`` for a dense weight on DTensors, each rank's product on its
+    own shards under ``local_map``, the layout chosen per mesh dim by the
+    weight's placement (rather than by DTensor's strategy search, which on
+    a 3-D mesh plans every candidate's redistribution and costs seconds an
+    op):
+      - ``Shard(1)``, N split (column-parallel): the input gathered there,
+        the output split along its last dim;
+      - ``Shard(0)``, K split: where the input is split along a leading
+        (batch) dim on the same mesh dim, the weight is gathered for the
+        product (training's FSDP over 'data'), its gradient a partial sum
+        that the gather's backward reduce-scatters; otherwise
+        row-parallel, the input split along its last dim to match and the
+        output ``Partial``;
+      - replicated: the input keeps a split of a leading dim, else it is
+        gathered (a pending sum reduced first)."""
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = w.device_mesh
+    x = _replicated(x, mesh)
+    last = x.dim() - 1
+    w_in, x_in, out_pl, x_grad, w_grad = [], [], [], [], []
+    for wp, xp in zip(w.placements, x.placements):
+        lead = isinstance(xp, Shard) and xp.dim != last
+        if wp == Shard(1):
+            layout = (wp, Replicate(), Shard(last), Partial(), wp)
+        elif wp == Shard(0) and lead:
+            layout = (Replicate(), xp, xp, xp, Partial())
+        elif wp == Shard(0):
+            layout = (wp, Shard(last), Partial(), Shard(last), wp)
+        elif isinstance(wp, Replicate):
+            keep = xp if lead else Replicate()
+            layout = (wp, keep, keep, keep, Partial() if lead else wp)
+        else:
+            raise ValueError(f"a dense weight placed {tuple(w.placements)}: a mesh dim may split "
+                             "K (dim 0) or N (dim 1)")
+        for acc, pl in zip((w_in, x_in, out_pl, x_grad, w_grad), layout):
+            acc.append(pl)
+
+    def local(xl, wl):
+        return xl @ wl.to(xl.dtype)
+
+    fn = local_map(local, out_placements=(tuple(out_pl),),
+                   in_placements=(tuple(x_in), tuple(w_in)),
+                   in_grad_placements=(tuple(x_grad), tuple(w_grad)), device_mesh=mesh,
+                   redistribute_inputs=True)
+    return fn(x, w)
+
+
 def _quant_linear(x: torch.Tensor, qw: QuantDBBWeight, aq) -> torch.Tensor:
     """INT8 matmul for a quantized compressed weight -> fp32. ``aq`` is the
     calibrated per-tensor activation scale (None: dynamic); an int8 ``x``
@@ -645,6 +703,8 @@ def apply_linear(x: torch.Tensor, w, bias=None, *, aq=None, name: str = "") -> t
             y = y.to(x.dtype)
     elif isinstance(w, DBBWeight):
         y = _compressed_linear(x, w)
+    elif isinstance(w, DTensor):
+        y = _dense_sharded_linear(x, w)
     else:
         y = x @ w.to(x.dtype)
     if bias is not None:

@@ -256,12 +256,16 @@ class ModelPlan:
         return {l.name: dict(l.tiles) for l in self.layers if l.tiles}
 
 
-def make_buckets(max_batch: int) -> Tuple[int, ...]:
-    """The serving bucket ladder: powers of two up to the first bucket
-    >= ``max_batch`` (``make_buckets(8) == make_buckets(5) == (1, 2, 4, 8)``)."""
+def make_buckets(max_batch: int, *, dp: int = 1) -> Tuple[int, ...]:
+    """The serving bucket ladder: ``dp``-multiple powers of two up to the
+    first bucket >= ``max_batch`` (``make_buckets(8) == make_buckets(5) ==
+    (1, 2, 4, 8)``, ``make_buckets(6, dp=2) == (2, 4, 8)``). Every bucket
+    divides evenly over ``dp`` data-parallel replicas."""
     if max_batch < 1:
         raise ValueError(f"max_batch must be >= 1, got {max_batch}")
-    out = [1]
+    if dp < 1:
+        raise ValueError(f"dp must be >= 1, got {dp}")
+    out = [dp]
     while out[-1] < max_batch:
         out.append(out[-1] * 2)
     return tuple(out)
@@ -277,13 +281,20 @@ class PlanSet:
     bucket that fits, serves the bucket's plan and slices the padding off:
     equal to serving each request alone, with no new capture once every
     bucket is warm. Build with ``SparseCNN.plan_set()``.
+
+    ``restage(rows, device, choices)`` (optional; ``SparseCNN.plan_set``
+    sets it) stages the same chain again at ``rows`` on ``device`` with
+    each stage's launch choice frozen to ``choices`` ({stage: choice}):
+    :func:`shard_plan_set` builds data-parallel replicas with it.
     """
 
     model: str
     fingerprint: str
     buckets: Tuple[int, ...]
-    plans: Mapping[int, ModelPlan]
+    plans: Mapping[int, Any]
     sample_spec: Optional[Tuple[Tuple[int, ...], str]] = None
+    restage: Optional[Callable[..., ModelPlan]] = dataclasses.field(
+        default=None, compare=False, repr=False)
 
     def __post_init__(self):
         if not self.buckets:
@@ -492,18 +503,90 @@ class PlanBuilder:
 
 
 def build_plan_set(model: str, params, plan_for_batch: Callable[[int], ModelPlan], *,
-                   max_batch: Optional[int] = None, buckets=None) -> PlanSet:
+                   max_batch: Optional[int] = None, buckets=None, dp: int = 1,
+                   restage=None) -> PlanSet:
     """Bucket-ladder :class:`PlanSet` from a per-batch plan factory: the
-    powers of two of :func:`make_buckets` when ``buckets`` is None, one plan
-    per bucket from ``plan_for_batch(b)``, pinned to ``params``."""
+    ``dp``-multiple powers of two of :func:`make_buckets` when ``buckets`` is
+    None (every bucket a positive multiple of ``dp``, so a padded batch
+    splits evenly over a mesh's data axes), one plan per bucket from
+    ``plan_for_batch(b)``, pinned to ``params``. ``restage``: see
+    :class:`PlanSet`."""
     if buckets is None:
         if max_batch is None:
             raise ValueError("plan set needs max_batch or explicit buckets")
-        buckets = make_buckets(max_batch)
+        buckets = make_buckets(max_batch, dp=dp)
     buckets = tuple(sorted({int(b) for b in buckets}))
-    bad = [b for b in buckets if b < 1]
+    bad = [b for b in buckets if b < 1 or b % dp]
     if bad:
-        raise ValueError(f"buckets {bad} are not positive")
+        raise ValueError(f"buckets {bad} not positive multiples of dp={dp}")
     plans = {b: plan_for_batch(b) for b in buckets}
     spec = next((p.sample_spec for p in plans.values() if p.sample_spec is not None), None)
-    return PlanSet(model, params_fingerprint(params), buckets, plans, spec)
+    return PlanSet(model, params_fingerprint(params), buckets, plans, spec, restage)
+
+
+CHOICE_KEYS = ("tile_rows", "tile", "split", "path")  # a stage's tiles that are launch choices
+
+
+def frozen_choices(plan: ModelPlan) -> dict:
+    """``{stage: choice}`` of ``plan``: each stage's launch choice as its
+    build resolved it (the int8 tile rows, the bf16 tile and split, the
+    stem's path), for a replica staged at other rows to take the same."""
+    return {s.name: {k: v for k, v in s.tiles if k in CHOICE_KEYS} for s in plan.layers}
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardedPlan:
+    """Bucket ``batch``'s serving step split over data-parallel replicas:
+    ``replicas[i]`` is the chain staged at ``batch / dp`` rows on its device
+    with the bucket's launch choices. :meth:`serve` hands replica ``i`` rows
+    ``i·batch/dp`` … and gathers the logits in order onto ``x``'s device:
+    every replica's launches are enqueued (each on its device's stream)
+    before the first result is read back. A replica that raises raises
+    from this one call."""
+
+    batch: int
+    replicas: Tuple[ModelPlan, ...]
+
+    def serve(self, x):
+        rows = self.batch // len(self.replicas)
+        if x.shape[0] != self.batch:
+            raise ValueError(f"a sharded plan of {self.batch} rows got {x.shape[0]}")
+        ys = [r.serve(x[i * rows: (i + 1) * rows]) for i, r in enumerate(self.replicas)]
+        return torch.cat([y.to(x.device) for y in ys])
+
+    @property
+    def device(self) -> torch.device:
+        return self.replicas[0].device
+
+    @property
+    def trace_count(self) -> int:
+        return sum(r.trace_count for r in self.replicas)
+
+    @property
+    def tiles(self) -> dict:
+        return self.replicas[0].tiles
+
+
+def shard_plan_set(plan_set: PlanSet, devices) -> PlanSet:
+    """``plan_set`` data-parallel over ``devices`` (one replica each, in
+    order; a device may repeat): every bucket ``b`` becomes a
+    :class:`ShardedPlan` of replicas staged by ``plan_set.restage`` at ``b /
+    dp`` rows, each stage frozen to bucket ``b``'s launch choice, so that a
+    replica runs the arithmetic the bucket's own plan runs and the gathered
+    logits equal it bit for bit. Raises unless every bucket divides by
+    ``dp`` and the set can restage."""
+    devices = [torch.device(d) for d in devices]
+    dp = len(devices)
+    if plan_set.restage is None:
+        raise ValueError(f"plan set {plan_set.model!r} cannot restage its chain: build it with "
+                         "SparseCNN.plan_set(dp=)")
+    bad = [b for b in plan_set.buckets if b % dp]
+    if bad:
+        raise ValueError(f"buckets {bad} not positive multiples of dp={dp}: build the plan set "
+                         f"with dp={dp}")
+    plans = {}
+    for b in plan_set.buckets:
+        choices = frozen_choices(plan_set.plans[b])
+        plans[b] = ShardedPlan(b, tuple(plan_set.restage(b // dp, d, choices) for d in devices))
+    return PlanSet(plan_set.model, plan_set.fingerprint, plan_set.buckets, plans,
+                   plan_set.sample_spec)

@@ -103,11 +103,15 @@ class Trainer:
 
     def _step(self, params, opt_state, batch: dict, step: int):
         """One train step; on a mesh each rank keeps its slice of the global
-        batch along the batch axes and the step runs under the rules."""
+        batch along the batch axes (the tokens also along the sequence, on
+        'model') and the step runs under the rules."""
         if self.mesh is None:
             return self.step_fn(params, opt_state, batch, step)
         dp = self.rules["batch"]
-        batch = {k: distribute(v, self.mesh, (dp,) + (None,) * (v.dim() - 1))
+        # tokens along the sequence too, on 'model': the sequence-parallel
+        # residual's layout, as the reference's dryrun feeds them
+        batch = {k: distribute(v, self.mesh, (dp, "model" if k == "tokens" else None)
+                               + (None,) * (v.dim() - 2))
                  for k, v in batch.items()}
         with sharding_rules(self.rules, self.mesh):
             return self.step_fn(params, opt_state, batch, step)

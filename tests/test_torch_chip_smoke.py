@@ -576,7 +576,7 @@ def test_tuning_phase_is_in_the_phase_list(smoke):
     temporary autotune cache."""
     import inspect
 
-    assert " 13. tuning" in smoke.__doc__ and " 16. one JSON line" in smoke.__doc__
+    assert " 13. tuning" in smoke.__doc__ and " 17. one JSON line" in smoke.__doc__
     assert 'phase_done("13 tuning")' in inspect.getsource(smoke.run)
     assert "temporary_tune_cache()" in inspect.getsource(smoke.main)
 
@@ -782,3 +782,55 @@ def test_dist_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     r = rec["restore"]
     assert r["bit_equal"] and r["placements_equal"] and r["step"] == smoke.DIST_TRAIN_STEPS
     assert not (tmp_path / "dist" / "ckpt").exists()
+
+
+def test_mesh_phase_is_in_the_phase_list(smoke):
+    """Phase 16 (mesh serving, the dry run, the context decode) is listed
+    and timed after phase 15, and its launches reach the kernels line."""
+    import inspect
+
+    assert " 16. the mesh (phase 16)" in smoke.__doc__
+    src = inspect.getsource(smoke.run)
+    assert src.index('phase_done("15 distribution on a one-rank mesh")') < \
+        src.index('phase_done("16 mesh serving, the dry run and the context decode")')
+    assert "meshed)" in src[src.index("kernels_line("):]
+
+
+def test_mesh_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 16 on the CPU: 16a at sparse-cnn-s's smoke config (buckets
+    2 … 8, 32 requests a run, two runs each way in turns) with every
+    request and the ragged 5 equal to the one-device plan set bit for bit;
+    16b's four production cells in their own processes, each ``ok`` (the
+    dry run allocates nothing, so the cells are the card's); 16c's context
+    decode on a one-rank gloo world at the smoke config, bit for bit. The
+    CUDA synchronize and memory calls are stubbed; the plain versions count
+    no launches."""
+    import torch
+    import torch.distributed as dist
+
+    for name in ("empty_cache", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(smoke, "MESH_SMOKE", True)
+    monkeypatch.setattr(smoke, "MESH_MAX_BATCH", 8)
+    monkeypatch.setattr(smoke, "SERVER_REQUESTS", 32)
+    monkeypatch.setattr(smoke, "DRYRUN_DIR", tmp_path / "dryrun")
+    monkeypatch.setattr(smoke, "DIST_SMOKE", True)
+    monkeypatch.setattr(smoke, "DIST_DIR", tmp_path / "dist")
+    monkeypatch.setattr(smoke, "LM_BATCH", 2)
+    monkeypatch.setattr(smoke, "LM_PROMPT", 16)
+    rec = smoke.mesh_phase(torch.device("cpu"))
+    assert not dist.is_initialized()
+    s = rec["serve"]
+    assert s["buckets"] == [2, 4, 8] and s["ragged_equal"]
+    assert s["bit_equal_requests"] == {"one_device": 64, "mesh": 64}  # two runs each, in turns
+    assert s["launches"] == {"im2col_conv": 0, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0}
+    assert {k: len(v) for k, v in s["summary"].items()} == {"one_device": 2, "mesh": 2}
+    cells = {k: r for k, r in rec["dryrun"].items() if k != "wall_s"}
+    assert len(cells) == 4 and sum("pod2" in k for k in cells) == 1
+    for key, r in cells.items():
+        assert r["attn_mode"] == ("context" if "starcoder2" in key else "q_sharded")
+        assert r["cost"]["flops"] > 0 and sum(r["collectives"]["counts"].values()) > 0
+        assert all(c["local"] == c["spec"] for c in r["memory"]["argument_bytes_checked"])
+    c = rec["context_decode"]
+    assert c["attn_mode"] == "context" and c["bit_equal_steps"] == smoke.DIST_STEPS
+    assert c["max_abs_diff"] == 0.0 and c["context_decodes"] > 0

@@ -19,7 +19,7 @@ yardstick.) Checks:
     5e-2 (the reference test's bf16 bound) of the single-device step, every
     compressed projection run by the tc kernel's plain version on local
     shards (14 calls a rank, no DTensor reaching it), nothing densified and
-    no product but the dense head's;
+    no product but the dense head's, on the rank's vocab shard;
   - ``LM.constrain`` on shards split along N: the same patterns as on one
     device (the count of differing entries is reported, and 0);
   - the embedding table staying sharded: no all-gather under
@@ -31,10 +31,15 @@ yardstick.) Checks:
     only rank 0 building the arrays written; ``Trainer`` resuming a (2, 4)
     run on a (4, 2) mesh, its restored optimizer state checked;
   - ``launch.train --distributed`` in a world that is not 256 ranks raising
-    and naming the sizes.
+    and naming the sizes;
+  - the q-sharded and the context-parallel attention mode (qwen2-72b's cut,
+    starcoder2-7b's with 6 heads): the sharded ``Trainer`` under the train
+    step's gates, and prefill plus two compressed decode steps within 5e-2,
+    the context decode's cache split along its sequence and no collective
+    moving keys or values.
 
 Values measured by this file: see each test's docstring. The file takes
-about 150 s alone on 8 cores (8 worlds, each about 8 s of start-up).
+about 240 s alone on 8 cores (12 worlds, each about 8 s of start-up).
 """
 import dataclasses
 import math
@@ -260,7 +265,8 @@ def test_sharded_decode_matches_single_device(tmp_path):
     }
     assert {(a, v) for a, v, _ in calls} == expected, calls
     assert got["densified"] == 0
-    assert got["products"] == [(dm, tcfg.padded_vocab)], got["products"]  # the dense head
+    # the dense head, on each rank's vocab shard (its columns over 'model')
+    assert got["products"] == [(dm, tcfg.padded_vocab // 4)], got["products"]
     print("decode: logits sharded/single", d, "single/reference", d_ref)
 
 
@@ -393,3 +399,90 @@ def test_distributed_launch_names_the_world_it_needs(tmp_path):
     got = world("launch", tmp_path, {}, n=2).result()
     msg = got["error"]
     assert msg and "256" in msg and "512" in msg and "has 2" in msg, msg
+
+
+# the attention modes at tp 4 (sharding/rules.py:attn_mode): qwen2-72b's
+# smoke cut (4 heads, 1 kv head) is q-sharded; starcoder2-7b's with 6 heads
+# and 2 kv heads is context-parallel (neither divides 4)
+MODES = {"q_sharded": ("qwen2-72b", {}),
+         "context": ("starcoder2-7b", dict(num_heads=6, num_kv_heads=2))}
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_attention_modes_train_step_matches_single_device(mode, tmp_path):
+    """The sharded ``Trainer`` (2 steps, tokens split along the sequence on
+    'model' as the reference's dryrun feeds them) in the q-sharded and the
+    context-parallel mode against the port's single-device run, with
+    ``test_sharded_train_step_matches_single_device``'s gates: losses within
+    5e-3, every parameter within 5e-3, gradient norms within 2e-2
+    relative, the optimizer state by ``check_state``."""
+    from repro_torch.sharding.rules import attn_mode
+
+    arch, extra = MODES[mode]
+    tm = LM(dataclasses.replace(smoke_config(arch), **CUT, **extra))
+    assert attn_mode(tm.cfg, 4) == mode
+    tm.init(torch.Generator("cpu").manual_seed(0), "cpu").constrain()
+    run = world("train", tmp_path, {"arch": arch, "extra": extra, "params": tm.params,
+                                    "opt": OPT, "data": DATA, "steps": 2})
+    p0 = clone(tm.params)
+    out, state, losses, norms = run_port(tm, clone(tm.params))
+    got = run.result()
+    sharded = [loss for _, loss in got["history"]]
+    assert len(sharded) == 2
+    worst = check_state(got["state"], state, p0, steps=2)
+    for a, b in zip(sharded, losses):
+        assert abs(a - b) <= 5e-3, (sharded, losses)
+    for a, b in zip(got["grad_norms"], norms):
+        assert abs(a - b) <= 2e-2 * b, (got["grad_norms"], norms)
+    d = max_diff(got["params"], out)
+    assert d <= 5e-3, d
+    assert any("Shard" in p for p in got["placements"])
+    print(mode, "losses", sharded, losses, "norms", got["grad_norms"], norms, "param diff", d,
+          "state gaps", worst)
+
+
+@pytest.mark.parametrize("mode", list(MODES))
+def test_attention_modes_serve_matches_single_device(mode, tmp_path):
+    """Prefill (tokens split along the sequence) and two compressed decode
+    steps in the q-sharded and the context-parallel mode against the port's
+    single-device steps: logits within 5e-2 (the reference test's bf16
+    bound) at the prefill's last position and at each step, and the cache
+    after them within 5e-2. In the context mode the decode cache is split
+    along its sequence over 'model' (8 of 32 slots a rank), each step runs
+    the combine's all-reduces, and no decode collective moves keys or values
+    of more than one position (no cache slice is gathered); in the q-sharded
+    mode the cache is replicated over 'model'."""
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.train.step import make_prefill
+
+    arch, extra = MODES[mode]
+    cfg = dataclasses.replace(smoke_config(arch), **CUT, **extra)
+    dense = LM(cfg).init(torch.Generator("cpu").manual_seed(0), "cpu").constrain().params
+    prompt = torch.randint(0, cfg.vocab_size, (4, 16), generator=torch.Generator().manual_seed(1))
+    cap = 32
+    run = world("serve", tmp_path, {"cfg": cfg, "params": dense, "prompt": prompt, "cap": cap})
+    tm = LM(cfg).load_params(clone(dense)).compress()
+    logits, cache = make_prefill(tm)({"tokens": prompt})
+    cache = pad_cache(cache, 16, cap)
+    steps, tok = [], logits[:, -1:].argmax(-1)
+    for i in range(2):
+        lg, cache = make_serve_step(tm)(cache, {"tokens": tok}, 16 + i)
+        steps.append(lg)
+        tok = lg[:, -1:].argmax(-1)
+    got = run.result()
+    assert got["mode"] == mode
+    diffs = [float((got["prefill"].float() - logits.float()).abs().max())]
+    diffs += [float((a.float() - b.float()).abs().max()) for a, b in zip(got["steps"], steps)]
+    assert max(diffs) < 5e-2, diffs
+    d_cache = max_diff(got["cache"], cache)
+    assert d_cache < 5e-2, d_cache
+    if mode == "context":
+        assert got["cache_placements"] == "(Shard(dim=1), Shard(dim=2))", got["cache_placements"]
+        assert got["cache_local"] == (cfg.num_layers, 2, cap // 4, cfg.num_kv_heads, cfg.hd)
+        for c in got["collectives"]:  # the combine's three all-reduces a layer, no K/V
+            assert c["counts"]["all-reduce"] >= 3 * cfg.num_layers
+            kv = [s for _, s in c["shapes"] if s[-2:] == (cfg.num_kv_heads, cfg.hd) and s[-3] > 1]
+            assert not kv, kv
+    else:
+        assert got["cache_placements"] == "(Shard(dim=1), Replicate())", got["cache_placements"]
+    print(mode, "logit diffs", diffs, "cache diff", d_cache, "collectives", got["collectives"])

@@ -12,7 +12,8 @@ path. A failing rank fails the command.
 
 Cases (the mesh is ``(2, 4)`` ``("data", "model")``, the reference's own test
 mesh, unless stated):
-  train      the sharded ``Trainer`` (the launcher's path) for 2 steps
+  train      the sharded ``Trainer`` (the launcher's path) for 2 steps, of
+             ``smoke_cut(arch)`` with ``inp["extra"]`` replaced
   decode     the sharded compressed decode step, counting the tc kernel's
              plain-version calls and every densifying call
   constrain  ``LM.constrain`` on parameters sharded by the training rules
@@ -21,6 +22,9 @@ mesh, unless stated):
              and ``(1, 8)``
   resume     ``Trainer`` from its own init on ``(2, 4)``, resumed on ``(4, 2)``
   launch     ``launch.train --distributed`` in a 2-rank world
+  serve      prefill and two compressed decode steps of ``inp["cfg"]`` in its
+             attention mode at tp 4 (q-sharded or context-parallel), the
+             collectives of each decode step counted by ``cost_utils``
 """
 from __future__ import annotations
 
@@ -72,7 +76,7 @@ def case_train(inp):
     from repro_torch.train.loop import LoopConfig, Trainer
 
     mesh = _mesh()
-    m = LM(smoke_cut(inp["arch"]))
+    m = LM(dataclasses.replace(smoke_cut(inp["arch"]), **inp.get("extra", {})))
     rules = make_rules(m.cfg, tp=4, mode="train")
     params = distribute_tree(inp["params"], m.pspecs(rules), mesh)
     opt = OptConfig(**inp["opt"])
@@ -154,6 +158,49 @@ def case_decode(inp):
     placements = str(tuple(logits.placements))
     return {"logits": logits.full_tensor(), "calls": calls, "densified": len(dense),
             "products": products, "placements": placements}
+
+
+def case_serve(inp):
+    from repro_torch.checkpoint.store import full_tensor
+    from repro_torch.cost_utils import counting
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models.common import distribute, distribute_tree, sharding_rules
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import attn_mode, make_rules
+    from repro_torch.train.step import make_prefill, make_serve_step
+
+    mesh = _mesh()
+    m = LM(inp["cfg"])
+    m.load_params(inp["params"]).compress()
+    prompt = inp["prompt"]
+    b, plen = prompt.shape
+    rules = make_rules(m.cfg, tp=4, mode="prefill")
+    m.distribute(mesh, rules)
+    tokens = distribute(prompt, mesh, (rules["batch"], "model"))
+    with sharding_rules(rules, mesh):
+        logits, cache = make_prefill(m)({"tokens": tokens})
+    out = {"mode": attn_mode(m.cfg, 4), "prefill": full_tensor(logits), "steps": [],
+           "collectives": []}
+    cache = {k: v for k, v in cache.items()}
+    full = pad_cache(_full_tree(cache), plen, inp["cap"])
+    rules = make_rules(m.cfg, tp=4, mode="decode")
+    m = LM(inp["cfg"]).load_params(inp["params"]).compress().distribute(mesh, rules)
+    specs = m.cache_pspecs(rules)
+    cache = distribute_tree(full, specs, mesh)
+    out["cache_placements"] = str(tuple(cache["groups"]["b0"]["k"].placements))
+    out["cache_local"] = tuple(cache["groups"]["b0"]["k"].to_local().shape)
+    tok = logits.full_tensor()[:, -1:].argmax(-1)
+    step = make_serve_step(m)
+    for i in range(2):
+        with sharding_rules(rules, mesh), counting() as c:
+            lg, cache = step(cache, {"tokens": distribute(tok, mesh, (rules["batch"], None))},
+                             plen + i)
+        lg = full_tensor(lg)
+        out["steps"].append(lg)
+        out["collectives"].append({**c.record()["collectives"], "shapes": c.coll_shapes})
+        tok = lg[:, -1:].argmax(-1)
+    out["cache"] = _full_tree(cache)
+    return out
 
 
 def case_constrain(inp):
