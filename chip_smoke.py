@@ -199,12 +199,16 @@ Phases, each of which fails the run:
         four corruptions (a flipped byte, a torn write, an edited manifest,
         a missing archive) raises CorruptCheckpointError and
         ``fallback=True`` walks back one step;
-     b. 8192 Poisson requests of 1–8 images at half the throughput a
-        saturated run of 1024 requests measured (~5 s of arrivals; half
-        the host-path capacity, phase 5's rate, saturates the server)
-        through ``serve_continuous`` under the Supervisor, without reloads
-        and with a reload every 2048 requests (3 hot reloads mid-traffic:
-        restore, rebuild, 7 captures, swap, each timed): every request equal to its own plan serve bit for bit,
+     b. Poisson requests of 1–8 images at half the throughput a
+        saturated run of 1024 requests measured (half the host-path
+        capacity, phase 5's rate, saturates the server) through
+        ``serve_continuous`` under the Supervisor, without reloads and with
+        3 hot reloads mid-traffic (restore, rebuild, 7 captures, swap, each
+        timed). The traffic is sized to the host: a probe run of 1024
+        requests with one reload at that rate times a reload, and the
+        interval between reloads is at least ``SELFHEAL_PROBE_MARGIN`` = 3
+        probe reloads and at least 2048 requests, the run 4 intervals
+        (8192 requests or more): every request equal to its own plan serve bit for bit,
         nothing dropped, no capture after warmup, 3 reloads, each swap back
         before the last arrival and followed by batches on the new set, the
         memory reserved after the last no more than after the first plus
@@ -327,7 +331,28 @@ Phases, each of which fails the run:
         one-rank mesh: every attention block through the context decode,
         whose combine over one rank is the one-device path; the logits equal
         the unsharded decode's bit for bit;
- 17. one JSON line of the six kernels (launches, errors, times, bounds).
+ 17. the families on the one-rank mesh in their production modes (the rules
+     at tp 16), each at published width cut to ``DIST_LAYERS`` = 2 layers
+     (recurrentgemma-2b to its 3-block pattern, so that a local block is
+     included):
+     a. moonshot-v1-16b-a3b (the MoE's dispatch and combine at prefill, its
+        routing over the batch at decode), deepseek-v3-671b (MLA's absorbed
+        decode on a sharded ``wkv_b``), rwkv6-3b (feature mode),
+        recurrentgemma-2b (context mode, a prompt of ``local_window`` tokens
+        and a ring of as many slots, which wraps at the first step) and
+        musicgen-medium (context mode, its cross memory), compressed: one
+        prefill and 8 eager greedy decode steps unsharded and sharded
+        (``LM.distribute(local=True)``); the prefill's and every step's
+        logits equal bit for bit, and the bf16 tc kernel's launches equal
+        each way;
+     b. 2 steps of ``Trainer`` on the mesh against 2 unsharded for
+        moonshot-v1-16b-a3b and musicgen-medium (its loss on vocab shards),
+        under 15b's gates;
+     c. the dry run's cells, one process each, all at once and while 17a
+        and 17b run: moonshot-v1-16b-a3b train_4k, deepseek-v3-671b
+        decode_32k and rwkv6-3b prefill_32k on (16, 16), recurrentgemma-2b
+        and musicgen-medium train_4k on (2, 16, 16), as 16b's;
+ 18. one JSON line of the six kernels (launches, errors, times, bounds).
 
 The last line is ``{"ok": true, "device": {...}}``. Without a CUDA card, or
 without the repository's ``src/repro_torch`` beside this file, it exits
@@ -2028,8 +2053,10 @@ SELFHEAL_MAX_BATCH = BATCH
 # enough arrivals (~5 s at half the server's throughput) that each
 # reload's restore, captures and swap land while requests still arrive and
 # leave batches to the set it swapped in
-SELFHEAL_REQUESTS = 32 * SERVER_REQUESTS
-SELFHEAL_RELOAD_EVERY = SELFHEAL_REQUESTS // 4
+SELFHEAL_REQUESTS = 32 * SERVER_REQUESTS  # 12b's least traffic (12c takes half of it)
+SELFHEAL_RELOAD_EVERY = SELFHEAL_REQUESTS // 4  # 12b's least interval between reloads
+SELFHEAL_RELOADS = 3
+SELFHEAL_PROBE_MARGIN = 3  # 12b: an interval between reloads lasts this many probe reloads
 SELFHEAL_BUCKET = 8  # the bucket 12d fails
 SELFHEAL_DIR = ROOT / "build" / "selfheal"  # the phase's checkpoints (git-ignored)
 CKPT_FIXTURE = ROOT / "tests" / "data" / "torch_parity_ckpt"
@@ -2122,11 +2149,15 @@ def selfheal_checkpoints(dev, model, root) -> dict:
 
 def served_as_planned(run, requests, ps, what: str) -> int:
     """Every request served in ``run`` equals its own plan serve bit for
-    bit; returns how many were served."""
-    served = 0
+    bit; returns how many were served. The requests are views of one pool
+    of images, so each distinct view is served by the plan once."""
+    served, want = 0, {}
     for i, (req, got) in enumerate(zip(requests, run["results"])):
         if got is not None:
-            check_exact(torch.from_numpy(got), torch.from_numpy(ps.serve(req)),
+            key = (req.__array_interface__["data"][0], req.shape)
+            if key not in want:
+                want[key] = torch.from_numpy(ps.serve(req))
+            check_exact(torch.from_numpy(got), want[key],
                         f"{what}: request {i} against its own plan serve")
             served += 1
     if run["summary"]["demotions"]:
@@ -2174,9 +2205,14 @@ def selfheal_phase(dev) -> dict:
     # 12b: hot reload under traffic, beside a run without
     rng = np.random.default_rng(7)
     pool = torch.randn(100, *x.shape[1:], generator=torch.Generator().manual_seed(2)).numpy()
-    sizes = rng.integers(1, 9, SELFHEAL_REQUESTS)
-    starts = [int(rng.integers(0, pool.shape[0] - n + 1)) for n in sizes]
-    requests = [pool[a: a + n] for a, n in zip(starts, sizes)]
+
+    def draw(n):
+        sizes = rng.integers(1, 9, n)
+        return [pool[a: a + k] for a, k in zip(
+            [int(rng.integers(0, pool.shape[0] - k + 1)) for k in sizes], sizes)]
+
+    requests = draw(SELFHEAL_REQUESTS)
+    sizes = np.array([r.shape[0] for r in requests])
     # auto_rate's half of the largest bucket's host-path capacity saturates
     # the server (its batching and futures cost host time too), and a queue
     # that only grows would hide what a reload costs: offer half of what a
@@ -2190,15 +2226,32 @@ def selfheal_phase(dev) -> dict:
     log(f"[selfheal] 12b: auto_rate {rate:.0f} images/s saturates the server at "
         f"{served_rate} images/s; offering half of that, {rate_rps:.1f} requests/s")
     kw = dict(rate=rate_rps, max_wait_ms=5.0, seed=3, log=log)
+    # size the traffic to this host: one probe reload (restore, rebuild,
+    # captures, swap) under traffic at the offered rate, then an interval
+    # between reloads of at least SELFHEAL_PROBE_MARGIN probe reloads
+    n_probe = SELFHEAL_REQUESTS // 8
+    trial = serve.serve_continuous(ps, requests[:n_probe], model=model,
+                                   reload_every=n_probe // 2, ckpt_dir=SELFHEAL_DIR / "probe",
+                                   **kw)
+    probe_ms = sum(trial["reloads"][0][f"{k}_ms"] for k in ("restore", "rebuild", "capture",
+                                                             "swap"))
+    reload_every = max(SELFHEAL_RELOAD_EVERY,
+                       math.ceil(SELFHEAL_PROBE_MARGIN * probe_ms / 1e3 * rate_rps))
+    n_reload = (SELFHEAL_RELOADS + 1) * reload_every
+    requests += draw(n_reload - len(requests))
+    log(f"[selfheal] 12b: a probe reload took {probe_ms:.1f} ms under traffic; at "
+        f"{rate_rps:.1f} requests/s a reload every {reload_every} requests "
+        f"({reload_every / rate_rps:.2f} s, >= {SELFHEAL_PROBE_MARGIN} probe reloads), "
+        f"{n_reload} requests")
     plain_run = serve.serve_continuous(ps, requests, **kw)
-    run = serve.serve_continuous(ps, requests, model=model, reload_every=SELFHEAL_RELOAD_EVERY,
+    run = serve.serve_continuous(ps, requests, model=model, reload_every=reload_every,
                                  ckpt_dir=SELFHEAL_DIR / "reload", **kw)
-    want = (SELFHEAL_REQUESTS - 1) // SELFHEAL_RELOAD_EVERY
+    want = (n_reload - 1) // reload_every
     for r in (plain_run, run):
         if r["failures"] or r["retraces_after_warmup"]:
             raise AssertionError(f"12b: failures {r['failures']}, "
                                  f"{r['retraces_after_warmup']} captures after warmup")
-        if served_as_planned(r, requests, ps, "12b") != SELFHEAL_REQUESTS:
+        if served_as_planned(r, requests, ps, "12b") != n_reload:
             raise AssertionError("12b: a request was not served")
     reloads = run["reloads"]
     if run["summary"]["reloads"] != want or len(reloads) != want or any(
@@ -2208,7 +2261,7 @@ def selfheal_phase(dev) -> dict:
     # batch (so at least one begun after the swap) ran before the next swap
     # or the end: every swapped-in set served traffic
     marks = [r["batches_at_swap"] for r in reloads] + [run["summary"]["batches"]]
-    late = [r["submitted_at_swap"] for r in reloads if r["submitted_at_swap"] >= SELFHEAL_REQUESTS]
+    late = [r["submitted_at_swap"] for r in reloads if r["submitted_at_swap"] >= n_reload]
     if late or any(b - a < 2 for a, b in zip(marks, marks[1:])):
         raise AssertionError(f"12b: swaps after the last arrival {late} or a swapped-in set "
                              f"that served no batch (batches at each swap and at the end "
@@ -2234,14 +2287,15 @@ def selfheal_phase(dev) -> dict:
     if sup.reload_failures != 1 or sup.server.plan_set is not ps:
         raise AssertionError(f"12b: reload_failures {sup.reload_failures}, the old set replaced")
     s0, s1 = plain_run["summary"], run["summary"]
-    rec["reload"] = {"reloads": reloads, "pool_bytes": pool_bytes,
+    rec["reload"] = {"reloads": reloads, "pool_bytes": pool_bytes, "probe_ms": probe_ms,
+                     "reload_every": reload_every, "requests": n_reload,
                      "saturated_images_per_s": served_rate, "offered_requests_per_s": rate_rps,
                      "p50_us": [s0["p50_us"], s1["p50_us"]],
                      "p99_us": [s0["p99_us"], s1["p99_us"]],
                      "images_per_s": [s0["throughput_rps"], s1["throughput_rps"]]}
     phases = [[round(r[f"{k}_ms"], 3) for k in ("restore", "rebuild", "capture", "swap")]
               for r in reloads]
-    log(f"[selfheal] 12b: {want} reloads under {SELFHEAL_REQUESTS} Poisson requests, every "
+    log(f"[selfheal] 12b: {want} reloads under {n_reload} Poisson requests, every "
         f"request equal to its own plan serve, no capture after warmup; swaps at request "
         f"{[r['submitted_at_swap'] for r in reloads]}, batches at each swap and at the end "
         f"{marks}; ms (restore, rebuild, capture, swap) {phases}; "
@@ -3180,7 +3234,7 @@ def dist_config():
     return dataclasses.replace(get_config(DIST_ARCH), num_layers=DIST_LAYERS)
 
 
-def dist_train(dev, mesh) -> tuple:
+def dist_train(dev, mesh, cfg=None, tp=None) -> tuple:
     """15b: ``DIST_TRAIN_STEPS`` steps of ``Trainer`` sharded on the mesh
     (the launcher's ``--distributed`` path: the parameters and state as
     DTensors by ``LM.pspecs`` under the training rules, each step's batch
@@ -3191,21 +3245,23 @@ def dist_train(dev, mesh) -> tuple:
     ``DIST_MOMENT_GAP`` of the unsharded run's and the fp32 master's update
     (``master - p0``) within ``DIST_UPDATE_GAP`` over the whole tree,
     relative to their own 2-norms (an update skipped, or one built from
-    unreduced gradients, is as far as its own size). Returns (record, the
-    sharded model, its rules)."""
+    unreduced gradients, is as far as its own size). ``cfg`` (17b: another
+    family's) replaces :func:`dist_config`'s, ``tp`` the mesh's own degree
+    in the rules (17b: 16, the family's production mode). Returns (record,
+    the sharded model, its rules)."""
     from repro_torch.data.pipeline import DataConfig
     from repro_torch.launch.mesh import tp_degree
     from repro_torch.models.model import LM
     from repro_torch.optim.adamw import OptConfig, init_state
-    from repro_torch.sharding.rules import make_rules
+    from repro_torch.sharding.rules import attn_mode, make_rules
     from repro_torch.train.loop import LoopConfig, Trainer
 
     gc.collect()
     torch.cuda.empty_cache()
-    cfg = dist_config()
+    cfg = cfg or dist_config()
     opt = OptConfig(peak_lr=3e-4, warmup_steps=0, decay_steps=DIST_TRAIN_STEPS)
     seq, batch = (16, 2) if DIST_SMOKE else (TRAIN_SEQ, TRAIN_BATCH)
-    rules = make_rules(cfg, tp=tp_degree(mesh), mode="train")
+    rules = make_rules(cfg, tp=tp or tp_degree(mesh), mode="train")
     from repro_torch.checkpoint.store import flatten, full_tensor as full
 
     out, p0 = {}, None
@@ -3230,14 +3286,15 @@ def dist_train(dev, mesh) -> tuple:
         torch.cuda.empty_cache()
 
     (m0, l0, ms0, s0), (m1, l1, ms1, s1) = out.pop("unsharded"), out.pop("sharded")
-    gaps = state_gaps(s1, s0, p0)
+    gaps = state_gaps(s1, s0, p0, None if "master" in s0 else (m1.params, m0.params))
     del s0, s1, p0
     pairs = list(zip(flatten(m0.params)[0], flatten(m1.params)[0]))
     diff = max(float((a.detach().float() - full(b).detach().float()).abs().max())
                for a, b in pairs)
     bits = all(torch.equal(a.detach(), full(b).detach()) for a, b in pairs) and l0 == l1
     rec = dict(arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(), seq=seq,
-               batch=batch, steps=DIST_TRAIN_STEPS, losses={"unsharded": l0, "sharded": l1},
+               batch=batch, attn_mode=attn_mode(cfg, tp or tp_degree(mesh)),
+               steps=DIST_TRAIN_STEPS, losses={"unsharded": l0, "sharded": l1},
                max_param_diff=diff, bit_equal=bits, state_gaps=gaps,
                ms_per_step={"unsharded": ms0, "sharded": ms1},
                placements=sorted({str(tuple(x.placements)) for x in flatten(m1.params)[0]}))
@@ -3253,11 +3310,12 @@ def dist_train(dev, mesh) -> tuple:
     return rec, m1, rules
 
 
-def state_gaps(got: dict, want: dict, p0: list) -> dict:
+def state_gaps(got: dict, want: dict, p0: list, params=None) -> dict:
     """A sharded run's optimizer state against an unsharded one's from the
     same parameters ``p0``: the step counts, the largest relative 2-norm gap
     of a leaf's ``m`` and of its ``v`` (and which leaf), and the gap of the
-    fp32 master's update over the whole tree."""
+    fp32 master's update over the whole tree (an fp32 model keeps no master:
+    its parameters', ``params`` = (sharded, unsharded))."""
     from repro_torch.checkpoint.store import flatten, full_tensor as full
 
     def sq(x):
@@ -3271,7 +3329,8 @@ def state_gaps(got: dict, want: dict, p0: list) -> dict:
             worst = max(worst, (g, path))
         out[key] = list(worst)
     num = den = 0.0
-    for a, b, c in zip(flatten(got["master"])[0], flatten(want["master"])[0], p0):
+    have, ref = (got["master"], want["master"]) if params is None else params
+    for a, b, c in zip(flatten(have)[0], flatten(ref)[0], p0):
         num += sq(full(a) - b)
         den += sq(b - c.float())
     out["update"] = math.sqrt(num / den)
@@ -3429,25 +3488,28 @@ def mesh_serve(dev) -> dict:
                              for name, r in runs if name == k] for k in ("one_device", "mesh")}}
 
 
-def dryrun_cells() -> dict:
+def dryrun_cells(cells=None, out_dir=None, tag="16b") -> dict:
     """16b: the dry run's CLI in a process of its own per cell, all at once
     (the fake world is a process's default group; the card stays hidden):
-    ``DRYRUN_CELLS`` on the (16, 16) mesh and one on (2, 16, 16). Gates:
-    each record ``ok``, with collectives, and every step's rank-0 argument
-    bytes (its DTensors' local shards) equal to the specs' count."""
+    ``DRYRUN_CELLS`` on the (16, 16) mesh and one on (2, 16, 16) (17c:
+    ``cells``, records in ``out_dir``). Gates: each record ``ok``, with
+    collectives, and every step's rank-0 argument bytes (its DTensors'
+    local shards) equal to the specs' count."""
     from repro_torch.launch import dryrun
 
-    env = dict(os.environ, REPRO_DRYRUN_DIR=str(DRYRUN_DIR), CUDA_VISIBLE_DEVICES="",
+    cells = DRYRUN_CELLS if cells is None else cells
+    out_dir = DRYRUN_DIR if out_dir is None else out_dir
+    env = dict(os.environ, REPRO_DRYRUN_DIR=str(out_dir), CUDA_VISIBLE_DEVICES="",
                OMP_NUM_THREADS="1", PYTHONPATH=str(SRC))
     procs = []
     t0 = time.time()
-    for arch, shape, mp in DRYRUN_CELLS:
+    for arch, shape, mp in cells:
         args = ["--arch", arch, "--shape", shape, "--force"] + (["--multi-pod"] if mp else [])
         procs.append(subprocess.Popen([sys.executable, "-m", "repro_torch.launch.dryrun", *args],
                                       env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                       text=True))
     out = {}
-    for (arch, shape, mp), proc in zip(DRYRUN_CELLS, procs):
+    for (arch, shape, mp), proc in zip(cells, procs):
         try:
             stdout, stderr = proc.communicate(timeout=DRYRUN_TIMEOUT_S)
         finally:
@@ -3455,15 +3517,15 @@ def dryrun_cells() -> dict:
                 proc.kill()
                 proc.communicate()
         key = dryrun.cell_key(arch, shape, mp, 0.625)
-        path = DRYRUN_DIR / f"{key}.json"
+        path = out_dir / f"{key}.json"
         if proc.returncode or not path.is_file():
-            raise AssertionError(f"16b {key}: exit {proc.returncode}\n{stdout[-2000:]}\n"
+            raise AssertionError(f"{tag} {key}: exit {proc.returncode}\n{stdout[-2000:]}\n"
                                  f"{stderr[-4000:]}")
         rec = json.loads(path.read_text())
         checked = rec["memory"]["argument_bytes_checked"]
         if (rec["status"] != "ok" or not sum(rec["collectives"]["counts"].values())
                 or not rec["cost"]["flops"] or any(c["local"] != c["spec"] for c in checked)):
-            raise AssertionError(f"16b {key}: {json.dumps(rec)[:4000]}")
+            raise AssertionError(f"{tag} {key}: {json.dumps(rec)[:4000]}")
         out[key] = {k: rec[k] for k in ("attn_mode", "mesh", "compile_s", "memory", "cost",
                                         "collectives", "hlo_caveat")}
         if "micro" in rec:
@@ -3524,18 +3586,217 @@ def mesh_phase(dev, smi: str = "") -> dict:
     return rec
 
 
+# ---------------------------------------------------------------- phase 17
+
+# 17a: each family in its production mode (the rules at tp 16) on the one-rank mesh
+FAMILY_ARCHS = ("moonshot-v1-16b-a3b", "deepseek-v3-671b", "rwkv6-3b", "recurrentgemma-2b",
+                "musicgen-medium")
+FAMILY_TP = 16
+# 17b, each in its dtype: the MoE in fp32. Expert choice is discontinuous, and
+# on one rank the sharded step sums a row's gradients in another order around
+# its local_map (bf16: the router's Adam moment 3.1 % from the unsharded one
+# on the CPU smoke config, against a 5 % gate); fp32 holds the mesh, not the
+# tie-breaking of bf16 rounding
+FAMILY_TRAIN = (("moonshot-v1-16b-a3b", torch.float32), ("musicgen-medium", None))
+FAMILY_CELLS = (("moonshot-v1-16b-a3b", "train_4k", False),  # 17c
+                ("deepseek-v3-671b", "decode_32k", False), ("rwkv6-3b", "prefill_32k", False),
+                ("recurrentgemma-2b", "train_4k", True), ("musicgen-medium", "train_4k", True))
+FAMILY_DIR = ROOT / "build" / "dryrun_families"  # 17c's records (git-ignored)
+
+
+def family_config(arch, dtype=None):
+    """17's model: ``arch`` at published width cut to ``DIST_LAYERS``
+    pattern blocks, or one whole pattern where it is longer (recurrentgemma's
+    rec, rec, local: so that a local block is included); ``dtype`` its
+    parameters and activations, if given."""
+    from repro_torch.configs import get_config, smoke_config
+
+    cfg = (smoke_config if DIST_SMOKE else get_config)(arch)
+    # the published remat (the smoke configs keep none): its recompute runs in
+    # the backward, outside the step's rules
+    cfg = dataclasses.replace(cfg, num_layers=max(DIST_LAYERS, len(cfg.pattern)),
+                              remat=get_config(arch).remat)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, param_dtype=dtype, compute_dtype=dtype)
+    return cfg
+
+
+def greedy_tokens(cfg, logits):
+    """The argmax token (B, 1), fed to every codebook of an audio model, as
+    ``launch/serve.py:generate``."""
+    tok = logits[:, -1:].argmax(-1)
+    if cfg.frontend == "audio":
+        tok = (tok % cfg.codebook_vocab)[..., None].expand(*tok.shape, cfg.num_codebooks)
+    return tok
+
+
+def family_decode(dev, mesh, arch) -> dict:
+    """17a: ``arch`` (``family_config``) compressed, one prefill and
+    ``DIST_STEPS`` eager greedy decode steps unsharded, and the same on the
+    model's own tensors wrapped as DTensors (``LM.distribute(local=True)``)
+    under the prefill's and the decode's rules at tp ``FAMILY_TP`` (each
+    family's production mode: the MoE's dispatch and combine, MLA's absorbed
+    decode on a sharded ``wkv_b``, rwkv6's feature mode, the windowed ring
+    split along its sequence, the cross memory). A model with local
+    attention takes a prompt of ``local_window`` tokens and a ring of as
+    many slots, so that the ring wraps at the first step. Gates: the
+    prefill's and every step's logits equal bit for bit, and the bf16 tc
+    kernel's launches equal each way (a projection per forward on a card)."""
+    from repro_torch.checkpoint.store import full_tensor as full
+    from repro_torch.kernels import build
+    from repro_torch.launch import serve
+    from repro_torch.models.common import distribute, distribute_tree, sharding_rules
+    from repro_torch.models.model import LM
+    from repro_torch.sharding.rules import attn_mode, make_rules
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    cfg = family_config(arch)
+    model = LM(cfg).init(torch.Generator(dev).manual_seed(0), dev, compress=True)
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    build_s = time.time() - t0
+    ring = "local" in cfg.pattern
+    plen = cfg.local_window if ring else LM_PROMPT
+    max_len = plen if ring else plen + DIST_STEPS
+    prompt = serve.prompt_tokens(model, batch=LM_BATCH, seq=plen, seed=0)
+    side = {k: prompt[k] for k in serve.SIDE_INPUTS if k in prompt}
+    rules = {m: make_rules(cfg, tp=FAMILY_TP, mode=m) for m in ("prefill", "decode")}
+    sharded = LM(cfg).load_params(model.params).distribute(mesh, rules["decode"], local=True)
+    name = "vdbb_matmul_tc_bf16"
+
+    def prefill(m, ctx, dist_in):
+        build.reset_launches()
+        batch = {"tokens": prompt["tokens"], **side}
+        if dist_in:
+            dp = rules["prefill"]["batch"]
+            batch = {k: distribute(v, mesh, (dp, "model") if k == "tokens" else (dp,),
+                                   local=True) for k, v in batch.items()}
+        with torch.no_grad(), ctx:
+            tokens = batch.pop("tokens")
+            logits, cache = m.forward(tokens, return_cache=True, **batch)
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        return full(logits), cache, build.launch_counts()[name]
+
+    def decode(m, cache, first, ctx):
+        build.reset_launches()
+        tok, out, marks = first, [], []
+        with torch.no_grad(), ctx:
+            for i in range(DIST_STEPS):
+                marks.append(stamp(dev))
+                lg = full(m.decode_step(cache, tok, plen + i)[0])
+                tok = greedy_tokens(cfg, lg)
+                out.append(lg)
+            marks.append(stamp(dev))
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+        ms = [span_ms(a, b) for a, b in zip(marks, marks[1:])]
+        return out, build.launch_counts()[name], ms
+
+    lg0, cache0, pre0 = prefill(model, contextlib.nullcontext(), False)
+    lg1, cache1, pre1 = prefill(sharded, sharding_rules(rules["prefill"], mesh), True)
+    first = greedy_tokens(cfg, lg0[:, -1:])
+    del cache1
+    full_cache = serve.pad_cache(cache0, plen, max_len)
+    plain, dec0, ms0 = decode(model, full_cache, first, contextlib.nullcontext())
+    cache = distribute_tree(serve.pad_cache(cache0, plen, max_len), model.cache_pspecs(
+        rules["decode"]), mesh, local=True)
+    dist_lg, dec1, ms1 = decode(sharded, cache, first, sharding_rules(rules["decode"], mesh))
+    del cache, full_cache, cache0
+    same = [torch.equal(a, b) for a, b in zip(plain, dist_lg)]
+    want = {"prefill": projections(model, "prefill"),
+            "decode": projections(model, "decode") * DIST_STEPS} if dev.type == "cuda" else (
+        {"prefill": 0, "decode": 0})
+    rec = dict(arch=cfg.name, layers=cfg.num_layers, params=cfg.param_count(),
+               attn_mode=attn_mode(cfg, FAMILY_TP), batch=LM_BATCH, prompt=plen, cache=max_len,
+               steps=DIST_STEPS, build_s=build_s, prefill_bit_equal=torch.equal(lg0, lg1),
+               bit_equal_steps=sum(same),
+               launches={"prefill": {"unsharded": pre0, "sharded": pre1},
+                         "decode": {"unsharded": dec0, "sharded": dec1}, "want": want},
+               eager_ms_per_step={"unsharded": statistics.mean(ms0[1:]),
+                                  "sharded": statistics.mean(ms1[1:])})
+    del model, sharded
+    if not rec["prefill_bit_equal"] or not all(same):
+        raise AssertionError(f"17a {arch}: sharded logits differ from the unsharded (prefill "
+                             f"equal {rec['prefill_bit_equal']}, steps "
+                             f"{[i for i, ok in enumerate(same) if not ok]}): {rec}")
+    if (pre0, dec0) != (pre1, dec1) or (dev.type == "cuda" and (pre1, dec1) != (
+            want["prefill"], want["decode"])):
+        raise AssertionError(f"17a {arch}: {name} launches {rec['launches']}")
+    return rec
+
+
+def family_phase(dev, smi: str = "") -> dict:
+    """Phase 17: the families on the one-rank mesh in their production
+    modes: 17a each family's sharded prefill and decode against the
+    unsharded ones, 17b the sharded ``Trainer`` of the MoE and of the audio
+    model (its loss on vocab shards) under 15b's gates, 17c the dry run's
+    cells of the families in subprocesses, all at once."""
+    t0 = time.time()
+    rec = {"decode": {}, "train": {}}
+    box = {}
+
+    def run_cells():
+        try:
+            box["cells"] = dryrun_cells(FAMILY_CELLS, FAMILY_DIR, tag="17c")
+        except BaseException as e:  # noqa: BLE001 -- raised below, on the main thread
+            box["error"] = e
+
+    # 17c first: its processes run on the host's cores while the card works
+    worker = threading.Thread(target=run_cells, daemon=True)
+    worker.start()
+    cuda = dev.type == "cuda"
+
+    def peak_gb():
+        return torch.cuda.max_memory_allocated(dev) / 1e9 if cuda else None
+
+    with one_rank_world(dev) as mesh:
+        for arch in FAMILY_ARCHS:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            rec["decode"][arch] = dict(family_decode(dev, mesh, arch), peak_gb=peak_gb())
+            log(f"[family 17a] {smi}: {json.dumps(rec['decode'][arch])}")
+        for arch, dtype in FAMILY_TRAIN:
+            if cuda:
+                torch.cuda.reset_peak_memory_stats(dev)
+            r, model, _ = dist_train(dev, mesh, family_config(arch, dtype), FAMILY_TP)
+            r.update(dtype=str(model.cfg.param_dtype), peak_gb=peak_gb())
+            del model
+            gc.collect()
+            torch.cuda.empty_cache()
+            rec["train"][arch] = r
+            log(f"[family 17b] {smi}: {json.dumps(r)}")
+    worker.join()
+    if "error" in box:
+        raise box["error"]
+    rec["dryrun"] = box["cells"]
+    for key, r in rec["dryrun"].items():
+        log(f"[family 17c] {key}: {json.dumps(r)}")
+    rg = {k: r for k, r in rec["dryrun"].items() if k.startswith("recurrentgemma")}
+    log(f"[family 17c] recurrentgemma-2b's cells' seconds: "
+        f"{json.dumps({k: r['compile_s'] for k, r in rg.items()})}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.time() - t0
+    log(f"[family] phase 17 {rec['seconds']:.1f} s")
+    return rec
+
+
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
                  decoders, frontends, selfheal, training=None, distributed=None,
-                 meshed=None) -> list:
+                 meshed=None, families=None) -> list:
     """The kernels' JSON line, one entry per counted kernel from phase 2's
     records (``recs``: {kernel: [record]}; the bf16 tc matmul's from 7a) and
     the main paths' launches (``counts``), each with the same kernel at the
     LM models' shapes beside it (phases 7–11's records), its launches on
     phase 12's path (``selfheal``), on phase 14c's (``training``: the
     stats forwards and ``sparse_matmul``; the trainer runs no kernel) and
-    on phase 15a's sharded decode (``distributed``, the bf16 tc matmul's)
-    and on phase 16a's mesh serving (``meshed``: counted at the replicas'
-    captures, and launched by their replays)."""
+    on phase 15a's sharded decode (``distributed``, the bf16 tc matmul's),
+    on phase 16a's mesh serving (``meshed``: counted at the replicas'
+    captures, and launched by their replays) and on phase 17a's sharded
+    prefills and decodes (``families``, the bf16 tc matmul's)."""
     from repro_torch.kernels import build
 
     line = []
@@ -3603,6 +3864,9 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
                 lm_gen["compressed"]["replay_launches"]["decode"][name])
             line[-1]["sharded_decode_launches"] = (
                 None if distributed is None else distributed["decode"]["launches"]["sharded"])
+            line[-1]["family_launches"] = None if families is None else {
+                arch: {k: r["launches"][k]["sharded"] for k in ("prefill", "decode")}
+                for arch, r in families["decode"].items()}
         if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
             line[-1]["lm"] = dict(
                 at_shapes(lm_recs["int8"], lm_planned["launches"][name]),
@@ -3743,9 +4007,11 @@ def run() -> int:
     phase_done("15 distribution on a one-rank mesh")
     meshed = mesh_phase(dev, smi)
     phase_done("16 mesh serving, the dry run and the context decode")
+    families = family_phase(dev, smi)
+    phase_done("17 the families on a one-rank mesh")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                        decoders, frontends, selfheal, training, distributed, meshed)
+                        decoders, frontends, selfheal, training, distributed, meshed, families)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")
@@ -3766,6 +4032,7 @@ def run() -> int:
     log(f"[training] {json.dumps(training)}")
     log(f"[distributed] {json.dumps(distributed)}")
     log(f"[meshed] {json.dumps(meshed)}")
+    log(f"[families] {json.dumps(families)}")
     log(f"[done] {time.time() - t0:.1f} s; seconds per phase {json.dumps(phase_s)}")
     log(smi)  # the card's name and power limit again, beside the numbers
     print(json.dumps({"kernels": line}))

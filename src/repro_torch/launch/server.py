@@ -505,6 +505,14 @@ class CNNServer:
         p = _Pending(x=x, n=n, arrival=now, future=fut,
                      deadline=None if deadline_s is None else now + deadline_s)
         with self._lock:
+            if self._crashed is not None or self._closed:
+                # crashed or stopping since the check above: the crash drain
+                # or the stop sentinel may be past, and nothing would take it
+                self.stats.rejected += n
+                if self._crashed is not None:
+                    raise ServerCrashed(f"server crashed: {self._crashed!r} (restart with "
+                                        "start())")
+                raise RuntimeError("server stopped while the request was admitted")
             if self.max_queue is not None and self._depth + n > self.max_queue:
                 if self.shed == "reject":
                     self.stats.rejected += n

@@ -175,21 +175,34 @@ def attend_context(q, k, v, positions, *, num_heads, num_kv_heads, hd, theta, wi
     return fn(q, k.redistribute(mesh, kv_pl), v.redistribute(mesh, kv_pl))
 
 
+def ring_positions(slots, pos, cap: int, window: int):
+    """The absolute position of each of ``slots`` (cache slot indices) after
+    the write at ``pos``: the slots themselves for a plain cache; for a
+    ``window`` ring of ``cap`` slots the ring arithmetic of
+    :meth:`GQAttention.decode`, an unfilled slot at ``_NO_POS``."""
+    if not window:
+        return slots
+    slot = pos % cap
+    base = pos - slot
+    kpos = torch.where(slots <= slot, base + slots, base - cap + slots)
+    return torch.where(kpos < 0, torch.full_like(kpos, _NO_POS), kpos)
+
+
 def decode_context(qg, k, v, pos, *, window=0):
     """One decode step's attention over a cache split along its sequence
     ('cache_seq' on the mesh): ``qg`` (B, 1, kv, G, hd), the cache's ``k``
-    and ``v`` (B, cap, kv, hd) DTensors. Each rank scores its slice of the
-    cache; the partial maxima, the softmax sums and the weighted values
-    combine over the ranks that split the sequence (three all-reduces of
-    (B, kv, G)-sized and (B, 1, kv, G, hd) tensors; no rank gathers the
-    cache). With one rank along the split it is :func:`_attend` itself, bit
-    for bit. Returns (B, 1, kv, G, hd)."""
+    and ``v`` (B, cap, kv, hd) DTensors, a ``window`` ring or a plain cache.
+    Each rank takes the absolute position of each of its slots
+    (:func:`ring_positions`) and scores its slice, masked by causality, the
+    window and the filled slots; the partial maxima, the softmax sums and
+    the weighted values combine over the ranks that split the sequence
+    (three all-reduces of (B, kv, G)-sized and (B, 1, kv, G, hd) tensors; no
+    rank gathers the cache). With one rank along the split it is the
+    one-device decode's :func:`attend_chunked` itself, bit for bit.
+    Returns (B, 1, kv, G, hd)."""
     import torch.distributed._functional_collectives as funcol
     from torch.distributed.tensor.experimental import local_map
 
-    if window:
-        raise NotImplementedError("a windowed ring cache split along its sequence (local "
-                                  "attention) has no mesh path")
     mesh = k.device_mesh
     batch = current_rules().get("batch")
     kv_pl = tuple(k.placements)
@@ -210,12 +223,17 @@ def decode_context(qg, k, v, pos, *, window=0):
     def local(ql, kl, vl):
         sl = kl.shape[1]
         off = sum(mesh.get_local_rank(j) * sl for j in split)  # an even split: cap % n == 0
-        kpos = off + torch.arange(sl, dtype=torch.int64, device=kl.device)
         p = pos.to(kl.device)
+        kpos = ring_positions(off + torch.arange(sl, dtype=torch.int64, device=kl.device), p,
+                              cap, window)
         if n == 1:
-            return _attend(ql, kl, vl, p.reshape(1), kpos, kv_valid_len=p + 1)
+            return attend_chunked(ql, kl, vl, p.reshape(1), kpos, window=window,
+                                  kv_valid_len=p + 1)
+        ok = kpos <= p  # causal, and the filled slots
+        if window:
+            ok &= p - kpos < window
         sc = torch.einsum("bqhgd,bkhd->bhgqk", ql, kl).float() * _scale(ql.shape[-1])
-        sc = sc.masked_fill(~(kpos <= p), NEG_INF)  # causal, and the valid slots
+        sc = sc.masked_fill(~ok, NEG_INF)
         top = reduce(sc.amax(dim=-1, keepdim=True), "max")
         e = torch.exp(sc - top)
         total = reduce(e.sum(dim=-1, keepdim=True), "sum")
@@ -340,11 +358,9 @@ class GQAttention:
         if context_parallel(cache["k"], "cache_seq"):
             out = decode_context(qg, cache["k"], cache["v"], pos, window=self.window)
             return self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo"), cache
-        kpos = torch.arange(cap, dtype=torch.int64, device=x.device)
-        if self.window:  # ring buffer: the absolute position of each slot
-            base = pos - slot
-            kpos = torch.where(kpos <= slot, base + kpos, base - cap + kpos)
-            kpos = torch.where(kpos < 0, torch.full_like(kpos, _NO_POS), kpos)
+        # a ring buffer's slots at their absolute positions
+        kpos = ring_positions(torch.arange(cap, dtype=torch.int64, device=x.device), pos, cap,
+                              self.window)
         out = attend_chunked(qg, cache["k"], cache["v"], pos.reshape(1), kpos, window=self.window,
                              kv_valid_len=pos + 1)
         y = self._proj(p, out.reshape(b, 1, c.num_heads * hd), "wo")
@@ -441,13 +457,51 @@ class MLAttention:
         (r, H, qk_nope_dim), w_uv (r, H, v_head_dim)) in ``dtype``, each
         contiguous. A compressed weight is decoded to dense first (an int8
         one dequantized to fp32 values before), as the reference does
-        inside every decode step: these are its values, bit for bit."""
+        inside every decode step: these are its values, bit for bit.
+
+        On a mesh each rank decodes its own shard under ``local_map``: the
+        columns of ``wkv_b`` split over a mesh dim are whole heads (the
+        'heads' rule holds only where the heads divide it), so ``w_uk`` and
+        ``w_uv`` come out split by head there (``Shard(1)``) and replicated
+        elsewhere; nothing is gathered, and ``meta`` shards stay ``meta``."""
+        vals = wkv_b.values if isinstance(wkv_b, (DBBWeight, QuantDBBWeight)) else wkv_b
+        if not isinstance(vals, DTensor):
+            return self._absorbed_local(wkv_b, dtype)
+        from torch.distributed.tensor.experimental import local_map
+
+        if isinstance(wkv_b, QuantDBBWeight):
+            raise NotImplementedError("an int8 projection on a mesh: the sharded serve path "
+                                      "runs floating compressed weights")
+        cols = 2 if isinstance(wkv_b, DBBWeight) else 1
+        out_pl = tuple(Shard(1) if pl == Shard(cols) else Replicate() for pl in vals.placements)
+        if any(isinstance(pl, Shard) and pl.dim != cols for pl in vals.placements):
+            raise ValueError(f"wkv_b placed {tuple(vals.placements)}: only its columns (the "
+                             "heads) may be split")
+        if isinstance(wkv_b, DBBWeight):
+            fmt, k = wkv_b.fmt, wkv_b.shape[0]
+
+            def local(vl, il):
+                return self._absorbed_local(DBBWeight(vl, il, fmt, (k, vl.shape[-1])), dtype)
+
+            args = (vals, wkv_b.indices)
+            in_pl = (tuple(vals.placements), tuple(wkv_b.indices.placements))
+        else:
+            def local(wl):
+                return self._absorbed_local(wl, dtype)
+
+            args, in_pl = (vals,), (tuple(vals.placements),)
+        return local_map(local, out_placements=(out_pl, out_pl), in_placements=in_pl,
+                         device_mesh=vals.device_mesh)(*args)
+
+    def _absorbed_local(self, wkv_b, dtype):
+        """:meth:`absorbed` of one device's (or one shard's) weight, its
+        heads as many as its columns hold."""
         c = self.cfg
         if isinstance(wkv_b, QuantDBBWeight):
             wkv_b = dequantize_dbb(wkv_b)
         if isinstance(wkv_b, DBBWeight):
             wkv_b = dbb_decode(wkv_b)
-        w = wkv_b.reshape(c.kv_lora_rank, c.num_heads, c.qk_nope_dim + c.v_head_dim)
+        w = wkv_b.reshape(c.kv_lora_rank, -1, c.qk_nope_dim + c.v_head_dim)
         return (w[..., : c.qk_nope_dim].to(dtype).contiguous(),
                 w[..., c.qk_nope_dim:].to(dtype).contiguous())
 
@@ -475,16 +529,38 @@ class MLAttention:
         write_slot_(cache["c_kv"], slot, c_kv)
         write_slot_(cache["k_rope"], slot, k_rope[:, :, 0])
         w_uk, w_uv = absorbed if absorbed is not None else self.absorbed(p["wkv_b"], dt)
-        ckv = shard(cache["c_kv"].to(dt), ("batch", "cache_seq", None))
-        krp = cache["k_rope"].to(dt)
+        ckv = shard(cache["c_kv"], ("batch", "cache_seq", None))
+        core = functools.partial(self._absorbed_core, pos=pos, dt=dt)
+        if isinstance(q_nope, DTensor):
+            from torch.distributed.tensor.experimental import local_map
+
+            mesh = q_nope.device_mesh
+            batch = current_rules().get("batch")
+            heads = tuple(w_uk.placements)  # Shard(1): the heads' split
+            q_pl = tuple(Shard(2) if hp == Shard(1) else bp for hp, bp in zip(
+                heads, spec_placements((batch, None, None, None), mesh, q_nope.shape,
+                                       uneven="replicate")))
+            c_pl = spec_placements((batch, None, None), mesh, ckv.shape, uneven="replicate")
+            core = local_map(core, out_placements=(q_pl,),
+                             in_placements=(q_pl, q_pl, c_pl, c_pl, heads, heads),
+                             device_mesh=mesh, redistribute_inputs=True)
+        out = core(q_nope, q_rope, ckv, cache["k_rope"], w_uk, w_uv)
+        y = self._proj(p, out.reshape(b, 1, c.num_heads * c.v_head_dim), "wo")
+        return y, cache
+
+    def _absorbed_core(self, q_nope, q_rope, ckv, krp, w_uk, w_uv, *, pos, dt):
+        """The absorbed scores and context over the whole latent cache:
+        (B, 1, H, qk_nope_dim) and (B, 1, H, qk_rope_dim) queries -> (B, 1,
+        H, v_head_dim), H the heads the weights hold (a rank's own on a
+        mesh)."""
+        c = self.cfg
+        ckv, krp = ckv.to(dt), krp.to(dt)
         q_c = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk.to(dt))
         s_lat = torch.einsum("bqhr,bsr->bhqs", q_c, ckv)
         s_rope = torch.einsum("bqhp,bsp->bhqs", q_rope, krp)
         s = (s_lat + s_rope).float() * _scale(c.qk_nope_dim + c.qk_rope_dim)
-        kpos = torch.arange(cap, dtype=torch.int64, device=x.device)
-        s = s.masked_fill(~(kpos <= pos), NEG_INF)
+        kpos = torch.arange(ckv.shape[1], dtype=torch.int64, device=ckv.device)
+        s = s.masked_fill(~(kpos <= pos.to(ckv.device)), NEG_INF)
         pr = torch.softmax(s, dim=-1).to(dt)
         ctx = torch.einsum("bhqs,bsr->bqhr", pr, ckv)
-        out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.to(dt))
-        y = self._proj(p, out.reshape(b, 1, c.num_heads * c.v_head_dim), "wo")
-        return y, cache
+        return torch.einsum("bqhr,rhv->bqhv", ctx, w_uv.to(dt))

@@ -239,19 +239,25 @@ _CTX = threading.local()
 def sharding_rules(rules: Optional[dict], mesh=None):
     """Install logical -> mesh axis rules so that :func:`shard` redistributes.
     With no rules (one device) ``shard`` is a no-op. With a ``mesh`` the
-    body also runs under ``implicit_replication``: a plain tensor that meets
-    a DTensor counts as replicated (it must then be the same on every
-    rank, as positions and masks are)."""
+    body also runs with DTensor's implicit replication on: a plain tensor
+    that meets a DTensor counts as replicated (it must then be the same on
+    every rank, as positions and masks are). Both are this thread's, and
+    both are restored on leaving, so that the context nests (a
+    checkpoint's recompute re-enters it in the backward; the public
+    ``implicit_replication`` turns the switch off when it leaves)."""
     prev = getattr(_CTX, "rules", None), getattr(_CTX, "mesh", None)
     _CTX.rules, _CTX.mesh = rules, mesh
     try:
         if mesh is None:
             yield
         else:
-            from torch.distributed.tensor.experimental import implicit_replication
-
-            with implicit_replication():
+            dispatcher = DTensor._op_dispatcher
+            was = dispatcher._allow_implicit_replication
+            dispatcher._allow_implicit_replication = True
+            try:
                 yield
+            finally:
+                dispatcher._allow_implicit_replication = was
     finally:
         _CTX.rules, _CTX.mesh = prev
 
@@ -617,8 +623,12 @@ def _dense_sharded_linear(x, w: DTensor):
     weight's placement (rather than by DTensor's strategy search, which on
     a 3-D mesh plans every candidate's redistribution and costs seconds an
     op):
-      - ``Shard(1)``, N split (column-parallel): the input gathered there,
-        the output split along its last dim;
+      - ``Shard(1)``, N split: where the input is split along its batch
+        (dim 0) on the same mesh dim, the weight is gathered for the
+        product (training's FSDP over 'data' of a weight whose N is
+        ``w_embed``: ``w_down``, ``wo``), as for ``Shard(0)`` below;
+        otherwise column-parallel, the input gathered there and the
+        output split along its last dim;
       - ``Shard(0)``, K split: where the input is split along a leading
         (batch) dim on the same mesh dim, the weight is gathered for the
         product (training's FSDP over 'data'), its gradient a partial sum
@@ -635,7 +645,9 @@ def _dense_sharded_linear(x, w: DTensor):
     w_in, x_in, out_pl, x_grad, w_grad = [], [], [], [], []
     for wp, xp in zip(w.placements, x.placements):
         lead = isinstance(xp, Shard) and xp.dim != last
-        if wp == Shard(1):
+        if wp == Shard(1) and xp == Shard(0):
+            layout = (Replicate(), xp, xp, xp, Partial())
+        elif wp == Shard(1):
             layout = (wp, Replicate(), Shard(last), Partial(), wp)
         elif wp == Shard(0) and lead:
             layout = (Replicate(), xp, xp, xp, Partial())

@@ -16,10 +16,12 @@ import math
 
 import numpy as np
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.act_sparsity import act_scope
 from repro_torch.core.quant import quantize
-from repro_torch.models.common import Param, apply_linear, is_quantized, linear_def, shard
+from repro_torch.models.common import (Param, apply_linear, current_rules, is_quantized,
+                                       linear_def, shard, spec_placements)
 
 
 def _in(dtype, value: float) -> float:
@@ -112,6 +114,9 @@ def combine(out, idx, n: int):
     return y.reshape(*lead, n, d)
 
 
+_STACKS = ("we_gate", "we_up", "we_down")
+
+
 @dataclasses.dataclass(frozen=True)
 class MoEMLP:
     """Routed experts (expert-choice) + optional fused shared experts.
@@ -145,7 +150,7 @@ class MoEMLP:
 
     def __call__(self, p, x):
         _, s, _ = x.shape
-        y = self._grouped(p, x) if s > 1 else self._global(p, x)  # decode: a few tokens
+        y = self._routed(p, x, grouped=s > 1)  # decode: a few tokens, routed over the batch
         if self.cfg.num_shared_experts:
             with act_scope("shared"):
                 y = y + self._shared()(p["shared"], x)
@@ -157,40 +162,89 @@ class MoEMLP:
 
     def _experts(self, p, disp):
         """Each expert's SwiGLU over its dispatched rows: (E, rows, d) in the
-        activation dtype -> (E, rows, d)."""
+        activation dtype -> (E, rows, d), E the stacks' experts in ``p``."""
         dt = disp.dtype
         h = torch.bmm(disp, p["we_up"].to(dt))
         g = torch.bmm(disp, p["we_gate"].to(dt))
         return torch.bmm(silu(g) * h, p["we_down"].to(dt))
 
-    def _grouped(self, p, x):
+    def _routed(self, p, x, *, grouped: bool):
+        """The routed experts' output: :meth:`_grouped` (prefill and train)
+        or :meth:`_global` (decode).
+
+        On one device the body runs on the tensors as they are (``e0`` = 0,
+        every expert). On a mesh it runs under ``local_map``, the reference's
+        layout: each rank takes its rows (``_grouped``: its batch shard,
+        with the sequence gathered, as ``shard(x, ("batch", None,
+        "embed"))``; ``_global``: every token of the batch, which expert
+        choice over the batch needs), runs the router and ``top_cap`` on
+        them, keeps the indices and gates of its own experts (the stacks'
+        'experts' shards), dispatches locally, runs its expert stacks (the
+        FSDP-sharded ``w_embed`` dim gathered for the product, as
+        ``common._dense_sharded_linear`` gathers a dense weight) and combines
+        them in expert order into a partial sum over the expert shards,
+        which the closing :func:`shard` reduce-scatters. Gradients: the
+        rows' a partial sum over the expert shards; the expert stacks' a
+        partial sum over the batch shards; the router's over both."""
+        body = self._grouped if grouped else self._global
+        keys = ("router",) + _STACKS
+        if not isinstance(x, DTensor):
+            return body(p, x)
+        from torch.distributed.tensor.experimental import local_map
+
+        mesh = x.device_mesh
+        batch = current_rules().get("batch") if grouped else None
+        x_in = spec_placements((batch, None, None), mesh, x.shape, uneven="replicate")
+        split = [j for j, pl in enumerate(p["we_up"].placements) if pl == Shard(0)]
+        if any(isinstance(x_in[j], Shard) for j in split):
+            raise ValueError("a mesh dim splits both the experts and the batch")
+        lead = [j for j, pl in enumerate(x_in) if isinstance(pl, Shard)]
+        part = [Partial() if j in split else pl for j, pl in enumerate(x_in)]
+        w_in = [Shard(0) if j in split else Replicate() for j in range(mesh.ndim)]
+        w_grad = [Partial() if j in lead else pl for j, pl in enumerate(w_in)]
+        r_in = [Replicate()] * mesh.ndim
+        r_grad = [Partial() if j in lead or j in split else Replicate()
+                  for j in range(mesh.ndim)]
+
+        def local(xl, *ws):
+            e0 = 0
+            for j in split:  # the experts' shards, major to minor in mesh order
+                e0 = e0 * mesh.size(j) + mesh.get_local_rank(j)
+            return body(dict(zip(keys, ws)), xl, e0 * ws[1].shape[0])
+
+        w_pl = (tuple(w_in),) * len(_STACKS)
+        fn = local_map(local, out_placements=(tuple(part),),
+                       in_placements=(tuple(x_in), tuple(r_in)) + w_pl,
+                       in_grad_placements=(tuple(part), tuple(r_grad)) + (tuple(w_grad),) * 3,
+                       device_mesh=mesh, redistribute_inputs=True)
+        return fn(x, *(p[k] for k in keys))
+
+    def _grouped(self, p, x, e0: int = 0):
         """GShard-style grouped expert choice: experts pick their top-``cap``
-        tokens within each example."""
+        tokens within each example. ``p``'s stacks hold experts ``e0`` …
+        ``e0 + E_local - 1``; the other experts' picks are not this call's."""
         c = self.cfg
         b, s, dm = x.shape
-        e = c.num_experts
-        cap = max(1, int(s * c.top_k * c.moe_capacity_factor) // e)
-        # the dispatch gathers along seq: leave the sequence-parallel residual
-        x = shard(x, ("batch", None, "embed"))
+        el = p["we_up"].shape[0]
+        cap = max(1, int(s * c.top_k * c.moe_capacity_factor) // c.num_experts)
         gates, idx = top_cap(self._probs(p, x).transpose(1, 2), cap)  # (b, E, cap)
-        idx = shard(idx, ("batch", "experts", None))
-        gates = shard(gates, ("batch", "experts", None))
-        disp = x[torch.arange(b, device=x.device)[:, None, None], idx]  # (b, E, cap, d)
-        disp = shard(disp, ("batch", "experts", None, None))
-        out = self._experts(p, disp.transpose(0, 1).reshape(e, b * cap, dm))
-        out = out.reshape(e, b, cap, dm).transpose(0, 1) * gates[..., None].to(x.dtype)
+        gates, idx = gates[:, e0: e0 + el], idx[:, e0: e0 + el]
+        disp = x[torch.arange(b, device=x.device)[:, None, None], idx]  # (b, el, cap, d)
+        out = self._experts(p, disp.transpose(0, 1).reshape(el, b * cap, dm))
+        out = out.reshape(el, b, cap, dm).transpose(0, 1) * gates[..., None].to(x.dtype)
         return combine(out, idx, s)
 
-    def _global(self, p, x):
-        """Expert choice over all the batch's tokens (decode)."""
+    def _global(self, p, x, e0: int = 0):
+        """Expert choice over all the batch's tokens (decode); ``p`` and
+        ``e0`` as :meth:`_grouped`'s."""
         c = self.cfg
         b, s, dm = x.shape
-        t, e = b * s, c.num_experts
+        t, el = b * s, p["we_up"].shape[0]
         xf = x.reshape(t, dm)
-        cap = max(1, int(t * c.top_k * c.moe_capacity_factor) // e)
+        cap = max(1, int(t * c.top_k * c.moe_capacity_factor) // c.num_experts)
         gates, idx = top_cap(self._probs(p, xf).T, cap)  # (E, cap)
-        disp = shard(xf.index_select(0, idx.reshape(-1)).reshape(e, cap, dm),
-                     ("experts", None, None))
+        gates, idx = gates[e0: e0 + el], idx[e0: e0 + el]
+        disp = xf.index_select(0, idx.reshape(-1)).reshape(el, cap, dm)
         out = self._experts(p, disp) * gates[..., None].to(x.dtype)
         return combine(out, idx, t).reshape(b, s, dm)
 

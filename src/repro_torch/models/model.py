@@ -49,18 +49,19 @@ from typing import Optional
 
 import torch
 from torch import nn
-from torch.distributed.tensor import DTensor
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.core.act_sparsity import act_scope, collect_activations, collecting
 from repro_torch.core.quant import QMAX, QuantDBBWeight, as_f32, quantize_dbb
 from repro_torch.core.sparse_linear import PruneSchedule, scheduled_fmt
 from repro_torch.core.vdbb import DBBWeight, dbb_encode, dbb_mask
 from repro_torch.models.attention import GQAttention, MLAttention
-from repro_torch.models.common import (Param, abstract_params, apply_linear,
-                                       constrain_shards_, dbb_leaves, distribute_tree,
-                                       init_params, layer_norm, param_pspecs, rms_norm, shard,
-                                       sharded_embed_lookup, stage_linear, tree_get, tree_set,
-                                       tree_slice, tree_unstack)
+from repro_torch.models.common import (Param, _dense_sharded_linear, abstract_params,
+                                       apply_linear, constrain_shards_, current_mesh,
+                                       current_rules, dbb_leaves, distribute_tree, init_params,
+                                       layer_norm, param_pspecs, rms_norm, shard,
+                                       sharded_embed_lookup, sharding_rules, stage_linear,
+                                       tree_get, tree_set, tree_slice, tree_unstack)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.mlp import DenseMLP, MoEMLP
 from repro_torch.models.recurrent import RGLRUBlock, RWKV6Block
@@ -261,7 +262,14 @@ class LM(nn.Module):
         c = self.cfg
         table = (self.params if params is None else params)["embed"]
         tokens = tokens.to(table.device)
-        if c.frontend == "audio":
+        if c.frontend == "audio" and isinstance(table, DTensor):
+            # each codebook's vocab-sharded lookup (a partial sum over the
+            # vocab shards), summed in the table's dtype as below
+            h = sharded_embed_lookup(table[0], tokens[..., 0], table.dtype)
+            for i in range(1, c.num_codebooks):
+                h = h + sharded_embed_lookup(table[i], tokens[..., i], table.dtype)
+            h = h.to(c.compute_dtype)
+        elif c.frontend == "audio":
             h = table[0].index_select(0, tokens[..., 0].reshape(-1))
             for i in range(1, c.num_codebooks):
                 h = h + table[i].index_select(0, tokens[..., i].reshape(-1))
@@ -282,7 +290,9 @@ class LM(nn.Module):
         c = self.cfg
         params = self.params if params is None else params
         if c.tie_embeddings:  # a dense product with the table, as the reference's
-            logits = x @ params["embed"].t().to(x.dtype)
+            table = params["embed"]
+            logits = (_dense_sharded_linear(x, table.t()) if isinstance(table, DTensor)
+                      else x @ table.t().to(x.dtype))
         else:
             logits = apply_linear(x, params["lm_head"], name="lm_head")
         if c.logit_softcap:  # tanh(l / cap) * cap, each op rounding in l's dtype
@@ -401,7 +411,11 @@ class LM(nn.Module):
     def _remat(self, body):
         """``body(h, group_params)`` under the config's remat policy while
         autograd records; as it is otherwise, and while stats are collected
-        (the recompute would record them twice)."""
+        (the recompute would record them twice). The recompute runs in the
+        backward, outside the step's :func:`sharding_rules`: the body takes
+        the rules and mesh of the forward with it (autograd runs a CUDA
+        backward on a thread of its own, which thread-local rules do not
+        reach)."""
         c = self.cfg
         if c.remat not in REMAT:
             raise ValueError(f"remat={c.remat!r}: one of {REMAT}")
@@ -409,36 +423,36 @@ class LM(nn.Module):
             return body
         from torch.utils.checkpoint import checkpoint
 
+        rules, mesh = current_rules(), current_mesh()
+
+        def ruled(h, gp):
+            with sharding_rules(rules, mesh):
+                return body(h, gp)
+
         kw = {"context_fn": _save_dots} if c.remat == "dots" else {}
-        return lambda h, gp: checkpoint(body, h, gp, use_reentrant=False, **kw)
+        return lambda h, gp: checkpoint(ruled if rules is not None else body, h, gp,
+                                        use_reentrant=False, **kw)
 
     # -------------------------------------------------------------- loss
     def loss(self, batch: dict, params=None):
         """The next-token loss of ``batch`` (tensors: ``tokens``, ``labels``,
         optionally ``loss_mask``, ``memory``, ``vision_embeds``), the
         reference's: an fp32 logsumexp less the label's logit taken through
-        a one-hot sum; audio logits reshaped to (B, S, num_codebooks,
-        codebook_vocab) and the loss averaged over the codebooks; masked
-        positions out of the mean. ``params``: the tree to differentiate
-        (the model's by default). Returns ``(loss, {"loss", "nll_mean"})``."""
+        a one-hot sum (:func:`vocab_nll`, which on a mesh reduces each vocab
+        shard and all-reduces (B, S)-sized maxima and sums, never the
+        logits); audio logits taken as num_codebooks × codebook_vocab and
+        the loss averaged over the codebooks; masked positions out of the
+        mean. ``params``: the tree to differentiate (the model's by
+        default). Returns ``(loss, {"loss", "nll_mean"})``."""
         c = self.cfg
         side = {k: batch[k] for k in ("memory", "vision_embeds") if k in batch}
         logits = self.forward(batch["tokens"], params=params, **side)
         labels = batch["labels"].to(logits.device)
         mask = batch.get("loss_mask")
         if c.frontend == "audio":
-            b, s, _ = logits.shape
-            logits = logits.reshape(b, s, c.num_codebooks, c.codebook_vocab)
-            vocab = c.codebook_vocab
+            nll = vocab_nll(logits, labels, c.num_codebooks, c.codebook_vocab).mean(dim=-1)
         else:
-            vocab = logits.shape[-1]
-        logits = logits.float()
-        lse = torch.logsumexp(logits, dim=-1)
-        iota = torch.arange(vocab, dtype=labels.dtype, device=labels.device)
-        onehot = (labels[..., None] == iota).float()
-        nll = lse - (logits * onehot).sum(dim=-1)
-        if c.frontend == "audio":
-            nll = nll.mean(dim=-1)
+            nll = vocab_nll(logits, labels[..., None], 1, logits.shape[-1])[..., 0]
         if mask is not None:
             mask = mask.to(nll.device, torch.float32)
             nll = nll * mask
@@ -750,6 +764,98 @@ class LM(nn.Module):
         final_norm = params["final_norm"]
         pb.raw("head", "head", lambda x: self._logits(self._apply_norm(final_norm, x)))
         return pb.build()
+
+
+def _codebook_spans(v0: int, width: int, codebooks: int, vocab: int) -> list:
+    """Per codebook, the local columns ``[a, b)`` of a vocab slice ``[v0,
+    v0 + width)`` of the flattened ``codebooks × vocab`` logits (empty where
+    they do not meet)."""
+    return [(max(c * vocab, v0) - v0, min((c + 1) * vocab, v0 + width) - v0)
+            for c in range(codebooks)]
+
+
+def _slice_max(lg, v0: int, codebooks: int, vocab: int):
+    """Each codebook's fp32 maximum over this vocab slice, (..., codebooks);
+    ``-inf`` where the slice holds none of its columns."""
+    out = [lg[..., a:b].float().amax(dim=-1) if a < b else
+           torch.full(lg.shape[:-1], -math.inf, device=lg.device)
+           for a, b in _codebook_spans(v0, lg.shape[-1], codebooks, vocab)]
+    return torch.stack(out, dim=-1)
+
+
+def _slice_sums(lg, top, labels, v0: int, codebooks: int, vocab: int):
+    """Each codebook's sum of ``exp(l - top)`` over this vocab slice and its
+    label's logit through the masked one-hot sum (0 where the label's
+    column lies elsewhere), both fp32 (..., codebooks)."""
+    sums, picked = [], []
+    for c, (a, b) in enumerate(_codebook_spans(v0, lg.shape[-1], codebooks, vocab)):
+        if a >= b:
+            sums.append(torch.zeros(lg.shape[:-1], device=lg.device))
+            picked.append(sums[-1])
+            continue
+        lc = lg[..., a:b].float()
+        sums.append(torch.exp(lc - top[..., c, None]).sum(dim=-1))
+        iota = torch.arange(v0 + a, v0 + b, dtype=labels.dtype, device=labels.device)
+        onehot = ((labels[..., c, None] + c * vocab) == iota).float()
+        picked.append((lc * onehot).sum(dim=-1))
+    return torch.stack(sums, dim=-1), torch.stack(picked, dim=-1)
+
+
+def vocab_nll(logits, labels, codebooks: int, vocab: int):
+    """The negative log-likelihood of ``labels`` (..., codebooks) under
+    ``logits`` (..., codebooks · vocab), per codebook in fp32: ``log(Σ
+    exp(l - max)) + max`` (torch.logsumexp's order, every column of the
+    padded vocab counted, as the reference's) less the label's logit.
+
+    On a DTensor split along its vocab over 'model' (:meth:`LM._logits`)
+    each rank reduces its own contiguous slice under ``local_map``: the
+    partial maxima of each codebook its slice meets (a slice may hold part
+    of one codebook or span several), all-reduced by max; then the sums of
+    exps and the label's logit, all-reduced by sum. Only (..., codebooks)
+    fp32 tensors cross the mesh; the logits' gradient stays on its shards.
+    On one device it is the same computation over the one slice."""
+    if not isinstance(logits, DTensor):
+        with torch.no_grad():
+            top = _slice_max(logits, 0, codebooks, vocab)
+        top = top.masked_fill(top.abs() == math.inf, 0.0)
+        sums, picked = _slice_sums(logits, top, labels, 0, codebooks, vocab)
+        return (torch.log(sums) + top) - picked
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = logits.device_mesh
+    last = logits.dim() - 1
+    lg_pl = tuple(logits.placements)
+    split = [j for j, pl in enumerate(lg_pl) if pl == Shard(last)]
+    if any(isinstance(pl, Shard) and pl.dim not in (0, last) for pl in lg_pl):
+        raise ValueError(f"logits placed {lg_pl}: only the batch and the vocab may be split")
+    rows = tuple(pl if pl == Shard(0) else Replicate() for pl in lg_pl)
+    labels = labels if isinstance(labels, DTensor) else DTensor.from_local(
+        labels, mesh, [Replicate()] * mesh.ndim, run_check=False)
+
+    def v0(width: int) -> int:
+        r = 0
+        for j in split:  # the vocab's shards, major to minor in mesh order
+            r = r * mesh.size(j) + mesh.get_local_rank(j)
+        return r * width
+
+    def local_max(lg):
+        return _slice_max(lg, v0(lg.shape[-1]), codebooks, vocab)
+
+    def local_sums(lg, top, lab):
+        return _slice_sums(lg, top, lab, v0(lg.shape[-1]), codebooks, vocab)
+
+    def partial(op):
+        return tuple(Partial(op) if j in split else pl for j, pl in enumerate(rows))
+
+    with torch.no_grad():
+        top = local_map(local_max, out_placements=(partial("max"),), in_placements=(lg_pl,),
+                        device_mesh=mesh)(logits.detach()).redistribute(mesh, rows)
+    top = top.masked_fill(top.abs() == math.inf, 0.0)
+    sums, picked = local_map(local_sums, out_placements=(partial("sum"), partial("sum")),
+                             in_placements=(lg_pl, rows, rows),
+                             in_grad_placements=(lg_pl, rows, rows), device_mesh=mesh,
+                             redistribute_inputs=True)(logits, top, labels)
+    return (torch.log(sums.redistribute(mesh, rows)) + top) - picked.redistribute(mesh, rows)
 
 
 def _stack(trees: list) -> dict:

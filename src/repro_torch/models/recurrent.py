@@ -30,8 +30,10 @@ prefill disagree with a forward over the same tokens (ROADMAP queue 3).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
+from torch.distributed.tensor import DTensor, Partial, Replicate, Shard
 
 from repro_torch.models.common import Param, apply_linear, linear_def, shard
 from repro_torch.models.mlp import gelu, sigmoid, silu
@@ -101,15 +103,24 @@ class RGLRUBlock:
 
     def __call__(self, p, x, positions=None):
         """Full sequence. x: (B, S, d) -> (y, {"h": (B, d_rnn) fp32, "conv":
-        the conv's last W - 1 inputs})."""
+        the conv's last W - 1 inputs}). On a mesh the conv and the scan run
+        under ``local_map`` on each rank's batch rows and features (both
+        act feature by feature along the whole sequence): no DTensor-level
+        op inside them, whose strategy search costs seconds on a 3-D
+        mesh."""
         c = self.cfg
         u_in = shard(apply_linear(x, p["w_x"]), ("batch", None, "mlp"))
-        u = causal_conv1d(u_in, p["conv_k"])
+        local = getattr(u_in, "placements", None)
+        u = _local(causal_conv1d, u_in, p["conv_k"], in_pl=(
+            local, getattr(p["conv_k"], "placements", None)), out_pl=(local,))
         a, bx = self._gates(p, u)
-        h = scan_linear(a, bx).to(x.dtype)
+        a, bx = shard(a, ("batch", None, "mlp")), shard(bx, ("batch", None, "mlp"))
+        h = _local(scan_linear, a, bx, in_pl=(local, local), out_pl=(local,)).to(x.dtype)
         gate = gelu(apply_linear(x, p["w_gate"]))
         y = apply_linear(h * gate, p["w_out"])
-        return y, {"h": h[:, -1].float(), "conv": _window(u_in, c.conv1d_width - 1)}
+        conv = _local(functools.partial(_window, n=c.conv1d_width - 1), u_in, in_pl=(local,),
+                      out_pl=(local,))
+        return y, {"h": h[:, -1].float(), "conv": conv}
 
     def init_cache(self, batch, max_len, dtype, device=None):
         c = self.cfg
@@ -195,50 +206,87 @@ class RWKV6Block:
         return -torch.exp(torch.clamp(p["decay_base"].float() + dd.float(), -8.0, 8.0))
 
     def _out(self, p, y, g, x):
+        """The per-head group norm of the WKV output ``y`` (B, S, H·hd) fp32,
+        gated by ``g`` and projected by ``w_o``. On a mesh ``y`` is whole
+        along its features (the WKV ran data-parallel); the norm runs on
+        each rank's rows under ``local_map``, then takes ``g``'s feature
+        split (a local slice) for the row-parallel ``w_o``."""
         c = self.cfg
-        y = group_norm(y.reshape(*x.shape[:2], -1), p["ln_g"], p["ln_b"], c.rwkv_heads)
+        rows = getattr(y, "placements", None)
+        y = _local(functools.partial(group_norm, groups=c.rwkv_heads), y, p["ln_g"], p["ln_b"],
+                   in_pl=(rows, None, None), out_pl=(rows,))
+        y = shard(y, ("batch", None, "heads"))
         return apply_linear(y.to(x.dtype) * g, p["w_o"])
+
+    def _heads(self, *ts):
+        """The projections (B, S, H·hd) on a mesh taken whole along their
+        features (replicated over 'model', the reference's "WKV
+        data-parallel": the heads need not divide the mesh), split only by
+        the batch; as they are on one device."""
+        return [shard(t, ("batch", None, None)) for t in ts]
 
     def time_mix(self, p, x, x_prev_tok):
         """x: (B, S, d); x_prev_tok: (B, d), the token before the segment.
-        Returns (y, {"s": (B, H, hd, hd) fp32, "shift": x's last token})."""
+        Returns (y, {"s": (B, H, hd, hd) fp32, "shift": x's last token}).
+        On a mesh the sequence is gathered first (the token shift reads the
+        token before each one) and the WKV runs on each rank's batch rows
+        under ``local_map``."""
         c = self.cfg
         b, s, _ = x.shape
         h, hd = c.rwkv_heads, c.rwkv_head_dim
+        x = shard(x, ("batch", None, "embed"))
         xs = torch.cat([x_prev_tok[:, None], x[:, :-1]], dim=1)
         xw, xk, xv, xr, xg = self._tm_inputs(p, x, xs)
-        r = apply_linear(xr, p["w_r"]).reshape(b, s, h, hd)
-        k = apply_linear(xk, p["w_k"]).reshape(b, s, h, hd)
-        v = apply_linear(xv, p["w_v"]).reshape(b, s, h, hd)
+        r, k, v = (apply_linear(xr, p["w_r"]), apply_linear(xk, p["w_k"]),
+                   apply_linear(xv, p["w_v"]))
         g = silu(apply_linear(xg, p["w_g"]))
-        wlog = self._decay(p, xw).reshape(b, s, h, hd)
-        y, state = wkv_chunked(r, k, v, wlog, p["u"].float(), chunk=c.wkv_chunk)
-        return self._out(p, y, g, x), {"s": state, "shift": x[:, -1]}
+        r, k, v, wlog = self._heads(r, k, v, self._decay(p, xw))  # calibration order: r k v g w
+
+        def wkv(r, k, v, wlog, u):  # (rows, S, H·hd) -> heads
+            rows = r.shape[0]
+            r, k, v, wlog = (t.reshape(rows, s, h, hd) for t in (r, k, v, wlog))
+            return wkv_chunked(r, k, v, wlog, u.float(), chunk=c.wkv_chunk)
+
+        rows = getattr(r, "placements", None)
+        y, state = _local(wkv, r, k, v, wlog, p["u"], in_pl=(rows,) * 4 + (None,),
+                          out_pl=(rows, rows))
+        return self._out(p, y.reshape(b, s, h * hd), g, x), {"s": state, "shift": x[:, -1]}
 
     def time_mix_decode(self, p, x, cache):
-        """One token; writes ``s`` and ``shift`` into ``cache`` in place."""
+        """One token; writes ``s`` and ``shift`` into ``cache`` in place. On
+        a mesh the state update runs on each rank's batch rows under
+        ``local_map``, the state keeping its cache layout."""
         c = self.cfg
         b = x.shape[0]
         h, hd = c.rwkv_heads, c.rwkv_head_dim
         xs = cache["shift"][:, None].to(x.dtype)
         xw, xk, xv, xr, xg = self._tm_inputs(p, x, xs)
-        r = apply_linear(xr, p["w_r"]).reshape(b, h, hd).float()
-        k = apply_linear(xk, p["w_k"]).reshape(b, h, hd).float()
-        v = apply_linear(xv, p["w_v"]).reshape(b, h, hd).float()
+        r, k, v = (apply_linear(xr, p["w_r"]), apply_linear(xk, p["w_k"]),
+                   apply_linear(xv, p["w_v"]))
         g = silu(apply_linear(xg, p["w_g"]))
-        w = torch.exp(self._decay(p, xw).reshape(b, h, hd))
-        u = p["u"].float()
-        s0 = cache["s"]
-        kv = k[..., :, None] * v[..., None, :]  # (B, H, hd, hd)
-        y = torch.einsum("bhk,bhkv->bhv", r, s0 + u[None, :, :, None] * kv)
-        s1 = w[..., :, None] * s0 + kv
-        y = self._out(p, y, g, x)
+        r, k, v, wlog = self._heads(r, k, v, self._decay(p, xw))  # calibration order: r k v g w
+
+        def step(r, k, v, wlog, u, s0):
+            rows = r.shape[0]
+            r, k, v = (t.reshape(rows, h, hd).float() for t in (r, k, v))
+            w = torch.exp(wlog.reshape(rows, h, hd))
+            u = u.float()
+            kv = k[..., :, None] * v[..., None, :]  # (B, H, hd, hd)
+            y = torch.einsum("bhk,bhkv->bhv", r, s0 + u[None, :, :, None] * kv)
+            return y, w[..., :, None] * s0 + kv
+
+        rows = getattr(r, "placements", None)
+        y, s1 = _local(step, r, k, v, wlog, p["u"], cache["s"],
+                       in_pl=(rows,) * 4 + (None, getattr(cache["s"], "placements", None)),
+                       out_pl=(rows, rows))
+        y = self._out(p, y.reshape(b, 1, h * hd), g, x)
         cache["s"].copy_(s1)
         cache["shift"].copy_(x[:, -1])
         return y, cache
 
     # ------------------------------------------------------- channel mix
     def channel_mix(self, p, x, x_prev_tok):
+        x = shard(x, ("batch", None, "embed"))  # the token shift reads along the sequence
         xs = torch.cat([x_prev_tok[:, None], x[:, :-1]], dim=1)
         return self._cm(p, x, xs), x[:, -1]
 
@@ -263,6 +311,28 @@ class RWKV6Block:
         return {"s": torch.zeros((batch, h, hd, hd), dtype=torch.float32, device=device),
                 "shift": torch.zeros((batch, c.d_model), dtype=dtype, device=device),
                 "cm_shift": torch.zeros((batch, c.d_model), dtype=dtype, device=device)}
+
+
+def _local(fn, *args, in_pl, out_pl):
+    """``fn(*args)`` on each rank's local tensors under ``local_map`` where
+    the first argument is a DTensor; on plain tensors ``fn`` itself.
+    ``in_pl`` gives each argument's placements (None: replicated whole, a
+    small parameter), ``out_pl`` each output's. A gradient takes its
+    argument's placements, except that a replicated argument's is a
+    partial sum over the mesh dims that split the first output (each rank
+    differentiates its own rows or features)."""
+    if not isinstance(args[0], DTensor):
+        return fn(*args)
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = args[0].device_mesh
+    whole = (Replicate(),) * mesh.ndim
+    split = [j for j, pl in enumerate(out_pl[0]) if isinstance(pl, Shard)]
+    in_pl = tuple(whole if pl is None else tuple(pl) for pl in in_pl)
+    grad = tuple(tuple(Partial() if j in split and isinstance(q, Replicate) else q
+                       for j, q in enumerate(pl)) for pl in in_pl)
+    return local_map(fn, out_placements=tuple(map(tuple, out_pl)), in_placements=in_pl,
+                     in_grad_placements=grad, device_mesh=mesh, redistribute_inputs=True)(*args)
 
 
 def group_norm(y, gamma, beta, groups):

@@ -563,6 +563,10 @@ def test_selfheal_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     monkeypatch.setattr(smoke, "SELFHEAL_DIR", tmp_path / "selfheal")
     rec = smoke.selfheal_phase(torch.device("cpu"))
     assert len(rec["reload"]["reloads"]) == 3 and rec["checkpoint"]["leaves"] == 12
+    # 12b sized to the host: an interval between reloads lasts 3 probe reloads
+    r = rec["reload"]
+    assert r["probe_ms"] > 0 and r["reload_every"] >= 24 and r["requests"] == 4 * r["reload_every"]
+    assert r["reload_every"] / r["offered_requests_per_s"] >= 3 * r["probe_ms"] / 1e3
     assert rec["checkpoint"]["reference_rel_l2"] <= 1e-3
     assert rec["restart"]["kill"]["requeued_samples"] >= 1
     assert rec["restart"]["kill"]["failed"] == 0 and rec["restart"]["in-dispatch"]["failed"]
@@ -576,7 +580,7 @@ def test_tuning_phase_is_in_the_phase_list(smoke):
     temporary autotune cache."""
     import inspect
 
-    assert " 13. tuning" in smoke.__doc__ and " 17. one JSON line" in smoke.__doc__
+    assert " 13. tuning" in smoke.__doc__ and " 18. one JSON line" in smoke.__doc__
     assert 'phase_done("13 tuning")' in inspect.getsource(smoke.run)
     assert "temporary_tune_cache()" in inspect.getsource(smoke.main)
 
@@ -794,6 +798,65 @@ def test_mesh_phase_is_in_the_phase_list(smoke):
     assert src.index('phase_done("15 distribution on a one-rank mesh")') < \
         src.index('phase_done("16 mesh serving, the dry run and the context decode")')
     assert "meshed)" in src[src.index("kernels_line("):]
+
+
+def test_family_phase_is_in_the_phase_list(smoke):
+    """Phase 17 (the families on the one-rank mesh) is listed and timed
+    after phase 16, and its launches reach the kernels line."""
+    import inspect
+
+    assert " 17. the families on the one-rank mesh" in smoke.__doc__
+    src = inspect.getsource(smoke.run)
+    assert src.index('phase_done("16 mesh serving, the dry run and the context decode")') < \
+        src.index('phase_done("17 the families on a one-rank mesh")')
+    assert "families)" in src and "family_launches" in inspect.getsource(smoke.kernels_line)
+
+
+def test_family_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
+    """Phase 17 on the CPU at the smoke configs (batch 2, a 16-token prompt,
+    recurrentgemma's 32-token window), on a one-rank gloo world: 17a's
+    prefill and 8 decode steps of each family equal to the unsharded ones
+    bit for bit, the ring wrapping; 17b's sharded ``Trainer`` of the audio
+    model equal to the unsharded one bit for bit, the MoE's (fp32) within
+    1e-5 (measured 4.9e-7: on one rank autograd sums the rows' gradients in
+    another order around the dispatch's ``local_map``); 17c's five
+    production cells in their own processes, each ``ok`` (the dry run
+    allocates nothing, so the cells are the card's). The plain versions
+    count no launches; the CUDA memory calls are stubbed."""
+    import torch
+    import torch.distributed as dist
+
+    for name in ("empty_cache", "synchronize"):
+        monkeypatch.setattr(torch.cuda, name, lambda *a: 0)
+    monkeypatch.setattr(smoke, "DIST_SMOKE", True)
+    monkeypatch.setattr(smoke, "DIST_DIR", tmp_path / "dist")
+    monkeypatch.setattr(smoke, "FAMILY_DIR", tmp_path / "dryrun")
+    monkeypatch.setattr(smoke, "LM_BATCH", 2)
+    monkeypatch.setattr(smoke, "LM_PROMPT", 16)
+    rec = smoke.family_phase(torch.device("cpu"))
+    assert not dist.is_initialized()
+    assert list(rec["decode"]) == list(smoke.FAMILY_ARCHS)
+    modes = {a: r["attn_mode"] for a, r in rec["decode"].items()}
+    # the smoke configs' heads at tp 16: 4 heads, none divides it (rwkv6: feature)
+    assert modes == {"moonshot-v1-16b-a3b": "context", "deepseek-v3-671b": "context",
+                     "rwkv6-3b": "feature", "recurrentgemma-2b": "context",
+                     "musicgen-medium": "context"}
+    for arch, r in rec["decode"].items():
+        assert r["prefill_bit_equal"] and r["bit_equal_steps"] == smoke.DIST_STEPS, (arch, r)
+        assert r["launches"]["decode"] == {"unsharded": 0, "sharded": 0}
+    ring = rec["decode"]["recurrentgemma-2b"]
+    assert ring["prompt"] == ring["cache"] == 32  # the ring is full: the first step wraps it
+    for arch, t in rec["train"].items():
+        if t["dtype"] == "torch.float32":  # the MoE: its rows' gradients summed in another order
+            assert t["max_param_diff"] <= 1e-5 and t["state_gaps"]["update"] <= 1e-4, (arch, t)
+            continue
+        assert t["bit_equal"] and t["max_param_diff"] == 0.0, (arch, t)
+        assert t["state_gaps"]["m"][0] == t["state_gaps"]["update"] == 0.0
+    cells = {k: r for k, r in rec["dryrun"].items() if k != "wall_s"}
+    assert len(cells) == 5 and sum("pod2" in k for k in cells) == 2
+    for key, r in cells.items():
+        assert r["cost"]["flops"] > 0 and sum(r["collectives"]["counts"].values()) > 0
+        assert all(c["local"] == c["spec"] for c in r["memory"]["argument_bytes_checked"])
 
 
 def test_mesh_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):

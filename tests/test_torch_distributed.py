@@ -139,7 +139,7 @@ def norm(xs) -> float:
     return math.sqrt(sum(float(x.double().square().sum()) for x in xs))
 
 
-def check_state(got, want, p0, steps: int) -> dict:
+def check_state(got, want, p0, steps: int, params=None) -> dict:
     """A sharded run's optimizer state against the single-device one's from
     the same parameters ``p0``, in fp32: the step count equal; ``m`` and
     ``v`` leaf by leaf within ``MOMENT_GAP`` of the single-device ones,
@@ -148,19 +148,24 @@ def check_state(got, want, p0, steps: int) -> dict:
     (Leaf by leaf an update can differ by its own size: Adam's first steps
     move an entry by about lr whatever its gradient, so where a gradient is
     rounding noise, as the key bias's is (softmax ignores a constant added
-    to every score), its sign is too.) Returns the largest gaps."""
+    to every score), its sign is too.) An fp32 model keeps no master: its
+    update is that of the parameters, ``params`` = (sharded, single-device).
+    Returns the largest gaps."""
     assert int(got["count"]) == int(want["count"]) == steps, (got["count"], want["count"])
     worst = {}
     for key in ("m", "v"):
-        g = {path: norm([a - b]) / norm([b]) for path, a, b in
+        # a leaf whose gradient is zero on one device (a parameter the forward
+        # does not read) must be zero sharded too
+        g = {path: norm([a - b]) / norm([b]) if norm([b]) else (math.inf if norm([a]) else 0.0)
+             for path, a, b in
              zip(store.flatten(want[key])[1], leaves(got[key]), leaves(want[key]))}
         path = max(g, key=g.get)
         worst[key] = (g[path], path)
         assert g[path] <= MOMENT_GAP, (key, path, g[path])
     start = leaves(p0)
-    moved = [b - c for b, c in zip(leaves(want["master"]), start)]
-    worst["update"] = norm([a - b for a, b in zip(leaves(got["master"]), leaves(want["master"]))]
-                           ) / norm(moved)
+    have, ref = (got["master"], want["master"]) if params is None else params
+    moved = [b - c for b, c in zip(leaves(ref), start)]
+    worst["update"] = norm([a - b for a, b in zip(leaves(have), leaves(ref))]) / norm(moved)
     assert worst["update"] <= UPDATE_GAP, worst
     return worst
 

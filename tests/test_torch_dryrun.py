@@ -11,10 +11,13 @@
   - in a subprocess with a fake (2, 4) world, one smoke-cut cell of each
     attention mode (kv-sharded, q-sharded, context-parallel) at train,
     prefill and decode is ``ok``, with collectives, per-rank FLOPs and
-    rank 0's argument bytes equal to the spec-derived count;
+    rank 0's argument bytes equal to the spec-derived count; so are the
+    train, prefill and decode cells of each family of
+    ``tests/test_torch_distributed_families.py`` (MoE, MLA, rwkv6's feature
+    mode, recurrentgemma's windowed ring, musicgen's audio loss);
   - the per-rank FLOPs: on a one-rank fake world equal to
-    ``FlopCounterMode`` over the unsharded step, and on the (2, 4) world
-    between the unsharded step's / 8 and its whole;
+    ``FlopCounterMode`` over the unsharded step (each family too), and on
+    the (2, 4) world between the unsharded step's / 8 and its whole;
   - the CLI records a refused cell as ``skipped`` and exits 0.
 
 Each fake world is the default process group of a process of its own.
@@ -180,17 +183,18 @@ FAKE_WORLD = textwrap.dedent("""
     with dr.fake_world(n):
         mesh = make_mesh(shape, axes, device_type="cpu")
         for mode, (arch, extra) in modes.items():
-            cfg = dataclasses.replace(smoke_config(arch), **cut, **extra)
+            cfg = dataclasses.replace(smoke_config(arch), **{**cut, **extra})
             for s in ("train_4k", "prefill_32k", "decode_32k"):
                 rules = dr.cell_rules(cfg, s, mesh, False)
-                one = dr._run_step(dataclasses.replace(cfg, num_layers=1), s, mesh, rules)
+                one = dr._run_step(dataclasses.replace(cfg, num_layers=len(cfg.pattern)), s, mesh,
+                                   rules)
                 rec = dr.lower_cell(arch, s, multi_pod=False, cfg=cfg, mesh=mesh)
                 out[f"{mode}/{s}"] = {
                     "status": rec["status"], "attn_mode": rec["attn_mode"],
                     "flops": one["flops"], "collectives": one["collectives"]["counts"],
                     "argument_bytes": one["argument_bytes"],
                     "spec_argument_bytes": one["spec_argument_bytes"],
-                    "global": unsharded(dataclasses.replace(cfg, num_layers=1), s),
+                    "global": unsharded(dataclasses.replace(cfg, num_layers=len(cfg.pattern)), s),
                     "micro": "micro" in rec, "cost_flops": rec["cost"]["flops"]}
     print(json.dumps(out))
 """)
@@ -218,6 +222,49 @@ def test_fake_world_cells_in_every_mode():
         assert r["global"] / 8 <= r["flops"] <= r["global"], (key, r)
         assert r["argument_bytes"] == r["spec_argument_bytes"], (key, r)
         assert r["micro"] and r["cost_flops"] > r["flops"], (key, r)
+
+
+# the families of tests/test_torch_distributed_families.py at the same cuts
+# (rwkv6's WKV in chunks of 256, so that a 32k prefill is 128 of them;
+# recurrentgemma at two groups of its three-block pattern)
+FAMILIES = {
+    "moe": ("moonshot-v1-16b-a3b", {}, "kv_sharded"),
+    "mla": ("deepseek-v3-671b", {}, "kv_sharded"),
+    "feature": ("rwkv6-3b", dict(d_model=96, rwkv_head_dim=16, wkv_chunk=256), "feature"),
+    "ring": ("recurrentgemma-2b", dict(num_layers=6, num_heads=6, local_window=16), "context"),
+    "audio": ("musicgen-medium", dict(num_heads=6, num_kv_heads=6, num_codebooks=3,
+                                      codebook_vocab=32), "context"),
+}
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_fake_world_family_cells(family):
+    """(2, 4): the family's train, prefill and decode cell ``ok`` in its
+    production mode, with collectives; one group's per-rank FLOPs between
+    the unsharded step's / 8 and its whole; the arguments' local bytes equal
+    the spec-derived count."""
+    arch, extra, mode = FAMILIES[family]
+    got = _fake_world((2, 4), {family: (arch, extra)})
+    assert len(got) == 3
+    for key, r in got.items():
+        assert r["status"] == "ok" and r["attn_mode"] == mode, (key, r)
+        assert sum(r["collectives"].values()) > 0, (key, r)
+        assert r["global"] / 8 <= r["flops"] <= r["global"], (key, r)
+        assert r["argument_bytes"] == r["spec_argument_bytes"], (key, r)
+        assert r["micro"] and r["cost_flops"] > r["flops"], (key, r)
+
+
+@pytest.mark.parametrize("family", list(FAMILIES))
+def test_one_rank_family_flops_equal_the_unsharded_count(family):
+    """On a one-rank fake world the family's per-rank FLOPs at train,
+    prefill and decode equal ``FlopCounterMode`` over the unsharded step:
+    its local functions are the one-device code."""
+    arch, extra, _ = FAMILIES[family]
+    got = _fake_world((1, 1), {family: (arch, extra)})
+    assert len(got) == 3
+    for key, r in got.items():
+        assert r["status"] == "ok"
+        assert r["flops"] == r["global"], (key, r)
 
 
 def test_one_rank_flops_equal_the_unsharded_count():

@@ -258,6 +258,33 @@ def test_server_rejects_when_not_running(served):
             srv.submit(x[:0])
 
 
+def test_submit_racing_a_crash_is_refused_and_counted(served, monkeypatch):
+    """A crash that lands between ``submit``'s admission and its enqueue
+    (here inside the request's validation): the request is refused with
+    ``ServerCrashed`` and counted as rejected, where it used to be queued
+    behind the crash's drain, never to be served or failed (the books
+    then missed its samples; seen in ``chip_smoke.py`` 12c's crash loop)."""
+    from repro_torch.launch import server as server_mod
+
+    _, x, ps = served
+    srv = CNNServer(ps, max_wait_ms=1.0)
+    real = server_mod.validate_request
+
+    def crash_then_validate(*a, **kw):
+        srv._crash(RuntimeError("the dispatcher died"))
+        return real(*a, **kw)
+
+    with srv:
+        monkeypatch.setattr(server_mod, "validate_request", crash_then_validate)
+        with pytest.raises(ServerCrashed):
+            srv.submit(x[:2])
+        monkeypatch.setattr(server_mod, "validate_request", real)
+        assert srv._q.empty()
+    s = srv.stats.summary()
+    assert s["offered"] == s["rejected"] == 2
+    srv.stats.assert_accounting()
+
+
 def test_serve_continuous_completes_every_request_exactly(served):
     """The entry point's load loop: Poisson arrivals of mixed-size requests,
     every future resolved with the logits of serving it alone."""

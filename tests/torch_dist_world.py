@@ -25,6 +25,14 @@ mesh, unless stated):
   serve      prefill and two compressed decode steps of ``inp["cfg"]`` in its
              attention mode at tp 4 (q-sharded or context-parallel), the
              collectives of each decode step counted by ``cost_utils``
+  family     one family of ``tests/test_torch_distributed_families.py``:
+             ``inp["cfg"]``'s sharded ``Trainer`` for ``inp["train"]``
+             steps and one more loss step with its collectives logged, then a
+             compressed prefill and a decode step for each
+             token of ``inp["feed"]``
+             with every collective's kind, group and output shape logged
+  nll        ``models.model.vocab_nll`` on logits split along the vocab over
+             each of ``inp["layouts"]``, forward and backward
 """
 from __future__ import annotations
 
@@ -340,6 +348,155 @@ def case_launch(inp):
     except ValueError as e:
         return {"error": str(e)}
     return {"error": None}
+
+
+class _Collectives:
+    """Every collective the ops below it issue, as (kind, group name, output
+    shape): the local ops DTensor runs, as ``cost_utils.CostCounter`` sees
+    them."""
+
+    def __init__(self):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        seen = self.seen = []
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                from torch.distributed.tensor import DTensor
+
+                if any(issubclass(t, DTensor) for t in types):
+                    return NotImplemented
+                out = func(*args, **(kwargs or {}))
+                if func.namespace == "_c10d_functional" and not func._opname.startswith(
+                        ("wait", "_")):
+                    group = next((a for a in reversed(args) if isinstance(a, str)), "")
+                    outs = out if isinstance(out, (list, tuple)) else [out]
+                    seen.extend((func._opname, group, tuple(t.shape)) for t in outs
+                                if isinstance(t, torch.Tensor))
+                return out
+
+        self.mode = Mode()
+
+    def __enter__(self):
+        self.mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.mode.__exit__(*exc)
+
+
+def _groups(mesh) -> dict:
+    return {mesh.get_group(n).group_name: n for n in mesh.mesh_dim_names}
+
+
+def case_family(inp):
+    from repro_torch.checkpoint.store import full_tensor
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.launch.serve import pad_cache
+    from repro_torch.models.common import distribute, distribute_tree, sharding_rules
+    from repro_torch.models.model import LM
+    from repro_torch.optim.adamw import OptConfig, init_state
+    from repro_torch.sharding.rules import attn_mode, make_rules
+    from repro_torch.train.loop import LoopConfig, Trainer
+    from repro_torch.train.step import make_prefill, make_serve_step
+
+    mesh = _mesh()
+    cfg = inp["cfg"]
+    groups = _groups(mesh)
+    out = {"mode": attn_mode(cfg, 4), "groups": groups}
+    if inp.get("train"):
+        m = LM(cfg)
+        rules = make_rules(cfg, tp=4, mode="train")
+        # a replicated leaf's local tensor may be the given one: train a copy
+        params = distribute_tree(_full_tree(inp["params"]), m.pspecs(rules), mesh)
+        t = Trainer(m, OptConfig(**inp["opt"]), DataConfig(**inp["data"]),
+                    LoopConfig(total_steps=inp["train"], log_every=1), device="cpu", mesh=mesh,
+                    rules=rules)
+        norms, step_fn = [], t.step_fn
+
+        def spy(*a):
+            res = step_fn(*a)
+            norms.append(float(res[2]["grad_norm"]))
+            return res
+
+        t.step_fn = spy
+        trained, state, history = t.run(params, init_state(params, t.opt_cfg), 0)
+        out["train"] = {"params": _full_tree(trained), "history": history, "grad_norms": norms,
+                        "state": _full_tree(state),
+                        "placements": sorted({str(tuple(x.placements)) for x in _leaves(trained)})}
+        dp = rules["batch"]
+        batch = {k: distribute(v, mesh, (dp, "model" if k == "tokens" else None))
+                 for k, v in inp["batch"].items()}
+        with sharding_rules(rules, mesh), _Collectives() as coll:
+            loss, _ = m.loss(batch)
+            loss.backward()
+        out["train"]["loss_collectives"] = coll.seen
+        out["train"]["loss"] = float(full_tensor(loss))
+    m = LM(cfg).load_params(inp["params"]).compress()
+    prompt = inp["prompt"]
+    plen = prompt["tokens"].shape[1]
+    rules = make_rules(cfg, tp=4, mode="prefill")
+    dp = rules["batch"]
+    with _Collectives() as coll:
+        m.distribute(mesh, rules)
+    out["absorb_collectives"] = coll.seen
+    batch = {k: distribute(v, mesh, (dp, "model") if k == "tokens" else (dp,))
+             for k, v in prompt.items()}
+    with sharding_rules(rules, mesh), _Collectives() as coll:
+        logits, cache = make_prefill(m)(batch)
+    out["prefill_collectives"] = coll.seen
+    out["prefill"] = full_tensor(logits)
+    full = pad_cache(_full_tree(cache), plen, inp["cap"])
+    rules = make_rules(cfg, tp=4, mode="decode")
+    m = LM(cfg).load_params(inp["params"]).compress()
+    with _Collectives() as coll:
+        m.distribute(mesh, rules)
+    out["absorb_collectives"] += coll.seen
+    cache = distribute_tree(full, m.cache_pspecs(rules), mesh)
+    out["cache_placements"] = {str(k): str(tuple(v.placements)) for k, v in zip(
+        *_paths(cache))}
+    steps, colls = [], []
+    step = make_serve_step(m)
+    for i, tok in enumerate(inp["feed"]):
+        with sharding_rules(rules, mesh), _Collectives() as coll:
+            lg, cache = step(cache, {"tokens": distribute(tok, mesh, (rules["batch"],))}, plen + i)
+        steps.append(full_tensor(lg))
+        colls.append(coll.seen)
+    out.update(steps=steps, step_collectives=colls, cache=_full_tree(cache))
+    return out
+
+
+def _paths(tree):
+    from repro_torch.checkpoint.store import flatten
+
+    leaves, paths = flatten(tree)
+    return paths, leaves
+
+
+def case_nll(inp):
+    """``vocab_nll`` of ``inp["logits"]`` (B, S, C·V) against ``inp["labels"]``
+    per layout ``(mesh shape, C, V)``: the logits split along the vocab over
+    'model' and the batch over 'data'; the nll, the logits' gradient of the
+    nll's sum weighted by ``inp["probe"]``, and the collectives."""
+    from repro_torch.models.common import distribute, sharding_rules
+    from repro_torch.models.model import vocab_nll
+
+    out = {}
+    for shape, books, vocab in inp["layouts"]:
+        mesh = _mesh(shape)
+        n = books * vocab
+        lg = distribute(inp["logits"][..., :n].clone(), mesh, ("data", None, "model"))
+        lg.requires_grad_(True)
+        labels = distribute(inp["labels"][..., :books] % vocab, mesh, ("data", None, None))
+        probe = distribute(inp["probe"][..., :books], mesh, ("data", None, None))
+        with sharding_rules({"batch": ("data",), "vocab": "model"}, mesh), \
+                _Collectives() as coll:
+            nll = vocab_nll(lg, labels, books, vocab)
+            (nll * probe).sum().backward()
+        out[(shape, books, vocab)] = {"nll": nll.full_tensor(), "grad": lg.grad.full_tensor(),
+                                      "collectives": coll.seen,
+                                      "local": tuple(lg.to_local().shape)}
+    return out
 
 
 CASES = {k.removeprefix("case_"): v for k, v in globals().items() if k.startswith("case_")}
