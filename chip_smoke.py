@@ -404,8 +404,11 @@ def port_kernel(name: str) -> bool:
 def kernel_names(fn, tries: int = 5) -> set:
     """Names of the CUDA kernels that one call of ``fn`` ran, from
     torch.profiler; a pass that delivers no kernel events is run again, and
-    after ``tries`` such passes the set is empty."""
+    after ``tries`` such passes the set is empty. Device-side copies of
+    spans are no kernels."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.spans import is_span
 
     fn()
     torch.cuda.synchronize()
@@ -414,7 +417,7 @@ def kernel_names(fn, tries: int = 5) -> set:
             fn()
             torch.cuda.synchronize()
         names = {ev.name for ev in prof.events()
-                 if ev.device_type == torch.autograd.DeviceType.CUDA}
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and not is_span(ev)}
         if names:
             return names
     return set()
@@ -878,8 +881,12 @@ def profile_forwards(fn, x, per_forward, reps: int = 4) -> dict:
     of the host-clock window in which no kernel ran. A pass may deliver only
     some of its kernel records, so a port kernel's time is the mean of its
     records times its launches (``per_forward`` a forward); ``records``
-    gives how many came, to set against those launches."""
+    gives how many came, to set against those launches. Device-side copies
+    of spans (a plan serve's ``plan.replay`` runs from its first kernel to
+    its last) are no work and are left out."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.spans import is_span
 
     with torch.no_grad():
         fn(x)
@@ -892,7 +899,7 @@ def profile_forwards(fn, x, per_forward, reps: int = 4) -> dict:
             wall_us = (time.perf_counter() - t0) * 1e6
     spans, dur, other = [], {}, {}
     for ev in prof.events():
-        if ev.device_type != torch.autograd.DeviceType.CUDA:
+        if ev.device_type != torch.autograd.DeviceType.CUDA or is_span(ev):
             continue
         a, b = ev.time_range.start, ev.time_range.end
         spans.append((a, b))

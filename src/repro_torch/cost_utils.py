@@ -234,7 +234,8 @@ def op_breakdown(fn, *args, profile: bool = False, **kwargs) -> dict:
     ``n_ops``, and :func:`cost_analysis_dict`'s ``flops`` and ``bytes
     accessed``. With ``profile`` (a card) the call runs once more under
     ``torch.profiler`` and ``kernels`` counts the CUDA kernels it launched,
-    by name, and ``n_kernels`` their launches."""
+    by name, and ``n_kernels`` their launches (device-side copies of spans
+    left out: :func:`repro_torch.spans.is_span`)."""
     with counting() as c:
         fn(*args, **kwargs)
     out = {"ops": dict(c.ops), "n_ops": int(sum(c.ops.values())), "flops": c.flops,
@@ -242,12 +243,14 @@ def op_breakdown(fn, *args, profile: bool = False, **kwargs) -> dict:
     if profile:
         from torch.profiler import ProfilerActivity, profile as torch_profile
 
+        from repro_torch.spans import is_span
+
         with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn(*args, **kwargs)
             torch.cuda.synchronize()
         kernels = collections.Counter(
             e.name for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA)
+            if e.device_type == torch.autograd.DeviceType.CUDA and not is_span(e))
         out["kernels"] = dict(kernels)
         out["n_kernels"] = int(sum(kernels.values()))
     return out

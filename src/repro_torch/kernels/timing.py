@@ -30,8 +30,11 @@ def device_ms(fn, keep=lambda name: True, reps: int = 5, passes: int = 3, tries:
     any pass gave it, over ``reps``, rounded up). Passes can also deliver
     no record at all, three in a row on an H100 once, so while none has
     come, up to ``tries`` more passes are run. None when no pass delivered
-    a record."""
+    a record. Device-side copies of spans are no kernels
+    (:func:`repro_torch.spans.is_span`)."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.spans import is_span
 
     fn()
     torch.cuda.synchronize()
@@ -45,7 +48,8 @@ def device_ms(fn, keep=lambda name: True, reps: int = 5, passes: int = 3, tries:
             torch.cuda.synchronize()
         seen = {}
         for ev in prof.events():
-            if ev.device_type == torch.autograd.DeviceType.CUDA and keep(ev.name):
+            if (ev.device_type == torch.autograd.DeviceType.CUDA and not is_span(ev)
+                    and keep(ev.name)):
                 durations.setdefault(ev.name, []).append(ev.time_range.end - ev.time_range.start)
                 seen[ev.name] = seen.get(ev.name, 0) + 1
         for name, n in seen.items():

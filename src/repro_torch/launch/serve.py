@@ -89,6 +89,7 @@ from repro_torch.kernels import build
 from repro_torch.models.cnn import SparseCNN
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.model import LM, check_plannable
+from repro_torch.spans import span
 from repro_torch.train.step import SIDE_INPUTS, make_prefill, make_serve_step
 
 
@@ -411,7 +412,20 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
     replays and ``graph_launches`` what one replay of each launches (on a
     card): the launch counters see a capture and its eager warm-up, not a
     replay, so a kernel's launches are its count plus ``graph_launches`` ×
-    ``replays``, one forward's launches × ``forwards``."""
+    ``replays``, one forward's launches × ``forwards``.
+
+    Before it returns, ``generate`` drops its graphs, their pools and its
+    static buffers (the prompt, the token, the position, the cache). Each
+    phase is a span (``repro_torch/spans.py``; free unless a profiler
+    records), in this order: ``generate.capture`` (the prefill's graph:
+    its pool, its eager run and its capture; the CPU: the wrap alone),
+    ``generate.timing_prefill`` (``prefill_ms``'s untimed and timed
+    prefills), ``generate.prefill`` (the served prefill and the padded
+    cache), ``generate.capture`` (the decode step's graph; the CPU: its
+    eager warm-up step), ``generate.reset`` (the warm-up step undone),
+    ``generate.decode`` (the timed decode loop; no span a step) and
+    ``generate.release``. A one-token call has no decode capture and no
+    reset."""
     from repro_torch.kernels.timing import event_ms
     from repro_torch.models.plan import GraphPool, capture
 
@@ -431,6 +445,7 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
     forwards = {"prefill": 0, "decode": 0}
     replays = {"prefill": 0, "decode": 0}
     graph_launches = {}
+    graphs = {}  # kind -> (graph, its static outputs), until the release
 
     def greedy(logits):
         """The argmax token (B, 1); audio: its index within a codebook's
@@ -453,23 +468,28 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
         """``fn`` captured (on a card with ``graph``) -> a replay; else ``fn``."""
         if not graphed:
             return fn
-        g, static_out, graph_launches[kind] = capture(fn, GraphPool(), dev)
+        graph, outs, graph_launches[kind] = capture(fn, GraphPool(), dev)
+        graphs[kind] = graph, outs
 
         def replay():
-            g.replay()
+            graph, outs = graphs[kind]
+            graph.replay()
             forwards[kind] += 1
             replays[kind] += 1
-            return static_out
+            return outs
 
         return replay
 
     with torch.no_grad():
-        run_prefill = compiled("prefill", prefill_fn)
-        prefill_ms = event_ms(run_prefill, reps=prefill_reps, warmup=1, device=dev)
-        t0 = time.perf_counter()
-        _, kv = run_prefill()
-        prefill_host_ms = (time.perf_counter() - t0) * 1e3
-        cache = pad_cache(kv, plen, max_len)  # written in place by every step
+        with span("generate.capture"):
+            run_prefill = compiled("prefill", prefill_fn)
+        with span("generate.timing_prefill"):
+            prefill_ms = event_ms(run_prefill, reps=prefill_reps, warmup=1, device=dev)
+        with span("generate.prefill"):
+            t0 = time.perf_counter()
+            kv = run_prefill()[1]
+            prefill_host_ms = (time.perf_counter() - t0) * 1e3
+            cache = pad_cache(kv, plen, max_len)  # written in place by every step
 
         def step_fn():
             forwards["decode"] += 1
@@ -481,12 +501,14 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
             return logits
 
         if gen_len > 1:  # a warm-up step (a capture runs one itself), then back to step 0
-            run_step = compiled("decode", step_fn)
-            if not graphed:
-                run_step()
-            pos.fill_(plen)
-            tok.copy_(out[:, :1])
-            restore_state(cache, kv)
+            with span("generate.capture"):
+                run_step = compiled("decode", step_fn)
+                if not graphed:
+                    run_step()
+            with span("generate.reset"):
+                pos.fill_(plen)
+                tok.copy_(out[:, :1])
+                restore_state(cache, kv)
         kept, host = {}, []
 
         def decode():
@@ -497,9 +519,14 @@ def generate(model: LM, prompt_batch, *, gen_len: int, max_len: int, keep=(),
                     kept[i] = logits.clone()
             host.append((time.perf_counter() - t0) * 1e3)
 
-        decode_ms = event_ms(decode, reps=1, warmup=0, device=dev)
+        with span("generate.decode"):
+            decode_ms = event_ms(decode, reps=1, warmup=0, device=dev)
+        tokens = out.clone()
+    with span("generate.release"):
+        graphs.clear()
+        del prompt, tok, pos, out, kv, cache
     steps = max(gen_len - 1, 1)
-    return {"tokens": out.clone(), "steps_per_s": steps / max(decode_ms, 1e-9) * 1e3,
+    return {"tokens": tokens, "steps_per_s": steps / max(decode_ms, 1e-9) * 1e3,
             "prefill_ms": prefill_ms, "ms_per_step": decode_ms / steps,
             "prefill_host_ms": prefill_host_ms, "host_ms_per_step": host[0] / steps,
             "logits": kept, "forwards": forwards,

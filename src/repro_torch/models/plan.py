@@ -50,6 +50,7 @@ import torch
 
 from repro_torch.core import act_sparsity
 from repro_torch.kernels import build
+from repro_torch.spans import span
 
 
 class StalePlanError(RuntimeError):
@@ -126,11 +127,13 @@ def capture(fn: Callable[[], Any], pool: GraphPool, device) -> tuple:
     launches (the counters do not see replays). Both runs hold
     :data:`GRAPH_LOCK`; so must any other thread's work on the card that
     could meet a capture. Raises while an activation collector is
-    installed: it reads every projection's input on the host."""
+    installed: it reads every projection's input on the host. The span
+    ``capture`` covers both runs and not the wait for the lock, so a capture
+    at first use shows in a trace."""
     if act_sparsity.collecting():
         raise RuntimeError("no CUDA graph is captured while activation stats are collected: "
                            "the collector reads each projection's input on the host")
-    with GRAPH_LOCK:
+    with GRAPH_LOCK, span("capture"):
         stream = torch.cuda.current_stream(device)
         side = torch.cuda.Stream(device)
         side.wait_stream(stream)
@@ -195,7 +198,10 @@ class ModelPlan:
 
     def serve(self, x: torch.Tensor) -> torch.Tensor:
         """Steady-state serving: no checks, no state. On a card ``x`` may
-        lie on the host or the card and the logits come back on the card."""
+        lie on the host or the card and the logits come back on the card.
+        A graphed serve's copy in, replay and copy out are the spans
+        ``plan.copy_in``, ``plan.replay`` and ``plan.copy_out``
+        (``repro_torch/spans.py``); the eager paths have none."""
         with torch.no_grad():
             if self.device.type != "cuda":
                 self._signatures.add((tuple(x.shape), x.dtype))
@@ -206,10 +212,13 @@ class ModelPlan:
                     return self._chain(x.to(self.device))
             with GRAPH_LOCK:
                 g = self._graphs.get((tuple(x.shape), x.dtype)) or self._capture(x)
-                g.static_in.copy_(x)
-                g.graph.replay()
+                with span("plan.copy_in"):
+                    g.static_in.copy_(x)
+                with span("plan.replay"):
+                    g.graph.replay()
                 self._replays[0] += 1
-                return g.static_out.clone()
+                with span("plan.copy_out"):
+                    return g.static_out.clone()
 
     def _capture(self, x) -> _Graph:
         """Capture the chain from the pool into a graph with a static input

@@ -891,6 +891,85 @@ def test_lm_plan_captures_and_replays_without_host_sync(card):
     assert torch.equal(got, rec["logits"]) and plan.trace_count == 1
 
 
+def _host_spans(prof) -> list:
+    """The host's ``repro_torch.*`` spans of a profile, by start."""
+    evs = [(e.start_ns(), e.name()) for e in prof.profiler.kineto_results.events()
+           if e.device_type() == torch.autograd.DeviceType.CPU
+           and e.name().startswith("repro_torch.")]
+    return [n[len("repro_torch."):] for _, n in sorted(evs)]
+
+
+def test_spans_name_generates_phases_and_a_graphed_plan_serve(card):
+    """Under a profiler on the card: generate's phases in order, each of
+    its two captures holding ``plan.capture``'s span, the tokens those of an
+    unprofiled call; a graphed plan serve's copy in, replay and copy out
+    once a serve, with no capture once the graph exists, and no copy of a
+    span among the card's events."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import serve
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    model = serve.build_lm("starcoder2-7b", device=card, smoke=True)
+    prompt = serve.prompt_tokens(model, batch=2, seq=16)
+    want = serve.generate(model, prompt, gen_len=4, max_len=20)
+    with profile(activities=acts) as prof:
+        rec = serve.generate(model, prompt, gen_len=4, max_len=20)
+    assert _host_spans(prof) == [
+        "generate.capture", "capture", "generate.timing_prefill", "generate.prefill",
+        "generate.capture", "capture", "generate.reset", "generate.decode", "generate.release"]
+    assert torch.equal(rec["tokens"], want["tokens"])
+    plan_rec = serve.serve_lm_plan("starcoder2-7b", batch=2, prompt_len=32, steps=2,
+                                   device=card, smoke=True, log=lambda *_: None)
+    with profile(activities=acts) as prof:
+        for _ in range(2):
+            plan_rec["plan"].serve(plan_rec["tokens"])
+    assert _host_spans(prof) == ["plan.copy_in", "plan.replay", "plan.copy_out"] * 2
+    copies = [e.name() for e in prof.profiler.kineto_results.events()
+              if e.device_type() == torch.autograd.DeviceType.CUDA
+              and e.name().startswith("repro_torch.")]
+    assert not copies, copies  # a light record function: no copy on the card
+
+
+def test_a_graphed_plan_serves_spans_move_no_device_reading(card, monkeypatch):
+    """The card's copies of a graphed plan serve's spans are no work: the
+    readers of kernels and busy time (``timing.device_ms``,
+    ``cost_utils.op_breakdown``, ``chip_smoke.profile_forwards``) read the
+    same kernels with the spans as with none, no ``repro_torch.`` name among
+    them, and about the same device time."""
+    import contextlib
+    import importlib.util
+
+    from repro_torch import cost_utils
+    from repro_torch.kernels import timing
+    from repro_torch.launch import serve
+    from repro_torch.models import plan as plan_mod
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    rec = serve.serve_lm_plan("starcoder2-7b", batch=2, prompt_len=32, steps=2, device=card,
+                              smoke=True, log=lambda *_: None)
+    plan, tokens = rec["plan"], rec["tokens"]
+
+    def readings():
+        prof = smoke.profile_forwards(plan.serve, tokens, {}, reps=20)
+        return (timing.device_ms(lambda: plan.serve(tokens)),
+                set(cost_utils.op_breakdown(plan.serve, tokens, profile=True)["kernels"]),
+                prof)
+
+    spanned = readings()
+    monkeypatch.setattr(plan_mod, "span", lambda name: contextlib.nullcontext())
+    bare = readings()
+    assert spanned[1] == bare[1] and spanned[1]
+    names = spanned[1] | set(spanned[2]["top_other_ms"])
+    assert not any(n.startswith("repro_torch.") for n in names), names
+    assert spanned[2]["per_kernel_ms"].keys() == bare[2]["per_kernel_ms"].keys()
+    assert spanned[0] == pytest.approx(bare[0], rel=0.2)
+    assert spanned[2]["device_ms"] == pytest.approx(bare[2]["device_ms"], rel=0.2)
+
+
 def test_lm_generate_on_card_runs_the_bf16_kernel(card):
     """Greedy generation of the smoke starcoder2 on the card, through its
     CUDA graphs: every projection through the bf16 tc kernel in every
