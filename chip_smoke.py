@@ -754,9 +754,11 @@ def log_summary(recs) -> None:
 # launches per forward of each serving path: the other mode's kernels at 0
 PER_FORWARD = {
     "matrix": {"im2col_conv": 1, "vdbb_conv_tc": 7, "vdbb_matmul_tc": 1,
-               "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0},
+               "vdbb_matmul_tc_bf16": 0, "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 0,
+               "vdbb_matmul_bw": 0},
     None: {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0,
-           "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 7, "vdbb_matmul_bw": 1},
+           "vdbb_matmul_tc_bf16": 0, "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 7,
+           "vdbb_matmul_bw": 1},
 }
 
 
@@ -849,6 +851,10 @@ def end_to_end(dev, pattern):
 # only the tc matmul's bf16 gather; the stem's direct conv is a template of
 # its own.
 KERNEL_OF_LOADER = {
+    # the tc matmul's staged int8 core at prefill rows (wgmma): its name
+    # (os_mma_sm90::kernel<nnz, GatherMuxSmem>) holds os_mma's and
+    # GatherMux's too, so it is matched first
+    "sm90": {"GatherMuxSmem": "vdbb_matmul_tc_wgmma"},
     "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw",
                "GatherMux": "vdbb_matmul_tc", "TapMux": "vdbb_conv_tc"},
     "bf16_mma": {"WordGather": "vdbb_matmul_tc_bf16"},
@@ -1316,11 +1322,16 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
         qw = quantize_dbb(dw)
         a, vals = codes(gen, dev, m, k), qw.values
         scales = dequant_scales(gen, dev, n, kc)
-        run = lambda: mm.vdbb_matmul_tc(a, vals, idx, fmt, scales=scales)  # noqa: E731
+        # as the INT8 plan runs it: staged (the wgmma core at prefill rows),
+        # and beside it the unstaged call (os_mma.cuh)
+        staged, tiles = mm.stage_vdbb_matmul(qw.as_dbb(), m, scales=scales)
+        run = lambda: staged(a)  # noqa: E731
+        old = lambda: mm.vdbb_matmul_tc(a, vals, idx, fmt, scales=scales)  # noqa: E731
         plain = lambda: mm.vdbb_matmul_tc_plain(a, vals, idx, fmt, scales=scales)  # noqa: E731
         check_exact(run(), plain(), f"{what} int8 (fp32 dequant)")
-        check_exact(mm.vdbb_matmul_tc(a, vals, idx, fmt), mm.vdbb_matmul_tc_plain(a, vals, idx, fmt),
-                    f"{what} int8 (int32)")
+        check_exact(old(), plain(), f"{what} int8 os_mma.cuh (fp32 dequant)")
+        check_exact(mm.stage_vdbb_matmul(qw.as_dbb(), m)[0](a),
+                    mm.vdbb_matmul_tc_plain(a, vals, idx, fmt), f"{what} int8 (int32)")
         wq = dbb_decode(qw.as_dbb()).contiguous()
         library, lib_call = (lambda: torch._int_mm(a, wq)), "torch._int_mm on the decoded int8 weight"  # noqa: E731
         try:
@@ -1328,7 +1339,7 @@ def lm_kernel(k, n, m, dtype, gen, dev, what):
         except RuntimeError as e:  # the yardstick only: e.g. too few rows for _int_mm
             library, lib_call = None, f"none: torch._int_mm refused ({str(e).splitlines()[0]})"
         b_ms, b_by = bound(nbytes(a, vals, idx, scales, run()), ops_, INT8_OPS_PER_S)
-        rec = dict(err=0.0)
+        rec = dict(err=0.0, plan=tiles, os_mma_device_ms=device_ms(old, keep=port_kernel))
     from repro_torch.kernels.timing import event_ms
 
     rec.update(ms=event_ms(run, REPS), plain_ms=event_ms(plain, REPS),
@@ -1372,7 +1383,8 @@ def lm_kernels(gen, dev, shapes=None, dtypes=("bf16", "int8"), layers=32,
                     f"{ms(r['library_device_ms']):<11s} {r['bound_ms']:.5f} ({r['bound_by']})"
                     + (f"; plan {json.dumps(r['plan'])}; max diff {r['err']:.3g}, "
                        f"{r['beyond_plain_ulp']} entries beyond one ulp of |plain|"
-                       if key == "bf16" else "") + f"  [{r['library_call']}]")
+                       if key == "bf16" else f"; plan {json.dumps(r['plan'])}; os_mma.cuh "
+                       f"{ms(r['os_mma_device_ms'])} ms") + f"  [{r['library_call']}]")
     for key in out:
         for phase in rows:
             at = [s for s, spec in shapes.items() if phase in phases(spec)]
@@ -1701,6 +1713,7 @@ def lm_plan(dev, arch=LM_ARCH, tag="lm plan") -> dict:
     """Phase 7c (and 8d, the MoE; 9d, 10d): the INT8 prefill plan at full
     width."""
     from repro_torch.kernels import build
+    from repro_torch.kernels.core import WGMMA_MIN_M
     from repro_torch.launch import serve
 
     torch.cuda.empty_cache()
@@ -1712,8 +1725,10 @@ def lm_plan(dev, arch=LM_ARCH, tag="lm plan") -> dict:
     if not rec["bit_identical"]:
         raise AssertionError("the INT8 plan's logits differ from the unplanned forward's")
     replay = next(iter(rec["graph_launches"].values()))
-    if rec["captures"] != 1 or replay.get("vdbb_matmul_tc") != projections(rec["model"]) or any(
-            n for k, n in replay.items() if k != "vdbb_matmul_tc"):
+    # the staged products run the wgmma core at prefill rows (core.matmul_tc_plan)
+    core = "vdbb_matmul_tc_wgmma" if LM_BATCH * LM_PROMPT >= WGMMA_MIN_M else "vdbb_matmul_tc"
+    if rec["captures"] != 1 or replay.get(core) != projections(rec["model"]) or any(
+            n for k, n in replay.items() if k != core):
         raise AssertionError(f"plan: {rec['captures']} captures, a replay launches {replay}")
     if not counts["vdbb_matmul_tc"] or not counts["vdbb_matmul_tc_bf16"]:
         raise AssertionError(f"plan path launches {counts}: the calibration runs the bf16 kernel, "
@@ -3812,6 +3827,7 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
     library_call = {"im2col_conv": "F.conv2d fp32 (TF32 off)",
                     "vdbb_conv_tc": conv_library, "vdbb_matmul_tc": head_library,
                     "vdbb_matmul_tc_bf16": "torch.matmul bf16 on the decoded dense weight",
+                    "vdbb_matmul_tc_wgmma": head_library,
                     "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library}
 
     def total(rs, key):
@@ -3874,18 +3890,27 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
             line[-1]["family_launches"] = None if families is None else {
                 arch: {k: r["launches"][k]["sharded"] for k in ("prefill", "decode")}
                 for arch, r in families["decode"].items()}
+        if name == "vdbb_matmul_tc_wgmma":  # the INT8 plans' products at prefill rows
+            line[-1].update(main_path="LM INT8 plan (phase 7c)",
+                            graph_replay_launches_per_prefill=(
+                                lm_planned["replay_launches"].get(name, 0)))
+            for arch, r in decoders.items():
+                line[-1][arch] = dict(
+                    at_shapes({sp: x for sp, x in r["kernels"]["int8"].items()
+                               if sp[1] == "prefill"}, r["plan"]["launches"].get(name, 0)),
+                    graph_replay_launches_per_prefill=r["plan"]["replay_launches"].get(name, 0))
         if name == "vdbb_matmul_tc":  # the same kernel's int8 path at the LM shapes
             line[-1]["lm"] = dict(
-                at_shapes(lm_recs["int8"], lm_planned["launches"][name]),
+                at_shapes(lm_recs["int8"], lm_planned["launches"].get(name, 0)),
                 # torch._int_mm refuses 4 rows: the library call at prefill rows only
                 prefill={k: total([r for (_, p), r in lm_recs["int8"].items()
                                    if p == "prefill"], k)
                          for k in ("ms", "device_ms", "library_ms", "library_device_ms")},
-                graph_replay_launches_per_prefill=lm_planned["replay_launches"][name])
+                graph_replay_launches_per_prefill=lm_planned["replay_launches"].get(name, 0))
             for arch, r in decoders.items():  # the recurrent decoders' and MLA's plans
                 line[-1][arch] = dict(
-                    at_shapes(r["kernels"]["int8"], r["plan"]["launches"][name]),
-                    graph_replay_launches_per_prefill=r["plan"]["replay_launches"][name])
+                    at_shapes(r["kernels"]["int8"], r["plan"]["launches"].get(name, 0)),
+                    graph_replay_launches_per_prefill=r["plan"]["replay_launches"].get(name, 0))
             for arch, r in frontends.items():  # phase 11d: the INT8 prefill, unplanned
                 line[-1][arch] = dict(at_shapes(r["kernels"]["int8"], r["int8"]["launches"][name]),
                                       launches_per_unplanned_prefill=r["int8"]["per_forward"])
@@ -3987,6 +4012,9 @@ def run() -> int:
     counts["vdbb_matmul_tc_bf16"] = lm_gen["compressed"]["launches"]["vdbb_matmul_tc_bf16"]
     phase_done("7b LM generate")
     lm_planned = lm_plan(dev)
+    # the INT8 plan's products at prefill rows run the wgmma core
+    recs["vdbb_matmul_tc_wgmma"] = [r for (_, p), r in lm_recs["int8"].items() if p == "prefill"]
+    counts["vdbb_matmul_tc_wgmma"] = lm_planned["launches"]["vdbb_matmul_tc_wgmma"]
     phase_done("7c LM plan")
     lm_golden(dev)
     phase_done("7d LM golden")

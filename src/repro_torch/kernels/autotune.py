@@ -7,7 +7,8 @@ roofline model, measure the survivors, keep the winner. The port's
 candidates are its kernels' launch choices (``kernels/core.py:
 launch_choices``), not the reference's Pallas tiles:
 
-- the int8 products (both tc and bw matmuls and convs): tile rows 64 or 128;
+- the int8 products (both tc and bw matmuls and convs): tile rows 64 or 128,
+  and the tc matmul's wgmma core at prefill rows (``core.WGMMA_CHOICE``);
 - the bf16 tc matmul: the small (16 x 128) or large (128 x 256) tile, each
   with every split of K_c from 1 to min(16 or 8, its stages);
 - the dense conv: its legal paths (direct, implicit GEMM).
@@ -231,9 +232,13 @@ def default_conv_tiles(batch, ho, wo, c, f, kh, kw, sh, sw, fmt, dtype):
 # ---------------------------------------------------------------------------
 
 
-def _launch_shape(tiles: dict) -> tuple:
+def _launch_shape(tiles: dict, nnz: int) -> tuple:
     """(tile rows, tile columns, split, K elements a stage, ring, CTAs an
-    SM) of a product's launch choice."""
+    SM) of a product's launch choice (``nnz`` the format's: a stage of the
+    wgmma core holds 32 blocks of K)."""
+    if tiles.get("core") == "wgmma":
+        return (core.WGMMA_TILE_ROWS, core.WGMMA_TILE_COLS, 1, core.WGMMA_BLOCKS * nnz,
+                core.wgmma_stages(nnz), 1)
     if "tile_rows" in tiles:
         return (tiles["tile_rows"], core.MMA_TILE_COLS, 1, core.MMA_BK, core.MMA_STAGES,
                 core.MMA_BLOCKS_PER_SM)
@@ -244,12 +249,12 @@ def _launch_shape(tiles: dict) -> tuple:
 
 
 def _product_terms(m: int, kloop: int, n: int, macs: float, act_bytes: float,
-                   weight_bytes: float, tiles: dict) -> tuple:
+                   weight_bytes: float, tiles: dict, nnz: int = 3) -> tuple:
     """(executed MACs, bytes, steps) of an output-stationary product under a
     launch choice: padded rows and columns charged their wasted MACs, A read
     once per N tile, the weight once per M tile, and the steps (stages a CTA
     runs, its ring's fill and flush included) over its waves of CTAs."""
-    bm, bn, split, depth, ring, per_sm = _launch_shape(tiles)
+    bm, bn, split, depth, ring, per_sm = _launch_shape(tiles, nnz)
     mp, n_pad = -(-m // bm) * bm, -(-n // bn) * bn
     ctas = (mp // bm) * (n_pad // bn) * split
     waves = -(-ctas // (core.BF16_SMS * per_sm))
@@ -270,7 +275,7 @@ def matmul_cost_terms(m: int, k: int, n: int, fmt: DBBFormat, tiles: dict,
     tc = fmt.group_size(n) == n
     kloop = k // fmt.bz * fmt.nnz if tc else k
     macs = c["executed_macs"] if tc else c["dense_macs"]
-    return _product_terms(m, kloop, n, macs, c["act_bytes"], c["weight_bytes"], tiles)
+    return _product_terms(m, kloop, n, macs, c["act_bytes"], c["weight_bytes"], tiles, fmt.nnz)
 
 
 def conv_cost_terms(batch: int, ho: int, wo: int, c_in: int, f: int, kh: int, kw: int,

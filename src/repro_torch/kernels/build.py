@@ -11,7 +11,8 @@ A :class:`CudaKernel` is one entry point. Its wrapper in the kernel module
 checks the operands and calls :meth:`CudaKernel.launch`, which raises on a
 nonzero ``cudaGetLastError`` and counts the launch, under the operand
 variant the wrapper names (the tc matmul's bf16 instantiation counts as
-``vdbb_matmul_tc_bf16``).
+``vdbb_matmul_tc_bf16``). A variant may have an entry point of its own in
+the same source (the tc matmul's wgmma core, ``vdbb_matmul_tc_wgmma``).
 """
 from __future__ import annotations
 
@@ -97,30 +98,37 @@ class CudaKernel:
     """One ``extern "C"`` entry point of a source in ``csrc/``: it returns the
     ``cudaError_t`` of its launch. ``counts`` holds its successful launches
     per operand variant: ``""`` counts under the entry's own name, each of
-    ``variants`` (e.g. ``"bf16"``) under ``<name>_<variant>``."""
+    ``variants`` (e.g. ``"bf16"``) and of ``entries`` under
+    ``<name>_<variant>``. ``entries`` maps a variant to an entry point of
+    its own in the same source, ``(symbol, argtypes)``; the other variants
+    launch through ``name``."""
 
-    def __init__(self, name: str, source: str, argtypes, *, replaces: str, variants=()):
+    def __init__(self, name: str, source: str, argtypes, *, replaces: str, variants=(),
+                 entries=None):
         self.name, self.source, self.replaces = name, source, replaces
         self.argtypes = list(argtypes)
-        self.counts = dict.fromkeys(("",) + tuple(variants), 0)
+        self.entries = {"": (name, self.argtypes), **(entries or {})}
+        self.counts = dict.fromkeys(("",) + tuple(variants) + tuple(entries or ()), 0)
         self._lib = None
-        self._fn = None
+        self._fns = {}
         KERNELS[name] = self
 
-    def _entry(self):
-        if self._fn is None:
-            self._lib = ctypes.CDLL(str(build_all()[self.source]))
-            fn = getattr(self._lib, self.name)
-            fn.argtypes = self.argtypes
+    def _entry(self, variant: str = ""):
+        symbol, argtypes = self.entries.get(variant, self.entries[""])
+        if symbol not in self._fns:
+            if self._lib is None:
+                self._lib = ctypes.CDLL(str(build_all()[self.source]))
+            fn = getattr(self._lib, symbol)
+            fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-            self._fn = fn
-        return self._fn
+            self._fns[symbol] = fn
+        return self._fns[symbol]
 
     def counted_name(self, variant: str = "") -> str:
         return f"{self.name}_{variant}" if variant else self.name
 
     def launch(self, *args, variant: str = "") -> None:
-        err = self._entry()(*args)
+        err = self._entry(variant)(*args)
         if err != 0:
             raise RuntimeError(f"{self.counted_name(variant)}: CUDA error {err} at launch")
         self.counts[variant] += 1

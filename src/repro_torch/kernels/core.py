@@ -47,6 +47,18 @@ MMA_TILE_COLS = 64
 MMA_BK = 64
 MMA_STAGES = 3
 MMA_BLOCKS_PER_SM = 2
+# csrc/os_mma_sm90.cuh (the tc matmul's int8 product a plan stages at
+# prefill rows: TMA, the mux in shared memory, wgmma): the rows at or above
+# which the rule takes it, the block size its mux is written for, the
+# largest nnz, its tile, blocks of K a stage and TMA's alignment
+WGMMA_MIN_M = MMA_SMALL_M + 1
+WGMMA_BZ = 8
+WGMMA_MAX_NNZ = 8
+WGMMA_TILE_ROWS = 128
+WGMMA_TILE_COLS = 128
+WGMMA_BLOCKS = 32
+WGMMA_ALIGN = 16
+WGMMA_CHOICE = {"tile_rows": WGMMA_TILE_ROWS, "core": "wgmma"}
 # csrc/bf16_mma.cuh: the rings of the small and the large tile, CTAs an SM
 BF16_STAGES = {"small": 8, "large": BF16_LARGE_STAGES}
 BF16_BLOCKS_PER_SM = {"small": 2, "large": 1}
@@ -242,6 +254,67 @@ def mma_gather_plan(name: str, m: int, kc: int, *, key=None, choice=None) -> Mma
     return MmaPlan(_chosen(key, choice).get("tile_rows") or _mma_tile_rows(m), 8, gathered=True)
 
 
+@dataclasses.dataclass(frozen=True)
+class WgmmaPlan:
+    """How ``csrc/os_mma_sm90.cuh`` runs one tc int8 product: a tile of
+    ``tile_rows`` x ``tile_cols`` outputs a CTA over a ring of ``stages``
+    stages of 32 blocks, A by TMA and the mux in shared memory, B from the
+    K-major copy of the values, wgmma (``core`` names it in a choice)."""
+
+    tile_rows: int
+    tile_cols: int
+    stages: int
+    core: str = "wgmma"
+
+
+def wgmma_fits(k: int, bz: int, nnz: int) -> bool:
+    """The shapes ``os_mma_sm90.cuh`` takes: bz = 8 (its mux), nnz <= 8,
+    and rows of A a multiple of 16 bytes (TMA's pitch)."""
+    return bz == WGMMA_BZ and 1 <= nnz <= WGMMA_MAX_NNZ and k % WGMMA_ALIGN == 0
+
+
+def wgmma_stages(nnz: int) -> int:
+    """``os_mma_sm90.cuh``'s ring: as many stages of 32 blocks (dense A,
+    muxed A, B, selectors) as 227 KB of shared memory holds, at most 4."""
+    ks = WGMMA_BLOCKS * nnz
+    stage = WGMMA_TILE_ROWS * (WGMMA_BLOCKS * WGMMA_BZ + ks) + WGMMA_TILE_COLS * ks
+    return min(4, (232448 - 1024) // (stage + 8 * WGMMA_BLOCKS + 24))
+
+
+def matmul_tc_plan(name: str, m: int, n: int, k: int, bz: int, nnz: int, a_ptr: int, *,
+                   staged: bool, key=None, choice=None):
+    """The tc matmul's int8 launch: a :class:`WgmmaPlan` (``os_mma_sm90.cuh``)
+    or an :class:`MmaPlan` (``os_mma.cuh``, :func:`mma_gather_plan`).
+
+    - ``choice``'s, else the tuned registry's for ``key``: ``{"tile_rows":
+      128, "core": "wgmma"}`` takes the wgmma core (raising where the shape
+      or A's address does not fit it), ``{"tile_rows": r}`` ``os_mma.cuh``;
+    - else the rule: the wgmma core for a ``staged`` product (a plan holds
+      its K-major copy of the values) at ``m >= WGMMA_MIN_M`` rows whose
+      shape fits (:func:`wgmma_fits`) and whose A lies 16-byte aligned (as
+      every plan input does); else ``os_mma.cuh`` at its rule's rows, as
+      at the CNN head (M <= 64), at decode rows and for unstaged calls.
+      ``kernels/mma_ablation.py wgmma`` (PERF.md) has the wgmma core ahead
+      of ``os_mma.cuh`` at starcoder2-7b's six projections from 64 rows on
+      (1.6x at 64, 2.0-3.9x at 1 024, on an H100); the rule starts it above
+      64, where os_mma.cuh takes its 128-row tile too, and leaves the
+      64-row tile's launches (the head, decode) as they are;
+    - a compressed K ``kc`` above ``MMA_MAX_K`` is refused by either."""
+    kc = k // bz * nnz
+    t = _chosen(key, choice)
+    fits = wgmma_fits(k, bz, nnz) and a_ptr % WGMMA_ALIGN == 0
+    if t.get("core") == "wgmma":
+        if not fits:
+            raise ValueError(f"{name}: the wgmma core takes bz = {WGMMA_BZ}, nnz <= "
+                             f"{WGMMA_MAX_NNZ}, K % {WGMMA_ALIGN} == 0 and a "
+                             f"{WGMMA_ALIGN}-byte aligned A; got bz {bz}, nnz {nnz}, K {k}, "
+                             f"A at {a_ptr:#x}")
+    elif t or not (staged and m >= WGMMA_MIN_M and fits):
+        return mma_gather_plan(name, m, kc, choice=t)
+    _mma_check_k(name, kc)
+    return WgmmaPlan(WGMMA_TILE_ROWS, WGMMA_TILE_COLS, wgmma_stages(nnz))
+
+
 def mma_tap_plan(name: str, m: int, kc: int, kh: int, kw: int, w: int, c: int, *, key=None,
                  choice=None) -> MmaPlan:
     """:func:`mma_gather_plan` for the tc conv's gather over the taps of a
@@ -396,7 +469,9 @@ def _launch_m(kind: str, sig: tuple) -> int:
 
 def launch_choices(kind: str, sig: tuple) -> list:
     """Every launch choice the kernel of ``kind`` can run at ``sig``: tile
-    rows 64 or 128 for an int8 product; the small or large tile with each
+    rows 64 or 128 for an int8 product, and for a tc matmul at
+    ``WGMMA_MIN_M`` rows or more whose shape the wgmma core takes
+    (:func:`wgmma_fits`) that core too (``WGMMA_CHOICE``); the small or large tile with each
     split from 1 to min(the tile's largest cluster, the stages of K_c) for a
     bf16 tc matmul; the legal paths of the dense conv. [] where the launch
     has no choice (fp32 products on the CUDA cores)."""
@@ -407,7 +482,8 @@ def launch_choices(kind: str, sig: tuple) -> list:
         _, _, _, c, _, kh, kw, sh, sw = sig[:9]
         return [{"path": p} for p in stem_paths(dt, c, kh, kw, (sh, sw))]
     if dt == "int8":
-        return [{"tile_rows": r} for r in MMA_TILE_ROWS]
+        rows = [{"tile_rows": r} for r in MMA_TILE_ROWS]
+        return rows + [dict(WGMMA_CHOICE)] if _wgmma_rule(kind, sig) else rows
     if kind == KIND_MATMUL_TC and dt == "bfloat16":
         _, k, _, bz, nnz = sig[:5]
         stages = -(-(k // bz * nnz) // BF16_BK)
@@ -416,13 +492,24 @@ def launch_choices(kind: str, sig: tuple) -> list:
     return []
 
 
+def _wgmma_rule(kind: str, sig: tuple) -> bool:
+    """:func:`matmul_tc_plan`'s rule at a signature (staged, A aligned)."""
+    if kind != KIND_MATMUL_TC or sig[-1] != "int8":
+        return False
+    m, k, _, bz, nnz = sig[:5]
+    return m >= WGMMA_MIN_M and wgmma_fits(k, bz, nnz)
+
+
 def default_choice(kind: str, sig: tuple):
-    """The choice the plans' rule makes at ``sig`` (what a launch takes with
-    an empty registry), or None where the launch has no choice."""
+    """The choice the plans' rule makes at ``sig`` (what a staged launch,
+    its A aligned, takes with an empty registry), or None where the launch
+    has no choice."""
     if not launch_choices(kind, sig):
         return None
     if kind == KIND_CONV_DENSE:
         return launch_choices(kind, sig)[0]
+    if _wgmma_rule(kind, sig):
+        return dict(WGMMA_CHOICE)
     if sig[-1] == "int8":
         return {"tile_rows": _mma_tile_rows(_launch_m(kind, sig))}
     m, k, n, bz, nnz = sig[:5]

@@ -25,10 +25,17 @@
 // ring, split-K over a thread block cluster at decode), accumulate in fp32
 // and round once at the flush. fp32 operands keep os_gemm.cuh's CUDA-core
 // loop (`GatherCols`).
+//
+// A second entry point, vdbb_matmul_tc_wgmma, runs the int8 product a plan
+// has staged at prefill row counts (core.matmul_tc_plan's rule) on
+// os_mma_sm90.cuh: TMA, the mux in shared memory (`GatherMuxSmem`) and
+// wgmma, against the plan's K-major copy of the values and its block
+// selectors.
 #include "bf16_mma.cuh"
 #include "mux_stage.cuh"
 #include "os_gemm.cuh"
 #include "os_mma.cuh"
+#include "os_mma_sm90.cuh"
 
 struct GatherCols {
   const float* a;
@@ -70,4 +77,16 @@ extern "C" int vdbb_matmul_tc(const void* a, const void* values, const void* idx
                             static_cast<const __nv_bfloat16*>(values), m, n, kc, out, ep, s);
   }
   return cudaErrorInvalidValue;
+}
+
+extern "C" int vdbb_matmul_tc_wgmma(const void* a, const void* vt, const void* sel,
+                                    const void* scale, const void* bias, const void* out_scale,
+                                    int relu, void* out, int out_kind, int m, int k, int n,
+                                    int vt_pitch, int bz, int nnz, void* stream) {
+  EpilogueArgs ep{static_cast<const float*>(scale), static_cast<const float*>(bias),
+                  static_cast<const float*>(out_scale), relu};
+  return os_mma_sm90::launch(out_kind, static_cast<const int8_t*>(a),
+                             static_cast<const int8_t*>(vt), vt_pitch,
+                             static_cast<const uint32_t*>(sel), m, n, k, bz, nnz, out, ep,
+                             static_cast<cudaStream_t>(stream));
 }

@@ -3,13 +3,16 @@ the bw conv and the tc conv at three ``sparse-cnn-s`` layer shapes (batch
 64), the bw head and the tc head; where the time of the stem's direct conv
 (``csrc/im2col_conv.cu``) goes at ``sparse-cnn-s`` batch 64; and where the
 time of the bf16 tensor-core core (``csrc/bf16_mma.cuh``) goes at the eight
-``starcoder2-7b`` projection shapes (4 and 1024 rows). Each kernel is built
-from a scratch copy of ``csrc/`` with parts switched off, and timed by
-torch.profiler's device time.
+``starcoder2-7b`` projection shapes (4 and 1024 rows); and where the time of
+the tc matmul's staged int8 core (``csrc/os_mma_sm90.cuh``: TMA, the mux in
+shared memory, wgmma) goes at the same shapes at 64 to 2 048 rows, beside
+``os_mma.cuh``'s instance (mma.sync) that the rule takes below
+``core.WGMMA_MIN_M``. Each kernel is built from a scratch copy of ``csrc/``
+with parts switched off, and timed by torch.profiler's device time.
 
-    PYTHONPATH=src python -m repro_torch.kernels.mma_ablation [int8] [stem] [bf16]
+    PYTHONPATH=src python -m repro_torch.kernels.mma_ablation [int8] [stem] [bf16] [wgmma]
 
-(no argument: all three tables).
+(no argument: all four tables).
 
 Needs a CUDA card and nvcc. Variants of the core: ``as built``; ``no B
 loads`` (the B stager's fetch replaced by a constant); ``no A copies`` (no
@@ -36,7 +39,12 @@ not read), ``no prefill split`` (the large tile never splits K_c),
 ``decode A in registers`` (the small tile gathers A as the large one does,
 no words), and ``128 x 128 prefill tile`` (the prefill instance's tile of
 128 x 128 in place of 128 x 256, at the split the host's rule takes for
-the 128 x 256 tile), all on bf16 outputs. Every case launches with the
+the 128 x 256 tile), all on bf16 outputs. The wgmma core's variants (fp32
+out, as the INT8 plan flushes): ``no mux`` (the dense rows not turned into
+the operand: the consumers read the buffer as it is), ``no wgmma`` (the
+products replaced by an add), both, and ``no cluster`` (each CTA loads all
+of A, no multicast); its copies build only the nnz = 3 instance. Every case
+launches with the
 rules' choices (``core.mma_plan``, ``core.bf16_mma_plan``), passed as the
 kernels' arguments. The copies are built under ``build/kernels/ablation/``.
 """
@@ -130,6 +138,21 @@ STEM_VARIANTS = {"as built": (), "no division": ("NO_DIV",), "no zero test": ("N
                  "no taps": ("NO_TAPS",), "no taps, no flush": ("NO_TAPS", "NO_FLUSH"),
                  "4 x 16 a thread": ("TH8", "FT16", "BLOCKS2")}
 STEM = (64, 64, 64, 3, 64)  # (images, H, W, C, F) of the sparse-cnn-s stem at batch 64
+# the wgmma core's switches (os_mma_sm90.cuh); ONE_NNZ, in every variant,
+# builds the nnz = 3 instance alone
+SOURCE_SWITCHES.update({
+    "ONE_NNZ": ("os_mma_sm90.cuh", "  auto fn = kernel<NNZ, GatherMuxSmem>;\n",
+                "  auto fn = kernel<3, GatherMuxSmem>;\n  if (NNZ != 3) return cudaErrorInvalidValue;\n"),
+    "NO_MUX": ("os_mma_sm90.cuh", "      StageA::template mux<NNZ>(",
+               "      if (false) StageA::template mux<NNZ>("),
+    "NO_WGMMA": ("os_mma_sm90.cuh",
+                 "          wgmma_n128(acc, desc_sw32(stage(s) + T::OFF_MUX + c * BM * 32 + wg * 64 * 32),\n",
+                 "          acc[c] += static_cast<int32_t>(\n"),
+    "NO_CLUSTER": ("os_mma_sm90.cuh", "constexpr int CLUSTER = 2;", "constexpr int CLUSTER = 1;"),
+})
+WGMMA_VARIANTS = {"as built": (), "no mux": ("NO_MUX",), "no wgmma": ("NO_WGMMA",),
+                  "no mux, no wgmma": ("NO_MUX", "NO_WGMMA"), "no cluster": ("NO_CLUSTER",)}
+WGMMA_ROWS = (64, 128, 256, 1024, 2048)
 _NO_A = ("NO_A", "NO_GATHER")
 VARIANTS = {"as built": (), "no B loads": ("NO_B",), "no A copies": _NO_A, "no mma": ("NO_MMA",),
             "no A, no B": (*_NO_A, "NO_B"), "no A, no mma": (*_NO_A, "NO_MMA"),
@@ -163,7 +186,7 @@ def main(argv=()) -> int:
     if not torch.cuda.is_available():
         print("mma_ablation: no CUDA card available", file=sys.stderr)
         return 2
-    parts = set(argv) or {"int8", "stem", "bf16"}
+    parts = set(argv) or {"int8", "stem", "bf16", "wgmma"}
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
 
@@ -225,6 +248,8 @@ def main(argv=()) -> int:
                       flush=True)
         if "bf16" in parts:
             _bf16_table(csrc, gen, dev, stream)
+        if "wgmma" in parts:
+            _wgmma_table(csrc, gen, dev, stream)
         if "stem" not in parts:
             return 0
         # the stem on its direct path: fp32 in, bias, ReLU, int8 codes out
@@ -276,6 +301,50 @@ def _bf16_table(csrc, gen, dev, stream) -> None:
     for name, switches in BF16_VARIANTS.items():
         print(f"{name:<20s} " + _row(f"bf16 {name}", switches, csrc, cases, sources, argtypes,
                                      width=12), flush=True)
+
+
+def _wgmma_table(csrc, gen, dev, stream) -> None:
+    """The wgmma core at every LM shape and row count, fp32 out (the plan's
+    dequant flush), as built and with each of ``WGMMA_VARIANTS``' parts
+    switched off; then os_mma.cuh's instance at the rule's tile rows, and
+    the least time of each (ops at 1 979 TOPS)."""
+    from repro_torch.kernels import vdbb_matmul as mm
+
+    cases, old = [], []
+    for k, n in LM_SHAPES.values():
+        nb = k // 8
+        pos = torch.argsort(torch.rand(nb, 8, generator=gen), dim=1)[:, :NNZ]
+        idx = pos.sort(dim=1).values.to(torch.int8).to(dev)
+        v = torch.randint(-127, 128, (nb, NNZ, n), generator=gen, dtype=torch.int8).to(dev)
+        vt, sel = mm.kmajor_values(v), mm.mux_selectors(idx, NNZ)
+        scale = torch.full((n,), 1e-4, device=dev)
+        for m in WGMMA_ROWS:
+            a = torch.randint(-127, 128, (m, k), generator=gen, dtype=torch.int8).to(dev)
+            out = torch.empty(m, n, device=dev)
+            keep = (a, v, idx, vt, sel, scale, out)
+            cases.append(("vdbb_matmul_tc_wgmma",
+                          (a.data_ptr(), vt.data_ptr(), sel.data_ptr(), scale.data_ptr(), None,
+                           None, 0, out.data_ptr(), 1, m, k, n, vt.stride(0), 8, NNZ, stream),
+                          keep))
+            old.append(("vdbb_matmul_tc",
+                        (a.data_ptr(), v.data_ptr(), idx.data_ptr(), scale.data_ptr(), None, None,
+                         0, out.data_ptr(), 0, 1, m, k, n, 8, NNZ,
+                         mma_plan("ablation", m, 8, 8, 0).tile_rows, 1, stream), keep))
+    columns = [f"{s}:{m}" for s in LM_SHAPES for m in WGMMA_ROWS]
+    entry = build.KERNELS["vdbb_matmul_tc"].entries["wgmma"]
+    sources = {"vdbb_matmul_tc_wgmma": "vdbb_matmul_tc.cu", "vdbb_matmul_tc": "vdbb_matmul_tc.cu"}
+    argtypes = {"vdbb_matmul_tc_wgmma": entry[1],
+                "vdbb_matmul_tc": build.KERNELS["vdbb_matmul_tc"].argtypes}
+    print(f"{'wgmma variant':<20s} " + " ".join(f"{c:>12s}" for c in columns)
+          + "   (device ms; fp32 out)")
+    for name, switches in WGMMA_VARIANTS.items():
+        print(f"{name:<20s} " + _row(f"wgmma {name}", ("ONE_NNZ",) + switches, csrc, cases,
+                                     sources, argtypes, width=12), flush=True)
+    print(f"{'os_mma.cuh mma.sync':<20s} " + _row("wgmma os_mma", ("ONE_NNZ",), csrc, old,
+                                                   sources, argtypes, width=12), flush=True)
+    least = [2 * m * (k // 8 * NNZ) * n / 1979e12 * 1e3 for k, n in LM_SHAPES.values()
+             for m in WGMMA_ROWS]
+    print(f"{'least (1 979 TOPS)':<20s} " + " ".join(f"{t:12.4f}" for t in least), flush=True)
 
 
 def _row(name, switches, csrc, cases, sources, argtypes, events=False, width=9) -> str:

@@ -242,6 +242,10 @@ def test_default_is_todays_rule_at_the_cnn_shapes(pattern):
 
 
 def test_default_is_todays_rule_at_the_lm_shapes():
+    """The default is the rule a staged launch takes: the bf16 plan's
+    choice; for int8 the wgmma core at prefill rows (M = 1024), os_mma.cuh's
+    tile rows at decode rows (M = 4), as :func:`core.matmul_tc_plan` gives
+    them."""
     for kind, sig in _lm_launches():
         m, k, n, _, _, dt = sig
         kc = k // 8 * 3
@@ -249,12 +253,44 @@ def test_default_is_todays_rule_at_the_lm_shapes():
         cands = tcore.launch_choices(kind, sig)
         assert d in cands
         if dt == "int8":
-            assert d == {"tile_rows": tcore.mma_gather_plan("k", m, kc).tile_rows}
+            plan = tcore.matmul_tc_plan("k", m, n, k, 8, 3, 0, staged=True)
+            if m == 1024:
+                assert d == tcore.WGMMA_CHOICE and isinstance(plan, tcore.WgmmaPlan)
+            else:
+                assert d == {"tile_rows": plan.tile_rows}
+                assert d == {"tile_rows": tcore.mma_gather_plan("k", m, kc).tile_rows}
         else:
             plan = tcore.bf16_mma_plan("k", m, n, kc, (0, 0), k=k)
             assert d == tcore.bf16_choice(plan)
             stages = -(-kc // 32)
             assert len(cands) == min(16, stages) + min(8, stages)
+
+
+@pytest.mark.parametrize("m", [4, 64, 1024, 2048])
+def test_launch_choices_list_the_wgmma_core_at_lm_prefill_rows(m):
+    """At starcoder2-7b's int8 shapes the tc matmul's choices are the two
+    tile rows, and the wgmma core from WGMMA_MIN_M rows on; each passes
+    ``check_choice``, and the bw matmul never lists it."""
+    for k, n in LM_SHAPES:
+        sig = tcore.matmul_sig(m, k, n, 8, 3, "int8")
+        cands = tcore.launch_choices(tcore.KIND_MATMUL_TC, sig)
+        rows = [{"tile_rows": 64}, {"tile_rows": 128}]
+        assert cands == (rows + [tcore.WGMMA_CHOICE] if m >= tcore.WGMMA_MIN_M else rows)
+        for t in cands:
+            assert tcore.check_choice(tcore.KIND_MATMUL_TC, sig, t) == t
+        assert tcore.launch_choices(tcore.KIND_MATMUL_BW, sig) == rows
+    odd = tcore.matmul_sig(m, 4600, 512, 8, 3, "int8")  # a row of A not a multiple of 16
+    assert tcore.WGMMA_CHOICE not in tcore.launch_choices(tcore.KIND_MATMUL_TC, odd)
+
+
+def test_wgmma_choice_in_the_cost_model():
+    """The pruning model prices the wgmma core's tile (128 x 256, 32 blocks
+    a stage) and ranks it first at a prefill shape, where its wider tile
+    reads A fewer times."""
+    cost = {str(t): tat.modeled_matmul_cost(1024, 4608, 18432, FMT, t, 1.0)
+            for t in tcore.launch_choices(tcore.KIND_MATMUL_TC,
+                                          tcore.matmul_sig(1024, 4608, 18432, 8, 3, "int8"))}
+    assert min(cost, key=cost.get) == str(tcore.WGMMA_CHOICE)
 
 
 def test_no_choice_where_the_launch_takes_none():

@@ -65,6 +65,11 @@ NAMES = [
      "vdbb_conv_tc"),
     ("_ZN6os_mma6kernelILi64ELi8Ef6TapMux9DenseTileEEvT2_T3_iiiPT1_12EpilogueArgs",
      "vdbb_conv_tc"),
+    # the tc matmul's staged int8 core at prefill rows (wgmma), every nnz
+    *[(f"void os_mma_sm90::kernel<{z}, os_mma_sm90::GatherMuxSmem>(CUtensorMap, CUtensorMap, "
+       "os_mma_sm90::Args)", "vdbb_matmul_tc_wgmma") for z in (1, 3, 8)],
+    ("_ZN11os_mma_sm906kernelILi3ENS_13GatherMuxSmemEEEv14CUtensorMap_stS2_NS_4ArgsE",
+     "vdbb_matmul_tc_wgmma"),
     # the stem's direct conv, both outputs
     (_direct("signed char"), "im2col_conv"),
     (_direct("float"), "im2col_conv"),

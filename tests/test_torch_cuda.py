@@ -35,12 +35,13 @@ TOL = dict(rtol=1e-5, atol=1e-5)
 def _per_forward(pattern, n_conv):
     """The exact launches of one forward: the stem, ``n_conv - 1`` compressed
     convs and the head on the pattern's kernels, the other mode's and the
-    LM's bf16 tc matmul at 0."""
+    LM's bf16 tc matmul and the staged int8 one (wgmma) at 0."""
     if pattern == "matrix":
         return {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1, "vdbb_matmul_tc": 1,
-                "vdbb_matmul_tc_bf16": 0, "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0}
+                "vdbb_matmul_tc_bf16": 0, "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 0,
+                "vdbb_matmul_bw": 0}
     return {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0, "vdbb_matmul_tc_bf16": 0,
-            "vdbb_conv_bw": n_conv - 1, "vdbb_matmul_bw": 1}
+            "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": n_conv - 1, "vdbb_matmul_bw": 1}
 
 
 pytestmark = pytest.mark.cuda
@@ -376,6 +377,107 @@ def test_tc_head_int8_full_range_at_kc4608(card, full):
     _int8_exact(head_k.vdbb_matmul_tc, head_k.vdbb_matmul_tc_plain, args, 72, card, rng)
     if full:
         assert int(head_k.vdbb_matmul_tc(*args).max()) == 4608 * 127 * 127
+
+
+# ----------------- the tc matmul's wgmma core (csrc/os_mma_sm90.cuh)
+
+# (M, K, N): ragged rows, columns off the 128-column tile, a last stage of
+# 8 blocks (K = 320) or 2 (K = 2064) of its 32
+WGMMA_RAGGED = [(129, 320, 1000), (1000, 320, 4616), (129, 2064, 1000), (1000, 2064, 4616)]
+
+
+@pytest.mark.parametrize("nnz", [1, 2, 3, 4, 8])
+@pytest.mark.parametrize("m,k,n", WGMMA_RAGGED)
+def test_tc_matmul_wgmma_equals_os_mma_and_plain(card, m, k, n, nnz):
+    """The wgmma core equals os_mma.cuh's instance and the plain version
+    exactly (torch.equal) through every flush: int8 codes (scale, bias,
+    ReLU, out_scale), fp32 (scale, bias), the raw int32 accumulator; called
+    with its choice (a K-major copy made for the call) and staged."""
+    from repro_torch.kernels import core as tcore
+
+    rng = np.random.default_rng(m * nnz + k + n)
+    values, idx, fmt = _tc_codes(rng, k // 8, nnz, n)
+    a = _act_codes(rng, (m, k), card=card)
+    args = (a, values.to(card), idx.to(card), fmt)
+    _int8_exact(lambda *x, **kw: head_k.vdbb_matmul_tc(*x, **kw, choice=tcore.WGMMA_CHOICE),
+                head_k.vdbb_matmul_tc_plain, args, n, card, rng)
+    _int8_exact(lambda *x, **kw: head_k.vdbb_matmul_tc(*x, **kw, choice=tcore.WGMMA_CHOICE),
+                lambda *x, **kw: head_k.vdbb_matmul_tc(*x, **kw, choice={"tile_rows": 128}),
+                args, n, card, rng)
+    w = tv.DBBWeight(values.to(card), idx[:, :, None].to(card), fmt, (k, n))
+    run, tiles = head_k.stage_vdbb_matmul(w, m, choice=tcore.WGMMA_CHOICE)
+    assert tiles["core"] == "wgmma"
+    assert torch.equal(run(a), head_k.vdbb_matmul_tc_plain(*args))
+
+
+@pytest.mark.parametrize("k,n", [(4608, 4608), (18432, 4608)], ids=["wq", "w_down"])
+def test_tc_matmul_wgmma_at_starcoder2_prefill(card, k, n):
+    """starcoder2-7b's wq and w_down at a 1 024-row prefill, staged as the
+    INT8 plan stages them: equal to os_mma.cuh's instance and to the plain
+    version, raw and through the fp32 dequant flush."""
+    rng = np.random.default_rng(k)
+    values, idx, fmt = _tc_codes(rng, k // 8, 3, n)
+    a = _act_codes(rng, (1024, k), card=card)
+    args = (a, values.to(card), idx.to(card), fmt)
+    w = tv.DBBWeight(args[1], args[2][:, :, None], fmt, (k, n))
+    for kw in (dict(scales=torch.rand(n, device=card) * 1e-4), {}):
+        run, tiles = head_k.stage_vdbb_matmul(w, 1024, **kw)
+        assert tiles["core"] == "wgmma"
+        got = run(a)
+        assert torch.equal(got, head_k.vdbb_matmul_tc(*args, **kw, choice={"tile_rows": 128}))
+        assert torch.equal(got, head_k.vdbb_matmul_tc_plain(*args, **kw))
+
+
+@pytest.mark.parametrize("m,counted", [(1024, "vdbb_matmul_tc_wgmma"), (64, "vdbb_matmul_tc")])
+def test_wgmma_core_counts_at_prefill_rows_os_mma_at_head_rows(card, m, counted):
+    """A product staged at 1 024 rows launches the wgmma core and counts as
+    ``vdbb_matmul_tc_wgmma``, not ``vdbb_matmul_tc``; at 64 rows (the head,
+    decode) the reverse."""
+    rng = np.random.default_rng(m)
+    values, idx, fmt = _tc_codes(rng, 64, 3, 256)
+    w = tv.DBBWeight(values.to(card), idx[:, :, None].to(card), fmt, (512, 256))
+    run, _ = head_k.stage_vdbb_matmul(w, m)
+    a = _act_codes(rng, (m, 512), card=card)
+    build.reset_launches()
+    run(a)
+    torch.cuda.synchronize()
+    counts = build.launch_counts()
+    other = "vdbb_matmul_tc" if counted.endswith("wgmma") else "vdbb_matmul_tc_wgmma"
+    assert counts[counted] == 1 and counts[other] == 0
+
+
+def test_wgmma_kernel_name_matches_the_int8_roofline_metric(card):
+    """A profiled launch of the wgmma core carries a name the benchmark's
+    ``int8_matmul_roofline`` reads (``portbench/metrics``: every substring
+    of a pattern), as os_mma.cuh's GatherMux instance did."""
+    import importlib
+    import sys
+
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels import core as tcore
+
+    root = str(Path(__file__).resolve().parents[1])
+    if root not in sys.path:
+        sys.path.insert(0, root)
+    patterns = importlib.import_module("portbench.metrics.int8_matmul_roofline").PATTERNS
+    rng = np.random.default_rng(5)
+    values, idx, fmt = _tc_codes(rng, 64, 3, 256)
+    a = _act_codes(rng, (256, 512), card=card)
+    args = (a, values.to(card), idx.to(card), fmt)
+    head_k.vdbb_matmul_tc(*args, choice=tcore.WGMMA_CHOICE)
+    torch.cuda.synchronize()
+    names = set()
+    for _ in range(5):  # a profiled pass may deliver no kernel records
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                head_k.vdbb_matmul_tc(*args, choice=tcore.WGMMA_CHOICE)
+            torch.cuda.synchronize()
+        names = {ev.name for ev in prof.events()
+                 if ev.device_type == torch.autograd.DeviceType.CUDA and "os_mma_sm90" in ev.name}
+        if names:
+            break
+    assert names and all(any(all(p in nm for p in pat) for pat in patterns) for nm in names)
 
 
 # ------------------------- the tc conv's int8 tensor-core instantiation
@@ -1264,7 +1366,8 @@ def _choices(kind, sig):
 def test_int8_matmul_every_tile_choice_matches_plain(card, mode, m):
     """Both tile instances (64 and 128 rows) of the int8 head at
     sparse-cnn-tiny's head shape (K = 64, N = 10) and at K = 512, N = 72,
-    each flush, against the plain version."""
+    and the tc matmul's wgmma core at prefill rows, each flush, against the
+    plain version."""
     from repro_torch.kernels import core as tcore
 
     rng = np.random.default_rng(m)
@@ -1279,7 +1382,9 @@ def test_int8_matmul_every_tile_choice_matches_plain(card, mode, m):
             kind = tcore.KIND_MATMUL_BW
         a = _act_codes(rng, (m, k), card=card)
         choices = _choices(kind, tcore.matmul_sig(m, k, n, 8, 3, "int8"))
-        assert choices == [{"tile_rows": 64}, {"tile_rows": 128}]
+        rows = [{"tile_rows": 64}, {"tile_rows": 128}]
+        wgmma = mode == "tc" and m >= tcore.WGMMA_MIN_M
+        assert choices == (rows + [tcore.WGMMA_CHOICE] if wgmma else rows)
         for t in choices:
             _int8_exact(lambda *a_, **kw: kernel(*a_, **kw, choice=t), plain,
                         (a, values.to(card), idx.to(card), fmt), n, card, rng)

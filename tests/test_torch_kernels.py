@@ -460,9 +460,12 @@ def test_launch_counters_start_at_zero_and_reset():
     for k in build.KERNELS.values():
         k.counts = dict.fromkeys(k.counts, 5)
     build.reset_launches()
-    # the tc matmul's bf16 instantiation counts apart, under its own name
-    assert build.launch_counts() == dict.fromkeys(names | {"vdbb_matmul_tc_bf16"}, 0)
-    assert build.kernel_of("vdbb_matmul_tc_bf16") is build.KERNELS["vdbb_matmul_tc"]
+    # the tc matmul's bf16 instantiation and its wgmma core count apart,
+    # each under its own name
+    variants = {"vdbb_matmul_tc_bf16", "vdbb_matmul_tc_wgmma"}
+    assert build.launch_counts() == dict.fromkeys(names | variants, 0)
+    for v in variants:
+        assert build.kernel_of(v) is build.KERNELS["vdbb_matmul_tc"]
     for k in build.KERNELS.values():
         assert k.replaces.startswith("src/repro/kernels/") and (build.CSRC / k.source).exists()
 
@@ -568,6 +571,128 @@ def test_tc_head_wrapper_refuses_kc_above_the_exact_limit(nb, refused):
         head_k.vdbb_matmul_tc(a, values, indices, tv.DBBFormat(8, 8, "matrix"))
 
 
+# ------------------------------- host rules of the tc matmul's wgmma core
+
+# (m, k, nnz, A's address, staged) -> the core the rule takes (and its rows)
+WGMMA_RULE = [
+    ((1024, 4608, 3, 0, True), ("wgmma", 128)),     # starcoder2-7b's prefill, staged
+    ((2048, 18432, 3, 256, True), ("wgmma", 128)),
+    ((tcore.WGMMA_MIN_M, 4608, 3, 0, True), ("wgmma", 128)),
+    ((tcore.WGMMA_MIN_M - 1, 4608, 3, 0, True), ("mma", 64)),
+    ((64, 512, 3, 0, True), ("mma", 64)),           # the CNN head's rows, decode rows
+    ((16, 4608, 3, 0, True), ("mma", 64)),
+    ((1024, 4608, 3, 0, False), ("mma", 128)),      # unstaged: no K-major copy
+    ((1024, 4608, 3, 8, True), ("mma", 128)),       # A not 16-byte aligned
+    ((1024, 4600, 3, 0, True), ("mma", 128)),       # a row of A not a multiple of 16 bytes
+    ((1024, 4608, 8, 0, True), ("wgmma", 128)),
+    ((1024, 4608, 1, 0, True), ("wgmma", 128)),
+]
+
+
+@pytest.mark.parametrize("case,want", WGMMA_RULE)
+def test_matmul_tc_plan_takes_the_wgmma_core_by_rows_staging_and_alignment(case, want):
+    """The tc matmul's int8 rule: the wgmma core for a staged product at
+    WGMMA_MIN_M rows or more whose A is 16-byte aligned with K % 16 == 0;
+    os_mma.cuh at its own rule's rows otherwise."""
+    m, k, nnz, ptr, staged = case
+    plan = tcore.matmul_tc_plan("vdbb_matmul_tc", m, 4608, k, 8, nnz, ptr, staged=staged)
+    core = "wgmma" if isinstance(plan, tcore.WgmmaPlan) else "mma"
+    assert (core, plan.tile_rows) == want
+    if core == "mma":
+        assert plan == tcore.mma_gather_plan("vdbb_matmul_tc", m, k // 8 * nnz)
+
+
+@pytest.mark.parametrize("nnz,stages", [(1, 4), (2, 4), (3, 4), (4, 3), (5, 3), (8, 2)])
+def test_wgmma_ring_by_nnz(nnz, stages):
+    """The ring as deep as shared memory holds (at most 4), as
+    os_mma_sm90.cuh's Tile sizes it: a stage's muxed A and B grow with nnz."""
+    assert tcore.wgmma_stages(nnz) == stages
+    plan = tcore.matmul_tc_plan("k", 1024, 4608, 4608, 8, nnz, 0, staged=True)
+    assert plan == tcore.WgmmaPlan(128, 128, stages)
+
+
+def test_matmul_tc_plan_choices_override_the_rule():
+    """A choice (a plan's, or the registry's) names the core: wgmma where the
+    shape and A fit it, else refused; tile rows keep os_mma.cuh even where
+    the rule would take wgmma."""
+    plan = tcore.matmul_tc_plan("k", 64, 4608, 4608, 8, 3, 0, staged=False,
+                                choice=tcore.WGMMA_CHOICE)
+    assert isinstance(plan, tcore.WgmmaPlan) and plan.tile_rows == 128
+    plan = tcore.matmul_tc_plan("k", 1024, 4608, 4608, 8, 3, 0, staged=True,
+                                choice={"tile_rows": 64})
+    assert plan == tcore.MmaPlan(64, 8, gathered=True)
+    for k, ptr, bz in ((4608, 4, 8), (4600, 0, 8), (4608, 0, 4)):
+        with pytest.raises(ValueError, match="wgmma"):
+            tcore.matmul_tc_plan("k", 1024, 4608, k, bz, 3, ptr, staged=True,
+                                 choice=tcore.WGMMA_CHOICE)
+    with pytest.raises(ValueError, match="overflow"):
+        tcore.matmul_tc_plan("k", 1024, 8, 8 * 16644, 8, 8, 0, staged=True)
+
+
+@pytest.mark.parametrize("nb,nnz,n", [(576, 3, 40), (40, 3, 24), (33, 5, 17), (7, 1, 9), (64, 8, 8)])
+def test_kmajor_values_is_the_values_transposed(nb, nnz, n):
+    """The wgmma core's B: (N, K_c) equal to values.reshape(K_c, N).T, rows
+    a multiple of 16 bytes apart, the padding zero."""
+    gen = torch.Generator().manual_seed(nb * n)
+    values = torch.randint(-127, 128, (nb, nnz, n), generator=gen, dtype=torch.int8)
+    kt = head_k.kmajor_values(values)
+    assert torch.equal(kt, values.reshape(nb * nnz, n).T)
+    assert kt.stride(1) == 1 and kt.stride(0) % 16 == 0 and kt.stride(0) - nb * nnz < 16
+    padded = torch.as_strided(kt, (n, kt.stride(0)), (kt.stride(0), 1))
+    assert not padded[:, nb * nnz:].any()
+
+
+@pytest.mark.parametrize("nb,nnz", [(576, 3), (40, 3), (33, 5), (2304, 8), (7, 1)])
+def test_mux_selectors_hold_each_blocks_positions(nb, nnz):
+    """Block b's selector words: nibble i of word j is the position of slot
+    4 j + i in its block (0 past nnz), the rows padded to a whole stage of
+    32 blocks with zeros."""
+    gen = torch.Generator().manual_seed(nb + nnz)
+    idx = torch.argsort(torch.rand(nb, 8, generator=gen), dim=1)[:, :nnz].sort(1).values
+    sel = head_k.mux_selectors(idx.to(torch.int8), nnz)
+    assert sel.dtype == torch.int32 and sel.shape == (-(-nb // 32) * 32, 2)
+    nibbles = torch.stack([(sel >> (4 * i)) & 15 for i in range(4)], -1).reshape(-1, 8)
+    assert torch.equal(nibbles[:nb, :nnz], idx.to(torch.int32))
+    assert not nibbles[:nb, nnz:].any() and not nibbles[nb:].any()
+
+
+@pytest.mark.parametrize("m", [64, 1024])
+def test_stage_vdbb_matmul_holds_the_kmajor_copy_at_prefill_rows(m):
+    """An int8 tc product staged at prefill rows takes the wgmma core and
+    holds the values K-major with the block selectors; at the head's rows
+    it keeps os_mma.cuh and holds no copy. On the CPU both run the plain
+    version."""
+    rng = np.random.default_rng(m)
+    fmt = tv.DBBFormat(8, 3, "matrix")
+    w = tv.dbb_encode(torch.from_numpy(rng.normal(size=(256, 40)).astype(np.float32)), fmt,
+                      prune=True)
+    w = dataclasses.replace(w, values=torch.from_numpy(
+        rng.integers(-127, 128, size=tuple(w.values.shape)).astype(np.int8)))
+    run, tiles = head_k.stage_vdbb_matmul(w, m)
+    idx = w.indices[:, :, 0].contiguous()
+    if m == 1024:
+        assert tiles == dataclasses.asdict(tcore.WgmmaPlan(128, 128, 4))
+        vt, sel = run.kmajor
+        assert torch.equal(vt, w.values.reshape(-1, 40).T)
+        assert torch.equal(sel, head_k.mux_selectors(idx, 3))
+    else:
+        assert tiles == dataclasses.asdict(tcore.MmaPlan(64, 8, gathered=True))
+        assert run.kmajor is None
+    a = torch.from_numpy(rng.integers(-127, 128, size=(m, 256)).astype(np.int8))
+    assert torch.equal(run(a), head_k.vdbb_matmul_tc_plain(a, w.values, idx, fmt))
+
+
+def test_wgmma_choice_off_the_cpu_reaches_the_operand_checks():
+    """An int8 tc call choosing the wgmma core, off the CPU, makes its plan
+    and reaches the operand checks (which refuse a non-CUDA device)."""
+    meta = dict(dtype=torch.int8, device="meta")
+    a, values, indices = (torch.empty(1024, 4608, **meta), torch.empty(576, 3, 64, **meta),
+                          torch.empty(576, 3, **meta))
+    with pytest.raises(ValueError, match="CUDA"):
+        head_k.vdbb_matmul_tc(a, values, indices, tv.DBBFormat(8, 3, "matrix"),
+                              choice=tcore.WGMMA_CHOICE)
+
+
 # ----------------------------- host rules of the bf16 tensor-core core
 
 # (K, N, M) of starcoder2-7b's projections at decode (batch 4) and prefill
@@ -646,6 +771,21 @@ def test_stage_vdbb_matmul_returns_the_bf16_plan(m):
     a = torch.from_numpy(rng.normal(size=(m, 64)).astype(np.float32)).bfloat16()
     idx = w.indices[:, :, 0].contiguous()
     assert torch.equal(run(a), head_k.vdbb_matmul_tc_plain(a, w.values, idx, fmt))
+
+
+@pytest.mark.parametrize("switch", ["ONE_NNZ", "NO_MUX", "NO_WGMMA", "NO_CLUSTER"])
+def test_wgmma_ablation_switches_find_their_anchor(switch, tmp_path, monkeypatch):
+    """Each switch of the wgmma core's ablation applies to os_mma_sm90.cuh as
+    it stands: its anchor is there once, and the switched copy lacks it."""
+    from repro_torch.kernels import build, mma_ablation
+
+    source, anchor, _ = mma_ablation.SOURCE_SWITCHES[switch]
+    assert source == "os_mma_sm90.cuh"
+    assert (build.CSRC / source).read_text().count(anchor) == 1
+    monkeypatch.setenv("REPRO_TORCH_BUILD_DIR", str(tmp_path))
+    out = mma_ablation.variant_sources("probe", ("ONE_NNZ", switch) if switch != "ONE_NNZ"
+                                       else (switch,))
+    assert anchor not in (out / source).read_text()
 
 
 @pytest.mark.parametrize("switch", ["NO_B16", "NO_GATHER16", "NO_GATHER_REG", "NO_COMPACT",
