@@ -26,6 +26,18 @@ Phases, each of which fails the run:
      chose; beside each tc conv layer, for information, torch._int_mm over
      the pre-gathered compressed im2col matrix (the GEMM alone), and the
      layer at request batch 1 (checked exactly, and its device time);
+  2b. ResNet-50 v1.5 (``resnet50-v1.5``) at batch 64: its 7 x 7 stride-2
+     stem on the direct path, the int8 max-pool, and the tc conv's 1 x 1
+     (PointMux) and residual (ResidualFlush) instances at stage 1's and
+     stage 4's shapes, a strided 1 x 1 projection and a strided 3 x 3 on the
+     residual instance, each exactly its plain version (the stem's codes
+     within one code) and timed as phase 2 times a layer; then the
+     full-size model, seeded and calibrated, through its plan at bucket 64,
+     the launch counts at 0 just before: logits equal to the unplanned INT8
+     forward's bit for bit, one replay launching one stem, one max-pool,
+     36 tc convs, 16 residual convs and the head, the plan and the
+     unplanned forward timed in turns, and the device time per kernel and
+     the idle share of planned forwards;
   3. sparse-cnn-s end to end through ``repro_torch.launch.serve``, once per
      pattern: request batches of 1, 8 and 64, one stem, seven conv and one
      head launch per forward on that pattern's kernels, each batch's logits
@@ -551,7 +563,8 @@ def stem_layer(m, xshape, out_scale, gen, dev):
                 "conv fp32 at C = 16 (implicit GEMM)")
     xn = x.permute(0, 3, 1, 2).contiguous()
     wn = w.permute(3, 2, 0, 1).contiguous()
-    library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=1)  # noqa: E731
+    pad = 1 if m.padding == "SAME" else m.padding[0][0]
+    library = lambda: F.conv2d(xn, wn, bias, stride=m.stride, padding=pad)  # noqa: E731
     out = run()
     nb_ = nbytes(x, w, bias, out)
     ops = 2 * out.numel() * m.kh * m.kw * m.in_channels
@@ -749,16 +762,170 @@ def log_summary(recs) -> None:
         f"{total(stem, 'library_device_ms')} ms")
 
 
+# --------------------------------------------------------------- phase 2b
+
+RESNET_SMOKE = False  # the arch's reduced config (a CPU rehearsal of this phase)
+# (label, counted kernel, input shape, F, k, stride, residual): ResNet-50
+# v1.5's convs at stage 1's and stage 4's shapes, the strided 1 x 1
+# projection into stage 2, and a strided 3 x 3 on the residual instance
+RESNET_LAYERS = (
+    ("stage1 c1", "vdbb_conv_tc", (BATCH, 56, 56, 256), 64, 1, 1, False),
+    ("stage1 c3", "vdbb_conv_tc_residual", (BATCH, 56, 56, 64), 256, 1, 1, True),
+    ("stage2 proj", "vdbb_conv_tc", (BATCH, 56, 56, 256), 512, 1, 2, False),
+    ("3x3 stride 2", "vdbb_conv_tc_residual", (BATCH, 56, 56, 128), 128, 3, 2, True),
+    ("stage4 c1", "vdbb_conv_tc", (BATCH, 7, 7, 2048), 512, 1, 1, False),
+    ("stage4 c3", "vdbb_conv_tc_residual", (BATCH, 7, 7, 512), 2048, 1, 1, True),
+)
+# one replay of resnet50-v1.5: the stem and its max-pool, 16 blocks' first
+# two convs and 4 projections on the tc conv, 16 last convs on its residual
+# instance, the head on the tc matmul
+RESNET_REPLAY = {"im2col_conv": 1, "im2col_conv_maxpool": 1, "vdbb_conv_tc": 36,
+                 "vdbb_conv_tc_residual": 16, "vdbb_matmul_tc": 1, "vdbb_matmul_tc_bf16": 0,
+                 "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0}
+
+
+def resnet_conv(label, xshape, f, k, stride, residual, gen, dev):
+    """One of ResNet's compressed convs on the tc conv (3/8, a pattern
+    shared across F), int8 codes in: int8 codes out exactly the plain
+    version's, and with the residual the last block's fp32 flush too; the
+    profiler sees the mux (PointMux at 1 x 1, TapMux at 3 x 3) and, with
+    the residual, the ResidualFlush instance. Returns the timed record
+    (library: F.conv2d fp32 on the decoded weight, plus the shortcut)."""
+    from repro_torch.core.quant import quantize_dbb
+    from repro_torch.core.vdbb import DBBFormat, dbb_decode, dbb_encode_conv
+    from repro_torch.kernels import vdbb_im2col_conv as conv_k
+    from repro_torch.kernels.core import mma_tap_plan
+
+    fmt = DBBFormat(8, 3, "matrix")
+    n, h, w, c = xshape
+    p = k // 2
+    ho, wo = (h + 2 * p - k) // stride + 1, (w + 2 * p - k) // stride + 1
+    dw = dbb_encode_conv(rnd(gen, dev, k, k, c, f, scale=(k * k * c) ** -0.5), fmt, prune=True)
+    qw = quantize_dbb(dw)
+    idx = qw.indices[:, :, 0].contiguous()
+    xq = codes(gen, dev, *xshape)
+    kc = qw.values.shape[0] * qw.values.shape[1]
+    res = (codes(gen, dev, n, ho, wo, f), torch.tensor(0.02, device=dev)) if residual else None
+    bias = rnd(gen, dev, f, scale=0.5)
+    kw = dict(scales=dequant_scales(gen, dev, f, kc), bias=bias, relu=True, out_scale=0.05,
+              stride=stride, padding=((p, p), (p, p)), residual=res)
+    args = (xq, qw.values, idx, fmt, k, k)
+    run = lambda: conv_k.vdbb_im2col_conv_tc(*args, **kw)  # noqa: E731
+    plain = lambda: conv_k.vdbb_im2col_conv_tc_plain(*args, **kw)  # noqa: E731
+    what = f"resnet {label}"
+    err = check_exact(run(), plain(), f"{what} int8")
+    if residual:
+        k32 = dict(kw, out_scale=None)
+        check_exact(conv_k.vdbb_im2col_conv_tc(*args, **k32),
+                    conv_k.vdbb_im2col_conv_tc_plain(*args, **k32), f"{what} fp32 flush")
+    seen = require_instance(run, "os_mma", "PointMux" if k == 1 else "TapMux", what)
+    if residual != ("ResidualFlush" in seen):
+        raise AssertionError(f"{what}: the profiler saw {seen}, residual={residual}")
+    tile = mma_tap_plan(what, n * ho * wo, kc, k, k, w, c)
+    xn = rnd(gen, dev, n, c, h, w)
+    wn = dbb_decode(dw).reshape(k, k, c, f).permute(3, 2, 0, 1).contiguous()
+    rn = rnd(gen, dev, n, f, ho, wo) if residual else 0.0
+    library = lambda: F.conv2d(xn, wn, bias, stride=stride, padding=p) + rn  # noqa: E731
+    out = run()
+    # a strided 1 x 1 conv reads only the pixels it lands on
+    x_bytes = n * ho * wo * c if k == 1 else xq.numel()
+    nb_ = x_bytes + nbytes(qw.values, idx, kw["scales"], bias, out, *(res or ()))
+    ops = 2 * out.numel() * kc
+    b_ms, b_by = bound(nb_, ops, INT8_OPS_PER_S)
+    return timed(run, plain, library, err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb_, ops=ops,
+                 plan=f"{tile.tile_rows}x64 tile, {seen.split('(')[0]}", out_bytes=nbytes(out))
+
+
+def resnet_maxpool(gen, dev, xshape):
+    """The max-pool after the stem (3 x 3, stride 2, pad 1) on int8 codes:
+    exactly the plain version (F.max_pool2d), its kernel seen by the
+    profiler. Returns the timed record (library: F.max_pool2d on fp32)."""
+    from repro_torch.kernels import maxpool as pool_k
+
+    xq = codes(gen, dev, *xshape)
+    run = lambda: pool_k.maxpool(xq, 3, 2, 1)  # noqa: E731
+    plain = lambda: pool_k.maxpool_plain(xq, 3, 2, 1)  # noqa: E731
+    err = check_exact(run(), plain(), "resnet max-pool")
+    seen = require_instance(run, "maxpool", "Geometry", "resnet max-pool")
+    xn = rnd(gen, dev, xshape[0], xshape[3], xshape[1], xshape[2])
+    library = lambda: F.max_pool2d(xn, 3, 2, 1)  # noqa: E731
+    out = run()
+    nb_ = nbytes(xq, out)
+    b_ms, b_by = bound(nb_, 0, INT8_OPS_PER_S)
+    return timed(run, plain, library, err=err, bound_ms=b_ms, bound_by=b_by, bytes=nb_, ops=0,
+                 plan=seen.split("(")[0], out_bytes=nbytes(out))
+
+
+def resnet_phase(gen, dev) -> dict:
+    """Phase 2b: ResNet-50 v1.5's new pieces at batch 64 against their plain
+    versions and timed (the 7 x 7 stride-2 stem on its direct path, the
+    max-pool, the tc conv's 1 x 1 PointMux and residual instances at stage
+    1's and stage 4's shapes, a strided 1 x 1 and 3 x 3); then the full-size
+    model, seeded and calibrated, served through its plan at bucket 64 with
+    the launch counts at 0 just before: the plan's logits equal the
+    unplanned INT8 forward's bit for bit, one replay launches
+    RESNET_REPLAY, the two timed in turns (unplanned, planned, planned,
+    unplanned) on CUDA events, and the profiler's device time per kernel
+    and idle share over planned forwards. Returns the records
+    ({kernel: [record]}), the replay's launches and the timings."""
+    from repro_torch.configs.cnn import get_cnn_config, smoke_cnn_config
+    from repro_torch.kernels import build
+    from repro_torch.kernels.timing import event_ms
+    from repro_torch.launch import serve
+    from repro_torch.models.cnn import SparseCNN
+
+    recs = {"vdbb_conv_tc_residual": [], "im2col_conv_maxpool": []}
+    cfg = (smoke_cnn_config if RESNET_SMOKE else get_cnn_config)("resnet50-v1.5")
+    stem = SparseCNN(cfg).layers()[0]
+    h = cfg.image_size
+    r = stem_layer(stem, (BATCH, h, h, stem.in_channels), 0.05, gen, dev)
+    log_record("resnet stem", "im2col_conv", (BATCH, h, h, stem.in_channels), r)
+    ho = stem.out_hw(h, h)[0]
+    shape = (BATCH, ho, ho, stem.out_channels)
+    r = resnet_maxpool(gen, dev, shape)
+    recs["im2col_conv_maxpool"].append(r)
+    log_record("resnet pool", "im2col_conv_maxpool", shape, r)
+    for label, name, xshape, f, k, stride, residual in RESNET_LAYERS:
+        r = resnet_conv(label, xshape, f, k, stride, residual, gen, dev)
+        if name in recs:
+            recs[name].append(r)
+        log_record(f"resnet {label}", name, xshape, r)
+
+    model, x = serve.build_model("resnet50-v1.5", calib_batch=BATCH, device=dev, seed=5,
+                                 smoke=RESNET_SMOKE)
+    build.reset_launches()
+    ps = model.plan_set(buckets=(BATCH,), tune="off")
+    with torch.no_grad():
+        got, want = ps.serve(x), model(x)
+    check_exact(got, want, "resnet50-v1.5 plan against the unplanned INT8 forward")
+    graphs = ps.plans[BATCH].graph_launches
+    replayed = next(iter(graphs.values())) if graphs else {}
+    if replayed != RESNET_REPLAY:
+        raise AssertionError(f"resnet50-v1.5: one replay launches {replayed}, "
+                             f"want {RESNET_REPLAY}")
+    log(f"[resnet] plan at bucket {BATCH}: logits equal the unplanned INT8 forward's; one "
+        f"replay launches {replayed}")
+    with torch.no_grad():
+        turns = [event_ms(lambda fn=fn: fn(x), REPS) for fn in (model, ps.serve, ps.serve, model)]
+    timing = {"unplanned_ms": (turns[0] + turns[3]) / 2, "planned_ms": (turns[1] + turns[2]) / 2,
+              "turns_ms": turns}
+    prof = profile_forwards(ps.serve, x, RESNET_REPLAY)
+    log(f"[resnet] in turns: {json.dumps(timing)}; planned at batch {BATCH}: per forward "
+        f"{json.dumps(prof)}")
+    del model, x, ps
+    return {"recs": recs, "replayed": replayed, "timing": timing, "profile": prof}
+
+
 # ---------------------------------------------------------------- phase 3
 
 # launches per forward of each serving path: the other mode's kernels at 0
 PER_FORWARD = {
     "matrix": {"im2col_conv": 1, "vdbb_conv_tc": 7, "vdbb_matmul_tc": 1,
                "vdbb_matmul_tc_bf16": 0, "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 0,
-               "vdbb_matmul_bw": 0},
+               "vdbb_matmul_bw": 0, "vdbb_conv_tc_residual": 0, "im2col_conv_maxpool": 0},
     None: {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0,
            "vdbb_matmul_tc_bf16": 0, "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 7,
-           "vdbb_matmul_bw": 1},
+           "vdbb_matmul_bw": 1, "vdbb_conv_tc_residual": 0, "im2col_conv_maxpool": 0},
 }
 
 
@@ -851,12 +1018,17 @@ def end_to_end(dev, pattern):
 # only the tc matmul's bf16 gather; the stem's direct conv is a template of
 # its own.
 KERNEL_OF_LOADER = {
+    # the tc conv's residual instance (a ResNet block's last conv): os_mma
+    # with its flush's type in the name, so it is matched first
+    "ResidualFlush": {"PointMux": "vdbb_conv_tc_residual", "TapMux": "vdbb_conv_tc_residual"},
+    "maxpool": {"Geometry": "im2col_conv_maxpool"},
     # the tc matmul's staged int8 core at prefill rows (wgmma): its name
     # (os_mma_sm90::kernel<nnz, GatherMuxSmem>) holds os_mma's and
     # GatherMux's too, so it is matched first
     "sm90": {"GatherMuxSmem": "vdbb_matmul_tc_wgmma"},
     "os_mma": {"TapChunks": "vdbb_conv_bw", "RowChunks": "vdbb_matmul_bw",
-               "GatherMux": "vdbb_matmul_tc", "TapMux": "vdbb_conv_tc"},
+               "GatherMux": "vdbb_matmul_tc", "TapMux": "vdbb_conv_tc",
+               "PointMux": "vdbb_conv_tc"},
     "bf16_mma": {"WordGather": "vdbb_matmul_tc_bf16"},
     "os_gemm": {"ExpandTaps": "vdbb_conv_bw", "ExpandCols": "vdbb_matmul_bw",
                 "GatherTap": "vdbb_conv_tc", "GatherCols": "vdbb_matmul_tc",
@@ -3808,7 +3980,7 @@ def family_phase(dev, smi: str = "") -> dict:
 
 def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
                  decoders, frontends, selfheal, training=None, distributed=None,
-                 meshed=None, families=None) -> list:
+                 meshed=None, families=None, resnet=None) -> list:
     """The kernels' JSON line, one entry per counted kernel from phase 2's
     records (``recs``: {kernel: [record]}; the bf16 tc matmul's from 7a) and
     the main paths' launches (``counts``), each with the same kernel at the
@@ -3818,7 +3990,9 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
     on phase 15a's sharded decode (``distributed``, the bf16 tc matmul's),
     on phase 16a's mesh serving (``meshed``: counted at the replicas'
     captures, and launched by their replays) and on phase 17a's sharded
-    prefills and decodes (``families``, the bf16 tc matmul's)."""
+    prefills and decodes (``families``, the bf16 tc matmul's). The
+    residual instance and the max-pool take their records and launches
+    from phase 2b's ResNet-50 (``resnet``: its replay's launches)."""
     from repro_torch.kernels import build
 
     line = []
@@ -3828,7 +4002,9 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
                     "vdbb_conv_tc": conv_library, "vdbb_matmul_tc": head_library,
                     "vdbb_matmul_tc_bf16": "torch.matmul bf16 on the decoded dense weight",
                     "vdbb_matmul_tc_wgmma": head_library,
-                    "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library}
+                    "vdbb_conv_bw": conv_library, "vdbb_matmul_bw": head_library,
+                    "vdbb_conv_tc_residual": conv_library + ", the shortcut added",
+                    "im2col_conv_maxpool": "F.max_pool2d"}
 
     def total(rs, key):
         vals = [r[key] for r in rs]
@@ -3858,7 +4034,8 @@ def kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, m
             "library_ms": total(rs, "library_ms"),
             "library_device_ms": total(rs, "library_device_ms"),
             "library_call": library_call[name], "layers": len(rs),
-            "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values()),
+            "graph_replay_launches": sum(r["replayed"].get(name, 0) for r in planned.values())
+            + (resnet["replayed"].get(name, 0) if resnet else 0),
             "selfheal_launches": selfheal["launches"].get(name, 0),
             "accounting_launches": None if training is None else (
                 sum(r["launches"].get(name, 0) for r in training["cnn"].values())
@@ -3968,7 +4145,7 @@ def run() -> int:
     cfgs = {p: get_cnn_config("sparse-cnn-s", pattern=p) for p in patterns}
     gen = torch.Generator().manual_seed(1)
     phase_done("1 build")
-    recs = check_kernels(cfgs, gen, dev)
+    recs, counts = check_kernels(cfgs, gen, dev), {}
     log(f"[kernels] every kernel matches its plain version ({time.time() - t0:.1f} s)")
     log_summary(recs)
     # the flush (os_accumulate, csrc/epilogue.cuh) has no launch of its own:
@@ -3979,10 +4156,14 @@ def run() -> int:
         log(f"[kernels] flush (os_accumulate) pattern={pattern}, batch {BATCH}: the layers' "
             f"outputs {out_b} bytes, bound {out_b / HBM_BYTES_PER_S * 1e3:.6f} ms (bytes)")
     phase_done("2 kernels")
+    resnet = resnet_phase(gen, dev)
+    recs.update(resnet["recs"])
+    counts.update({k: resnet["replayed"][k] for k in resnet["recs"]})
+    phase_done("2b ResNet-50 v1.5")
 
     # each serving path with the counts at 0 just before it; a kernel's
     # launches are those of the first path that runs it
-    counts, ips = {}, {}
+    ips = {}
     for pattern in patterns:
         main_counts, ips[str(pattern)], model, x = end_to_end(dev, pattern)
         log(f"[serve] pattern={pattern} main-path launches (calibration, warm-ups and "
@@ -4046,7 +4227,8 @@ def run() -> int:
     phase_done("17 the families on a one-rank mesh")
 
     line = kernels_line(recs, counts, planned, lm_recs, lm_gen, lm_planned, moe_recs, moe_gen,
-                        decoders, frontends, selfheal, training, distributed, meshed, families)
+                        decoders, frontends, selfheal, training, distributed, meshed, families,
+                        resnet)
     log(f"[serve] images/s per request batch (unplanned): {json.dumps(ips)}")
     log(f"[plan] in turns per pattern: {json.dumps({p: r['timing'] for p, r in planned.items()})}")
     log(f"[server] per pattern: {json.dumps({p: r['server'] for p, r in planned.items()})}")

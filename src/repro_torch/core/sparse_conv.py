@@ -64,7 +64,7 @@ class DBBConv2d(DBBLayer):
 
     def make_plan(self, *, batch: int, h: int, w: int, relu: bool = False, out_scale=None,
                   fused: bool = False, tune: str = "cache", cache=None, top_k: int = 4,
-                  reps: int = 3, choice=None):
+                  reps: int = 3, choice=None, res_scale=None):
         """Stage this layer's serving step once for a (batch, h, w) input
         (port of the reference's ``make_plan``). The launch choice is
         ``choice`` when given (a data-parallel replica takes its bucket's),
@@ -77,7 +77,10 @@ class DBBConv2d(DBBLayer):
         the dense stem, :meth:`dense_serve`, staged through ``ops.stage_*``,
         and ``tiles`` is the int8 tile plan or the stem's path; otherwise it
         is the per-layer conv (+ bias), then ReLU and a requantize at
-        ``out_scale`` when asked, and ``tiles`` a tuned choice, if any."""
+        ``out_scale`` when asked, and ``tiles`` a tuned choice, if any.
+        ``res_scale`` (a ResNet block's last conv on the fused chain) stages
+        the flush with the shortcut's codes at that scale: ``run(x,
+        residual)``."""
         from repro_torch.kernels import autotune
 
         wt, b, aq = self.w, self.b, self.aq
@@ -92,9 +95,12 @@ class DBBConv2d(DBBLayer):
                 batch, h, w, self.in_channels, self.out_channels, self.kh, self.kw, fmt, dtype,
                 **geom, mode=tune, cache=cache, top_k=top_k, reps=reps,
                 device=(wt if fmt is None else wt.values).device)
+        if res_scale is not None and not (fused and quant):
+            raise ValueError("a residual flush is staged on the fused int8 chain only")
         if fused and quant:
             return ops.stage_quant_conv(wt, self.kh, self.kw, aq, x_shape, bias=b, relu=relu,
-                                        out_scale=out_scale, **geom, choice=choice)
+                                        out_scale=out_scale, **geom, choice=choice,
+                                        res_scale=res_scale)
         if fused:
             return ops.stage_fused_im2col_conv(wt, x_shape, bias=b, relu=relu,
                                                out_scale=out_scale, **geom, choice=choice)
@@ -107,13 +113,16 @@ class DBBConv2d(DBBLayer):
 
         return run, dict(choice)
 
-    def quant_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None):
+    def quant_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None,
+                    residual=None):
         """One-kernel INT8 conv with the fused epilogue; int8 codes out when
         ``out_scale`` is given, fp32 otherwise. ``x`` is fp or int8 codes
-        (the latter needs a calibrated ``aq``)."""
+        (the latter needs a calibrated ``aq``). ``residual`` = (int8 codes
+        of the output's shape, their scale) is added in the flush before
+        ReLU (a ResNet block's shortcut)."""
         return ops.quant_conv(x, self.w, self.kh, self.kw, self.aq, bias=self.b,
                               relu=relu, out_scale=out_scale, stride=self.stride,
-                              padding=self.padding)
+                              padding=self.padding, residual=residual)
 
     def dense_serve(self, x: torch.Tensor, *, relu: bool = False, out_scale=None):
         """The dense (fp32) conv as one kernel with bias, ReLU and the

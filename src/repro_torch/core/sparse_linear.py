@@ -3,7 +3,8 @@
 
 A layer is an ``nn.Module`` whose state carries the reference's leaf names:
 ``w`` (a dense tensor, a :class:`DBBWeight` or a :class:`QuantDBBWeight`),
-``b`` and the calibrated activation scale ``aq``. :meth:`compress` and
+``b`` and the calibrated activation scale ``aq`` (and, on a ResNet
+projection shortcut only, ``oq``, its output codes' scale). :meth:`compress` and
 :meth:`quantize` convert that state **in place**. Whether a product runs the
 CUDA kernel or its plain version follows the tensors' device; unlike the TPU
 reference there is no tiny-M fallback: the head runs its kernel at any M
@@ -23,7 +24,10 @@ from repro_torch.core.quant import QuantDBBWeight, quantize, quantize_dbb
 from repro_torch.core.vdbb import DBBFormat, DBBWeight, DENSE, dbb_encode, dbb_prune
 from repro_torch.kernels import ops
 
-STATE_KEYS = ("w", "b", "aq")
+# ``oq``: the scale a layer's int8 output codes are held at, where that is
+# the layer's own (a ResNet projection shortcut's, calibrated on its output);
+# absent from every other layer's state
+STATE_KEYS = ("w", "b", "aq", "oq")
 
 
 def trunc_normal(shape, generator, scale: float) -> torch.Tensor:

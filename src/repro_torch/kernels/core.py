@@ -65,10 +65,12 @@ BF16_BLOCKS_PER_SM = {"small": 2, "large": 1}
 # csrc/im2col_conv.cu, namespace direct_conv: a block's output tile (rows,
 # columns), its floats per weight row (64 filters in groups of 8, each
 # padded to 12), and the shared memory the wrapper lets its halo and weight
-# slice take
+# slice take: 66 KB, so ResNet's 7 x 7 stride-2 stem at C = 3 (65.6 KB, 147
+# weight rows) takes the direct path, three blocks an SM, while C = 16 at
+# 3 x 3 (66.75 KB) stays on the implicit GEMM
 DIRECT_TILE = (4, 32)
 DIRECT_WROW = 96
-DIRECT_SMEM_BYTES = 48 * 1024
+DIRECT_SMEM_BYTES = 66 * 1024
 
 
 def _pair(v):
@@ -131,28 +133,45 @@ def acc_dtype_for(operand_dtype: torch.dtype) -> torch.dtype:
 class Epilogue:
     """The fused accumulator-flush epilogue, resolved on the host: (N,) fp32
     rows for the dequant ``scale``, the ``bias`` and the requantize
-    ``out_scale`` (each None when absent), the ReLU flag, and the output
-    dtype."""
+    ``out_scale`` (each None when absent), the ReLU flag, the output dtype,
+    and a ResNet block's residual operand: its int8 ``residual`` codes (of
+    the output's shape; None without one, or a staged flush that takes them
+    at each call) and their per-tensor ``res_scale`` (a 0-d fp32 tensor)."""
 
     scale: torch.Tensor | None
     bias: torch.Tensor | None
     out_scale: torch.Tensor | None
     relu: bool
     out_dtype: torch.dtype
+    residual: torch.Tensor | None = None
+    res_scale: torch.Tensor | None = None
 
     @property
     def flush_kw(self) -> dict:
         """The resolved flush as the plain versions' keyword arguments."""
-        return dict(scales=self.scale, bias=self.bias, relu=self.relu, out_scale=self.out_scale)
+        kw = dict(scales=self.scale, bias=self.bias, relu=self.relu, out_scale=self.out_scale)
+        if self.res_scale is not None:
+            kw["residual"] = (self.residual, self.res_scale)
+        return kw
+
+    def with_residual(self, codes: torch.Tensor) -> "Epilogue":
+        """This flush with the residual codes of one call."""
+        if self.res_scale is None:
+            raise ValueError("this flush was staged without a residual scale")
+        if codes is None or codes.dtype != torch.int8:
+            raise TypeError("the residual operand is int8 codes")
+        return dataclasses.replace(self, residual=codes)
 
 
 def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
-                  out_scale=None, acc_dtype, in_dtype=None) -> Epilogue:
+                  out_scale=None, acc_dtype, in_dtype=None, residual=None) -> Epilogue:
     """Rows broadcast to (n,) fp32 on ``device`` (a scalar ``out_scale``
     broadcasts across N), and the output dtype: int8 when requantizing, else
     bf16 for bf16 operands (``in_dtype``; the fp32 sum rounded once), fp32
     when a scale or bias touches the accumulator, else the raw accumulator
-    dtype."""
+    dtype. ``residual`` = (int8 codes or None, per-tensor scale): the
+    residual operand added after the bias, before ReLU (a dequantized
+    output only: it needs ``scales``)."""
 
     def row(v):
         if v is None:
@@ -168,20 +187,31 @@ def epilogue_plan(n: int, device, *, scales=None, bias=None, relu=False,
         out_dtype = torch.float32
     else:
         out_dtype = acc_dtype
-    return Epilogue(row(scales), row(bias), row(out_scale), bool(relu), out_dtype)
+    codes = res_scale = None
+    if residual is not None:
+        codes, res_scale = residual
+        if scales is None:
+            raise ValueError("a residual joins a dequantized output: the flush needs scales")
+        if codes is not None and codes.dtype != torch.int8:
+            raise TypeError("the residual operand is int8 codes")
+        res_scale = torch.as_tensor(res_scale, dtype=torch.float32, device=device).reshape(())
+    return Epilogue(row(scales), row(bias), row(out_scale), bool(relu), out_dtype, codes,
+                    res_scale)
 
 
 def apply_epilogue(acc: torch.Tensor, ep: Epilogue) -> torch.Tensor:
-    """The plain flush, in the kernels' order: dequantize, add the bias,
-    ReLU, requantize (round half to even, clip to ±QMAX). One separate op
-    per step, so each rounds once, as the reference does. NaN passes ReLU
-    and requantizes to code 0 on every device (the card's cast of a NaN to
-    int8 is not relied on)."""
+    """The plain flush, in the kernels' order: dequantize, add the bias, add
+    the residual (its codes times their scale), ReLU, requantize (round half
+    to even, clip to ±QMAX). One separate op per step, so each rounds once,
+    as the reference does. NaN passes ReLU and requantizes to code 0 on
+    every device (the card's cast of a NaN to int8 is not relied on)."""
     y = acc
     if ep.scale is not None:
         y = y.float() * ep.scale
     if ep.bias is not None:
         y = y.float() + ep.bias
+    if ep.residual is not None:
+        y = y.float() + ep.residual.reshape(y.shape).float() * ep.res_scale
     if ep.relu:
         y = torch.clamp_min(y, 0)
     if ep.out_scale is not None:

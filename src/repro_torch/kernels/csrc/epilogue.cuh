@@ -25,18 +25,37 @@ struct EpilogueArgs {
 __device__ __forceinline__ float acc_to_float(int32_t v) { return __int2float_rn(v); }
 __device__ __forceinline__ float acc_to_float(float v) { return v; }
 
+// The residual operand of a ResNet block's last conv: int8 codes laid out
+// as the output, (M, N), and their per-tensor scale, one float on the card
+// (read there, so a captured graph needs no host value).
+struct ResidualArgs {
+  const int8_t* codes;
+  const float* scale;
+};
+
+// A residual element dequantized: code x scale, rounded once.
+__device__ __forceinline__ float residual_value(const ResidualArgs& r, size_t i) {
+  return __fmul_rn(__int2float_rn(r.codes[i]), *r.scale);
+}
+
 // Out is int32_t only for the raw integer accumulator (ReLU at most), float
 // when a scale or bias moves the tile to fp32, int8_t when requantizing,
 // __nv_bfloat16 for bf16 operands (rounded once, to nearest even).
-template <typename Acc, typename Out>
-__device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs& ep) {
+// `Residual` (compile time; a ResNet block's last conv) adds `res`, the
+// residual element already dequantized, after the bias and before ReLU,
+// rounded once; without it the flush is the plain one, unchanged.
+template <typename Acc, typename Out, bool Residual = false>
+__device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs& ep,
+                                              float res = 0.0f) {
   if constexpr (std::is_same<Out, int32_t>::value) {
     static_assert(std::is_same<Acc, int32_t>::value, "int32 output needs an int32 accumulator");
+    static_assert(!Residual, "a residual is added to a dequantized output");
     return (ep.relu && acc < 0) ? 0 : acc;
   } else {
     float y = acc_to_float(acc);
     if (ep.scale != nullptr) y = __fmul_rn(y, ep.scale[n]);
     if (ep.bias != nullptr) y = __fadd_rn(y, ep.bias[n]);
+    if constexpr (Residual) y = __fadd_rn(y, res);
     // NaN passes ReLU as it does through jnp.maximum (fmaxf would give 0);
     // -0 stays -0, which compares equal to 0
     if (ep.relu) y = y < 0.0f ? 0.0f : y;
@@ -58,3 +77,25 @@ __device__ __forceinline__ Out epilogue_flush(Acc acc, int n, const EpilogueArgs
     }
   }
 }
+
+// How a GEMM core flushes output element (m, n), at offset mn = m * N + n:
+// the plain flush, or with the residual operand (a compile-time variant, so
+// a kernel's name in a device trace tells the two apart).
+struct PlainFlush {
+  static constexpr bool kResidual = false;
+  EpilogueArgs ep;
+  template <typename Out>
+  __device__ __forceinline__ Out apply(int32_t acc, size_t, int n) const {
+    return epilogue_flush<int32_t, Out>(acc, n, ep);
+  }
+};
+
+struct ResidualFlush {
+  static constexpr bool kResidual = true;
+  EpilogueArgs ep;
+  ResidualArgs res;
+  template <typename Out>
+  __device__ __forceinline__ Out apply(int32_t acc, size_t mn, int n) const {
+    return epilogue_flush<int32_t, Out, true>(acc, n, ep, residual_value(res, mn));
+  }
+};

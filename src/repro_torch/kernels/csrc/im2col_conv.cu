@@ -29,6 +29,7 @@
 // output, and half the stem's outputs are zero. A pixel's 8 int8 codes
 // leave in one 8-byte store.
 #include "im2col_tap.cuh"
+#include "maxpool.cuh"
 #include "os_gemm.cuh"
 
 namespace direct_conv {
@@ -46,7 +47,9 @@ constexpr int PY = THREADS / FGROUPS / TW;       // 1
 constexpr int WPAD = FT + 4;      // a group's filters padded by 4 floats: the
                                   // groups' 16-byte loads hit disjoint banks
 constexpr int WROW = FGROUPS * WPAD;             // floats per weight row (one k)
-constexpr int SMEM_BYTES = 48 * 1024;            // the wrapper's DIRECT_SMEM_BYTES
+constexpr int SMEM_BYTES = 66 * 1024;            // the wrapper's DIRECT_SMEM_BYTES: the
+                                                 // 7 x 7 stride-2 stem at C = 3 (ResNet's,
+                                                 // 65.6 KB) fits, three blocks an SM
 static_assert(PY * PX == TH && THREADS == 256, "a thread's pixels cover the tile's rows");
 static_assert(FT == 8 || FT == 16, "a pixel's codes leave in one 8- or 16-byte store");
 
@@ -188,6 +191,13 @@ cudaError_t launch_typed(const HaloTile& t, const float* wt, int n, int f, void*
   // FT; fp32: 16-aligned when F is a multiple of 4
   const int vec = f % (sizeof(Out) == 1 ? FT : 4) == 0 && reinterpret_cast<uintptr_t>(out) % 16 == 0;
   dim3 grid((t.wo + TW - 1) / TW, (t.ho + TH - 1) / TH, n * tiles_f);
+  static bool configured = false;  // shared memory above 48 KB, once an instance
+  if (!configured) {
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel<Out>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+    if (err != cudaSuccess) return err;
+    configured = true;
+  }
   kernel<Out><<<grid, THREADS, t.smem_bytes(), stream>>>(t, wt, f, vec, static_cast<Out*>(out),
                                                          ep);
   return cudaGetLastError();
@@ -243,4 +253,12 @@ extern "C" int im2col_conv(const void* x, const void* wt, const void* scale,
     return run_gemm<float>(x, wt, ep, out, out_kind, n, h, w, c, f, ho, wo, kh, kw, sh, sw, pt,
                            pl, s);
   return cudaErrorInvalidValue;
+}
+
+// ResNet's max-pool after the stem (maxpool.cuh), counted as im2col_conv's
+// variant `maxpool`.
+extern "C" int maxpool_nhwc(const void* x, void* out, int in_kind, int n, int h, int w, int c,
+                            int ho, int wo, int k, int s, int pad, void* stream) {
+  return maxpool::launch(x, out, in_kind, n, h, w, c, ho, wo, k, s, pad,
+                         static_cast<cudaStream_t>(stream));
 }

@@ -156,6 +156,11 @@ struct TapMux {
 
 };
 
+// TapMux at kh = kw = 1 (a ResNet's 1 x 1 convs and projections), the same
+// code under a type of its own, so a device trace tells a 1 x 1 conv's
+// launches from a 3 x 3's (os_mma::kernel<..., PointMux, ...>).
+struct PointMux : TapMux {};
+
 // B: a dense row-major (K, n) int8 matrix, the tc kernels' compressed values
 // (nb, nnz, n) read as (K_c, n). `fetch` makes 8 byte loads down column
 // `col` (neighbouring threads take neighbouring columns, so each load of a

@@ -161,10 +161,12 @@ struct RowStates<true, Row, BM> {
   Row row[BM];
 };
 
-template <int BM, int CH, typename Out, typename StageA, typename StageB>
+// `Flush`: epilogue.cuh's PlainFlush, or ResidualFlush for a ResNet block's
+// last conv (the residual operand added in the flush).
+template <int BM, int CH, typename Out, typename StageA, typename StageB, typename Flush>
 __global__ void __launch_bounds__(THREADS, StageA::kRegisters ? MIN_BLOCKS_REG_A : MIN_BLOCKS)
 kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ out,
-       EpilogueArgs ep) {
+       Flush flush) {
   constexpr bool REG_A = StageA::kRegisters;
   static_assert(!REG_A || CH == 8, "a register-staged A takes the 8-byte instance");
   constexpr int A_BUFS = REG_A ? 2 : STAGES;      // two buffers as B's, or the cp.async ring
@@ -345,39 +347,42 @@ kernel(StageA stage_a, StageB stage_b, int M, int N, int K, Out* __restrict__ ou
         for (int e = 0; e < 2; ++e) {
           const int n = n0 + wn + j * 8 + (lane % 4) * 2 + e;
           if (n < N)
-            out[(size_t)m * N + n] = epilogue_flush<int32_t, Out>(acc[i][j][h * 2 + e], n, ep);
+            out[(size_t)m * N + n] =
+                flush.template apply<Out>(acc[i][j][h * 2 + e], (size_t)m * N + n, n);
         }
     }
 }
 
-template <int BM, int CH, typename Out, typename StageA, typename StageB>
+template <int BM, int CH, typename Out, typename StageA, typename StageB, typename Flush>
 cudaError_t launch_typed(const StageA& stage_a, const StageB& stage_b, int M, int N, int K,
-                         void* out, EpilogueArgs ep, cudaStream_t stream) {
+                         void* out, const Flush& flush, cudaStream_t stream) {
   dim3 grid((M + BM - 1) / BM, (N + BN - 1) / BN);
-  kernel<BM, CH, Out, StageA, StageB><<<grid, THREADS, 0, stream>>>(
-      stage_a, stage_b, M, N, K, static_cast<Out*>(out), ep);
+  kernel<BM, CH, Out, StageA, StageB, Flush><<<grid, THREADS, 0, stream>>>(
+      stage_a, stage_b, M, N, K, static_cast<Out*>(out), flush);
   return cudaGetLastError();
 }
 
 // The tile instance the host chose (repro_torch.kernels.core.mma_plan, a
 // rule by M or a tuned entry): BM = 64 or 128 rows; any other is refused.
-template <int CH, typename Out, typename StageA, typename StageB>
+template <int CH, typename Out, typename StageA, typename StageB, typename Flush>
 cudaError_t launch_rows(int rows, const StageA& stage_a, const StageB& stage_b, int M, int N,
-                        int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
-  if (rows == 64) return launch_typed<64, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
-  if (rows == 128) return launch_typed<128, CH, Out>(stage_a, stage_b, M, N, K, out, ep, stream);
+                        int K, void* out, const Flush& flush, cudaStream_t stream) {
+  if (rows == 64) return launch_typed<64, CH, Out>(stage_a, stage_b, M, N, K, out, flush, stream);
+  if (rows == 128)
+    return launch_typed<128, CH, Out>(stage_a, stage_b, M, N, K, out, flush, stream);
   return cudaErrorInvalidValue;
 }
 
-template <typename Out, typename StageA, typename StageB>
+template <typename Out, typename StageA, typename StageB, typename Flush>
 cudaError_t launch_chunk(int chunk, int rows, const StageA& stage_a, const StageB& stage_b,
-                         int M, int N, int K, void* out, EpilogueArgs ep, cudaStream_t stream) {
+                         int M, int N, int K, void* out, const Flush& flush,
+                         cudaStream_t stream) {
   // a register-staged A takes only the 8-byte instance
   if constexpr (!StageA::kRegisters) {
     if (chunk == 16)
-      return launch_rows<16, Out>(rows, stage_a, stage_b, M, N, K, out, ep, stream);
+      return launch_rows<16, Out>(rows, stage_a, stage_b, M, N, K, out, flush, stream);
   }
-  if (chunk == 8) return launch_rows<8, Out>(rows, stage_a, stage_b, M, N, K, out, ep, stream);
+  if (chunk == 8) return launch_rows<8, Out>(rows, stage_a, stage_b, M, N, K, out, flush, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -393,23 +398,35 @@ inline int chunk_bytes(int run, const void* p) {
 }
 
 // Output kinds as the Python wrappers pass them (os_gemm.cuh's OutKind);
-// `rows` the tile rows the host chose.
+// `rows` the tile rows the host chose; `flush` epilogue.cuh's PlainFlush or
+// ResidualFlush (fp32 or int8 out only: the residual joins a dequantized
+// output).
+template <typename StageA, typename StageB, typename Flush>
+cudaError_t launch_flush(int out_kind, int chunk, int rows, const StageA& stage_a,
+                         const StageB& stage_b, int M, int N, int K, void* out,
+                         const Flush& flush, cudaStream_t stream) {
+  if (M <= 0 || N <= 0 || K <= 0 || K > MAX_K || chunk == 0) return cudaErrorInvalidValue;
+  if (out_kind == 2 && flush.ep.out_scale == nullptr) return cudaErrorInvalidValue;
+  switch (out_kind) {
+    case 0:
+      if constexpr (Flush::kResidual) return cudaErrorInvalidValue;
+      else
+        return launch_chunk<int32_t>(chunk, rows, stage_a, stage_b, M, N, K, out, flush, stream);
+    case 1:
+      return launch_chunk<float>(chunk, rows, stage_a, stage_b, M, N, K, out, flush, stream);
+    case 2:
+      return launch_chunk<int8_t>(chunk, rows, stage_a, stage_b, M, N, K, out, flush, stream);
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
 template <typename StageA, typename StageB>
 cudaError_t launch(int out_kind, int chunk, int rows, const StageA& stage_a,
                    const StageB& stage_b, int M, int N, int K, void* out, EpilogueArgs ep,
                    cudaStream_t stream) {
-  if (M <= 0 || N <= 0 || K <= 0 || K > MAX_K || chunk == 0) return cudaErrorInvalidValue;
-  if (out_kind == 2 && ep.out_scale == nullptr) return cudaErrorInvalidValue;
-  switch (out_kind) {
-    case 0:
-      return launch_chunk<int32_t>(chunk, rows, stage_a, stage_b, M, N, K, out, ep, stream);
-    case 1:
-      return launch_chunk<float>(chunk, rows, stage_a, stage_b, M, N, K, out, ep, stream);
-    case 2:
-      return launch_chunk<int8_t>(chunk, rows, stage_a, stage_b, M, N, K, out, ep, stream);
-    default:
-      return cudaErrorInvalidValue;
-  }
+  return launch_flush(out_kind, chunk, rows, stage_a, stage_b, M, N, K, out, PlainFlush{ep},
+                      stream);
 }
 
 }  // namespace os_mma

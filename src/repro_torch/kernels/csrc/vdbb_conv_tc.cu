@@ -24,6 +24,14 @@
 // (`DenseTile`); the loads of stage kt+1 are in flight during stage kt's
 // mmas. fp32 operands (the calibration forward) keep os_gemm.cuh's
 // CUDA-core loop (`GatherTap`).
+//
+// A 1 x 1 conv (kh = kw = 1) launches the same mux as `PointMux`, a type of
+// its own, so a device trace tells 1 x 1 convs from 3 x 3 ones. A second
+// entry point, vdbb_conv_tc_residual, is the int8 instance with a
+// ResNet block's residual operand in its flush (epilogue.cuh's
+// ResidualFlush: int8 codes of the output's shape and their scale, added
+// after the bias, before ReLU and the requantize), so the block's last conv
+// adds the shortcut without leaving int8.
 #include "mux_stage.cuh"
 #include "os_gemm.cuh"
 #include "os_mma.cuh"
@@ -66,6 +74,8 @@ extern "C" int vdbb_conv_tc(const void* x, const void* values, const void* idx,
               cb, bz, nnz};
     DenseTile lb{static_cast<const int8_t*>(values), f};
     // a gathered A takes the core's 8-byte instance: the chunk width is 8
+    if (kh == 1 && kw == 1)
+      return os_mma::launch(out_kind, 8, rows, PointMux{la}, lb, m, f, kc, out, ep, s);
     return os_mma::launch(out_kind, 8, rows, la, lb, m, f, kc, out, ep, s);
   }
   if (in_kind == os_gemm::IN_FLOAT32) {
@@ -75,4 +85,27 @@ extern "C" int vdbb_conv_tc(const void* x, const void* values, const void* idx,
     return os_gemm::launch<float>(out_kind, la, lb, m, f, kc, out, ep, s);
   }
   return cudaErrorInvalidValue;
+}
+
+extern "C" int vdbb_conv_tc_residual(const void* x, const void* values, const void* idx,
+                                     const void* scale, const void* bias,
+                                     const void* out_scale, int relu, void* out, int out_kind,
+                                     int n, int h, int w, int c, int f, int ho, int wo, int kh,
+                                     int kw, int sh, int sw, int pt, int pl, int bz, int nnz,
+                                     int rows, const void* res, const void* res_scale,
+                                     void* stream) {
+  if (bz <= 0 || nnz <= 0 || nnz > bz || c % bz != 0 || res == nullptr || res_scale == nullptr ||
+      !TapMux::fits(w, c, kh, kw))
+    return cudaErrorInvalidValue;
+  ResidualFlush flush{{static_cast<const float*>(scale), static_cast<const float*>(bias),
+                       static_cast<const float*>(out_scale), relu},
+                      {static_cast<const int8_t*>(res), static_cast<const float*>(res_scale)}};
+  const int cb = c / bz, m = n * ho * wo, kc = kh * kw * cb * nnz;
+  TapMux la{static_cast<const int8_t*>(x), static_cast<const int8_t*>(idx), h, w, c, ho, wo, sh, sw,
+            pt, pl, kh, kw, cb, bz, nnz};
+  DenseTile lb{static_cast<const int8_t*>(values), f};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (kh == 1 && kw == 1)
+    return os_mma::launch_flush(out_kind, 8, rows, PointMux{la}, lb, m, f, kc, out, flush, s);
+  return os_mma::launch_flush(out_kind, 8, rows, la, lb, m, f, kc, out, flush, s);
 }

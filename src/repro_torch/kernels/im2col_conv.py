@@ -24,6 +24,8 @@ KERNEL = build.CudaKernel(
     "im2col_conv", "im2col_conv.cu",
     [P, P, P, P, P, I, P, I, I] + [I] * 14 + [P],
     replaces="src/repro/kernels/im2col_conv.py:73 _im2col_conv_kernel",
+    # the max-pool after a ResNet stem (csrc/maxpool.cuh, kernels/maxpool.py)
+    entries={"maxpool": ("maxpool_nhwc", [P, P, I] + [I] * 9 + [P])},
 )
 
 
@@ -32,9 +34,10 @@ def conv_path(dtype: torch.dtype, c: int, kh: int, kw: int, stride, *, key=None,
     """The path the kernel takes: ``choice``'s (``{"path": p}``; ``{}``
     takes the rule), else the tuned registry's for ``key`` (kind,
     signature), else the rule: 'direct' for fp32 operands whose block halo
-    and weight slice fit ``DIRECT_SMEM_BYTES`` (the C = 3 stem at stride 1
-    or 2 takes 13 or 16 KB), else 'gemm': int8 operands, and fp32 at a C too
-    large for the budget (C = 16 at 3x3 needs 67 KB). Raises on a path the
+    and weight slice fit ``DIRECT_SMEM_BYTES`` (the C = 3 stem at 3x3, stride
+    1 or 2, takes 13 or 16 KB; ResNet's 7x7 stride-2 stem 65.6 KB), else
+    'gemm': int8 operands, and fp32 at a C too large for the budget (C = 16
+    at 3x3 needs 66.75 KB). Raises on a path the
     shape does not allow."""
     legal = stem_paths(dtype, c, kh, kw, stride)
     if choice is None:

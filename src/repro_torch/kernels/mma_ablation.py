@@ -10,9 +10,14 @@ shared memory, wgmma) goes at the same shapes at 64 to 2 048 rows, beside
 ``core.WGMMA_MIN_M``. Each kernel is built from a scratch copy of ``csrc/``
 with parts switched off, and timed by torch.profiler's device time.
 
-    PYTHONPATH=src python -m repro_torch.kernels.mma_ablation [int8] [stem] [bf16] [wgmma]
+    PYTHONPATH=src python -m repro_torch.kernels.mma_ablation [int8] [stem] [bf16] [wgmma] [conv1x1]
 
-(no argument: all four tables).
+(no argument: the first four tables). ``conv1x1`` times ResNet-50's 1 x 1
+stride-1 convs at batch 64 (stage 1's and stage 4's, as served: bias, ReLU,
+int8 codes out) on both routes a plan can stage them on, the tc conv at
+kh = kw = 1 (``os_mma.cuh`` with ``TapMux``) and the tc matmul over the
+(N*H*W, C) rows (the wgmma core the rule takes there), from the sources as
+they are.
 
 Needs a CUDA card and nvcc. Variants of the core: ``as built``; ``no B
 loads`` (the B stager's fetch replaced by a constant); ``no A copies`` (no
@@ -159,6 +164,9 @@ VARIANTS = {"as built": (), "no B loads": ("NO_B",), "no A copies": _NO_A, "no m
             "no B, no mma": ("NO_B", "NO_MMA"), "no A, no B, no mma": (*_NO_A, "NO_B", "NO_MMA"),
             "no zero test": ("NO_ZERO_TEST",)}
 # (images, H, W, C, F) of l1, l3 and l7 at batch 64; 3x3 taps, stride 1
+# ResNet-50 v1.5's 1 x 1 stride-1 convs at batch 64: (M = 64*H*W, K = C, N = F)
+CONV1X1 = {"s1.c1": (64 * 56 * 56, 256, 64), "s1.c3": (64 * 56 * 56, 64, 256),
+           "s4.c1": (64 * 7 * 7, 2048, 512), "s4.c3": (64 * 7 * 7, 512, 2048)}
 CONVS = {"l1": (64, 64, 64, 64, 64), "l3": (64, 32, 32, 128, 128), "l7": (64, 8, 8, 512, 512)}
 HEAD = (64, 512, 1000)  # (M, K, N)
 NNZ = 3
@@ -189,6 +197,9 @@ def main(argv=()) -> int:
     parts = set(argv) or {"int8", "stem", "bf16", "wgmma"}
     dev = torch.device("cuda", 0)
     gen = torch.Generator().manual_seed(0)
+    if parts == {"conv1x1"}:
+        _conv1x1_table(gen, dev)
+        return 0
 
     def codes(*shape):
         return torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(dev)
@@ -345,6 +356,42 @@ def _wgmma_table(csrc, gen, dev, stream) -> None:
     least = [2 * m * (k // 8 * NNZ) * n / 1979e12 * 1e3 for k, n in LM_SHAPES.values()
              for m in WGMMA_ROWS]
     print(f"{'least (1 979 TOPS)':<20s} " + " ".join(f"{t:12.4f}" for t in least), flush=True)
+
+
+def _conv1x1_table(gen, dev) -> None:
+    """The 1 x 1 stride-1 convs of ``CONV1X1`` staged on the tc conv
+    (``TapMux``, the rule's tile rows) and on the tc matmul (the rule's
+    core: wgmma above 64 rows), int8 codes out with bias and ReLU; device
+    ms by torch.profiler, and the least time (ops at 1 979 TOPS, bytes at
+    3.35 TB/s)."""
+    from repro_torch.core.vdbb import DBBFormat, dbb_encode_conv
+    from repro_torch.kernels import vdbb_im2col_conv as vc
+    from repro_torch.kernels import vdbb_matmul as mm
+
+    fmt = DBBFormat(8, NNZ, "matrix")
+    rows = {"tc conv (TapMux)": [], "tc matmul (rule)": [], "least": []}
+    for m, k, n in CONV1X1.values():
+        dw = dbb_encode_conv(torch.randn(1, 1, k, n, generator=gen), fmt, prune=True)
+        dw = type(dw)(dw.values.mul(40).round().clamp(-127, 127).to(torch.int8).to(dev),
+                      dw.indices.to(dev), dw.fmt, dw.shape)
+        x = torch.randint(0, 40, (m, k), generator=gen, dtype=torch.int8).to(dev)
+        kc = k // 8 * NNZ
+        ep = dict(scales=torch.full((n,), 1.0 / (1600 * kc ** 0.5), device=dev),
+                  bias=(0.1 * torch.randn(n, generator=gen)).to(dev), relu=True, out_scale=0.05)
+        x4 = x.view(64, -1, 1, k)
+        conv, _ = vc.stage_vdbb_im2col_conv(dw, 1, 1, tuple(x4.shape), padding="VALID", **ep)
+        gemm, _ = mm.stage_vdbb_matmul(dw, m, **ep)
+        if not torch.equal(conv(x4).view(m, n), gemm(x)):
+            raise AssertionError(f"the two routes disagree at {(m, k, n)}")
+        rows["tc conv (TapMux)"].append(device_ms(lambda: conv(x4)))
+        rows["tc matmul (rule)"].append(device_ms(lambda: gemm(x)))
+        rows["least"].append(1e3 * max(2 * m * kc * n / 1979e12,
+                                       (m * k + m * n + kc * n) / 3.35e12))
+    print(f"{'1x1 route':<20s} " + " ".join(f"{c:>12s}" for c in CONV1X1)
+          + "   (device ms; int8 codes out, bias, ReLU; batch 64)")
+    for name, ts in rows.items():
+        print(f"{name:<20s} " + " ".join(f"{t:12.4f}" if t is not None else f"{'none':>12s}"
+                                         for t in ts), flush=True)
 
 
 def _row(name, switches, csrc, cases, sources, argtypes, events=False, width=9) -> str:

@@ -27,6 +27,7 @@ from repro_torch.core.act_sparsity import act_dbb_prune
 from repro_torch.core.quant import QuantDBBWeight, as_f32, resolve_quant_input
 from repro_torch.core.vdbb import DBBWeight
 from repro_torch.kernels import im2col_conv as _im2col
+from repro_torch.kernels import maxpool as _pool
 from repro_torch.kernels import vdbb_im2col_conv as _vconv
 from repro_torch.kernels import vdbb_matmul as _vm
 
@@ -84,13 +85,23 @@ def sparse_conv(x, w: DBBWeight, kh: int, kw: int, *, bias=None, relu=False,
 
 
 def quant_conv(x, qw: QuantDBBWeight, kh: int, kw: int, act_scale=None, *,
-               bias=None, relu=False, out_scale=None, stride=1, padding="SAME", choice=None):
+               bias=None, relu=False, out_scale=None, stride=1, padding="SAME", choice=None,
+               residual=None):
     """NHWC × int8 compressed conv weight -> fp32 NHWC, or int8 with
-    ``out_scale``; the conv twin of :func:`quant_matmul`."""
+    ``out_scale``; the conv twin of :func:`quant_matmul`. ``residual`` =
+    (int8 codes of the output's shape, their scale): a ResNet block's
+    shortcut, added in the flush after the bias, before ReLU."""
     xq, s_a = resolve_quant_input(x, act_scale)
     return _vconv.vdbb_im2col_conv(xq, qw.as_dbb(), kh, kw, scales=s_a * qw.scales,
                                    bias=bias, relu=relu, out_scale=out_scale,
-                                   stride=stride, padding=padding, choice=choice)
+                                   stride=stride, padding=padding, choice=choice,
+                                   residual=residual)
+
+
+def maxpool(x, kernel: int, stride: int, padding: int):
+    """k x k max-pool of NHWC int8 codes (to codes at the same scale) or
+    fp32; padding never wins a window."""
+    return _pool.maxpool(x, kernel, stride, padding)
 
 
 def _calibrated(qw: QuantDBBWeight, act_scale):
@@ -131,14 +142,15 @@ def stage_quant_matmul(qw: QuantDBBWeight, act_scale, m: int, *, bias=None, relu
 
 def stage_quant_conv(qw: QuantDBBWeight, kh: int, kw: int, act_scale, x_shape, *,
                      bias=None, relu=False, out_scale=None, stride=1, padding="SAME",
-                     choice=None):
+                     choice=None, res_scale=None):
     """:func:`quant_conv` at input shape ``x_shape``, staged once; the conv
-    twin of :func:`stage_quant_matmul`."""
+    twin of :func:`stage_quant_matmul`. With ``res_scale`` the flush takes
+    a residual operand at that scale and ``run(x, residual)`` its codes."""
     s_a = _calibrated(qw, act_scale)
     run, tiles = _vconv.stage_vdbb_im2col_conv(
         qw.as_dbb(), kh, kw, x_shape, scales=s_a * qw.scales, bias=bias, relu=relu,
-        out_scale=out_scale, stride=stride, padding=padding, choice=choice)
-    return (lambda x: run(resolve_quant_input(x, s_a)[0])), tiles
+        out_scale=out_scale, stride=stride, padding=padding, choice=choice, res_scale=res_scale)
+    return (lambda x, residual=None: run(resolve_quant_input(x, s_a)[0], residual)), tiles
 
 
 def stage_fused_im2col_conv(w, x_shape, *, bias=None, relu=False, out_scale=None, stride=1,

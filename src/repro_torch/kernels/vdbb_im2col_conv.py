@@ -25,6 +25,9 @@ KERNEL = build.CudaKernel(
     "vdbb_conv_tc", "vdbb_conv_tc.cu",
     [P, P, P, P, P, P, I, P, I, I] + [I] * 16 + [P],
     replaces="src/repro/kernels/vdbb_im2col_conv.py:60 _vdbb_conv_tc_kernel",
+    # the int8 instance with a ResNet block's residual in its flush
+    entries={"residual": ("vdbb_conv_tc_residual", [P, P, P, P, P, P, I, P, I] + [I] * 16
+                          + [P, P, P])},
 )
 
 BW_KERNEL = build.CudaKernel(
@@ -87,20 +90,30 @@ def _rows(plan) -> int:
     return 0 if plan is None else plan.tile_rows
 
 
-def _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale):
+def _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu, out_scale,
+          residual=None):
     geom = _geometry(x.shape, values, indices, fmt, kh, kw, stride, padding)
     ep = epilogue_plan(values.shape[-1], x.device, scales=scales, bias=bias, relu=relu,
-                       out_scale=out_scale, acc_dtype=acc_dtype_for(x.dtype))
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(x.dtype), residual=residual)
+    _check_residual(ep, x.shape[0], geom, values.shape[-1])
     return geom, ep
+
+
+def _check_residual(ep, n, geom, f) -> None:
+    (_, _, (ho, wo)) = geom
+    if ep.residual is not None and tuple(ep.residual.shape) != (n, ho, wo, f):
+        raise ValueError(f"residual {tuple(ep.residual.shape)}: expected the output's "
+                         f"{(n, ho, wo, f)}")
 
 
 def vdbb_im2col_conv_tc_plain(x, values, indices, fmt, kh, kw, *, scales=None,
                               bias=None, relu=False, out_scale=None, stride=1,
-                              padding="SAME"):
+                              padding="SAME", residual=None):
     """Plain version: explicit im2col, the activation mux through the shared
-    pattern, one product over the compressed K, the plain flush."""
+    pattern, one product over the compressed K, the plain flush (with the
+    residual operand, ``(codes, scale)``, when given)."""
     (_, _, (ho, wo)), ep = _plan(x, values, indices, fmt, kh, kw, stride, padding,
-                                 scales, bias, relu, out_scale)
+                                 scales, bias, relu, out_scale, residual)
     nb, nnz, f = values.shape
     cols = im2col_explicit(x, kh, kw, stride=stride, padding=padding)
     ac = gather_compressed(cols.reshape(-1, nb * fmt.bz), indices, fmt.bz)
@@ -110,21 +123,24 @@ def vdbb_im2col_conv_tc_plain(x, values, indices, fmt, kh, kw, *, scales=None,
 
 def vdbb_im2col_conv_tc(x, values, indices, fmt, kh, kw, *, scales=None,
                         bias=None, relu=False, out_scale=None, stride=1,
-                        padding="SAME", choice=None):
+                        padding="SAME", choice=None, residual=None):
     """Fused sparse conv, one pattern shared across F. x: (N, H, W, C) int8
     or fp32; values: (nb, nnz, F) of the same dtype; indices: (nb, nnz) int8
     with nb = kh·kw·C/bz. int8 accumulates exactly in int32 on the tensor
     cores and needs the compressed K = nb·nnz within ``core.MMA_MAX_K`` and
     taps the gather can encode (:func:`core.mma_tap_plan`). ``choice``: the
     int8 tile rows (``{"tile_rows": r}``), else the tuned registry's, else
-    the rule's. CPU tensors take the plain version; CUDA tensors launch the
+    the rule's. ``residual`` = (int8 codes of the output's shape, their
+    per-tensor scale): a ResNet block's shortcut, added in the flush after
+    the bias and before ReLU (int8 operands; the kernel's ``residual``
+    entry). CPU tensors take the plain version; CUDA tensors launch the
     kernel."""
     if x.device.type == "cpu":
         return vdbb_im2col_conv_tc_plain(
             x, values, indices, fmt, kh, kw, scales=scales, bias=bias, relu=relu,
-            out_scale=out_scale, stride=stride, padding=padding)
+            out_scale=out_scale, stride=stride, padding=padding, residual=residual)
     geom, ep = _plan(x, values, indices, fmt, kh, kw, stride, padding, scales, bias, relu,
-                     out_scale)
+                     out_scale, residual)
     return _launch_tc(x, values, indices, fmt, kh, kw, geom, ep, choice)
 
 
@@ -138,8 +154,20 @@ def _launch_tc(x, values, indices, fmt, kh, kw, geom, ep, choice=None):
     n, h, w, c = x.shape
     f = values.shape[-1]
     rows = _rows(_mma(True, x.shape, values, fmt, kh, kw, geom, 0, choice))
-    in_kind = build.check_operands("vdbb_conv_tc", x, values, indices, dtype=x.dtype)
+    in_kind = build.check_operands("vdbb_conv_tc", x, values, indices, ep.residual,
+                                   dtype=x.dtype)
     out = torch.empty((n, ho, wo, f), dtype=ep.out_dtype, device=x.device)
+    if ep.residual is not None:
+        if x.dtype != torch.int8:
+            raise TypeError("vdbb_conv_tc: the residual flush is the int8 instance's")
+        KERNEL.launch(
+            x.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
+            build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu), out.data_ptr(),
+            build.out_kind(ep.out_dtype), n, h, w, c, f, ho, wo, kh, kw, sh, sw, ph[0], pw[0],
+            fmt.bz, fmt.nnz, rows, ep.residual.data_ptr(), ep.res_scale.data_ptr(),
+            build.stream_of(x), variant="residual",
+        )
+        return out
     KERNEL.launch(
         x.data_ptr(), values.data_ptr(), indices.data_ptr(), build.pointer(ep.scale),
         build.pointer(ep.bias), build.pointer(ep.out_scale), int(ep.relu),
@@ -208,19 +236,27 @@ def _shared(dw: DBBWeight) -> bool:
     return dw.fmt.group_size(dw.shape[1]) == dw.shape[1]
 
 
-def vdbb_im2col_conv(x, dw: DBBWeight, kh: int, kw: int, **kw_args):
+def _tc_only(dw: DBBWeight, residual) -> None:
+    if residual is not None and not _shared(dw):
+        raise ValueError("the residual flush is the tc conv's (a pattern shared across F); "
+                         "the bw conv has none")
+
+
+def vdbb_im2col_conv(x, dw: DBBWeight, kh: int, kw: int, *, residual=None, **kw_args):
     """Fused sparse conv over a compressed DBBWeight, dispatching on its
     pattern-sharing mode: shared across F runs the tc kernel, per-column or
-    grouped patterns the bw kernel (grouped indices read in place)."""
+    grouped patterns the bw kernel (grouped indices read in place). A
+    ``residual`` takes the tc kernel only."""
+    _tc_only(dw, residual)
     if _shared(dw):
         return vdbb_im2col_conv_tc(x, dw.values, dw.indices[:, :, 0].contiguous(),
-                                   dw.fmt, kh, kw, **kw_args)
+                                   dw.fmt, kh, kw, residual=residual, **kw_args)
     return vdbb_im2col_conv_bw(x, dw.values, dw.indices, dw.fmt, kh, kw, **kw_args)
 
 
 def stage_vdbb_im2col_conv(dw: DBBWeight, kh: int, kw: int, x_shape, *, scales=None,
                            bias=None, relu=False, out_scale=None, stride=1, padding="SAME",
-                           choice=None):
+                           choice=None, res_scale=None):
     """:func:`vdbb_im2col_conv` with the weight's side resolved once, for a
     plan (``models/plan.py``): the kernel for the pattern mode, the tc
     kernel's shared index row, the flush rows, and the int8 tile plan at
@@ -228,13 +264,18 @@ def stage_vdbb_im2col_conv(dw: DBBWeight, kh: int, kw: int, x_shape, *, scales=N
     as every input of a plan is): its tile rows ``choice``'s, else the tuned
     registry's at the build, else the rule's. Returns ``(run, tiles)``:
     ``run(x)`` is the conv (the plain version for a CPU tensor, the kernel
-    for a CUDA one, launched with the tile rows frozen here)."""
+    for a CUDA one, launched with the tile rows frozen here). With
+    ``res_scale`` (a ResNet block's last conv) the flush takes a residual
+    operand at that scale, frozen here, and ``run(x, residual)`` its int8
+    codes (the output's shape) at each call."""
     tc = _shared(dw)
+    _tc_only(dw, res_scale)
     values = dw.values
     idx = dw.indices[:, :, 0].contiguous() if tc else dw.indices
     geom = _geometry(x_shape, values, idx, dw.fmt, kh, kw, stride, padding)
     ep = epilogue_plan(values.shape[-1], values.device, scales=scales, bias=bias, relu=relu,
-                       out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype))
+                       out_scale=out_scale, acc_dtype=acc_dtype_for(values.dtype),
+                       residual=None if res_scale is None else (None, res_scale))
     tiles, frozen = {}, None
     plan = _mma(tc, x_shape, values, dw.fmt, kh, kw, geom, 0, choice)
     if plan is not None:  # the tensor-core instantiation (csrc/os_mma.cuh)
@@ -242,10 +283,12 @@ def stage_vdbb_im2col_conv(dw: DBBWeight, kh: int, kw: int, x_shape, *, scales=N
     plain = vdbb_im2col_conv_tc_plain if tc else vdbb_im2col_conv_bw_plain
     launch = _launch_tc if tc else _launch_bw
 
-    def run(x):
+    def run(x, residual=None):
+        e = ep if res_scale is None else ep.with_residual(residual)
         if x.device.type == "cpu":
-            return plain(x, values, idx, dw.fmt, kh, kw, **ep.flush_kw, stride=stride, padding=padding)
+            return plain(x, values, idx, dw.fmt, kh, kw, **e.flush_kw, stride=stride, padding=padding)
         geom = _geometry(x.shape, values, idx, dw.fmt, kh, kw, stride, padding)
-        return launch(x, values, idx, dw.fmt, kh, kw, geom, ep, choice=frozen)
+        _check_residual(e, x.shape[0], geom, values.shape[-1])
+        return launch(x, values, idx, dw.fmt, kh, kw, geom, e, choice=frozen)
 
     return run, tiles

@@ -5,13 +5,16 @@ a frozen INT8 plan.
 Seeded init -> compress -> calibrate (an fp32 pass through the fp32
 instantiation of the same kernels) -> quantize -> serve request batches on
 the int8-resident chain: one stem kernel, one IM2COL × VDBB kernel per
-compressed conv, global average pooling, one head GEMM kernel.
+compressed conv, global average pooling, one head GEMM kernel (for
+``resnet50-v1.5``, a max-pool kernel after the stem and the shortcut added
+in each block's last conv's epilogue).
 
 By default each request batch is served through a frozen plan
 (``SparseCNN.plan_set``, one CUDA graph per batch size); ``--no-plan``
 serves the unplanned forward, so one call can time both:
 
   python -m repro_torch.launch.serve --arch sparse-cnn-s --batch 1 8 64 --requests 8
+  python -m repro_torch.launch.serve --arch resnet50-v1.5 --batch 64 --requests 16
 
 ``--tune off|cache|search`` (default ``cache``, as the reference) resolves
 each plan's launch choices (the int8 tile rows, the bf16 tile and split,

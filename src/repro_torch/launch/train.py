@@ -30,7 +30,7 @@ from __future__ import annotations
 import argparse
 import os
 
-from repro_torch.configs import get_config, smoke_config
+from repro_torch.configs import CNN_ARCHS, get_config, smoke_config
 from repro_torch.core.sparse_linear import PruneSchedule
 from repro_torch.data.pipeline import DataConfig
 from repro_torch.models.model import LM
@@ -58,6 +58,9 @@ def main(argv=None):
     ap.add_argument("--device", default=None,
                     help="cuda (the default) or cpu (the plain PyTorch versions)")
     args = ap.parse_args(argv)
+    if args.arch in CNN_ARCHS:
+        ap.error(f"--arch {args.arch}: a CNN; this trainer trains the LM registry's archs "
+                 "(configs/registry.py), and the port has no CNN trainer")
 
     sparsity = None if args.dense else args.sparsity
     cfg = (smoke_config if args.smoke else get_config)(args.arch, sparsity=sparsity)

@@ -70,6 +70,18 @@ NAMES = [
        "os_mma_sm90::Args)", "vdbb_matmul_tc_wgmma") for z in (1, 3, 8)],
     ("_ZN11os_mma_sm906kernelILi3ENS_13GatherMuxSmemEEEv14CUtensorMap_stS2_NS_4ArgsE",
      "vdbb_matmul_tc_wgmma"),
+    # the tc conv at 1 x 1 (ResNet's PointMux) and its residual instance,
+    # 1 x 1 and 3 x 3, int8 codes out and the last block's fp32 flush
+    *[(f"void os_mma::kernel<128, 8, {o}, PointMux, DenseTile, PlainFlush>(PointMux, "
+       f"DenseTile, int, int, int, {o}*, PlainFlush)", "vdbb_conv_tc")
+      for o in ("signed char", "float")],
+    *[(f"void os_mma::kernel<128, 8, {o}, {mux}, DenseTile, ResidualFlush>({mux}, DenseTile, "
+       f"int, int, int, {o}*, ResidualFlush)", "vdbb_conv_tc_residual")
+      for o in ("signed char", "float") for mux in ("PointMux", "TapMux")],
+    # ResNet's max-pool on int8 codes and on fp32
+    *[(f"void maxpool::kernel<{t}>({t} const*, {t}*, maxpool::Geometry)", "im2col_conv_maxpool")
+      for t in ("signed char", "float")],
+    ("_ZN7maxpool6kernelIaEEvPKT_PS1_NS_8GeometryE", "im2col_conv_maxpool"),
     # the stem's direct conv, both outputs
     (_direct("signed char"), "im2col_conv"),
     (_direct("float"), "im2col_conv"),
@@ -902,3 +914,54 @@ def test_mesh_phase_rehearses_on_the_cpu(smoke, monkeypatch, tmp_path):
     c = rec["context_decode"]
     assert c["attn_mode"] == "context" and c["bit_equal_steps"] == smoke.DIST_STEPS
     assert c["max_abs_diff"] == 0.0 and c["context_decodes"] > 0
+
+
+def test_resnet_phase_is_in_the_phase_list(smoke):
+    """Phase 2b (ResNet-50 v1.5) is listed and runs after phase 2, and its
+    residual and max-pool records and launches reach the kernels line."""
+    import inspect
+
+    assert " 2b. ResNet-50 v1.5" in smoke.__doc__
+    src = inspect.getsource(smoke.run)
+    assert src.index('phase_done("2 kernels")') < src.index("resnet_phase(") < \
+        src.index('phase_done("2b ResNet-50 v1.5")') < src.index('phase_done("3 serve")')
+    assert "resnet)" in src[src.index("kernels_line("):]
+    assert sum(smoke.RESNET_REPLAY.values()) == 1 + 1 + 36 + 16 + 1
+
+
+def test_resnet_phase_rehearses_on_the_cpu(smoke, monkeypatch):
+    """Phase 2b on the CPU at the smoke ResNet (batch 2, every layer's
+    channels ÷ 8): every conv and the max-pool against its plain version
+    (the plain versions themselves here), the plan against the unplanned
+    forward bit for bit. What only the card has is stubbed: the profiler's
+    names (the instance each call would launch), the timings, and the
+    replay's launches (the CPU captures no graph)."""
+    import torch
+
+    import repro_torch.kernels.timing as timing
+
+    layers = tuple((label, name, (2, s[1], s[2], s[3] // 8), f // 8, k, st, r)
+                   for label, name, s, f, k, st, r in smoke.RESNET_LAYERS)
+    monkeypatch.setattr(smoke, "RESNET_SMOKE", True)
+    monkeypatch.setattr(smoke, "BATCH", 2)
+    monkeypatch.setattr(smoke, "RESNET_LAYERS", layers)
+    monkeypatch.setattr(smoke, "RESNET_REPLAY", {})
+    seen = []
+
+    def instance(fn, core, loader, what):
+        seen.append((core, loader, what))
+        flush = "ResidualFlush" if "c3" in what or "3x3" in what else "PlainFlush"
+        return f"void {core}::kernel<128, 8, signed char, {loader}, DenseTile, {flush}>()"
+
+    monkeypatch.setattr(smoke, "require_instance", instance)
+    monkeypatch.setattr(smoke, "timed", lambda run, plain, library, **rec: dict(
+        rec, ms=0.1, plain_ms=0.2, library_ms=library() is not None and 0.3, device_ms=0.1,
+        library_device_ms=None))
+    monkeypatch.setattr(smoke, "profile_forwards", lambda fn, x, per: {"device_ms": None})
+    monkeypatch.setattr(timing, "event_ms", lambda fn, reps=20, **k: fn() is not None and 1.0)
+    rec = smoke.resnet_phase(torch.Generator().manual_seed(1), torch.device("cpu"))
+    assert {k: len(v) for k, v in rec["recs"].items()} == {"vdbb_conv_tc_residual": 3,
+                                                           "im2col_conv_maxpool": 1}
+    assert [loader for _, loader, _ in seen] == ["HaloTile", "Geometry", "PointMux", "PointMux",
+                                                 "PointMux", "TapMux", "PointMux", "PointMux"]
+    assert rec["timing"]["turns_ms"] == [1.0] * 4

@@ -32,16 +32,21 @@ DATA = Path(__file__).resolve().parent / "data"
 TOL = dict(rtol=1e-5, atol=1e-5)
 
 
+# ResNet's kernel variants, at 0 on the plain layout
+_RESNET_VARIANTS = {"vdbb_conv_tc_residual": 0, "im2col_conv_maxpool": 0}
+
+
 def _per_forward(pattern, n_conv):
     """The exact launches of one forward: the stem, ``n_conv - 1`` compressed
-    convs and the head on the pattern's kernels, the other mode's and the
-    LM's bf16 tc matmul and the staged int8 one (wgmma) at 0."""
+    convs and the head on the pattern's kernels, the other mode's, the LM's
+    bf16 tc matmul, the staged int8 one (wgmma) and ResNet's variants at 0."""
     if pattern == "matrix":
         return {"im2col_conv": 1, "vdbb_conv_tc": n_conv - 1, "vdbb_matmul_tc": 1,
                 "vdbb_matmul_tc_bf16": 0, "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 0,
-                "vdbb_matmul_bw": 0}
+                "vdbb_matmul_bw": 0, **_RESNET_VARIANTS}
     return {"im2col_conv": 1, "vdbb_conv_tc": 0, "vdbb_matmul_tc": 0, "vdbb_matmul_tc_bf16": 0,
-            "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": n_conv - 1, "vdbb_matmul_bw": 1}
+            "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": n_conv - 1, "vdbb_matmul_bw": 1,
+            **_RESNET_VARIANTS}
 
 
 pytestmark = pytest.mark.cuda
@@ -1556,3 +1561,99 @@ def test_cnn_search_plans_equal_off_and_rebuild_from_the_cache(card, tmp_path):
             assert e["measured_us"] <= e["default_us"]
     finally:
         tcore.clear_tuned()
+
+
+# ---------------------------------------------------------------------------
+# ResNet-50 v1.5: the residual flush, the max-pool, the 7 x 7 stem, the plan
+# ---------------------------------------------------------------------------
+
+# (images, H, W, C, F) of a block's last 1 x 1 conv: stage 1's and stage 4's
+RESNET_C3 = {"stage1": (2, 56, 56, 64, 256), "stage4": (2, 7, 7, 512, 2048)}
+
+
+@pytest.mark.parametrize("out", ["int8", "fp32"])
+@pytest.mark.parametrize("shape", sorted(RESNET_C3))
+def test_residual_flush_exact_at_resnet_shapes(card, shape, out):
+    """The tc conv's residual instance at ResNet-50's 1 x 1 shapes (a block's
+    last conv, int8 codes out; the last block's fp32 flush) and a strided
+    3 x 3: bit for bit the plain dequantize, bias, residual add, ReLU and
+    requantize, and a launch of the ``residual`` variant."""
+    n, h, w, c, f = RESNET_C3[shape]
+    rng = np.random.default_rng(len(shape) + c)
+    for kh, stride in ((1, 1), (3, 2)):
+        ho, wo = -(-h // stride), -(-w // stride)
+        pad = ((kh // 2, kh // 2),) * 2
+        v, idx, fmt = _tc_codes(rng, kh * kh * c // 8, 3, f)
+        x = _act_codes(rng, (n, h, w, c), card=card)
+        res = _act_codes(rng, (n, ho, wo, f), card=card)
+        kw = dict(scales=torch.from_numpy(rng.uniform(1e-4, 2e-4, f).astype(np.float32)).to(card),
+                  bias=_rng_tensor(rng, f, scale=0.1).to(card), relu=True,
+                  out_scale=0.05 if out == "int8" else None, stride=stride, padding=pad,
+                  residual=(res, torch.tensor(0.02, device=card)))
+        build.reset_launches()
+        got = conv_k.vdbb_im2col_conv_tc(x, v.to(card), idx.to(card), fmt, kh, kh, **kw)
+        torch.cuda.synchronize()
+        assert build.launch_counts()["vdbb_conv_tc_residual"] == 1
+        cpu = {k: (tuple(t.cpu() for t in val) if k == "residual" else
+                   val.cpu() if isinstance(val, torch.Tensor) else val) for k, val in kw.items()}
+        want = conv_k.vdbb_im2col_conv_tc_plain(x.cpu(), v, idx, fmt, kh, kh, **cpu)
+        assert torch.equal(got.cpu(), want), (shape, kh)
+
+
+@pytest.mark.parametrize("dtype", [torch.int8, torch.float32])
+def test_maxpool_kernel_matches_plain(card, dtype):
+    """ResNet's 3 x 3 stride-2 pad-1 pool at the stem's output (112 x 112 x
+    64, and a ragged 9 x 7 x 32) against ``F.max_pool2d``, exactly."""
+    from repro_torch.kernels import maxpool as pool_k
+
+    rng = np.random.default_rng(7)
+    for shape in ((2, 112, 112, 64), (3, 9, 7, 32)):
+        x = (_act_codes(rng, shape, card=card) if dtype == torch.int8
+             else _rng_tensor(rng, *shape).to(card))
+        build.reset_launches()
+        got = pool_k.maxpool(x, 3, 2, 1)
+        torch.cuda.synchronize()
+        assert build.launch_counts()["im2col_conv_maxpool"] == 1
+        assert torch.equal(got.cpu(), pool_k.maxpool_plain(x.cpu(), 3, 2, 1))
+
+
+def test_resnet_stem_takes_the_direct_path(card):
+    """The 7 x 7 stride-2 stem at C = 3, pad 3, on 224 x 224 images: the
+    direct path (65.6 KB of shared memory), fp32 within TOL and int8 codes
+    within one code of the plain version."""
+    assert stem_k.conv_path(torch.float32, 3, 7, 7, 2) == "direct"
+    rng = np.random.default_rng(77)
+    x = _rng_tensor(rng, 2, 224, 224, 3).to(card)
+    wt = _rng_tensor(rng, 7, 7, 3, 64, scale=0.1).to(card)
+    kw = dict(bias=_rng_tensor(rng, 64).to(card), relu=True, stride=2, padding=((3, 3), (3, 3)))
+    want = stem_k.im2col_conv_plain(x, wt, **kw)
+    torch.testing.assert_close(stem_k.im2col_conv(x, wt, **kw), want, **TOL)
+    _codes_close(stem_k.im2col_conv(x, wt, out_scale=0.03, **kw),
+                 stem_k.im2col_conv_plain(x, wt, out_scale=0.03, **kw))
+
+
+# one replay of ResNet-50 v1.5: the stem and its max-pool, 16 blocks' first
+# two convs and 4 projections on the tc conv, 16 last convs on its residual
+# instance, the head on the tc matmul (M = batch <= 64: os_mma.cuh)
+RESNET50_REPLAY = {"im2col_conv": 1, "im2col_conv_maxpool": 1, "vdbb_conv_tc": 36,
+                   "vdbb_conv_tc_residual": 16, "vdbb_matmul_tc": 1, "vdbb_matmul_tc_bf16": 0,
+                   "vdbb_matmul_tc_wgmma": 0, "vdbb_conv_bw": 0, "vdbb_matmul_bw": 0}
+
+
+def test_resnet50_plan_bit_identical_to_unplanned(card):
+    """The full-size ``resnet50-v1.5`` (224 x 224, 25.5 M weights), seeded
+    and calibrated, served at batch 8 through its plan (one CUDA graph) and
+    unplanned: the same logits bit for bit, and one replay launches what
+    RESNET50_REPLAY states (53 convs and the head)."""
+    from repro_torch.launch import serve
+
+    model, x = serve.build_model("resnet50-v1.5", calib_batch=8, device=card, seed=5)
+    ps = model.plan_set(buckets=(8,), tune="off")
+    with torch.no_grad():
+        got = ps.serve(x)
+        want = model(x)
+    assert got.shape == (8, 1000) and bool(torch.isfinite(got).all())
+    assert torch.equal(got, want)
+    launches = next(iter(ps.plans[8].graph_launches.values()))
+    assert launches == RESNET50_REPLAY
+    assert sum(launches.values()) - launches["im2col_conv_maxpool"] == 54

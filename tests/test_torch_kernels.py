@@ -460,12 +460,14 @@ def test_launch_counters_start_at_zero_and_reset():
     for k in build.KERNELS.values():
         k.counts = dict.fromkeys(k.counts, 5)
     build.reset_launches()
-    # the tc matmul's bf16 instantiation and its wgmma core count apart,
-    # each under its own name
-    variants = {"vdbb_matmul_tc_bf16", "vdbb_matmul_tc_wgmma"}
-    assert build.launch_counts() == dict.fromkeys(names | variants, 0)
-    for v in variants:
-        assert build.kernel_of(v) is build.KERNELS["vdbb_matmul_tc"]
+    # the tc matmul's bf16 instantiation and its wgmma core, the tc conv's
+    # residual flush and the stem source's max-pool count apart, each under
+    # its own name
+    variants = {"vdbb_matmul_tc_bf16": "vdbb_matmul_tc", "vdbb_matmul_tc_wgmma": "vdbb_matmul_tc",
+                "vdbb_conv_tc_residual": "vdbb_conv_tc", "im2col_conv_maxpool": "im2col_conv"}
+    assert build.launch_counts() == dict.fromkeys(names | set(variants), 0)
+    for v, k in variants.items():
+        assert build.kernel_of(v) is build.KERNELS[k]
     for k in build.KERNELS.values():
         assert k.replaces.startswith("src/repro/kernels/") and (build.CSRC / k.source).exists()
 
